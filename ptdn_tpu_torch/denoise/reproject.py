@@ -1,0 +1,200 @@
+"""SVGF temporal reprojection + accumulation (BackProjection rebuild).
+
+Replicates the reference kernel (reference src/denoise.cu:185-317) over
+(H, W, ...) tensors:
+
+* world position -> previous-frame view space via the stored previous
+  view matrix; NDC WITHOUT the tan(fov/2) term — the reference comments
+  it out (denoise.cu:202-203) and we replicate;
+* 2x2 bilinear tap with per-tap validity (in-bounds + same geomId +
+  normal distance <= 0.1, denoise.cu:172-182), requiring ALL four taps
+  valid, else a 3x3 uniform-average fallback (denoise.cu:262-286);
+* EWMA with alpha = max(1/(N+1), alpha_min); the reference applies
+  color_alpha to the CURRENT color but moment_alpha to the PREVIOUS
+  moments (denoise.cu:297-301) — replicated;
+* variance = max(0, m2 - m1^2); total rejection writes history=1,
+  variance=100 (denoise.cu:311-315).
+
+`back_projection_auto` dispatches: motion of at most one pixel (every
+static-camera frame) goes to kernel C (ops/cuda/reproject.py); anything
+else, such as frame 0 whose previous view is the identity, to the plain
+`back_projection` here. That choice reads `motion_bounds`' flag on the
+host, one device-to-host sync per frame.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ptdn_tpu_torch.ops.fp import fma, sqrt
+
+LUM = (0.2126, 0.7152, 0.0722)
+
+
+def luminance(c: torch.Tensor) -> torch.Tensor:
+    """0.2126 r + 0.7152 g + 0.0722 b, contracted as the reference."""
+    return fma(LUM[2], c[..., 2], fma(LUM[0], c[..., 0], LUM[1] * c[..., 1]))
+
+
+def _norm3(v: torch.Tensor) -> torch.Tensor:
+    x, y, z = v[..., 0], v[..., 1], v[..., 2]
+    return sqrt(fma(z, z, fma(x, x, y * y)))
+
+
+def _reproj_base(res, pos, prev_viewmat):
+    """Reproject world position through the previous view matrix to
+    prev-frame pixel coords (denoise.cu:195-217, incl. the reference's
+    omitted tan(fov/2) quirk). Returns (fx, fy, fracx, fracy,
+    base_valid), fx/fy as int64."""
+    w, h = res
+    v = prev_viewmat
+    px, py, pz = pos[..., 0], pos[..., 1], pos[..., 2]
+    vs = [fma(v[r, 2], pz, fma(v[r, 0], px, v[r, 1] * py)) + v[r, 3]
+          for r in range(3)]
+    prevx = fma(-(vs[0] / vs[2]) * 0.5 + 0.5, float(w), -0.5)
+    prevy = fma(-(vs[1] / vs[2]) * 0.5 + 0.5, float(h), -0.5)
+    floorx = torch.floor(prevx)
+    floory = torch.floor(prevy)
+    fracx = prevx - floorx
+    fracy = prevy - floory
+    big = float(1 << 30)     # keep NaN/inf (miss pixels) finite as ints
+    fx = torch.nan_to_num(floorx, nan=0.0).clamp(-big, big).to(torch.int64)
+    fy = torch.nan_to_num(floory, nan=0.0).clamp(-big, big).to(torch.int64)
+    base_valid = (floorx >= 0) & (floory >= 0) & (floorx < w) & (floory < h)
+    return fx, fy, fracx, fracy, base_valid
+
+
+def _accumulate_from_taps(taps, base_valid, fracx, fracy, current_color,
+                          curr_geom, history_length, lum, color_alpha_min,
+                          moment_alpha_min):
+    """Shared tail: 2x2 bilinear + 3x3 fallback + EWMA + rejection
+    (denoise.cu:219-315) given per-tap (values (H, W, 6): color, moments,
+    history; valid) for the 3x3 window keyed by (dy, dx)."""
+    n_hist = history_length.to(torch.float32)
+    quad = [((0, 0), (1 - fracx) * (1 - fracy)),
+            ((1, 0), fracx * (1 - fracy)),       # offset (dx=1, dy=0)
+            ((0, 1), (1 - fracx) * fracy),       # offset (dx=0, dy=1)
+            ((1, 1), fracx * fracy)]
+    all_valid = base_valid
+    for (dx, dy), _ in quad:
+        all_valid = all_valid & taps[(dy, dx)][1]
+    zero = torch.zeros_like(n_hist)
+    pc = torch.zeros_like(current_color)
+    pm = torch.zeros(curr_geom.shape + (2,), device=zero.device)
+    ph, sumw = zero, zero
+    for (dx, dy), wgt in quad:
+        a, v = taps[(dy, dx)]
+        mw = torch.where(all_valid & v, wgt, 0.0)
+        pc = fma(mw[..., None], a[..., 0:3], pc)
+        pm = fma(mw[..., None], a[..., 3:5], pm)
+        ph = fma(mw, a[..., 5], ph)
+        sumw = sumw + mw
+    bilinear_ok = all_valid & (sumw >= 0.01)
+    safe = torch.clamp_min(sumw, 1e-20)
+    pc_b, pm_b, ph_b = pc / safe[..., None], pm / safe[..., None], ph / safe
+
+    fc = torch.zeros_like(current_color)
+    fm = torch.zeros_like(pm)
+    fh, cnt = zero, zero
+    for (dy, dx), (a, v) in taps.items():
+        mv = torch.where(v, 1.0, 0.0)
+        fc = fc + mv[..., None] * a[..., 0:3]
+        fm = fm + mv[..., None] * a[..., 3:5]
+        fh = fh + mv * a[..., 5]
+        cnt = cnt + mv
+    fallback_ok = ~bilinear_ok & (cnt > 0)
+    safe_cnt = torch.clamp_min(cnt, 1e-20)
+    pc = torch.where(bilinear_ok[..., None], pc_b, fc / safe_cnt[..., None])
+    pm = torch.where(bilinear_ok[..., None], pm_b, fm / safe_cnt[..., None])
+    ph = torch.where(bilinear_ok, ph_b, fh / safe_cnt)
+
+    valid = ((bilinear_ok | fallback_ok) & (history_length > 0)
+             & (curr_geom != -1))
+
+    color_alpha = torch.clamp_min(1.0 / (n_hist + 1.0), color_alpha_min)
+    moment_alpha = torch.clamp_min(1.0 / (n_hist + 1.0), moment_alpha_min)
+    acc_color = fma(current_color, color_alpha[..., None],
+                    pc * (1.0 - color_alpha)[..., None])
+    m1 = fma(moment_alpha, pm[..., 0], (1.0 - moment_alpha) * lum)
+    m2 = fma(moment_alpha, pm[..., 1], (1.0 - moment_alpha) * lum * lum)
+    var = torch.clamp_min(fma(-m1, m1, m2), 0.0)
+
+    color_acc = torch.where(valid[..., None], acc_color, current_color)
+    moment_acc = torch.where(valid[..., None], torch.stack([m1, m2], dim=-1),
+                             torch.stack([lum, lum * lum], dim=-1))
+    variance = torch.where(valid, var, 100.0)
+    history_update = torch.where(valid, ph.to(torch.int32) + 1, 1).to(
+        torch.int32)
+    return variance, color_acc, moment_acc, history_update
+
+
+def prev_pack(color_history, moment_history, history_length, prev_normal,
+              prev_geom):
+    """Previous-frame planes (H, W, 10): color, moments, history length,
+    normal, geom id — the layout every back-projection reads taps from."""
+    return torch.cat([color_history, moment_history,
+                      history_length.to(torch.float32)[..., None],
+                      prev_normal, prev_geom.to(torch.float32)[..., None]],
+                     dim=-1)
+
+
+def tap_valid(vals, inb, curr_geom, curr_normal):
+    """isReprjValid (denoise.cu:172-182) on gathered tap values."""
+    pg = vals[..., 9]
+    same = (pg != -1) & (pg == curr_geom.to(torch.float32))
+    nd = _norm3(vals[..., 6:9] - curr_normal)
+    return inb & same & (nd <= 0.1)
+
+
+def back_projection(res, current_color, curr_gb, prev_gb, prev_viewmat,
+                    color_history, moment_history, history_length,
+                    color_alpha_min, moment_alpha_min):
+    """Back-projection for any motion, by gathers with clamped indices
+    (the JAX package's XLA oracle, denoise/reproject.py:716). Returns
+    (variance, color_acc, moment_acc, history_update)."""
+    w, h = res
+    fx, fy, fracx, fracy, base_valid = _reproj_base(
+        res, curr_gb["position"], prev_viewmat)
+    pack = prev_pack(color_history, moment_history, history_length,
+                     prev_gb["normal"], prev_gb["geom_id"])
+    taps = {}
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            qx, qy = fx + dx, fy + dy
+            inb = (qx >= 0) & (qx < w) & (qy >= 0) & (qy < h)
+            vals = pack[qy.clamp(0, h - 1), qx.clamp(0, w - 1)]
+            taps[(dy, dx)] = (vals[..., 0:6],
+                              tap_valid(vals, inb, curr_gb["geom_id"],
+                                        curr_gb["normal"]))
+    return _accumulate_from_taps(taps, base_valid, fracx, fracy,
+                                 current_color, curr_gb["geom_id"],
+                                 history_length, luminance(current_color),
+                                 color_alpha_min, moment_alpha_min)
+
+
+def motion_bounds(res, curr_gb, prev_viewmat) -> torch.Tensor:
+    """0-dim bool tensor: every reprojected base of a pixel with geometry
+    lies within +-1 px of the pixel itself (the kernel-C domain)."""
+    w, h = res
+    fx, fy, _, _, _ = _reproj_base(res, curr_gb["position"], prev_viewmat)
+    dev = fx.device
+    iy = torch.arange(h, device=dev)[:, None]
+    ix = torch.arange(w, device=dev)[None, :]
+    valid = curr_gb["geom_id"] >= 0
+    dyv = torch.where(valid, (fy - iy).abs(), 0)
+    dxv = torch.where(valid, (fx - ix).abs(), 0)
+    return (dyv.max() <= 1) & (dxv.max() <= 1)
+
+
+def back_projection_auto(res, current_color, curr_gb, prev_gb, prev_viewmat,
+                         color_history, moment_history, history_length,
+                         color_alpha_min, moment_alpha_min):
+    """Kernel C (or its plain version on CPU) where the motion allows it,
+    else the gather path. Decided on the host: one sync per frame."""
+    from ptdn_tpu_torch.ops.cuda.reproject import back_projection_stencil
+
+    near = bool(motion_bounds(res, curr_gb, prev_viewmat))
+    fn = back_projection_stencil if near else back_projection
+    return fn(res, current_color, curr_gb, prev_gb, prev_viewmat,
+              color_history, moment_history, history_length,
+              color_alpha_min, moment_alpha_min)

@@ -1,0 +1,114 @@
+"""SVGF: the reference's denoise() host routine (src/denoise.cu:349-402)
+as a module whose registered buffers hold the temporal history.
+
+* temporal on  -> back-projection (kernel C for a static camera), then
+  color history <- accumulated color;
+* temporal off -> EstimateVariance STUB writing 10.0 (denoise.cu:320-329,
+  replicated) and color history <- raw input;
+* debug views (history/100, variance/0.1) bypass filtering;
+* else à-trous levels 1..nlevel (kernel D), feeding level
+  `history_level`'s output back into the color history (SVGF's
+  first-iteration-feeds-history trick, denoise.cu:386-392);
+* end of frame: the G-buffer, moments, history length and view matrix
+  become the previous frame's.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+from torch import nn
+
+from ptdn_tpu_torch.denoise.reproject import back_projection_auto
+from ptdn_tpu_torch.ops.cuda.atrous import atrous_level
+
+STATE_KEYS = ("color_history", "moment_history", "history_length",
+              "prev_position", "prev_normal", "prev_geom_id", "prev_view")
+
+
+def init_denoise_state(resolution, device) -> Dict[str, torch.Tensor]:
+    """denoiseInit equivalents (denoise.cu:31-61), zero-initialized."""
+    w, h = resolution
+    f = dict(dtype=torch.float32, device=device)
+    return {
+        "color_history": torch.zeros((h, w, 3), **f),
+        "moment_history": torch.zeros((h, w, 2), **f),
+        "history_length": torch.zeros((h, w), dtype=torch.int32,
+                                      device=device),
+        "prev_position": torch.zeros((h, w, 3), **f),
+        "prev_normal": torch.zeros((h, w, 3), **f),
+        "prev_geom_id": torch.full((h, w), -1, dtype=torch.int32,
+                                   device=device),
+        "prev_view": torch.eye(4, **f),
+    }
+
+
+class SVGFDenoiser(nn.Module):
+    """forward(raw (H, W, 3), gbuffer of (H, W, ...), view_mat (4, 4),
+    params) -> filtered (H, W, 3); the history buffers advance."""
+
+    def __init__(self, cfg, resolution: Tuple[int, int], device):
+        super().__init__()
+        if not cfg.compat:
+            raise NotImplementedError("native mode (compat=False) is not "
+                                      "ported")
+        if cfg.fuse_reproject_l1:
+            raise NotImplementedError("the fused reprojection + level-1 "
+                                      "kernel is not ported")
+        self.cfg = cfg
+        self.resolution = tuple(resolution)
+        for k, v in init_denoise_state(resolution, device).items():
+            self.register_buffer(k, v)
+
+    def forward(self, raw: torch.Tensor, gbuffer: Dict[str, torch.Tensor],
+                view_mat: torch.Tensor, params) -> torch.Tensor:
+        cfg = self.cfg
+        w, h = self.resolution
+        prev_gb = {"position": self.prev_position,
+                   "normal": self.prev_normal,
+                   "geom_id": self.prev_geom_id}
+        if cfg.temporal_enable:
+            variance, color_acc, moment_acc, hist_up = back_projection_auto(
+                (w, h), raw, gbuffer, prev_gb, self.prev_view,
+                self.color_history, self.moment_history,
+                self.history_length, params["color_alpha"],
+                params["moment_alpha"])
+            color_history = color_acc
+        else:
+            color_history = raw
+            moment_acc = self.moment_history
+            hist_up = self.history_length
+            # EstimateVariance stub = 10.0 (denoise.cu:320-329)
+            variance = torch.full((h, w), 10.0, device=raw.device)
+
+        if cfg.right_view_option == 1:
+            output = (hist_up.to(torch.float32) / 100.0)[..., None].expand(
+                h, w, 3)
+        elif cfg.right_view_option == 2:
+            output = (variance / 0.1)[..., None].expand(h, w, 3)
+        elif cfg.atrous_nlevel == 0 or not cfg.spatial_enable:
+            output = color_history
+        else:
+            albedo = None
+            if cfg.sep_color and cfg.add_color:
+                albedo = (gbuffer["albedo"] * gbuffer["ialbedo"]).contiguous()
+            src, var = color_history, variance
+            for level in range(1, cfg.atrous_nlevel + 1):
+                last = level == cfg.atrous_nlevel
+                src, var = atrous_level(
+                    src, var, gbuffer["position"], gbuffer["normal"],
+                    albedo if last else None, level, params["sigma_l"],
+                    params["sigma_n"], params["sigma_x"], cfg.blur_variance)
+                if level == cfg.history_level:
+                    color_history = src
+            output = src
+
+        self.color_history = color_history
+        self.moment_history = moment_acc
+        self.history_length = hist_up
+        self.prev_position = gbuffer["position"]
+        self.prev_normal = gbuffer["normal"]
+        self.prev_geom_id = gbuffer["geom_id"]
+        self.prev_view = view_mat
+        return output

@@ -1,0 +1,129 @@
+"""Build and load the hand-written CUDA kernels (ptdn_tpu_torch/csrc).
+
+nvcc compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared library
+with a plain C interface, which ctypes loads. The build runs at first
+use, into ``ptdn_tpu_torch/build/`` (ignored by git), and again only when
+a source is newer than the library. No fast-math flag is passed and
+``--fmad=false`` keeps every product rounded on its own, so the kernels
+round like their plain PyTorch versions, which run one operation at a
+time.
+
+Every C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; :func:`check` raises when that is not 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+import pathlib
+import shutil
+import subprocess
+
+import torch
+
+PKG = pathlib.Path(__file__).resolve().parents[2]
+CSRC = PKG / "csrc"
+BUILD = PKG / "build"
+LIB = BUILD / "libptdn_kernels.so"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
+              "-fPIC")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def build(force: bool = False) -> str:
+    """Compile the kernels if the library is missing or stale. Returns
+    nvcc's output (register and spill report), '' if nothing was built."""
+    sources = sorted(CSRC.glob("*.cu"))
+    newest = max(p.stat().st_mtime for p in CSRC.iterdir())
+    if not force and LIB.exists() and LIB.stat().st_mtime >= newest:
+        return ""
+    BUILD.mkdir(exist_ok=True)
+    tmp = BUILD / f"libptdn_kernels.{os.getpid()}.so"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    os.replace(tmp, LIB)
+    return res.stdout + res.stderr
+
+
+class SceneDev(ctypes.Structure):
+    """Mirror of csrc/ptdn.cuh:SceneDev."""
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "tf", "inv", "invt", "geom", "tri_moller",
+        "chunk_min", "chunk_max", "tri_attr", "mat_attr", "tex_wh",
+        "tex_flat")] + [(name, ctypes.c_int) for name in (
+            "n_geoms", "n_tris", "n_chunks", "tex_h", "tex_w")]
+
+
+@functools.cache
+def kernels() -> ctypes.CDLL:
+    """The kernel library, built on first use and loaded once."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("the CUDA kernels need a CUDA device")
+    build()
+    return load(LIB)
+
+
+def load(path) -> ctypes.CDLL:
+    """Open a built kernel library and declare its C entry points."""
+    lib = ctypes.CDLL(str(path))
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    for name, args in {
+        "ptdn_scene_intersect_full": [vp, vp, vp, i32, vp, vp, vp, vp, vp,
+                                      vp],
+        "ptdn_path_trace": [vp, vp, vp],
+        "ptdn_deferred_radiance": [vp, vp, vp, i32, i32, vp, vp],
+        "ptdn_back_projection_stencil": [vp, vp],
+        "ptdn_atrous_level": [vp, vp],
+    }.items():
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def launch(name: str, *args):
+    """Call C entry point `name` with `args` (ctypes structs go by
+    address) on the current stream; raise if the launch failed."""
+    conv = [ctypes.addressof(a) if isinstance(a, ctypes.Structure) else a
+            for a in args]
+    err = getattr(kernels(), name)(*conv, stream())
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def ptr(t) -> int:
+    return t.data_ptr() if t is not None else None
+
+
+def require(device: torch.device, name: str):
+    """The wrappers take CPU tensors (plain version) or CUDA tensors
+    (kernel); anything else is refused."""
+    if device.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"{name}: no kernel for device {device}")
+
+
+def check_tensor(t: torch.Tensor, dtype, shape, name: str):
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or \
+            not t.is_contiguous() or t.device.type != "cuda":
+        raise ValueError(f"{name}: expected contiguous {dtype} {tuple(shape)} "
+                         f"on cuda, got {t.dtype} {tuple(t.shape)} on "
+                         f"{t.device}")

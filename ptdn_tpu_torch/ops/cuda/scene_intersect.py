@@ -1,0 +1,241 @@
+"""Kernel A: the fully resolved closest hit (csrc/scene_intersect.cu),
+its plain PyTorch version, and the scene-level hit and visibility code
+the path kernel's plain version shares.
+
+Replaces the TPU kernel ptdn_tpu/ops/pallas/scene_intersect.py:
+scene_intersect_full_pallas. The kernel runs one thread per ray; what
+bounds it and what its design does about that is in the source note of
+csrc/scene_intersect.cu. Both versions visit the analytic geoms in scene
+order and the triangles chunk by chunk in ascending index, with strict <
+throughout, so ties go to the first geom and the lowest triangle; a chunk
+whose AABB a ray does not cross before its running best is skipped.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, NamedTuple, Tuple
+
+import torch
+
+from ptdn_tpu_torch.ops.cuda import _lib
+from ptdn_tpu_torch.ops.intersect import (FLT_MAX, aabb_slab, box_intersect,
+                                          interpolate_tri_hit, moller,
+                                          ray_triangle, sphere_intersect)
+from ptdn_tpu_torch.scene.parser import CUBE, MESH
+
+TCHUNK = 128
+COLORDIVIDOR = 0.003921568627   # utilities.h:24
+
+
+class GeomInfo(NamedTuple):
+    """Static geometry of a scene: per-geom types on the host, an int32
+    (G, 2) table of (type, material) on the device, the triangle count."""
+    types: Tuple[int, ...]
+    table: torch.Tensor
+    n_tris: int
+
+
+def geom_info(scene, device) -> GeomInfo:
+    table = torch.tensor([[t, m] for t, m in zip(scene.geom_types,
+                                                  scene.geom_material_ids)],
+                         dtype=torch.int32, device=device)
+    return GeomInfo(scene.geom_types, table, scene.n_tris)
+
+
+def scene_dev(ds, gi: GeomInfo, device: torch.device) -> _lib.SceneDev:
+    """The kernels' view of the scene tensors (csrc/ptdn.cuh:SceneDev),
+    which must be contiguous and on the rays' `device`."""
+    tensors = dict(
+        tf=ds.geom_transform, inv=ds.geom_inverse,
+        invt=ds.geom_inv_transpose, geom=gi.table, tri_moller=ds.tri_moller,
+        chunk_min=ds.tri_chunk_min, chunk_max=ds.tri_chunk_max,
+        tri_attr=ds.tri_attr, mat_attr=ds.mat_attr, tex_wh=ds.tex_wh,
+        tex_flat=ds.tex_flat_u32)
+    for k, t in tensors.items():
+        if t.device != device or not t.is_contiguous():
+            raise ValueError(f"scene tensor {k}: expected contiguous on "
+                             f"{device}, got {t.device}")
+    return _lib.SceneDev(
+        **{k: t.data_ptr() for k, t in tensors.items()},
+        n_geoms=len(gi.types), n_tris=gi.n_tris,
+        n_chunks=-(-gi.n_tris // TCHUNK), tex_h=int(ds.tex_atlas.shape[1]),
+        tex_w=int(ds.tex_atlas.shape[2]))
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch version (vectors are (x, y, z) tuples of (N,) tensors)
+
+def analytic_best(ds, geom_types, o, d):
+    """Closest analytic hit in scene order, strict <: (t, geom, normal),
+    t = FLT_MAX and geom = -1 where no cube or sphere is hit."""
+    n = o[0].shape[0]
+    dev = o[0].device
+    best_t = torch.full((n,), FLT_MAX, device=dev)
+    best_g = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    zero = torch.zeros(n, device=dev)
+    best_n = (zero, zero, zero)
+    for gi, gtype in enumerate(geom_types):
+        if gtype == MESH:
+            continue
+        if gtype == CUBE:
+            t, nrm, _ = box_intersect(ds.geom_transform[gi],
+                                      ds.geom_inverse[gi], o, d)
+        else:
+            t, nrm, _ = sphere_intersect(ds.geom_transform[gi],
+                                         ds.geom_inverse[gi],
+                                         ds.geom_inv_transpose[gi], o, d)
+        better = (t > 0.0) & (t < best_t)
+        best_t = torch.where(better, t, best_t)
+        best_g = torch.where(better, gi, best_g)
+        best_n = tuple(torch.where(better, a, b) for a, b in zip(nrm, best_n))
+    return best_t, best_g, best_n
+
+
+def _chunks(ds, n_tris):
+    for c in range(-(-n_tris // TCHUNK)):
+        lo, hi = c * TCHUNK, min((c + 1) * TCHUNK, n_tris)
+        tri = ds.tri_moller[lo:hi]
+        cols = [tri[:, k][None, :] for k in range(9)]
+        yield (c, lo, tuple(cols[0:3]), tuple(cols[3:6]), tuple(cols[6:9]))
+
+
+def _crossed(ds, c, o, inv_d, t_lim):
+    tmin, tmax = aabb_slab(o, inv_d, ds.tri_chunk_min[c],
+                           ds.tri_chunk_max[c])
+    return (tmax >= 0.0) & (tmin <= tmax) & (tmin < t_lim)
+
+
+def mesh_best(ds, n_tris, o, d, bt):
+    """Closest triangle beating the running best `bt`: (bt, index), index
+    -1 where none does."""
+    inv_d = tuple(1.0 / c for c in d)
+    bi = torch.full(bt.shape, -1, dtype=torch.int64, device=bt.device)
+    oc, dc = tuple(x[:, None] for x in o), tuple(x[:, None] for x in d)
+    for c, lo, v0, e1, e2 in _chunks(ds, n_tris):
+        need = _crossed(ds, c, o, inv_d, bt)
+        t, ok = moller(oc, dc, v0, e1, e2)
+        tm = torch.where(ok & need[:, None], t, FLT_MAX)
+        gt, gk = tm.min(dim=1)          # first index among equal minima
+        upd = gt < bt
+        bt = torch.where(upd, gt, bt)
+        bi = torch.where(upd, lo + gk, bi)
+    return bt, bi
+
+
+def closest_hit(ds, gi: GeomInfo, o, d, alive=None):
+    """The fully resolved closest hit: (t, geom, normal, uv, mat) with
+    t = -1 and geom = -1 on a miss. Lanes with alive False take no mesh
+    hit (their result is unused). The normal is interpolated in compat
+    mode, the only one the port runs."""
+    ta, ga, an = analytic_best(ds, gi.types, o, d)
+    a_valid = ga >= 0
+    t = torch.where(a_valid, ta, -1.0)
+    geom, nrm = ga, an
+    uv = (torch.zeros_like(ta), torch.zeros_like(ta))
+    if gi.n_tris:
+        bt0 = torch.where(a_valid, ta, FLT_MAX)
+        if alive is not None:
+            bt0 = torch.where(alive, bt0, -FLT_MAX)
+        _, bi = mesh_best(ds, gi.n_tris, o, d, bt0)
+        found = bi >= 0
+        r = ds.tri_attr[bi.clamp(min=0)]
+        col = [r[:, k] for k in range(26)]
+        tm, u, v, hit = ray_triangle(o, d, tuple(col[0:3]), tuple(col[3:6]),
+                                     tuple(col[6:9]))
+        mh = hit & found & (tm > 0.0)
+        mn, muv = interpolate_tri_hit(u, v, tuple(col[9:12]),
+                                      tuple(col[12:15]), tuple(col[15:18]),
+                                      tuple(col[18:20]), tuple(col[20:22]),
+                                      tuple(col[22:24]), compat=True)
+        wins = mh & (~a_valid | (tm < ta))
+        t = torch.where(wins, tm, t)
+        geom = torch.where(wins, col[24].to(torch.int64), geom)
+        nrm = tuple(torch.where(wins, a, b) for a, b in zip(mn, nrm))
+        uv = tuple(torch.where(wins, a, 0.0) for a in muv)
+    mats = gi.table[:, 1].to(torch.int64)
+    mat = torch.where(geom >= 0, mats[geom.clamp(min=0)], 0)
+    return t, geom, nrm, uv, mat
+
+
+def light_visible(ds, gi: GeomInfo, o, d, light_geom: int, nee):
+    """NEE visibility: the closest analytic hit is `light_geom` and no
+    triangle lies in front of it; False wherever `nee` is False."""
+    ta, ga, _ = analytic_best(ds, gi.types, o, d)
+    lit = (ga == light_geom) & nee
+    inv_d = tuple(1.0 / c for c in d)
+    oc, dc = tuple(x[:, None] for x in o), tuple(x[:, None] for x in d)
+    for c, lo, v0, e1, e2 in _chunks(ds, gi.n_tris):
+        need = lit & _crossed(ds, c, o, inv_d, ta)
+        t, ok = moller(oc, dc, v0, e1, e2)
+        occluded = (ok & (t < ta[:, None])).any(dim=1)
+        lit = lit & ~(need & occluded)
+    return lit
+
+
+def tex_index(ds, mat, u, v):
+    """Flat texel index of Texture::getColor (sceneStructs.h:208-221):
+    nearest texel with the V flip; -1 where the material is untextured."""
+    texid = ds.mat_attr[mat, 11].to(torch.int64)
+    tid = texid.clamp(min=0)
+    w = ds.tex_wh[tid, 0].to(torch.float32)
+    h = ds.tex_wh[tid, 1].to(torch.float32)
+    hm, wm = int(ds.tex_atlas.shape[1]), int(ds.tex_atlas.shape[2])
+    x = torch.minimum(w * u, w - 1.0).to(torch.int64).clamp(0, wm - 1)
+    y = torch.minimum(h * (1.0 - v), h - 1.0).to(torch.int64).clamp(0, hm - 1)
+    return torch.where(texid >= 0, tid * (hm * wm) + y * wm + x, -1)
+
+
+def texel_rgb(ds, idx):
+    """Unpacked texel colors (r, g, b) in [0, 1] at flat indices >= 0."""
+    packed = ds.tex_flat_u32.view(torch.int32)[idx.clamp(min=0)]
+    return tuple(((packed >> (8 * c)) & 0xFF).to(torch.float32)
+                 * COLORDIVIDOR for c in range(3))
+
+
+def scene_intersect_full_plain(ds, gi: GeomInfo, o,
+                               d) -> Dict[str, torch.Tensor]:
+    """Plain PyTorch version of kernel A; o, d: (N, 3)."""
+    ot = tuple(o[:, k] for k in range(3))
+    dt = tuple(d[:, k] for k in range(3))
+    t, geom, nrm, uv, mat = closest_hit(ds, gi, ot, dt)
+    geom = geom.to(torch.int32)
+    return {"t": t, "normal": torch.stack(nrm, dim=-1),
+            "uv": torch.stack(uv, dim=-1), "mat_id": mat.to(torch.int32),
+            "geom_id": geom, "hit": geom >= 0}
+
+
+# ---------------------------------------------------------------------------
+# the wrapper
+
+def scene_intersect_full(ds, gi: GeomInfo, o: torch.Tensor,
+                         d: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Fully resolved closest hit of rays o, d (N, 3): the engine's
+    intersect() dict (t, normal, uv, mat_id, geom_id, hit). CPU tensors
+    take the plain version; CUDA tensors launch kernel A."""
+    _lib.require(o.device, "scene_intersect_full")
+    if o.device.type == "cpu":
+        return scene_intersect_full_plain(ds, gi, o, d)
+    return _scene_intersect_full_kernel(ds, gi, o, d)
+
+
+def _scene_intersect_full_kernel(ds, gi, o, d):
+    n = o.shape[0]
+    _lib.check_tensor(o, torch.float32, (n, 3), "o")
+    _lib.check_tensor(d, torch.float32, (n, 3), "d")
+    f32 = dict(dtype=torch.float32, device=o.device)
+    i32 = dict(dtype=torch.int32, device=o.device)
+    out = {"t": torch.empty(n, **f32), "normal": torch.empty(n, 3, **f32),
+           "uv": torch.empty(n, 2, **f32), "mat_id": torch.empty(n, **i32),
+           "geom_id": torch.empty(n, **i32)}
+    sd = scene_dev(ds, gi, o.device)
+    p = _lib.ptr
+    _lib.launch("ptdn_scene_intersect_full", sd, p(o), p(d), ctypes.c_int(n),
+                p(out["t"]), p(out["normal"]), p(out["uv"]),
+                p(out["geom_id"]), p(out["mat_id"]))
+    scene_intersect_full.launches += 1     # counts kernel launches only
+    out["hit"] = out["geom_id"] >= 0
+    return out
+
+
+scene_intersect_full.launches = 0
