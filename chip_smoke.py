@@ -1,21 +1,32 @@
-"""Drive the port's main path once on one NVIDIA card and check it.
+"""Drive the port's main paths once on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
-The main path is the headline frame of the JAX package's bench.py:
-scenes/cornell.txt at 800x800, 1 spp, trace depth 8, static camera,
-temporal SVGF with a 5-level à-trous filter. Phases, one line each:
+Two main paths, both at bench.py's headline settings (1 spp, trace depth
+8, static camera, temporal SVGF with a 5-level à-trous filter, each
+scene at its own resolution):
+
+* cornell (800x800) through the whole-path engine: kernels A, B1, B2, C
+  and D;
+* the mesh scenes through the sorted wavefront: A, E, F, C and D, and G
+  on diamond (at most 8 chunks); diamond, bunny and terrain30k at
+  800x800, room at 600x600.
+
+Phases, one line or more each, with their wall time:
 
 0. the card (name and power limit from nvidia-smi); TF32 off;
-1. build every kernel of the path from ptdn_tpu_torch/csrc with nvcc;
-2. each kernel against its plain PyTorch version on the card, on the
-   main path's shapes and a mid-sequence state;
-3. 32 frames through ptdn_tpu_torch's Renderer with every launch count
-   checked, finite outputs, and the denoised RMSE against the converged
-   ground truth (benchmarks/gt/cornell_800x800_d8.npz) below half the raw
-   1-spp RMSE;
-4. CUDA-event times: ms/frame of the path and each kernel beside its
-   plain version.
+1. build every kernel from ptdn_tpu_torch/csrc (one nvcc per source, all
+   at once), with each kernel's registers and spills;
+2. each kernel against its plain PyTorch version on the card, on its
+   path's shapes and a mid-sequence state: A, B1 + B2, C, D on cornell;
+   E and G on diamond (equal); F on diamond, bunny and room;
+3. 32 frames per scene through ptdn_tpu_torch's Renderer with every
+   launch count checked, finite outputs, and the RMSE against the
+   converged ground truth (benchmarks/gt): denoised below half the raw
+   1-spp RMSE on cornell and diamond, below the raw one elsewhere;
+4. CUDA-event times: each kernel beside its plain version (G also beside
+   torch.gather) and its bound; ms/frame of cornell, and of diamond and
+   bunny through the sort and through B1 (sort_rays=False), in turns.
 
 The line before the last is a JSON object with every kernel's numbers;
 the last is {"ok": true, "device": {...}}. Any failed check raises, so
@@ -24,6 +35,8 @@ the exit code is not 0 and no result line is printed. Needs one card.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import json
 import os
 import re
@@ -40,36 +53,66 @@ import torch  # noqa: E402
 
 from ptdn_tpu_torch.denoise.reproject import motion_bounds  # noqa: E402
 from ptdn_tpu_torch.engine import Renderer  # noqa: E402
+from ptdn_tpu_torch.engine import wavefront as W  # noqa: E402
 from ptdn_tpu_torch.ops.camera import generate_camera_rays  # noqa: E402
 from ptdn_tpu_torch.ops.cuda import _lib  # noqa: E402
 from ptdn_tpu_torch.ops.cuda import atrous as D  # noqa: E402
+from ptdn_tpu_torch.ops.cuda import bounce as F  # noqa: E402
+from ptdn_tpu_torch.ops.cuda import inrow as G  # noqa: E402
 from ptdn_tpu_torch.ops.cuda import path as B  # noqa: E402
 from ptdn_tpu_torch.ops.cuda import reproject as C  # noqa: E402
 from ptdn_tpu_torch.ops.cuda import scene_intersect as A  # noqa: E402
+from ptdn_tpu_torch.ops.cuda import shade as E  # noqa: E402
 from ptdn_tpu_torch.scene import Scene  # noqa: E402
 from ptdn_tpu_torch.utils.assets import scene_path  # noqa: E402
 from ptdn_tpu_torch.utils.config import RenderConfig  # noqa: E402
 
 DEVICE = "cuda"
-RES = (800, 800)
 DEPTH = 8
 FRAMES = 32
+NLEVEL = 5
 CFG = RenderConfig(trace_depth=DEPTH, denoise_enable=True,
-                   temporal_enable=True, spatial_enable=True, atrous_nlevel=5)
-WRAPPERS = (A.scene_intersect_full, B.path_trace, B.deferred_radiance,
-            C.back_projection_stencil, D.atrous_level)
-KERNELS = [
-    ("scene_intersect_full", "ptdn_tpu_torch/csrc/scene_intersect.cu",
-     "ptdn_tpu/ops/pallas/scene_intersect.py:1478"),
-    ("path_trace", "ptdn_tpu_torch/csrc/path.cu",
-     "ptdn_tpu/ops/pallas/path.py:258"),
-    ("deferred_radiance", "ptdn_tpu_torch/csrc/path.cu",
-     "ptdn_tpu/ops/pallas/path.py:239"),
-    ("back_projection_stencil", "ptdn_tpu_torch/csrc/reproject.cu",
-     "ptdn_tpu/ops/pallas/reproject.py:194"),
-    ("atrous_level", "ptdn_tpu_torch/csrc/atrous.cu",
-     "ptdn_tpu/ops/pallas/atrous.py:275"),
-]
+                   temporal_enable=True, spatial_enable=True,
+                   atrous_nlevel=NLEVEL)
+# scene, resolution, ground truth; cornell takes the whole-path engine
+SCENES = {"cornell": ((800, 800), "cornell_800x800_d8"),
+          "diamond": ((800, 800), "diamond_800x800_d8"),
+          "bunny": ((800, 800), "bunny_800x800_d8"),
+          "room": ((600, 600), "room_600x600_d8"),
+          "terrain30k": ((800, 800), "terrain30k_800x800_d8")}
+KERNELS = {  # name: (wrapper, source, TPU kernel it replaces)
+    "scene_intersect_full": (A.scene_intersect_full, "csrc/scene_intersect.cu",
+                             "ptdn_tpu/ops/pallas/scene_intersect.py:1478"),
+    "path_trace": (B.path_trace, "csrc/path.cu",
+                   "ptdn_tpu/ops/pallas/path.py:258"),
+    "deferred_radiance": (B.deferred_radiance, "csrc/path.cu",
+                          "ptdn_tpu/ops/pallas/path.py:239"),
+    "back_projection_stencil": (C.back_projection_stencil,
+                                "csrc/reproject.cu",
+                                "ptdn_tpu/ops/pallas/reproject.py:194"),
+    "atrous_level": (D.atrous_level, "csrc/atrous.cu",
+                     "ptdn_tpu/ops/pallas/atrous.py:275"),
+    "shade_bounce": (E.shade_bounce, "csrc/shade.cu",
+                     "ptdn_tpu/ops/pallas/shade.py:345"),
+    # on textured scenes F also does the albedo fetch's texel route,
+    # the TPU kernel uncompact_tiles_pallas
+    "trace_bounce": (F.trace_bounce, "csrc/bounce.cu",
+                     "ptdn_tpu/ops/pallas/bounce.py:376, "
+                     "ptdn_tpu/ops/pallas/path.py:239"),
+    "inrow_permute": (G.inrow_permute, "csrc/inrow.cu",
+                      "ptdn_tpu/ops/pallas/inrow.py:34"),
+}
+# the card's peaks (NVIDIA H100 SXM data sheet): HBM bytes/s, float32
+# operations/s outside the tensor cores
+HBM_RATE = 3.35e12
+F32_RATE = 67e12
+# float operations per unit of work, counted from the kernels' code:
+# one Moller-Trumbore lane-triangle test, one analytic geom test of a
+# lane, the winning triangle's refine, one lane's shading
+MOLLER_OPS = 52
+ANALYTIC_OPS = 90
+REFINE_OPS = 70
+SHADE_OPS = 250
 
 
 def check(ok: bool, what: str):
@@ -99,8 +142,8 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2,
 
 
 def ptxas_summary(log: str):
-    """'<kernel>: N registers, S bytes spilled' per entry function of
-    nvcc's -Xptxas -v report."""
+    """'<kernel> N registers, S B spilled' per entry function of nvcc's
+    -Xptxas -v report."""
     out, name, spill = [], "?", "?"
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '\w*?\d([a-z][a-z_]*_kernel)",
@@ -117,10 +160,101 @@ def ptxas_summary(log: str):
 
 
 def max_abs(a, b) -> float:
-    return float((a.double() - b.double()).abs().max())
+    """The largest |a - b| over the lanes where it is finite."""
+    d = (a.double() - b.double()).abs()
+    d = d[torch.isfinite(d)]
+    return float(d.max()) if d.numel() else 0.0
+
+
+def same(a, b) -> bool:
+    """Equal lane for lane, NaN where NaN."""
+    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def bound(n_bytes: float, ops: float):
+    """(ms, what bounds it): the larger of the bytes over the HBM rate
+    and the operations over the float32 rate."""
+    tb, to = n_bytes / HBM_RATE, ops / F32_RATE
+    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+
+
+def n_analytic(gi) -> int:
+    return sum(1 for t in gi.types if t != 2)
+
+
+@functools.cache
+def scene(name):
+    return Scene(scene_path(name))
+
+
+def renderer(name, **kw):
+    res, _ = SCENES[name]
+    return Renderer(scene(name), dataclasses.replace(CFG, **kw),
+                    resolution=res, device=DEVICE)
+
+
+def reset_counts():
+    for wrapper, _, _ in KERNELS.values():
+        wrapper.launches = 0
+
+
+def counts():
+    return {name: k[0].launches for name, k in KERNELS.items()}
+
+
+def capture_bounce(r, depth: int):
+    """Render one frame of r and return the arguments of its bounce
+    `depth`: E's, F's and, where the scene takes the in-row regroup, G's
+    (each wrapper still runs, so the frame is unchanged)."""
+    got, seen = {}, {"e": 0, "f": 0, "g": 0}
+    real = (W.shade_bounce, W.trace_bounce, W.inrow_permute)
+
+    def spy(key, fn):
+        def call(*args, **kw):
+            seen[key] += 1
+            if seen[key] == depth:
+                got[key] = ([a.clone() if torch.is_tensor(a) else a
+                             for a in args], kw)
+            return fn(*args, **kw)
+        return call
+    W.shade_bounce, W.trace_bounce, W.inrow_permute = (
+        spy("e", real[0]), spy("f", real[1]), spy("g", real[2]))
+    try:
+        r.render_frame()
+    finally:
+        W.shade_bounce, W.trace_bounce, W.inrow_permute = real
+    torch.cuda.synchronize()
+    return got
+
+
+def rmse_vs_gt(name, left, right):
+    gt = np.clip(np.load(os.path.join(ROOT, "benchmarks", "gt",
+                                      SCENES[name][1] + ".npz"))["gt"], 0, 1)
+    raw = np.clip(left.cpu().numpy(), 0, 1).astype(np.float64)
+    dn = np.clip(right.cpu().numpy(), 0, 1).astype(np.float64)
+    return (float(np.sqrt(np.mean((dn - gt) ** 2))),
+            float(np.sqrt(np.mean((raw - gt) ** 2))))
+
+
+def f_agreement(kf, pf):
+    """Lanes where F and its plain version hit the same material with the
+    same liveness; the max |d| of t, normal and uv there; and the share
+    of lanes whose lit radiance agrees."""
+    agree = (kf[F.B_MAT] == pf[F.B_MAT]) & (kf[F.B_ACT] == pf[F.B_ACT])
+    err = max(max_abs(kf[k][agree], pf[k][agree])
+              for k in (F.B_T, F.B_NX, F.B_NY, F.B_NZ, F.B_UU, F.B_VV))
+    lit = ((kf[F.B_RR:F.B_RB + 1] == pf[F.B_RR:F.B_RB + 1])
+           | torch.isnan(pf[F.B_RR:F.B_RB + 1])).all(dim=0)
+    return float(agree.float().mean()), err, float(lit.float().mean())
 
 
 def main():
+    t_all = time.perf_counter()
     # ---- phase 0: the card ----
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py needs one card")
@@ -137,24 +271,29 @@ def main():
     t0 = time.perf_counter()
     log = _lib.build(force=True)
     _lib.kernels()
+    regs = ptxas_summary(log)
+    check(len(regs) == 8, f"8 kernels built, got {regs}")
     print(f"phase 1: built {len(list(_lib.CSRC.glob('*.cu')))} sources for "
           f"sm_90a in {time.perf_counter() - t0:.1f} s; ptxas: "
-          + "; ".join(ptxas_summary(log)))
+          + "; ".join(regs))
 
     # ---- phase 2: kernels against their plain versions ----
-    dev = torch.device(DEVICE)
-    scene = Scene(scene_path("cornell"))
-    warm = Renderer(scene, CFG, resolution=RES, device=dev)
+    t0 = time.perf_counter()
+    stats, work = {}, {}
+    warm = renderer("cornell")
     for _ in range(3):
         warm.render_frame()
     tr = warm.step.tracer
     ds, gi = tr.ds, tr.gi
+    res = warm.resolution
     cam, view = warm._cam
-    o, d = generate_camera_rays(cam, RES)
-    stats = {}
+    o, d = generate_camera_rays(cam, res)
+    n = res[0] * res[1]
 
     ka = A._scene_intersect_full_kernel(ds, gi, o, d)
+    A.mesh_best.tri_tests = 0
     pa = A.scene_intersect_full_plain(ds, gi, o, d)
+    a_tests = A.mesh_best.tri_tests
     agree = ka["geom_id"] == pa["geom_id"]
     frac = float(agree.float().mean())
     close = all(torch.allclose(ka[k][agree], pa[k][agree], rtol=1e-5,
@@ -162,18 +301,23 @@ def main():
     stats["scene_intersect_full"] = max(
         max_abs(ka[k][agree], pa[k][agree]) for k in ("t", "normal", "uv"))
     check(frac >= 0.999 and close, f"A: geom agreement {frac}")
+    work["scene_intersect_full"] = bound(
+        nbytes(o, d, *ka.values()),
+        n * (n_analytic(gi) * ANALYTIC_OPS + REFINE_OPS)
+        + a_tests * MOLLER_OPS)
     print(f"phase 2: A geom_id agreement {frac:.6f}, max |d| on agreeing "
           f"lanes {stats['scene_intersect_full']:.3g}")
 
-    prim = dict({k: getattr(tr, "pcache_" + k) for k in
-                 ("t", "normal", "uv", "mat_id", "geom_id", "hit",
-                  "albedo")}, o=o, d=d)
+    prim = dict({k: getattr(tr, "pcache_" + k) for k in W.PCACHE_KEYS},
+                o=o, d=d)
     light = dict(tr.light, radius=float(CFG.light_radius),
                  intensity=float(CFG.shadow_intensity))
     bargs = (ds, gi, prim, 3, 0, DEPTH, light, tr.flags)
     kc, kt = B._path_trace_kernel(*bargs)
+    A.mesh_best.tri_tests = A.light_visible.tri_tests = 0
     pc, pt = B.path_trace_plain(ds, gi, prim, frame=3, lane0=0, depth=DEPTH,
                                 light=light, flags=tr.flags)
+    b_tests = A.mesh_best.tri_tests + A.light_visible.tri_tests
     krad = B._deferred_radiance_kernel(ds, kc, kt, DEPTH)
     prad = B.deferred_radiance_plain(ds, pc, pt, DEPTH)
     diff = (krad - prad).abs().max(dim=-1).values
@@ -183,11 +327,21 @@ def main():
     stats["deferred_radiance"] = max_abs(
         B._deferred_radiance_kernel(ds, pc, pt, DEPTH), prad)
     check(bfrac < 0.01 and brmse < 0.012, f"B1+B2: frac {bfrac} rmse {brmse}")
+    b_in = [prim[k] for k in ("o", "d", "t", "normal", "albedo", "mat_id",
+                              "hit")]
+    work["path_trace"] = bound(
+        nbytes(*b_in, kc, kt),
+        n * DEPTH * (SHADE_OPS + 2 * n_analytic(gi) * ANALYTIC_OPS
+                     + REFINE_OPS) + b_tests * MOLLER_OPS)
+    textured = int((kt >= 0).sum())
+    work["deferred_radiance"] = bound(nbytes(kc, kt, krad) + 4 * textured,
+                                      n * DEPTH * 15)
     print(f"phase 2: B1+B2 pixels |d|>1e-3 {bfrac:.6f}, RMSE {brmse:.3g}; "
-          f"texel indices equal {float((kt == pt).float().mean()):.6f}; "
-          f"B2 alone max |d| {stats['deferred_radiance']:.3g}")
+          f"B1 contributions max |d| {stats['path_trace']:.3g}; texel "
+          f"indices equal {float((kt == pt).float().mean()):.6f}; B2 alone "
+          f"max |d| {stats['deferred_radiance']:.3g}")
 
-    w, h = RES
+    w, h = res
     st = warm.step.frame_state()
     rad, gb = tr(cam, warm._params, 3, False)
     gb = {k: v.reshape((h, w) + tuple(v.shape[1:])).contiguous()
@@ -195,10 +349,10 @@ def main():
     raw = rad.reshape(h, w, 3)
     prev = {"position": st["prev_position"], "normal": st["prev_normal"],
             "geom_id": st["prev_geom_id"]}
-    cargs = (RES, raw, gb, prev, st["prev_view"], st["color_history"],
+    cargs = (res, raw, gb, prev, st["prev_view"], st["color_history"],
              st["moment_history"], st["history_length"],
              float(CFG.color_alpha), float(CFG.moment_alpha))
-    check(bool(motion_bounds(RES, gb, st["prev_view"])),
+    check(bool(motion_bounds(res, gb, st["prev_view"])),
           "C: a static camera is in the stencil domain")
     kcr = C._back_projection_stencil_kernel(*cargs)
     pcr = C.back_projection_stencil_plain(*cargs)
@@ -206,12 +360,16 @@ def main():
                                            for a, b in zip(kcr, pcr))
     check(all(torch.allclose(a.double(), b.double(), rtol=1e-5, atol=1e-5)
               for a, b in zip(kcr, pcr)), "C: allclose 1e-5")
+    work["back_projection_stencil"] = bound(
+        nbytes(raw, gb["position"], gb["normal"], gb["geom_id"],
+               *prev.values(), st["color_history"], st["moment_history"],
+               st["history_length"], *kcr), n * 200)
     print(f"phase 2: C max |d| {stats['back_projection_stencil']:.3g}")
 
     src, var = pcr[1], pcr[0]
     dmax = 0.0
     sig = (float(CFG.sigma_l), float(CFG.sigma_n), float(CFG.sigma_x))
-    for level in range(1, CFG.atrous_nlevel + 1):
+    for level in range(1, NLEVEL + 1):
         dargs = (src, var, gb["position"], gb["normal"], None, level, *sig,
                  CFG.blur_variance)
         kd = D._atrous_level_kernel(*dargs)
@@ -221,83 +379,190 @@ def main():
         dmax = max(dmax, max_abs(kd[0], pd[0]), max_abs(kd[1], pd[1]))
         src, var = pd
     stats["atrous_level"] = dmax
-    print(f"phase 2: D levels 1-{CFG.atrous_nlevel} max |d| {dmax:.3g}")
-    torch.cuda.synchronize()
+    work["atrous_level"] = bound(
+        nbytes(pcr[1], pcr[0], gb["position"], gb["normal"], *kd),
+        n * 25 * 40)
+    print(f"phase 2: D levels 1-{NLEVEL} max |d| {dmax:.3g}")
 
-    # ---- phase 3: the main path, every launch counted ----
-    r = Renderer(scene, CFG, resolution=RES, device=dev)
-    for fn in WRAPPERS:
-        fn.launches = 0
-    t0 = time.perf_counter()
-    for _ in range(FRAMES):
-        left, right = r.render_frame()
+    # the sorted wavefront, mid-sequence: bounce 2 of frame 4
+    mesh = {}
+    for name in ("diamond", "bunny", "room"):
+        r = renderer(name)
+        for _ in range(3):
+            r.render_frame()
+        mesh[name] = (r, capture_bounce(r, 2))
+    dr, cap = mesh["diamond"]
+    (e_planes, e_mats), e_kw = cap["e"]
+    ke = E._shade_bounce_kernel(e_planes, e_mats, **e_kw)
+    pe = E.shade_bounce_plain(e_planes, e_mats, **e_kw)
+    stats["shade_bounce"] = max_abs(ke, pe)
+    check(same(ke, pe), "E equals its plain version")
+    work["shade_bounce"] = bound(nbytes(e_planes, ke),
+                                 ke[0].numel() * SHADE_OPS)
+    (g_planes, g_order), _ = cap["g"]
+    kg = G._inrow_permute_kernel(g_planes, g_order)
+    pg = G.inrow_permute_plain(g_planes, g_order)
+    stats["inrow_permute"] = max_abs(kg, pg)
+    check(same(kg, pg), "G equals its plain version")
+    work["inrow_permute"] = bound(nbytes(g_planes, g_order, kg), 0)
+    print(f"phase 2: diamond bounce 2: E equal on "
+          f"{tuple(e_planes.shape)} planes; G equal on "
+          f"{tuple(g_planes.shape)} planes")
+    for name, (r, cap) in mesh.items():
+        (fds, fgi, f_planes), f_kw = cap["f"]
+        check(f_kw["show_tex"] == (name == "room"),
+              f"F takes textures on room only, not on {name}")
+        kf, kalb = F._trace_bounce_kernel(fds, fgi, f_planes, **f_kw)
+        A.mesh_best.tri_tests = A.light_visible.tri_tests = 0
+        pf, palb = F.trace_bounce_plain(fds, fgi, f_planes, **f_kw)
+        f_tests = A.mesh_best.tri_tests + A.light_visible.tri_tests
+        agree, err, lit = f_agreement(kf, pf)
+        alb_eq = float((kalb == palb).all(dim=0).float().mean())
+        check(agree >= 0.999 and err <= 1e-5 and lit >= 0.999
+              and alb_eq >= 0.999, f"F on {name}: agree {agree} err {err} "
+              f"lit {lit} albedo {alb_eq}")
+        if name == "diamond":
+            stats["trace_bounce"] = max(err, max_abs(
+                kf[F.B_RR:F.B_RB + 1], pf[F.B_RR:F.B_RB + 1]))
+            lanes = kf[0].numel()
+            work["trace_bounce"] = bound(
+                nbytes(f_planes, kf, kalb),
+                lanes * (2 * n_analytic(fgi) * ANALYTIC_OPS + REFINE_OPS)
+                + f_tests * MOLLER_OPS)
+        print(f"phase 2: F on {name} bounce 2: hits agree {agree:.6f}, "
+              f"max |d| there {err:.3g}, lit agree {lit:.6f}, next albedo "
+              f"equal on {alb_eq:.6f} of lanes, {f_tests} lane-triangle "
+              f"tests in the plain scan")
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {name: fn.launches for (name, _, _), fn in zip(KERNELS,
-                                                             WRAPPERS)}
-    check(launches["scene_intersect_full"] >= 1, "A launched")
-    check(launches["path_trace"] == FRAMES, "B1 once per frame")
-    check(launches["deferred_radiance"] == FRAMES, "B2 once per frame")
-    check(launches["back_projection_stencil"] >= FRAMES - 1,
-          "C on every frame after the first")
-    check(launches["atrous_level"] == FRAMES * CFG.atrous_nlevel,
-          "D per level per frame")
-    check(bool(torch.isfinite(left).all()) and bool(torch.isfinite(right).all()),
-          "finite outputs")
-    gt = np.clip(np.load(os.path.join(ROOT, "benchmarks", "gt",
-                                      "cornell_800x800_d8.npz"))["gt"], 0, 1)
-    raw_np = np.clip(left.cpu().numpy(), 0, 1).astype(np.float64)
-    dn_np = np.clip(right.cpu().numpy(), 0, 1).astype(np.float64)
-    e_raw = float(np.sqrt(np.mean((raw_np - gt) ** 2)))
-    e_dn = float(np.sqrt(np.mean((dn_np - gt) ** 2)))
-    check(e_dn < 0.5 * e_raw, f"denoised RMSE {e_dn} < raw RMSE {e_raw} / 2")
-    print(f"phase 3: {FRAMES} frames in {wall:.2f} s wall; launches "
-          f"{json.dumps(launches)}; RMSE vs GT denoised {e_dn:.5f} raw "
-          f"{e_raw:.5f}")
+    print(f"phase 2: {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 3: the main paths, every launch counted ----
+    t0 = time.perf_counter()
+    rmse, runs = {}, {}
+    for name in SCENES:
+        r = renderer(name)
+        reset_counts()
+        for _ in range(FRAMES):
+            left, right = r.render_frame()
+        torch.cuda.synchronize()
+        c = counts()
+        runs[name] = c
+        sorted_path = name != "cornell"
+        check(c["scene_intersect_full"] == 1, f"{name}: A once per camera")
+        check(c["back_projection_stencil"] >= FRAMES - 1,
+              f"{name}: C on every frame after the first")
+        check(c["atrous_level"] == FRAMES * NLEVEL,
+              f"{name}: D per level per frame")
+        if sorted_path:
+            check(c["shade_bounce"] == FRAMES * DEPTH, f"{name}: E per bounce")
+            check(c["trace_bounce"] == FRAMES * DEPTH, f"{name}: F per bounce")
+            check(c["inrow_permute"] == (FRAMES * DEPTH if name == "diamond"
+                                         else 0),
+                  f"{name}: G per bounce on diamond only")
+            check(c["path_trace"] == 0 and c["deferred_radiance"] == 0,
+                  f"{name}: no B1, B2")
+        else:
+            check(c["path_trace"] == FRAMES and c["deferred_radiance"]
+                  == FRAMES, "cornell: B1, B2 once per frame")
+            check(c["shade_bounce"] + c["trace_bounce"] + c["inrow_permute"]
+                  == 0, "cornell: no E, F, G")
+        check(bool(torch.isfinite(left).all())
+              and bool(torch.isfinite(right).all()), f"{name}: finite")
+        e_dn, e_raw = rmse_vs_gt(name, left, right)
+        rmse[name] = {"denoised": e_dn, "raw": e_raw}
+        limit = 0.5 if name in ("cornell", "diamond") else 1.0
+        check(e_dn < limit * e_raw,
+              f"{name}: denoised RMSE {e_dn} < {limit} x raw {e_raw}")
+        print(f"phase 3: {name} {r.resolution[0]}x{r.resolution[1]}: "
+              f"{FRAMES} frames, launches {json.dumps(c)}; RMSE vs GT "
+              f"denoised {e_dn:.5f} raw {e_raw:.5f}")
+        if name == "diamond":
+            launches = {k: c[k] for k in ("shade_bounce", "trace_bounce",
+                                          "inrow_permute")}
+        if name == "cornell":
+            launches_c = c
+            cornell_r = r
+    launches = dict(launches_c, **launches)
+    print(f"phase 3: {time.perf_counter() - t0:.1f} s")
 
     # ---- phase 4: times ----
-    n_steady = 20
-    frame_ms = cuda_ms(r.render_frame, reps=n_steady, warmup=2)
+    t0 = time.perf_counter()
+    frame_ms = {"cornell": cuda_ms(cornell_r.render_frame, reps=20)}
+    for name in ("diamond", "bunny"):
+        eng = {"sort": renderer(name), "B1": renderer(name,
+                                                      sort_rays=False)}
+        for rr in eng.values():
+            for _ in range(3):
+                rr.render_frame()
+        ms = {"sort": [], "B1": []}
+        for k in ("sort", "B1", "B1", "sort"):
+            ms[k].append(cuda_ms(eng[k].render_frame, reps=10, warmup=1))
+        frame_ms[name] = {k: sum(v) / len(v) for k, v in ms.items()}
+        print(f"phase 4: {name} ms/frame sorted {ms['sort']} whole-path "
+              f"B1 {ms['B1']} (turns sort, B1, B1, sort) [{card}]")
+    (f_planes_d, f_kw_d) = mesh["diamond"][1]["f"]
+    fds, fgi, f_planes = f_planes_d
     times = {
         "scene_intersect_full": (
             lambda: A._scene_intersect_full_kernel(ds, gi, o, d),
-            lambda: A.scene_intersect_full_plain(ds, gi, o, d)),
+            lambda: A.scene_intersect_full_plain(ds, gi, o, d), None),
         "path_trace": (
             lambda: B._path_trace_kernel(*bargs),
             lambda: B.path_trace_plain(ds, gi, prim, frame=3, lane0=0,
                                        depth=DEPTH, light=light,
-                                       flags=tr.flags)),
+                                       flags=tr.flags), None),
         "deferred_radiance": (
             lambda: B._deferred_radiance_kernel(ds, pc, pt, DEPTH),
-            lambda: B.deferred_radiance_plain(ds, pc, pt, DEPTH)),
+            lambda: B.deferred_radiance_plain(ds, pc, pt, DEPTH), None),
         "back_projection_stencil": (
             lambda: C._back_projection_stencil_kernel(*cargs),
-            lambda: C.back_projection_stencil_plain(*cargs)),
+            lambda: C.back_projection_stencil_plain(*cargs), None),
         "atrous_level": (
             lambda: D._atrous_level_kernel(pcr[1], pcr[0], gb["position"],
                                            gb["normal"], None, 1, *sig,
                                            CFG.blur_variance),
             lambda: D.atrous_level_plain(pcr[1], pcr[0], gb["position"],
                                          gb["normal"], None, 1, *sig,
-                                         CFG.blur_variance)),
+                                         CFG.blur_variance), None),
+        "shade_bounce": (
+            lambda: E._shade_bounce_kernel(e_planes, e_mats, **e_kw),
+            lambda: E.shade_bounce_plain(e_planes, e_mats, **e_kw), None),
+        "trace_bounce": (
+            lambda: F._trace_bounce_kernel(fds, fgi, f_planes, **f_kw_d),
+            lambda: F.trace_bounce_plain(fds, fgi, f_planes, **f_kw_d),
+            None),
+        "inrow_permute": (
+            lambda: G._inrow_permute_kernel(g_planes, g_order),
+            lambda: G.inrow_permute_plain(g_planes, g_order),
+            lambda: torch.gather(g_planes, 2, g_order.to(torch.int64)[None]
+                                 .expand(g_planes.shape[0], -1, -1))),
     }
+    check(same(times["inrow_permute"][2](), pg),
+          "torch.gather computes G's function")
     out = []
-    for name, source, replaces in KERNELS:
-        kfn, pfn = times[name]
+    for name, (_, source, replaces) in KERNELS.items():
+        kfn, pfn, lfn = times[name]
         reps = 3 if name == "path_trace" else 10
         ms = cuda_ms(kfn, reps=reps, hide_host=True)
-        plain_ms = cuda_ms(pfn, reps=reps, warmup=1, hide_host=True)
-        out.append({"name": name, "route": "cuda", "source": source,
+        plain_ms = cuda_ms(pfn, reps=3, warmup=1, hide_host=True)
+        lib_ms = cuda_ms(lfn, reps=reps, hide_host=True) if lfn else None
+        bound_ms, bound_by = work[name]
+        out.append({"name": name, "route": "cuda",
+                    "source": "ptdn_tpu_torch/" + source,
                     "replaces": replaces, "launches": launches[name],
                     "max_abs_err": stats[name], "ms": ms,
-                    "plain_ms": plain_ms})
-        print(f"phase 4: {name} {ms:.4f} ms, plain {plain_ms:.4f} ms "
-              f"[{card}]")
-    print(f"phase 4: frame {frame_ms:.3f} ms/frame over {n_steady} "
-          f"steady-state frames (cornell {w}x{h}, depth {DEPTH}, SVGF "
-          f"{CFG.atrous_nlevel} levels) [{card}]")
-    print(json.dumps({"kernels": out, "frame_ms": frame_ms,
-                      "rmse_denoised": e_dn, "rmse_raw": e_raw}))
+                    "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": lib_ms})
+        print(f"phase 4: {name} {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by})"
+              + (f", torch.gather {lib_ms:.4f} ms" if lib_ms else "")
+              + f" [{card}]")
+    print(f"phase 4: cornell {frame_ms['cornell']:.3f} ms/frame over 20 "
+          f"steady-state frames (depth {DEPTH}, SVGF {NLEVEL} levels) "
+          f"[{card}]")
+    print(f"phase 4: {time.perf_counter() - t0:.1f} s; all phases "
+          f"{time.perf_counter() - t_all:.1f} s")
+    print(json.dumps({"kernels": out, "frame_ms": frame_ms, "rmse": rmse}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

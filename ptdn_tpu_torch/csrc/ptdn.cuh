@@ -1,15 +1,16 @@
 // Shared device math for the path tracer's CUDA kernels: the reference's
-// TEA + LCG random streams, the analytic cube/sphere tests, the
+// TEA seed hash, the analytic cube/sphere tests, the
 // Moller-Trumbore triangle scan over 128-triangle chunks, the
 // attribute refine, the fully resolved closest hit and the NEE shadow-ray
-// visibility. scene_intersect.cu (kernel A) and path.cu (kernel B1) both
-// use them, so the primary hit and every bounce run the same code.
+// visibility. scene_intersect.cu (kernel A), path.cu (B1) and bounce.cu
+// (F) use them, so the primary hit and every bounce run the same code.
 //
 // Each function is the per-thread form of the JAX package's fused TPU
-// code (ptdn_tpu/ops/pallas/scene_intersect.py: _one_geom, _mesh_best,
-// _mesh_attr_refine, closest_hit_tiles, light_visibility_tiles,
-// tex_index_tiles; ptdn_tpu/ops/pallas/shade.py: _tea, _lcg) and of the
-// plain PyTorch version in ptdn_tpu_torch/ops/intersect.py, with the
+// code (ptdn_tpu/ops/pallas/scene_intersect.py: _one_geom, _row_dot,
+// _mesh_best, joint_mesh_tiles, _mesh_attr_refine, closest_hit_tiles,
+// light_visibility_tiles, tex_index_tiles; ptdn_tpu/ops/pallas/shade.py:
+// _tea) and of the plain PyTorch version in
+// ptdn_tpu_torch/ops/intersect.py, with the
 // operations in the same order. The build passes no fast-math flag and
 // --fmad=false: divisions and square roots are IEEE, a multiply and an add
 // are fused exactly where the plain version (ops/fp.py) fuses them, and
@@ -44,6 +45,8 @@ struct SceneDev {
   const float* mat_attr;    // (M, 16) color, spec color, ex, refl, refr, ior, emit, texid
   const int* tex_wh;        // (K, 2) texture (w, h)
   const uint32_t* tex_flat; // (K*Hm*Wm,) r | g << 8 | b << 16
+  const float4* plan;       // (G * 15,) baked row-dot plans (see planned)
+  const int* plan_code;     // (G * 15,) their slots and lone-term flag
   int n_geoms;
   int n_tris;
   int n_chunks;
@@ -70,13 +73,6 @@ __device__ __forceinline__ uint32_t tea16(uint32_t v0, uint32_t v1) {
   return v0;
 }
 
-// one LCG draw; the caller draws only where the reference's control
-// flow would, so each lane consumes the reference's variate sequence
-__device__ __forceinline__ float lcg(uint32_t& seed) {
-  seed = 1664525u * seed + 1013904223u;
-  return (float)(int)(seed & 0x00FFFFFFu) * (1.0f / 16777216.0f);
-}
-
 // a0*b0 + a1*b1 + a2*b2 contracted as XLA does on the CPU, where the
 // reference renders come from: fma(a2, b2, fma(a0, b0, a1*b1))
 __device__ __forceinline__ float dot3(float a0, float a1, float a2, float b0,
@@ -84,13 +80,76 @@ __device__ __forceinline__ float dot3(float a0, float a1, float a2, float b0,
   return fmaf(a2, b2, fmaf(a0, b0, a1 * b1));
 }
 
-__device__ __forceinline__ float row3(const float* m, int r, float x, float y,
+// The baked row dots of the JAX whole-path kernel (_row_dot with
+// static=True: the scene matrices as constants, exactly-zero terms
+// dropped, +-1 coefficients as +-v, the terms summed left to right) as
+// XLA on the CPU fuses them. The host turns each row into one fused form
+// (ops/intersect.py:baked_row_plan, which the plain version evaluates
+// too), so a lane pays two fmas, a multiply and its variable picks,
+// without branching on the matrix:
+//   fma(a2, v[s2], fma(a0, v[s0], a1 * v[s1])) + b,
+// v = (x, y, z, 1); a dropped term is -0.0 * 1, which changes nothing.
+// Per geom there are five plans of three rows each:
+enum { kPlanInvBias, kPlanInv, kPlanTfBias, kPlanTf, kPlanInvT, kPlans };
+
+__device__ __forceinline__ float plan_var(int code, int k, float x, float y,
+                                          float z) {
+  const int slot = (code >> (2 * k)) & 3;
+  return slot == 0 ? x : (slot == 1 ? y : (slot == 2 ? z : 1.f));
+}
+
+__device__ __forceinline__ float planned(const SceneDev& s, int g, int kind,
+                                         int r, float x, float y, float z) {
+  const int i = (g * kPlans + kind) * 3 + r;
+  const float4 p = s.plan[i];
+  const int code = s.plan_code[i];
+  return fmaf(p.z, plan_var(code, 2, x, y, z),
+              fmaf(p.x, plan_var(code, 0, x, y, z),
+                   p.y * plan_var(code, 1, x, y, z))) + p.w;
+}
+
+// o - the baked row: a row that is one lone term fuses into the
+// subtraction, as XLA contracts c - a*b into fma(-a, b, c).
+__device__ __forceinline__ float planned_sub(const SceneDev& s, int g,
+                                             int kind, int r, float o,
+                                             float x, float y, float z) {
+  const int i = (g * kPlans + kind) * 3 + r;
+  if (s.plan_code[i] & 64)
+    return fmaf(-s.plan[i].x, plan_var(s.plan_code[i], 0, x, y, z), o);
+  return o - planned(s, g, kind, r, x, y, z);
+}
+
+// Row dots of the analytic tests: the full dot products of A and F
+// (closest_hit_tiles without static_mats), or with Stat the baked plans
+// of the whole-path kernel B1 (`kind` names the plan).
+template <bool Stat>
+__device__ __forceinline__ float row3(const SceneDev& s, int g, int kind,
+                                      const float* m, int r, float x, float y,
                                       float z) {
+  if (Stat) return planned(s, g, kind, r, x, y, z);
   return dot3(m[4 * r], m[4 * r + 1], m[4 * r + 2], x, y, z);
 }
+template <bool Stat>
+__device__ __forceinline__ float row4(const SceneDev& s, int g, int kind,
+                                      const float* m, int r, float x, float y,
+                                      float z) {
+  if (Stat) return planned(s, g, kind, r, x, y, z);
+  return dot3(m[4 * r], m[4 * r + 1], m[4 * r + 2], x, y, z) + m[4 * r + 3];
+}
+template <bool Stat>
+__device__ __forceinline__ float sub_row4(const SceneDev& s, int g, int kind,
+                                          float o, const float* m, int r,
+                                          float x, float y, float z) {
+  if (Stat) return planned_sub(s, g, kind, r, o, x, y, z);
+  return o - (dot3(m[4 * r], m[4 * r + 1], m[4 * r + 2], x, y, z)
+              + m[4 * r + 3]);
+}
+
+// The full dot product of a 4x4 matrix row with (x, y, z, 1), outside the
+// analytic tests (csrc/reproject.cu)
 __device__ __forceinline__ float row4(const float* m, int r, float x, float y,
                                       float z) {
-  return row3(m, r, x, y, z) + m[4 * r + 3];
+  return dot3(m[4 * r], m[4 * r + 1], m[4 * r + 2], x, y, z) + m[4 * r + 3];
 }
 
 struct Analytic {
@@ -101,6 +160,8 @@ struct Analytic {
 
 // Closest analytic hit over the scene's cubes and spheres in scene
 // order, strict < (first geom wins a tie): _analytic_part / _one_geom.
+// Stat selects the baked row dots of the whole-path kernel.
+template <bool Stat>
 __device__ inline Analytic analytic_best(const SceneDev& s, float ox, float oy,
                                   float oz, float dx, float dy, float dz,
                                   bool want_normals) {
@@ -110,12 +171,12 @@ __device__ inline Analytic analytic_best(const SceneDev& s, float ox, float oy,
     if (gt == kMesh) continue;
     const float* iv = s.inv + 16 * gi;
     const float* m = s.tf + 16 * gi;
-    const float qox = row4(iv, 0, ox, oy, oz);
-    const float qoy = row4(iv, 1, ox, oy, oz);
-    const float qoz = row4(iv, 2, ox, oy, oz);
-    float qdx = row3(iv, 0, dx, dy, dz);
-    float qdy = row3(iv, 1, dx, dy, dz);
-    float qdz = row3(iv, 2, dx, dy, dz);
+    const float qox = row4<Stat>(s, gi, kPlanInvBias, iv, 0, ox, oy, oz);
+    const float qoy = row4<Stat>(s, gi, kPlanInvBias, iv, 1, ox, oy, oz);
+    const float qoz = row4<Stat>(s, gi, kPlanInvBias, iv, 2, ox, oy, oz);
+    float qdx = row3<Stat>(s, gi, kPlanInv, iv, 0, dx, dy, dz);
+    float qdy = row3<Stat>(s, gi, kPlanInv, iv, 1, dx, dy, dz);
+    float qdz = row3<Stat>(s, gi, kPlanInv, iv, 2, dx, dy, dz);
     const float qn = rsqrtf(dot3(qdx, qdy, qdz, qdx, qdy, qdz));
     qdx = qdx * qn;
     qdy = qdy * qn;
@@ -168,9 +229,9 @@ __device__ inline Analytic analytic_best(const SceneDev& s, float ox, float oy,
     const float pox = fmaf(t_obj - kBackoff, qdx, qox);
     const float poy = fmaf(t_obj - kBackoff, qdy, qoy);
     const float poz = fmaf(t_obj - kBackoff, qdz, qoz);
-    const float ex = ox - row4(m, 0, pox, poy, poz);
-    const float ey = oy - row4(m, 1, pox, poy, poz);
-    const float ez = oz - row4(m, 2, pox, poy, poz);
+    const float ex = sub_row4<Stat>(s, gi, kPlanTfBias, ox, m, 0, pox, poy, poz);
+    const float ey = sub_row4<Stat>(s, gi, kPlanTfBias, oy, m, 1, pox, poy, poz);
+    const float ez = sub_row4<Stat>(s, gi, kPlanTfBias, oz, m, 2, pox, poy, poz);
     const float t_world = sqrtf(dot3(ex, ey, ez, ex, ey, ez));
     if (!(hit && (t_world > 0.f) && (t_world < b.t))) continue;
     b.t = t_world;
@@ -179,15 +240,15 @@ __device__ inline Analytic analytic_best(const SceneDev& s, float ox, float oy,
     float nwx, nwy, nwz;
     if (gt == kCube) {
       // normal via transform (reference quirk, intersections.h:88)
-      nwx = row3(m, 0, nox, noy, noz);
-      nwy = row3(m, 1, nox, noy, noz);
-      nwz = row3(m, 2, nox, noy, noz);
+      nwx = row3<Stat>(s, gi, kPlanTf, m, 0, nox, noy, noz);
+      nwy = row3<Stat>(s, gi, kPlanTf, m, 1, nox, noy, noz);
+      nwz = row3<Stat>(s, gi, kPlanTf, m, 2, nox, noy, noz);
     } else {
       const float* it = s.invt + 16 * gi;
       const float flip = inside ? -1.f : 1.f;
-      nwx = row3(it, 0, pox, poy, poz) * flip;
-      nwy = row3(it, 1, pox, poy, poz) * flip;
-      nwz = row3(it, 2, pox, poy, poz) * flip;
+      nwx = row3<Stat>(s, gi, kPlanInvT, it, 0, pox, poy, poz) * flip;
+      nwy = row3<Stat>(s, gi, kPlanInvT, it, 1, pox, poy, poz) * flip;
+      nwz = row3<Stat>(s, gi, kPlanInvT, it, 2, pox, poy, poz) * flip;
     }
     const float nn = rsqrtf(dot3(nwx, nwy, nwz, nwx, nwy, nwz));
     b.nx = nwx * nn;
@@ -238,16 +299,28 @@ __device__ __forceinline__ bool moller(const float* tri, float ox, float oy,
          (u + v <= 1.f) && (t > 0.f);
 }
 
+// A chunk range [lo, hi] clamped to the scene's chunks; the whole scene
+// by default.
+struct ChunkRange {
+  int lo, hi;
+};
+__device__ __forceinline__ ChunkRange all_chunks(const SceneDev& s) {
+  return ChunkRange{0, s.n_chunks - 1};
+}
+
 // Closest triangle: chunks in leaf order, triangles in ascending index,
 // strict < against the running best seeded with the analytic winner's t
 // (so the lowest index wins a tie). A chunk whose AABB the ray does not
-// cross before its running best is skipped. Returns the triangle index,
-// -1 if none beats bt.
+// cross before its running best is skipped. Only chunks of `cr` are
+// visited: a range that holds every chunk the ray crosses gives the
+// whole scan's answer. Returns the triangle index, -1 if none beats bt.
 __device__ inline int mesh_best(const SceneDev& s, float ox, float oy, float oz,
-                         float dx, float dy, float dz, float& bt) {
+                         float dx, float dy, float dz, float& bt,
+                         ChunkRange cr) {
   const float ix = 1.0f / dx, iy = 1.0f / dy, iz = 1.0f / dz;
   int bi = -1;
-  for (int c = 0; c < s.n_chunks; ++c) {
+  const int hi = min(cr.hi, s.n_chunks - 1);
+  for (int c = max(cr.lo, 0); c <= hi; ++c) {
     if (!chunk_crossed(s, c, ox, oy, oz, ix, iy, iz, bt)) continue;
     const int end = min((c + 1) * kChunk, s.n_tris);
     for (int k = c * kChunk; k < end; ++k) {
@@ -272,15 +345,19 @@ struct Hit {
 
 // Fully resolved closest hit (closest_hit_tiles): analytic + mesh, the
 // exact glm-parity refine of the winning triangle (_mesh_attr_refine),
-// and the merge (mesh wins only strictly closer).
+// and the merge (mesh wins only strictly closer). A lane that is not
+// `alive` takes no mesh hit (the TPU kernel starts its window at
+// -FLT_MAX); Stat as in analytic_best; the mesh scan visits `cr`.
+template <bool Stat>
 __device__ inline Hit closest_hit(const SceneDev& s, float ox, float oy, float oz,
-                          float dx, float dy, float dz) {
-  const Analytic a = analytic_best(s, ox, oy, oz, dx, dy, dz, true);
+                          float dx, float dy, float dz, bool alive,
+                          ChunkRange cr) {
+  const Analytic a = analytic_best<Stat>(s, ox, oy, oz, dx, dy, dz, true);
   const bool a_valid = a.geom >= 0;
   Hit h{a_valid ? a.t : -1.f, a.geom, a.nx, a.ny, a.nz, 0.f, 0.f, 0};
-  if (s.n_tris > 0) {
+  if (s.n_tris > 0 && alive) {
     float bt = a_valid ? a.t : kFltMax;
-    const int bi = mesh_best(s, ox, oy, oz, dx, dy, dz, bt);
+    const int bi = mesh_best(s, ox, oy, oz, dx, dy, dz, bt, cr);
     if (bi >= 0) {
       const float* r = s.tri_attr + 32 * bi;
       const float e1x = r[3] - r[0], e1y = r[4] - r[1], e1z = r[5] - r[2];
@@ -324,15 +401,17 @@ __device__ inline Hit closest_hit(const SceneDev& s, float ox, float oy, float o
 }
 
 // NEE visibility (light_visibility_tiles): the closest analytic hit is
-// the light geom and no triangle occludes it (any hit with t < that
-// distance).
+// the light geom and no triangle of the chunks in `cr` occludes it (any
+// hit with t < that distance).
+template <bool Stat>
 __device__ inline bool light_visible(const SceneDev& s, int light_geom, float ox,
                               float oy, float oz, float dx, float dy,
-                              float dz) {
-  const Analytic a = analytic_best(s, ox, oy, oz, dx, dy, dz, false);
+                              float dz, ChunkRange cr) {
+  const Analytic a = analytic_best<Stat>(s, ox, oy, oz, dx, dy, dz, false);
   if (a.geom != light_geom) return false;
   const float ix = 1.0f / dx, iy = 1.0f / dy, iz = 1.0f / dz;
-  for (int c = 0; c < s.n_chunks; ++c) {
+  const int hi = min(cr.hi, s.n_chunks - 1);
+  for (int c = max(cr.lo, 0); c <= hi; ++c) {
     if (!chunk_crossed(s, c, ox, oy, oz, ix, iy, iz, a.t)) continue;
     const int end = min((c + 1) * kChunk, s.n_tris);
     for (int k = c * kChunk; k < end; ++k) {
@@ -358,6 +437,11 @@ __device__ __forceinline__ int tex_index(const SceneDev& s, int mat, float u,
   x = min(max(x, 0), s.tex_w - 1);
   y = min(max(y, 0), s.tex_h - 1);
   return texid * (s.tex_h * s.tex_w) + y * s.tex_w + x;
+}
+
+// Channel c (0 r, 1 g, 2 b) of a packed texel in [0, 1] (utilities.h:24)
+__device__ __forceinline__ float texel_channel(uint32_t texel, int c) {
+  return (float)((texel >> (8 * c)) & 0xFFu) * 0.003921568627f;
 }
 
 }  // namespace ptdn

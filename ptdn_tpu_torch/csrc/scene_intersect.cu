@@ -27,9 +27,9 @@ __global__ void scene_intersect_full_kernel(ptdn::SceneDev s,
                                             int* __restrict__ mat_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const ptdn::Hit h = ptdn::closest_hit(s, o[3 * i], o[3 * i + 1],
-                                        o[3 * i + 2], d[3 * i], d[3 * i + 1],
-                                        d[3 * i + 2]);
+  const ptdn::Hit h = ptdn::closest_hit<false>(
+      s, o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i], d[3 * i + 1],
+      d[3 * i + 2], true, ptdn::all_chunks(s));
   t_out[i] = h.t;
   n_out[3 * i] = h.nx;
   n_out[3 * i + 1] = h.ny;

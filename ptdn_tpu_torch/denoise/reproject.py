@@ -19,7 +19,8 @@ Replicates the reference kernel (reference src/denoise.cu:185-317) over
 static-camera frame) goes to kernel C (ops/cuda/reproject.py); anything
 else, such as frame 0 whose previous view is the identity, to the plain
 `back_projection` here. That choice reads `motion_bounds`' flag on the
-host, one device-to-host sync per frame.
+host, one device-to-host sync, unless the caller passes it (the SVGF
+module keeps it while the camera is still).
 """
 
 from __future__ import annotations
@@ -188,12 +189,14 @@ def motion_bounds(res, curr_gb, prev_viewmat) -> torch.Tensor:
 
 def back_projection_auto(res, current_color, curr_gb, prev_gb, prev_viewmat,
                          color_history, moment_history, history_length,
-                         color_alpha_min, moment_alpha_min):
+                         color_alpha_min, moment_alpha_min, near=None):
     """Kernel C (or its plain version on CPU) where the motion allows it,
-    else the gather path. Decided on the host: one sync per frame."""
+    else the gather path. `near` is motion_bounds' flag, computed here
+    (one host sync) when not given."""
     from ptdn_tpu_torch.ops.cuda.reproject import back_projection_stencil
 
-    near = bool(motion_bounds(res, curr_gb, prev_viewmat))
+    if near is None:
+        near = bool(motion_bounds(res, curr_gb, prev_viewmat))
     fn = back_projection_stencil if near else back_projection
     return fn(res, current_color, curr_gb, prev_gb, prev_viewmat,
               color_history, moment_history, history_length,

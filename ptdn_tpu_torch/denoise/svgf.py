@@ -2,7 +2,11 @@
 as a module whose registered buffers hold the temporal history.
 
 * temporal on  -> back-projection (kernel C for a static camera), then
-  color history <- accumulated color;
+  color history <- accumulated color; the choice of kernel C reads the
+  reprojected motion back to the host, which happens only when the
+  camera moved this frame or the one before (the choice's inputs, the
+  primary-hit G-buffer and the last frame's view, change with the camera
+  alone);
 * temporal off -> EstimateVariance STUB writing 10.0 (denoise.cu:320-329,
   replicated) and color history <- raw input;
 * debug views (history/100, variance/0.1) bypass filtering;
@@ -20,7 +24,8 @@ from typing import Dict, Tuple
 import torch
 from torch import nn
 
-from ptdn_tpu_torch.denoise.reproject import back_projection_auto
+from ptdn_tpu_torch.denoise.reproject import (back_projection_auto,
+                                              motion_bounds)
 from ptdn_tpu_torch.ops.cuda.atrous import atrous_level
 
 STATE_KEYS = ("color_history", "moment_history", "history_length",
@@ -46,7 +51,9 @@ def init_denoise_state(resolution, device) -> Dict[str, torch.Tensor]:
 
 class SVGFDenoiser(nn.Module):
     """forward(raw (H, W, 3), gbuffer of (H, W, ...), view_mat (4, 4),
-    params) -> filtered (H, W, 3); the history buffers advance."""
+    params, cam_changed) -> filtered (H, W, 3); the history buffers
+    advance. cam_changed says whether the camera (so the G-buffer and the
+    view) changed since the last frame."""
 
     def __init__(self, cfg, resolution: Tuple[int, int], device):
         super().__init__()
@@ -60,20 +67,30 @@ class SVGFDenoiser(nn.Module):
         self.resolution = tuple(resolution)
         for k, v in init_denoise_state(resolution, device).items():
             self.register_buffer(k, v)
+        self.forget_motion()
+
+    def forget_motion(self):
+        """Drop the kept kernel-C choice (the history was replaced)."""
+        self.near, self.moved = None, True
 
     def forward(self, raw: torch.Tensor, gbuffer: Dict[str, torch.Tensor],
-                view_mat: torch.Tensor, params) -> torch.Tensor:
+                view_mat: torch.Tensor, params,
+                cam_changed: bool = True) -> torch.Tensor:
         cfg = self.cfg
         w, h = self.resolution
         prev_gb = {"position": self.prev_position,
                    "normal": self.prev_normal,
                    "geom_id": self.prev_geom_id}
         if cfg.temporal_enable:
+            if cam_changed or self.moved or self.near is None:
+                self.near = bool(motion_bounds((w, h), gbuffer,
+                                               self.prev_view))
+            self.moved = cam_changed
             variance, color_acc, moment_acc, hist_up = back_projection_auto(
                 (w, h), raw, gbuffer, prev_gb, self.prev_view,
                 self.color_history, self.moment_history,
                 self.history_length, params["color_alpha"],
-                params["moment_alpha"])
+                params["moment_alpha"], near=self.near)
             color_history = color_acc
         else:
             color_history = raw

@@ -2,6 +2,10 @@
 one device — the reference's app control loop (main.cpp runCuda + reset
 logic), headless.
 
+The renderer runs on the card unless the caller names another device
+(``device="cpu"`` runs every kernel's plain PyTorch version); without a
+card the default raises.
+
 Reset semantics mirror runCuda (main.cpp:154-209): a camera change resets
 the accumulation frame counter only when denoising is OFF; frame == 0
 forces a full tracer + denoiser state reset.
@@ -21,7 +25,7 @@ from ptdn_tpu_torch.utils.config import RenderConfig
 class Renderer:
     def __init__(self, scene, cfg: Optional[RenderConfig] = None,
                  resolution: Optional[Tuple[int, int]] = None,
-                 device="cpu"):
+                 device="cuda"):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Renderer(device='cuda') needs a CUDA device")

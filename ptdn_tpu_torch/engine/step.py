@@ -51,6 +51,7 @@ class FrameStep(nn.Module):
             owner = next(m for m in (self, self.tracer, self.denoiser)
                          if k in m._buffers)
             setattr(owner, k, v)
+        self.denoiser.forget_motion()
 
     def reset(self):
         self.load_frame_state(init_frame_state(self.resolution,
@@ -64,7 +65,8 @@ class FrameStep(nn.Module):
                    for k, v in gb.items()}
         if self.cfg.denoise_enable:
             left = radiance
-            right = self.denoiser(radiance, gbuffer, view_mat, params)
+            right = self.denoiser(radiance, gbuffer, view_mat, params,
+                                  cam_changed)
             self.accum_image = radiance
         else:
             # running mean over frames (pathtrace.cu:398), float32 scalars

@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels (ptdn_tpu_torch/csrc).
 
-nvcc compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared library
-with a plain C interface, which ctypes loads. The build runs at first
-use, into ``ptdn_tpu_torch/build/`` (ignored by git), and again only when
-a source is newer than the library. No fast-math flag is passed and
+nvcc compiles every ``csrc/*.cu`` for ``sm_90a``, one process per
+source, all at once, and links the objects into one shared library with a
+plain C interface, which ctypes loads. The build runs at first use, into
+``ptdn_tpu_torch/build/`` (ignored by git), and again only when a source
+is newer than the library. No fast-math flag is passed and
 ``--fmad=false`` keeps every product rounded on its own, so the kernels
 round like their plain PyTorch versions, which run one operation at a
 time.
@@ -27,9 +28,9 @@ PKG = pathlib.Path(__file__).resolve().parents[2]
 CSRC = PKG / "csrc"
 BUILD = PKG / "build"
 LIB = BUILD / "libptdn_kernels.so"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
-              "-fPIC")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v",
+                     "-Xcompiler", "-fPIC")
 
 
 def _nvcc() -> str:
@@ -51,13 +52,27 @@ def build(force: bool = False) -> str:
     if not force and LIB.exists() and LIB.stat().st_mtime >= newest:
         return ""
     BUILD.mkdir(exist_ok=True)
-    tmp = BUILD / f"libptdn_kernels.{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc, tag = _nvcc(), os.getpid()
+    objs = [BUILD / f"{src.stem}.{tag}.o" for src in sources]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objs)]
+    logs = [proc.communicate()[0] for proc in procs]   # waits for them all
+    for src, proc, log in zip(sources, procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src.name} "
+                               f"({proc.returncode}):\n{log}")
+    tmp = BUILD / f"libptdn_kernels.{tag}.so"
+    res = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp),
+                          *map(str, objs)], capture_output=True, text=True)
+    for obj in objs:
+        obj.unlink()
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                           f"{res.stderr}")
     os.replace(tmp, LIB)
-    return res.stdout + res.stderr
+    return "".join(logs)
 
 
 class SceneDev(ctypes.Structure):
@@ -65,7 +80,7 @@ class SceneDev(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "tf", "inv", "invt", "geom", "tri_moller",
         "chunk_min", "chunk_max", "tri_attr", "mat_attr", "tex_wh",
-        "tex_flat")] + [(name, ctypes.c_int) for name in (
+        "tex_flat", "plan", "plan_code")] + [(name, ctypes.c_int) for name in (
             "n_geoms", "n_tris", "n_chunks", "tex_h", "tex_w")]
 
 
@@ -89,6 +104,9 @@ def load(path) -> ctypes.CDLL:
         "ptdn_deferred_radiance": [vp, vp, vp, i32, i32, vp, vp],
         "ptdn_back_projection_stencil": [vp, vp],
         "ptdn_atrous_level": [vp, vp],
+        "ptdn_shade_bounce": [vp, vp],
+        "ptdn_trace_bounce": [vp, vp, vp],
+        "ptdn_inrow_permute": [vp, vp, i32, i32, vp, vp],
     }.items():
         fn = getattr(lib, name)
         fn.argtypes = args

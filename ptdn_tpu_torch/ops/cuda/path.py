@@ -76,7 +76,7 @@ def path_trace_plain(ds, gi: GeomInfo, prim: Dict[str, torch.Tensor], *,
         contrib += list(r["er"])
         if flags["do_vis"]:
             lit = light_visible(ds, gi, r["sp"], r["sd"], light["geom"],
-                                r["nee"])
+                                r["nee"], static=True)
             contrib += [torch.where(lit, c * e, 0.0)
                         for c, e in zip(r["c"], light["emit"])]
         else:
@@ -84,7 +84,7 @@ def path_trace_plain(ds, gi: GeomInfo, prim: Dict[str, torch.Tensor], *,
         if dd == depth:
             break
         t, geom, nrm, uv, mat = closest_hit(ds, gi, r["sp"], r["d"],
-                                            alive=r["act"])
+                                            alive=r["act"], static=True)
         act = r["act"] & (geom >= 0)
         alb = tuple(ds.mat_attr[mat, k] for k in range(3))
         tidx = torch.full((n,), -1, dtype=torch.int64, device=dev)

@@ -16,12 +16,14 @@ from __future__ import annotations
 import ctypes
 from typing import Dict, NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from ptdn_tpu_torch.ops.cuda import _lib
-from ptdn_tpu_torch.ops.intersect import (FLT_MAX, aabb_slab, box_intersect,
-                                          interpolate_tri_hit, moller,
-                                          ray_triangle, sphere_intersect)
+from ptdn_tpu_torch.ops.intersect import (FLT_MAX, aabb_slab, baked_row_plan,
+                                          box_intersect, interpolate_tri_hit,
+                                          moller, ray_triangle,
+                                          sphere_intersect)
 from ptdn_tpu_torch.scene.parser import CUBE, MESH
 
 TCHUNK = 128
@@ -30,17 +32,42 @@ COLORDIVIDOR = 0.003921568627   # utilities.h:24
 
 class GeomInfo(NamedTuple):
     """Static geometry of a scene: per-geom types on the host, an int32
-    (G, 2) table of (type, material) on the device, the triangle count."""
+    (G, 2) table of (type, material) on the device, the triangle count,
+    and the baked row-dot plans of kernel B1 (baked_row_plans)."""
     types: Tuple[int, ...]
     table: torch.Tensor
     n_tris: int
+    plan: torch.Tensor
+    plan_code: torch.Tensor
+
+
+def baked_row_plans(scene):
+    """Per geom, the plans (ops/intersect.py:baked_row_plan) of
+    csrc/ptdn.cuh's five baked row kinds, three rows each: inverse with
+    and without bias, transform with and without bias, inverse transpose.
+    Returns (G * 15, 4) float32 and (G * 15,) int32 arrays."""
+    plans, codes = [], []
+    for g in scene.geoms:
+        for m, bias in ((g.inverse, True), (g.inverse, False),
+                        (g.transform, True), (g.transform, False),
+                        (g.inv_transpose, False)):
+            m32 = np.asarray(m, np.float32)
+            for r in range(3):
+                p, code = baked_row_plan(m32[r], bias)
+                plans.append(p)
+                codes.append(code)
+    return (np.asarray(plans, np.float32).reshape(-1, 4),
+            np.asarray(codes, np.int32))
 
 
 def geom_info(scene, device) -> GeomInfo:
     table = torch.tensor([[t, m] for t, m in zip(scene.geom_types,
                                                   scene.geom_material_ids)],
                          dtype=torch.int32, device=device)
-    return GeomInfo(scene.geom_types, table, scene.n_tris)
+    plan, code = baked_row_plans(scene)
+    return GeomInfo(scene.geom_types, table, scene.n_tris,
+                    torch.from_numpy(plan).to(device),
+                    torch.from_numpy(code).to(device))
 
 
 def scene_dev(ds, gi: GeomInfo, device: torch.device) -> _lib.SceneDev:
@@ -51,7 +78,7 @@ def scene_dev(ds, gi: GeomInfo, device: torch.device) -> _lib.SceneDev:
         invt=ds.geom_inv_transpose, geom=gi.table, tri_moller=ds.tri_moller,
         chunk_min=ds.tri_chunk_min, chunk_max=ds.tri_chunk_max,
         tri_attr=ds.tri_attr, mat_attr=ds.mat_attr, tex_wh=ds.tex_wh,
-        tex_flat=ds.tex_flat_u32)
+        tex_flat=ds.tex_flat_u32, plan=gi.plan, plan_code=gi.plan_code)
     for k, t in tensors.items():
         if t.device != device or not t.is_contiguous():
             raise ValueError(f"scene tensor {k}: expected contiguous on "
@@ -66,9 +93,10 @@ def scene_dev(ds, gi: GeomInfo, device: torch.device) -> _lib.SceneDev:
 # ---------------------------------------------------------------------------
 # plain PyTorch version (vectors are (x, y, z) tuples of (N,) tensors)
 
-def analytic_best(ds, geom_types, o, d):
+def analytic_best(ds, geom_types, o, d, static: bool = False):
     """Closest analytic hit in scene order, strict <: (t, geom, normal),
-    t = FLT_MAX and geom = -1 where no cube or sphere is hit."""
+    t = FLT_MAX and geom = -1 where no cube or sphere is hit. `static`
+    takes the whole-path kernel's baked row dots (B1 only)."""
     n = o[0].shape[0]
     dev = o[0].device
     best_t = torch.full((n,), FLT_MAX, device=dev)
@@ -80,11 +108,12 @@ def analytic_best(ds, geom_types, o, d):
             continue
         if gtype == CUBE:
             t, nrm, _ = box_intersect(ds.geom_transform[gi],
-                                      ds.geom_inverse[gi], o, d)
+                                      ds.geom_inverse[gi], o, d, static)
         else:
             t, nrm, _ = sphere_intersect(ds.geom_transform[gi],
                                          ds.geom_inverse[gi],
-                                         ds.geom_inv_transpose[gi], o, d)
+                                         ds.geom_inv_transpose[gi], o, d,
+                                         static)
         better = (t > 0.0) & (t < best_t)
         best_t = torch.where(better, t, best_t)
         best_g = torch.where(better, gi, best_g)
@@ -106,29 +135,44 @@ def _crossed(ds, c, o, inv_d, t_lim):
     return (tmax >= 0.0) & (tmin <= tmax) & (tmin < t_lim)
 
 
+def _rows(x, sel):
+    return tuple(c[sel][:, None] for c in x)
+
+
 def mesh_best(ds, n_tris, o, d, bt):
     """Closest triangle beating the running best `bt`: (bt, index), index
-    -1 where none does."""
+    -1 where none does. Each chunk is tested only on the lanes that cross
+    its AABB before their running best, which is the kernels' per-lane
+    cull (and keeps the plain version's work near the kernels'). The
+    lane-triangle tests made add up in mesh_best.tri_tests, the count
+    chip_smoke.py bounds the kernels' operations with."""
     inv_d = tuple(1.0 / c for c in d)
+    bt = bt.clone()
     bi = torch.full(bt.shape, -1, dtype=torch.int64, device=bt.device)
-    oc, dc = tuple(x[:, None] for x in o), tuple(x[:, None] for x in d)
     for c, lo, v0, e1, e2 in _chunks(ds, n_tris):
-        need = _crossed(ds, c, o, inv_d, bt)
-        t, ok = moller(oc, dc, v0, e1, e2)
-        tm = torch.where(ok & need[:, None], t, FLT_MAX)
-        gt, gk = tm.min(dim=1)          # first index among equal minima
-        upd = gt < bt
-        bt = torch.where(upd, gt, bt)
-        bi = torch.where(upd, lo + gk, bi)
+        sel = _crossed(ds, c, o, inv_d, bt).nonzero().squeeze(1)
+        if sel.numel() == 0:
+            continue
+        mesh_best.tri_tests += sel.numel() * v0[0].shape[1]
+        t, ok = moller(_rows(o, sel), _rows(d, sel), v0, e1, e2)
+        # min: the first index among equal minima
+        gt, gk = torch.where(ok, t, FLT_MAX).min(dim=1)
+        upd = gt < bt[sel]
+        bt[sel] = torch.where(upd, gt, bt[sel])
+        bi[sel] = torch.where(upd, lo + gk, bi[sel])
     return bt, bi
 
 
-def closest_hit(ds, gi: GeomInfo, o, d, alive=None):
+mesh_best.tri_tests = 0
+
+
+def closest_hit(ds, gi: GeomInfo, o, d, alive=None, static: bool = False):
     """The fully resolved closest hit: (t, geom, normal, uv, mat) with
     t = -1 and geom = -1 on a miss. Lanes with alive False take no mesh
     hit (their result is unused). The normal is interpolated in compat
-    mode, the only one the port runs."""
-    ta, ga, an = analytic_best(ds, gi.types, o, d)
+    mode, the only one the port runs. Every chunk is scanned with the
+    per-lane cull; `static` as in analytic_best."""
+    ta, ga, an = analytic_best(ds, gi.types, o, d, static)
     a_valid = ga >= 0
     t = torch.where(a_valid, ta, -1.0)
     geom, nrm = ga, an
@@ -158,19 +202,27 @@ def closest_hit(ds, gi: GeomInfo, o, d, alive=None):
     return t, geom, nrm, uv, mat
 
 
-def light_visible(ds, gi: GeomInfo, o, d, light_geom: int, nee):
+def light_visible(ds, gi: GeomInfo, o, d, light_geom: int, nee,
+                  static: bool = False):
     """NEE visibility: the closest analytic hit is `light_geom` and no
-    triangle lies in front of it; False wherever `nee` is False."""
-    ta, ga, _ = analytic_best(ds, gi.types, o, d)
+    triangle lies in front of it; False wherever `nee` is False. Every
+    chunk is scanned, each on the still-lit lanes that cross it (counted
+    in light_visible.tri_tests)."""
+    ta, ga, _ = analytic_best(ds, gi.types, o, d, static)
     lit = (ga == light_geom) & nee
     inv_d = tuple(1.0 / c for c in d)
-    oc, dc = tuple(x[:, None] for x in o), tuple(x[:, None] for x in d)
     for c, lo, v0, e1, e2 in _chunks(ds, gi.n_tris):
-        need = lit & _crossed(ds, c, o, inv_d, ta)
-        t, ok = moller(oc, dc, v0, e1, e2)
-        occluded = (ok & (t < ta[:, None])).any(dim=1)
-        lit = lit & ~(need & occluded)
+        sel = (lit & _crossed(ds, c, o, inv_d, ta)).nonzero().squeeze(1)
+        if sel.numel() == 0:
+            continue
+        light_visible.tri_tests += sel.numel() * v0[0].shape[1]
+        t, ok = moller(_rows(o, sel), _rows(d, sel), v0, e1, e2)
+        occluded = (ok & (t < ta[sel][:, None])).any(dim=1)
+        lit[sel] = ~occluded
     return lit
+
+
+light_visible.tri_tests = 0
 
 
 def tex_index(ds, mat, u, v):

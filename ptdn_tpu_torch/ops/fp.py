@@ -39,9 +39,38 @@ def _f64(x):
 
 
 def fma(a, b, c) -> torch.Tensor:
-    """a * b + c with one rounding (the float32 product is exact in
-    float64), float32 in and out."""
-    return (_f64(a) * _f64(b) + _f64(c)).to(torch.float32)
+    """a * b + c with one rounding, float32 in and out. The float32
+    product is exact in float64, and so is the float64 sum unless it is
+    rounded; rounding it again to float32 is then exact too, except where
+    the float64 sum lands on a float32 tie that the exact sum does not sit
+    on. There the sum steps one float64 ulp toward its rounding error
+    (TwoSum), which makes the float32 rounding that of the exact sum.
+    A Python scalar operand stays a host scalar, so the result lies on
+    the card if any operand does."""
+    p = torch.as_tensor(_f64(a), dtype=torch.float64) * _f64(b)
+    c = torch.as_tensor(_f64(c), dtype=torch.float64)
+    s = p + c
+    bits = s.view(torch.int64)
+    tie = (bits & 0x1FFFFFFF) == 0x10000000    # 29 dropped bits: 100...0
+    if s.device.type == "cpu":
+        # rare on real data: mend only those lanes
+        if not bool(tie.any()):
+            return s.to(torch.float32)
+        p, c = torch.broadcast_tensors(p, c)
+        bits = bits.clone()
+        bits[tie] += _tie_step(p[tie], c[tie], s[tie])
+        return bits.view(torch.float64).to(torch.float32)
+    return (bits + torch.where(tie, _tie_step(p, c, s), 0)).view(
+        torch.float64).to(torch.float32)
+
+
+def _tie_step(p, c, s):
+    """The float64 ulp step of s = p + c toward its rounding error: 0
+    where the sum is exact, else +1 or -1 on the magnitude's bits."""
+    t = s - p
+    err = (p - (s - t)) + (c - t)               # s + err == p + c exactly
+    return torch.where(err != 0, torch.where((err > 0) == (s > 0), 1, -1),
+                       0)
 
 
 def dot3(a, b) -> torch.Tensor:

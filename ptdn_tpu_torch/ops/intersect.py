@@ -32,26 +32,92 @@ FLT_EPSILON = 1.1920929e-07
 BACKOFF = 1e-4   # getPointOnRay epsilon (intersections.h:30)
 
 
-def row_dot(m, r, v, bias: bool):
-    """m[r,0]*x + m[r,1]*y + m[r,2]*z (+ m[r,3])."""
+ONE = 3      # a plan slot that reads the constant 1.0
+LONE = 64    # a plan code flag: the row is one lone term
+
+
+def baked_row_plan(row, bias: bool):
+    """The JAX whole-path kernel's baked row dot (_row_dot, static=True:
+    exactly-zero coefficients drop out, 1 and -1 give v and -v, the terms
+    sum left to right) as XLA on the CPU contracts it, in one fused form:
+    ((a0, a1, a2, b), code) such that the row is
+    fma(a2, v[s2], fma(a0, v[s0], a1 * v[s1])) + b, where s_k is the
+    code's k-th 2-bit slot (0-2 pick x, y, z; 3 picks 1.0) and LONE
+    marks a row that is one lone term (it fuses into o - row, as XLA
+    contracts c - a*b). A dropped term leaves its slot to 1.0 with the
+    coefficient -0.0, and an absent bias is -0.0: adding -0.0 changes
+    nothing, not even the sign of a zero. Since +-1 * v is exact, the
+    only choice left is which of the first two terms fuses: the second
+    when the first is +-v and the second a product. csrc/ptdn.cuh:planned
+    evaluates the same plan."""
+    c = [float(x) for x in row[:3]]
+    b = float(row[3]) if bias and float(row[3]) != 0.0 else -0.0
+    present = [k for k in range(3) if c[k] != 0.0]
+    if not present:
+        # the empty row is +0.0 (or the bias) as in the reference
+        return (-0.0, b if b != 0.0 else 0.0, -0.0, -0.0), (
+            ONE | ONE << 2 | ONE << 4)
+    if len(present) == 1:
+        k = present[0]
+        code = k | ONE << 2 | ONE << 4
+        return (c[k], b, -0.0, -0.0), code | (0 if b != 0.0 else LONE)
+    i, j = present[:2]
+    if abs(c[i]) == 1.0 and abs(c[j]) != 1.0:
+        i, j = j, i
+    k = present[2] if len(present) == 3 else None
+    return ((c[i], c[j], -0.0 if k is None else c[k], b),
+            i | j << 2 | (ONE if k is None else k) << 4)
+
+
+def _planned(row, v, bias: bool):
+    """(value of the baked row at v, its plan)."""
+    (a0, a1, a2, b), code = baked_row_plan(row, bias)
+    if code & 63 == ONE | ONE << 2 | ONE << 4:
+        # a row of no term is the constant a1, a Python float as in the
+        # reference (a 0-dim tensor here would sit on the host)
+        return a1, (a0, 1.0, code)
+    var = tuple(v) + (1.0,)
+    s = [var[(code >> (2 * k)) & 3] for k in range(3)]
+    return fma(a2, s[2], fma(a0, s[0], a1 * s[1])) + b, (a0, s[0], code)
+
+
+def row_dot(m, r, v, bias: bool, static: bool = False):
+    """m[r,0]*x + m[r,1]*y + m[r,2]*z (+ m[r,3]): the full dot product,
+    or with `static` the baked row of baked_row_plan (m is then a nested
+    list of floats)."""
+    if static:
+        return _planned(m[r], v, bias)[0]
     e = dot3((m[r, 0], m[r, 1], m[r, 2]), v)
     return e + m[r, 3] if bias else e
+
+
+def _sub_row(o, m, r, v, static: bool):
+    """o - row_dot(m, r, v, bias=True); a baked row that is one lone
+    term fuses into the subtraction, as XLA contracts c - a*b."""
+    if static:
+        w, (a0, s0, code) = _planned(m[r], v, True)
+        return fma(-a0, s0, o) if code & LONE else o - w
+    return o - row_dot(m, r, v, True)
+
+
+def _mat(m, static: bool):
+    return m.tolist() if static else m
 
 
 def rnorm(x, y, z):
     return rsqrt(dot3((x, y, z), (x, y, z)))
 
 
-def _object_ray(inverse, o, d):
-    qo = tuple(row_dot(inverse, r, o, True) for r in range(3))
-    qd = tuple(row_dot(inverse, r, d, False) for r in range(3))
+def _object_ray(inverse, o, d, static: bool):
+    qo = tuple(row_dot(inverse, r, o, True, static) for r in range(3))
+    qd = tuple(row_dot(inverse, r, d, False, static) for r in range(3))
     qn = rnorm(*qd)
     return qo, tuple(c * qn for c in qd)
 
 
-def _world_t(transform, o, qo, qd, t_obj):
+def _world_t(transform, o, qo, qd, t_obj, static: bool):
     po = tuple(fma(t_obj - BACKOFF, qd[k], qo[k]) for k in range(3))
-    e = tuple(o[r] - row_dot(transform, r, po, True) for r in range(3))
+    e = tuple(_sub_row(o[r], transform, r, po, static) for r in range(3))
     return po, sqrt(dot3(e, e))
 
 
@@ -60,12 +126,14 @@ def _unit(v):
     return tuple(c * n for c in v)
 
 
-def box_intersect(transform, inverse, o, d):
+def box_intersect(transform, inverse, o, d, static: bool = False):
     """Unit-cube [-0.5, 0.5]^3 slab test (intersections.h:50-92).
+    `static` takes the baked row dots of the whole-path kernel.
 
     Returns (t, normal, hit): t is the world-space distance |o - hit|,
     -1 where the ray misses."""
-    qo, qd = _object_ray(inverse, o, d)
+    transform, inverse = _mat(transform, static), _mat(inverse, static)
+    qo, qd = _object_ray(inverse, o, d, static)
     shape = o[0].shape
     tmin = torch.full(shape, -1e38, device=o[0].device)
     tmax = torch.full(shape, 1e38, device=o[0].device)
@@ -91,15 +159,19 @@ def box_intersect(transform, inverse, o, d):
     inside = tmin <= 0
     t_obj = torch.where(inside, tmax, tmin)
     n_o = tuple(torch.where(inside, tmax_n[k], tmin_n[k]) for k in range(3))
-    _, t = _world_t(transform, o, qo, qd, t_obj)
-    normal = _unit(tuple(row_dot(transform, r, n_o, False) for r in range(3)))
+    _, t = _world_t(transform, o, qo, qd, t_obj, static)
+    normal = _unit(tuple(row_dot(transform, r, n_o, False, static)
+                         for r in range(3)))
     return torch.where(hit, t, -1.0), normal, hit
 
 
-def sphere_intersect(transform, inverse, inv_transpose, o, d):
+def sphere_intersect(transform, inverse, inv_transpose, o, d,
+                     static: bool = False):
     """Unit sphere of radius 0.5 (intersections.h:104-146).
     Returns (t, normal, hit) like box_intersect."""
-    qo, qd = _object_ray(inverse, o, d)
+    transform, inverse, inv_transpose = (_mat(m, static) for m in (
+        transform, inverse, inv_transpose))
+    qo, qd = _object_ray(inverse, o, d, static)
     vdot = dot3(qo, qd)
     radicand = fma(vdot, vdot, -(dot3(qo, qo) - 0.25))
     sq = sqrt(torch.clamp_min(radicand, 0.0))
@@ -110,9 +182,9 @@ def sphere_intersect(transform, inverse, inv_transpose, o, d):
     t_obj = torch.where(both_pos, torch.minimum(t1, t2),
                         torch.maximum(t1, t2))
     hit = (radicand >= 0) & ~both_neg
-    po, t = _world_t(transform, o, qo, qd, t_obj)
+    po, t = _world_t(transform, o, qo, qd, t_obj, static)
     flip = torch.where(both_pos, 1.0, -1.0)
-    nw = tuple(row_dot(inv_transpose, r, po, False) * flip
+    nw = tuple(row_dot(inv_transpose, r, po, False, static) * flip
                for r in range(3))
     return torch.where(hit, t, -1.0), _unit(nw), hit
 

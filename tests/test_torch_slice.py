@@ -29,7 +29,8 @@ RMSE_BUDGET = 0.012
 @pytest.fixture(scope="module")
 def port_renders(scenes_dir):
     scene = Scene(str(scenes_dir / "cornell.txt"))
-    return {name: Renderer(scene, RenderConfig(**kw), (64, 64)).render(3)
+    return {name: Renderer(scene, RenderConfig(**kw), (64, 64),
+                           device="cpu").render(3)
             for name, kw in CONFIGS.items()}
 
 
@@ -92,3 +93,27 @@ def test_svgf_debug_views_and_variance_stub(temporal, view, expect):
     out = den(torch.full((h, w, 3), 0.5), gb, torch.eye(4),
               cfg.traced_params())
     assert torch.allclose(out, torch.full((h, w, 3), expect))
+
+
+def test_svgf_keeps_kernel_c_choice_while_camera_still(scenes_dir,
+                                                       monkeypatch):
+    """The choice of kernel C (motion_bounds, read back to the host) is
+    made only when the camera moved this frame or the one before, the
+    only frames whose G-buffer or previous view differ from the last
+    one's; the frames equal those of a renderer that decides afresh every
+    frame, through a camera change at frame 3."""
+    from ptdn_tpu_torch.denoise import svgf
+
+    calls = []
+    real = svgf.motion_bounds
+    monkeypatch.setattr(svgf, "motion_bounds",
+                        lambda *a: calls.append(1) or real(*a))
+    scene = Scene(str(scenes_dir / "cornell.txt"))
+    kept, fresh = (Renderer(scene, RenderConfig(**_SVGF), (32, 32),
+                            device="cpu") for _ in range(2))
+    for frame in range(6):
+        if frame == 3:
+            kept.cam_changed = fresh.cam_changed = True
+        fresh.step.denoiser.forget_motion()
+        assert torch.equal(kept.render_frame()[1], fresh.render_frame()[1])
+    assert len(calls) == 4 + 6      # kept: frames 0, 1, 3, 4; fresh: all
