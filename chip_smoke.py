@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Two main paths, both at bench.py's headline settings (1 spp, trace depth
+Four engines, all at bench.py's headline settings (1 spp, trace depth
 8, static camera, temporal SVGF with a 5-level à-trous filter, each
 scene at its own resolution):
 
@@ -10,7 +10,13 @@ scene at its own resolution):
   and D;
 * the mesh scenes through the sorted wavefront: A, E, F, C and D, and G
   on diamond (at most 8 chunks); diamond, bunny and terrain30k at
-  800x800, room at 600x600.
+  800x800, room at 600x600;
+* cornell, room and bunny through the unsorted fused per-bounce engine
+  (fuse_path=False, sort_rays=False): A, H, K on the textured scenes, C,
+  D;
+* cornell and bunny through the split per-bounce engine (fuse_path=False,
+  fuse_bounce=False): A, E, I, then J and K on cornell (textured) or A
+  on bunny, C, D.
 
 Phases, one line or more each, with their wall time:
 
@@ -19,14 +25,16 @@ Phases, one line or more each, with their wall time:
    at once), with each kernel's registers and spills;
 2. each kernel against its plain PyTorch version on the card, on its
    path's shapes and a mid-sequence state: A, B1 + B2, C, D on cornell;
-   E and G on diamond (equal); F on diamond, bunny and room;
-3. 32 frames per scene through ptdn_tpu_torch's Renderer with every
-   launch count checked, finite outputs, and the RMSE against the
+   E and G on diamond (equal); F on diamond, bunny and room; H on
+   cornell and bunny; I, J (and J against A) and K on cornell and room;
+3. 32 frames per scene and engine through ptdn_tpu_torch's Renderer with
+   every launch count checked, finite outputs, and the RMSE against the
    converged ground truth (benchmarks/gt): denoised below half the raw
    1-spp RMSE on cornell and diamond, below the raw one elsewhere;
-4. CUDA-event times: each kernel beside its plain version (G also beside
-   torch.gather) and its bound; ms/frame of cornell, and of diamond and
-   bunny through the sort and through B1 (sort_rays=False), in turns.
+4. CUDA-event times: each kernel beside its plain version (G beside
+   torch.gather, K beside torch.take) and its bound; ms/frame of cornell
+   and bunny through each of their engines, and of diamond through the
+   sort and through B1 (sort_rays=False), in turns.
 
 The line before the last is a JSON object with every kernel's numbers;
 the last is {"ok": true, "device": {...}}. Any failed check raises, so
@@ -58,6 +66,7 @@ from ptdn_tpu_torch.ops.camera import generate_camera_rays  # noqa: E402
 from ptdn_tpu_torch.ops.cuda import _lib  # noqa: E402
 from ptdn_tpu_torch.ops.cuda import atrous as D  # noqa: E402
 from ptdn_tpu_torch.ops.cuda import bounce as F  # noqa: E402
+from ptdn_tpu_torch.ops.cuda import compact as K  # noqa: E402
 from ptdn_tpu_torch.ops.cuda import inrow as G  # noqa: E402
 from ptdn_tpu_torch.ops.cuda import path as B  # noqa: E402
 from ptdn_tpu_torch.ops.cuda import reproject as C  # noqa: E402
@@ -80,6 +89,15 @@ SCENES = {"cornell": ((800, 800), "cornell_800x800_d8"),
           "bunny": ((800, 800), "bunny_800x800_d8"),
           "room": ((600, 600), "room_600x600_d8"),
           "terrain30k": ((800, 800), "terrain30k_800x800_d8")}
+# the flags of the two per-bounce engines (the JAX engines bounce_fused
+# and bounce_pallas)
+FUSED = dict(fuse_path=False, sort_rays=False)
+SPLIT = dict(fuse_path=False, fuse_bounce=False)
+# phase 3: (scene, flags); the defaults take the whole path on cornell
+# and the sort on the mesh scenes
+RUNS = ([(name, {}) for name in SCENES]
+        + [(name, FUSED) for name in ("cornell", "room", "bunny")]
+        + [(name, SPLIT) for name in ("cornell", "bunny")])
 KERNELS = {  # name: (wrapper, source, TPU kernel it replaces)
     "scene_intersect_full": (A.scene_intersect_full, "csrc/scene_intersect.cu",
                              "ptdn_tpu/ops/pallas/scene_intersect.py:1478"),
@@ -101,7 +119,32 @@ KERNELS = {  # name: (wrapper, source, TPU kernel it replaces)
                      "ptdn_tpu/ops/pallas/path.py:239"),
     "inrow_permute": (G.inrow_permute, "csrc/inrow.cu",
                       "ptdn_tpu/ops/pallas/inrow.py:34"),
+    "bounce_fused": (F.bounce_fused, "csrc/bounce.cu",
+                     "ptdn_tpu/ops/pallas/bounce.py:161"),
+    "light_visibility": (A.light_visibility, "csrc/scene_intersect.cu",
+                         "ptdn_tpu/ops/pallas/scene_intersect.py:452"),
+    "scene_intersect_full_tex": (
+        A.scene_intersect_full_tex, "csrc/scene_intersect.cu",
+        "ptdn_tpu/ops/pallas/scene_intersect.py:1429"),
+    "sparse_gather": (K.sparse_gather, "csrc/compact.cu",
+                      "ptdn_tpu/ops/pallas/compact.py:181, "
+                      "ptdn_tpu/ops/pallas/compact.py:207"),
 }
+# the run whose launch counts the kernels' JSON line reports
+LAUNCH_RUN = {"scene_intersect_full": ("cornell", "whole_path"),
+              "path_trace": ("cornell", "whole_path"),
+              "deferred_radiance": ("cornell", "whole_path"),
+              "back_projection_stencil": ("cornell", "whole_path"),
+              "atrous_level": ("cornell", "whole_path"),
+              "shade_bounce": ("diamond", "sorted"),
+              "trace_bounce": ("diamond", "sorted"),
+              "inrow_permute": ("diamond", "sorted"),
+              "bounce_fused": ("cornell", "bounce_fused"),
+              "light_visibility": ("cornell", "bounce_split"),
+              "scene_intersect_full_tex": ("cornell", "bounce_split"),
+              "sparse_gather": ("cornell", "bounce_fused")}
+# the one PyTorch call timed beside a kernel, where one computes its gather
+LIBRARY = {"inrow_permute": "torch.gather", "sparse_gather": "torch.take"}
 # the card's peaks (NVIDIA H100 SXM data sheet): HBM bytes/s, float32
 # operations/s outside the tensor cores
 HBM_RATE = 3.35e12
@@ -207,12 +250,14 @@ def counts():
     return {name: k[0].launches for name, k in KERNELS.items()}
 
 
-def capture_bounce(r, depth: int):
-    """Render one frame of r and return the arguments of its bounce
-    `depth`: E's, F's and, where the scene takes the in-row regroup, G's
-    (each wrapper still runs, so the frame is unchanged)."""
-    got, seen = {}, {"e": 0, "f": 0, "g": 0}
-    real = (W.shade_bounce, W.trace_bounce, W.inrow_permute)
+def capture_bounce(r, depth: int,
+                   names=("shade_bounce", "trace_bounce", "inrow_permute")):
+    """Render one frame of r and return, for each engine function of
+    `names` (attributes of engine/wavefront.py) that the frame calls, the
+    arguments of its call on bounce `depth` (each wrapper still runs, so
+    the frame is unchanged)."""
+    got, seen = {}, dict.fromkeys(names, 0)
+    real = {k: getattr(W, k) for k in names}
 
     def spy(key, fn):
         def call(*args, **kw):
@@ -222,14 +267,43 @@ def capture_bounce(r, depth: int):
                              for a in args], kw)
             return fn(*args, **kw)
         return call
-    W.shade_bounce, W.trace_bounce, W.inrow_permute = (
-        spy("e", real[0]), spy("f", real[1]), spy("g", real[2]))
+    for k in names:
+        setattr(W, k, spy(k, real[k]))
     try:
         r.render_frame()
     finally:
-        W.shade_bounce, W.trace_bounce, W.inrow_permute = real
+        for k in names:
+            setattr(W, k, real[k])
     torch.cuda.synchronize()
     return got
+
+
+def expected_launches(tr):
+    """The launches of every kernel over FRAMES frames of tracer tr's
+    engine with a static camera, but C's (one per frame after the
+    first, or more if the kernel-C choice changes)."""
+    want = dict.fromkeys(KERNELS, 0)
+    want["scene_intersect_full"] = 1            # frame 0's primary hit
+    want["atrous_level"] = FRAMES * NLEVEL
+    bounces, below_last = FRAMES * DEPTH, FRAMES * (DEPTH - 1)
+    tex = tr.flags["show_tex"]
+    if tr.engine == "whole_path":
+        want["path_trace"] = want["deferred_radiance"] = FRAMES
+    elif tr.engine == "sorted":
+        want["shade_bounce"] = want["trace_bounce"] = bounces
+        want["inrow_permute"] = bounces if tr.regroup > 1 else 0
+    elif tr.engine == "bounce_fused":
+        want["bounce_fused"] = bounces
+        want["sparse_gather"] = below_last if tex else 0
+    else:
+        want["shade_bounce"] = want["light_visibility"] = bounces
+        if tex:
+            want["scene_intersect_full_tex"] = below_last
+            want["sparse_gather"] = below_last
+        else:
+            want["scene_intersect_full"] += below_last
+    del want["back_projection_stencil"]
+    return want
 
 
 def rmse_vs_gt(name, left, right):
@@ -272,7 +346,7 @@ def main():
     log = _lib.build(force=True)
     _lib.kernels()
     regs = ptxas_summary(log)
-    check(len(regs) == 8, f"8 kernels built, got {regs}")
+    check(len(regs) == 12, f"12 kernels built, got {regs}")
     print(f"phase 1: built {len(list(_lib.CSRC.glob('*.cu')))} sources for "
           f"sm_90a in {time.perf_counter() - t0:.1f} s; ptxas: "
           + "; ".join(regs))
@@ -392,14 +466,14 @@ def main():
             r.render_frame()
         mesh[name] = (r, capture_bounce(r, 2))
     dr, cap = mesh["diamond"]
-    (e_planes, e_mats), e_kw = cap["e"]
+    (e_planes, e_mats), e_kw = cap["shade_bounce"]
     ke = E._shade_bounce_kernel(e_planes, e_mats, **e_kw)
     pe = E.shade_bounce_plain(e_planes, e_mats, **e_kw)
     stats["shade_bounce"] = max_abs(ke, pe)
     check(same(ke, pe), "E equals its plain version")
     work["shade_bounce"] = bound(nbytes(e_planes, ke),
                                  ke[0].numel() * SHADE_OPS)
-    (g_planes, g_order), _ = cap["g"]
+    (g_planes, g_order), _ = cap["inrow_permute"]
     kg = G._inrow_permute_kernel(g_planes, g_order)
     pg = G.inrow_permute_plain(g_planes, g_order)
     stats["inrow_permute"] = max_abs(kg, pg)
@@ -409,7 +483,7 @@ def main():
           f"{tuple(e_planes.shape)} planes; G equal on "
           f"{tuple(g_planes.shape)} planes")
     for name, (r, cap) in mesh.items():
-        (fds, fgi, f_planes), f_kw = cap["f"]
+        (fds, fgi, f_planes), f_kw = cap["trace_bounce"]
         check(f_kw["show_tex"] == (name == "room"),
               f"F takes textures on room only, not on {name}")
         kf, kalb = F._trace_bounce_kernel(fds, fgi, f_planes, **f_kw)
@@ -433,74 +507,159 @@ def main():
               f"max |d| there {err:.3g}, lit agree {lit:.6f}, next albedo "
               f"equal on {alb_eq:.6f} of lanes, {f_tests} lane-triangle "
               f"tests in the plain scan")
+
+    # the per-bounce engines, mid-sequence: bounce 2 of frame 4. H on
+    # cornell (the textured wall) and bunny (39 chunks, every lane scans
+    # every chunk its rays cross)
+    shading = (F.B_SPX, F.B_SPY, F.B_SPZ, F.B_DX, F.B_DY, F.B_DZ, F.B_TR,
+               F.B_TG, F.B_TB, F.B_DIF)
+    for name in ("cornell", "bunny"):
+        r = renderer(name, **FUSED)
+        for _ in range(3):
+            r.render_frame()
+        (hds, hgi, h_planes), h_kw = capture_bounce(
+            r, 2, ("bounce_fused",))["bounce_fused"]
+        kh = F._bounce_fused_kernel(hds, hgi, h_planes, **h_kw)
+        A.mesh_best.tri_tests = A.light_visible.tri_tests = 0
+        ph = F.bounce_fused_plain(hds, hgi, h_planes, **h_kw)
+        h_tests = A.mesh_best.tri_tests + A.light_visible.tri_tests
+        agree, err, lit = f_agreement(kh, ph)
+        shade_eq = all(same(kh[k], ph[k]) for k in shading)
+        check(shade_eq and agree >= 0.999 and err <= 1e-5 and lit >= 0.999,
+              f"H on {name}: shading equal {shade_eq} agree {agree} err "
+              f"{err} lit {lit}")
+        if name == "cornell":
+            stats["bounce_fused"] = max(err, max_abs(
+                kh[F.B_RR:F.B_RB + 1], ph[F.B_RR:F.B_RB + 1]))
+            work["bounce_fused"] = bound(
+                nbytes(h_planes, kh),
+                kh[0].numel() * (SHADE_OPS + 2 * n_analytic(hgi)
+                                 * ANALYTIC_OPS + REFINE_OPS)
+                + h_tests * MOLLER_OPS)
+            h_args = (hds, hgi, h_planes, h_kw)
+        print(f"phase 2: H on {name} bounce 2: shading planes equal, hits "
+              f"agree {agree:.6f}, max |d| there {err:.3g}, lit agree "
+              f"{lit:.6f}, {h_tests} lane-triangle tests in the plain scan")
+
+    # I, J (and J against A) and K on cornell and room, through the split
+    # engine's bounce 2
+    for name in ("cornell", "room"):
+        r = renderer(name, **SPLIT)
+        for _ in range(3):
+            r.render_frame()
+        scap = capture_bounce(r, 2, ("light_visibility",
+                                     "scene_intersect_full_tex"))
+        i_args = tuple(scap["light_visibility"][0])
+        k_i = A._light_visibility_kernel(*i_args)
+        A.light_visible.tri_tests = 0
+        p_i = A.light_visibility_plain(*i_args)
+        i_tests = A.light_visible.tri_tests
+        i_eq = float((k_i == p_i).float().mean())
+        j_args = tuple(scap["scene_intersect_full_tex"][0])
+        kj, jt = A._scene_intersect_full_tex_kernel(*j_args)
+        A.mesh_best.tri_tests = 0
+        pj, pjt = A.scene_intersect_full_tex_plain(*j_args)
+        j_tests = A.mesh_best.tri_tests
+        ka2 = A._scene_intersect_full_kernel(*j_args)
+        j_is_a = all(same(kj[k], ka2[k]) for k in ka2)
+        j_agree = kj["geom_id"] == pj["geom_id"]
+        j_err = max(max_abs(kj[k][j_agree], pj[k][j_agree])
+                    for k in ("t", "normal", "uv"))
+        t_eq = bool(torch.equal(jt[j_agree], pjt[j_agree]))
+        jds_ = j_args[0]
+        table = jds_.tex_flat_u32.view(torch.int32)
+        k_args = (table, jt, kj["mat_id"], jds_.mat_attr)
+        kk = K._sparse_gather_kernel(*k_args)
+        pk = K.sparse_gather_plain(*k_args)
+        k_eq = same(kk, pk)
+        frac = float(j_agree.float().mean())
+        check(i_eq >= 0.999 and j_is_a and frac >= 0.999 and j_err <= 1e-5
+              and t_eq and k_eq,
+              f"I, J, K on {name}: I {i_eq} J is A {j_is_a} J agree {frac} "
+              f"err {j_err} texel index {t_eq} K {k_eq}")
+        if name == "cornell":
+            stats["light_visibility"] = float((k_i != p_i).any())
+            stats["scene_intersect_full_tex"] = j_err
+            stats["sparse_gather"] = max_abs(kk, pk)
+            rays = kj["t"].numel()
+            work["light_visibility"] = bound(
+                nbytes(*i_args[2:4], k_i),
+                rays * n_analytic(i_args[1]) * ANALYTIC_OPS
+                + i_tests * MOLLER_OPS)
+            work["scene_intersect_full_tex"] = bound(
+                nbytes(*j_args[2:4], kj["t"], kj["normal"], kj["uv"],
+                       kj["mat_id"], kj["geom_id"], jt),
+                rays * (n_analytic(j_args[1]) * ANALYTIC_OPS + REFINE_OPS)
+                + j_tests * MOLLER_OPS)
+            work["sparse_gather"] = bound(
+                nbytes(jt, kj["mat_id"], kk) + 4 * int((jt >= 0).sum()),
+                rays * 6)
+            ijk_args = (i_args, j_args, k_args)
+            take_idx = jt.clamp(min=0).to(torch.int64)
+        print(f"phase 2: {name} split bounce 2: I equal on {i_eq:.6f} of "
+              f"{k_i.numel()} shadow rays ({i_tests} lane-triangle tests); "
+              f"J equals A on every lane, agrees with its plain version on "
+              f"{frac:.6f} (max |d| {j_err:.3g}, texel index equal there); "
+              f"K equal on every lane, {int((jt >= 0).sum())} textured")
     torch.cuda.synchronize()
     print(f"phase 2: {time.perf_counter() - t0:.1f} s")
 
     # ---- phase 3: the main paths, every launch counted ----
     t0 = time.perf_counter()
     rmse, runs = {}, {}
-    for name in SCENES:
-        r = renderer(name)
+    for name, flags in RUNS:
+        r = renderer(name, **flags)
+        tr = r.step.tracer
+        label = f"{name} {tr.engine}"
         reset_counts()
         for _ in range(FRAMES):
             left, right = r.render_frame()
         torch.cuda.synchronize()
         c = counts()
-        runs[name] = c
-        sorted_path = name != "cornell"
-        check(c["scene_intersect_full"] == 1, f"{name}: A once per camera")
+        runs[name, tr.engine] = c
+        want = expected_launches(tr)
+        check({k: c[k] for k in want} == want,
+              f"{label}: launches {c}, expected {want}")
         check(c["back_projection_stencil"] >= FRAMES - 1,
-              f"{name}: C on every frame after the first")
-        check(c["atrous_level"] == FRAMES * NLEVEL,
-              f"{name}: D per level per frame")
-        if sorted_path:
-            check(c["shade_bounce"] == FRAMES * DEPTH, f"{name}: E per bounce")
-            check(c["trace_bounce"] == FRAMES * DEPTH, f"{name}: F per bounce")
-            check(c["inrow_permute"] == (FRAMES * DEPTH if name == "diamond"
-                                         else 0),
-                  f"{name}: G per bounce on diamond only")
-            check(c["path_trace"] == 0 and c["deferred_radiance"] == 0,
-                  f"{name}: no B1, B2")
-        else:
-            check(c["path_trace"] == FRAMES and c["deferred_radiance"]
-                  == FRAMES, "cornell: B1, B2 once per frame")
-            check(c["shade_bounce"] + c["trace_bounce"] + c["inrow_permute"]
-                  == 0, "cornell: no E, F, G")
+              f"{label}: C on every frame after the first")
         check(bool(torch.isfinite(left).all())
-              and bool(torch.isfinite(right).all()), f"{name}: finite")
+              and bool(torch.isfinite(right).all()), f"{label}: finite")
         e_dn, e_raw = rmse_vs_gt(name, left, right)
-        rmse[name] = {"denoised": e_dn, "raw": e_raw}
+        rmse[label] = {"denoised": e_dn, "raw": e_raw}
         limit = 0.5 if name in ("cornell", "diamond") else 1.0
         check(e_dn < limit * e_raw,
-              f"{name}: denoised RMSE {e_dn} < {limit} x raw {e_raw}")
-        print(f"phase 3: {name} {r.resolution[0]}x{r.resolution[1]}: "
+              f"{label}: denoised RMSE {e_dn} < {limit} x raw {e_raw}")
+        print(f"phase 3: {label} {r.resolution[0]}x{r.resolution[1]}: "
               f"{FRAMES} frames, launches {json.dumps(c)}; RMSE vs GT "
               f"denoised {e_dn:.5f} raw {e_raw:.5f}")
-        if name == "diamond":
-            launches = {k: c[k] for k in ("shade_bounce", "trace_bounce",
-                                          "inrow_permute")}
-        if name == "cornell":
-            launches_c = c
+        if (name, tr.engine) == ("cornell", "whole_path"):
             cornell_r = r
-    launches = dict(launches_c, **launches)
+    launches = {k: runs[LAUNCH_RUN[k]][k] for k in KERNELS}
     print(f"phase 3: {time.perf_counter() - t0:.1f} s")
 
     # ---- phase 4: times ----
     t0 = time.perf_counter()
     frame_ms = {"cornell": cuda_ms(cornell_r.render_frame, reps=20)}
-    for name in ("diamond", "bunny"):
-        eng = {"sort": renderer(name), "B1": renderer(name,
-                                                      sort_rays=False)}
+    # each scene's engines in turns, there and back
+    for name, engines in (
+            ("cornell", {"B1": {}, "fused": FUSED, "split": SPLIT}),
+            ("diamond", {"sort": {}, "B1": dict(sort_rays=False)}),
+            ("bunny", {"sort": {}, "B1": dict(sort_rays=False),
+                       "fused": FUSED, "split": SPLIT})):
+        eng = {k: renderer(name, **kw) for k, kw in engines.items()}
         for rr in eng.values():
             for _ in range(3):
                 rr.render_frame()
-        ms = {"sort": [], "B1": []}
-        for k in ("sort", "B1", "B1", "sort"):
+        ms = {k: [] for k in eng}
+        order = list(eng) + list(eng)[::-1]
+        for k in order:
             ms[k].append(cuda_ms(eng[k].render_frame, reps=10, warmup=1))
-        frame_ms[name] = {k: sum(v) / len(v) for k, v in ms.items()}
-        print(f"phase 4: {name} ms/frame sorted {ms['sort']} whole-path "
-              f"B1 {ms['B1']} (turns sort, B1, B1, sort) [{card}]")
-    (f_planes_d, f_kw_d) = mesh["diamond"][1]["f"]
+        frame_ms[name + " turns"] = ms
+        print(f"phase 4: {name} ms/frame "
+              + ", ".join(f"{k} {v}" for k, v in ms.items())
+              + f" (turns {', '.join(order)}) [{card}]")
+    (f_planes_d, f_kw_d) = mesh["diamond"][1]["trace_bounce"]
+    i_args, j_args, k_args = ijk_args      # cornell's
     fds, fgi, f_planes = f_planes_d
     times = {
         "scene_intersect_full": (
@@ -536,9 +695,28 @@ def main():
             lambda: G.inrow_permute_plain(g_planes, g_order),
             lambda: torch.gather(g_planes, 2, g_order.to(torch.int64)[None]
                                  .expand(g_planes.shape[0], -1, -1))),
+        "bounce_fused": (
+            lambda: F._bounce_fused_kernel(*h_args[:3], **h_args[3]),
+            lambda: F.bounce_fused_plain(*h_args[:3], **h_args[3]), None),
+        "light_visibility": (
+            lambda: A._light_visibility_kernel(*i_args),
+            lambda: A.light_visibility_plain(*i_args), None),
+        "scene_intersect_full_tex": (
+            lambda: A._scene_intersect_full_tex_kernel(*j_args),
+            lambda: A.scene_intersect_full_tex_plain(*j_args), None),
+        "sparse_gather": (
+            lambda: K._sparse_gather_kernel(*k_args),
+            lambda: K.sparse_gather_plain(*k_args),
+            lambda: torch.take(k_args[0], take_idx)),
     }
     check(same(times["inrow_permute"][2](), pg),
           "torch.gather computes G's function")
+    tex = k_args[1] >= 0
+    words = times["sparse_gather"][2]()[tex]
+    check(torch.equal(torch.stack([((words >> (8 * c)) & 0xFF).float()
+                                   * A.COLORDIVIDOR for c in range(3)]),
+                      K._sparse_gather_kernel(*k_args)[:, tex]),
+          "torch.take gathers K's texels")
     out = []
     for name, (_, source, replaces) in KERNELS.items():
         kfn, pfn, lfn = times[name]
@@ -555,7 +733,7 @@ def main():
                     "bound_by": bound_by, "library_ms": lib_ms})
         print(f"phase 4: {name} {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by})"
-              + (f", torch.gather {lib_ms:.4f} ms" if lib_ms else "")
+              + (f", {LIBRARY[name]} {lib_ms:.4f} ms" if lib_ms else "")
               + f" [{card}]")
     print(f"phase 4: cornell {frame_ms['cornell']:.3f} ms/frame over 20 "
           f"steady-state frames (depth {DEPTH}, SVGF {NLEVEL} levels) "

@@ -1,6 +1,7 @@
-// Kernel F (trace_bounce): the trace half of the sorted wavefront's
-// bounce: NEE visibility, the lit radiance add, the next closest hit and
-// the next bounce's albedo.
+// Kernels F (trace_bounce) and H (bounce_fused).
+//
+// F is the trace half of the sorted wavefront's bounce: NEE visibility,
+// the lit radiance add, the next closest hit and the next bounce's albedo.
 //
 // Replaces the TPU kernel ptdn_tpu/ops/pallas/bounce.py:
 // trace_bounce_pallas (_trace_kernel with its range planes, the joint
@@ -49,7 +50,31 @@
 // GPU thread reads its own texel at no such cost. The two queries run one
 // after the other instead of in one joint loop; the results are the same
 // function.
-#include "ptdn.cuh"
+//
+// H replaces the TPU kernel ptdn_tpu/ops/pallas/bounce.py:
+// bounce_fused_pallas (_kernel without its pixel plane), the whole bounce
+// of the unsorted per-bounce engine in one launch. One thread per lane
+// reads the 22 I_* planes and writes the 21 B_* planes:
+//   1. E's shading (shade.cuh:shade_lane), TEA seeded with (lane + lane0,
+//      frame + depth) as lane_seed does: the lanes stay in pixel order;
+//   2. on an NEE lane, light_visible over every chunk, and rr += lit ?
+//      cr * emit : 0, the same select as F's;
+//   3. when do_next, the next closest hit of the scattered ray over every
+//      chunk (a dead lane takes no mesh hit) and act2 = act * (geom >= 0);
+//      on the last depth the lane's current t, normal and material stay
+//      and uv is 0 (bounce.py:148-158; F writes constants there instead).
+// H takes the full dot products, as the TPU kernel does (it bakes no
+// scene matrix). It does not read the next albedo: kernel K does that
+// after it, as fetch_alb follows the TPU kernel. Left out: the pixel-plane
+// mode (23 planes in), which no engine calls bounce_fused_pallas with.
+//
+// What bounds H: arithmetic and divergence. A lane moves 22 planes in and
+// 21 out (172 B); it runs E's ~250 float operations, ~10 analytic geom
+// tests per query and ~50 float operations per triangle of each chunk
+// its two rays cross before their running best. Unlike F's lanes, a
+// warp's lanes are neighbouring pixels, coherent on the first bounces and
+// scattered after, and each scans every chunk its rays cross.
+#include "shade.cuh"
 
 namespace ptdn {
 
@@ -65,21 +90,34 @@ struct TraceArgs {
   float emit_r, emit_g, emit_b;
 };
 
+struct BounceArgs {
+  const float* in;  // (22, N): the I_* planes
+  float* out;       // (21, N): the B_* planes
+  int n;
+  unsigned int fd;  // frame + depth
+  unsigned int lane0;
+  ShadeParams p;
+  int light_geom;
+  int do_vis;
+  int do_next;
+  float emit_r, emit_g, emit_b;
+};
+
 }  // namespace ptdn
 
 namespace {
 
-enum {
-  O_DX, O_DY, O_DZ, O_SPX, O_SPY, O_SPZ, O_TR, O_TG, O_TB,
-  O_RR, O_RG, O_RB, O_DIF, O_ACT, O_SDX, O_SDY, O_SDZ,
-  O_CR, O_CG, O_CB, O_NEE, R_NLO, R_NHI, R_SLO, R_SHI
-};
+using namespace ptdn;
+
+// F's range planes after E's output, and the B_* output planes
+// (bounce.py:69-71)
+enum { R_NLO = kShadeOut, R_NHI, R_SLO, R_SHI };
 enum {
   B_SPX, B_SPY, B_SPZ, B_DX, B_DY, B_DZ, B_T, B_NX, B_NY, B_NZ,
   B_TR, B_TG, B_TB, B_RR, B_RG, B_RB, B_MAT, B_ACT, B_DIF, B_UU, B_VV
 };
 
-__global__ void trace_kernel(ptdn::SceneDev s, ptdn::TraceArgs a) {
+__global__ void trace_kernel(SceneDev s, TraceArgs a) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
   const size_t n = (size_t)a.n;
@@ -142,6 +180,60 @@ __global__ void trace_kernel(ptdn::SceneDev s, ptdn::TraceArgs a) {
                                : s.mat_attr[16 * h.mat + c];
 }
 
+__global__ void bounce_fused_kernel(SceneDev s, BounceArgs a) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= a.n) return;
+  const size_t n = (size_t)a.n;
+  const float* in = a.in + i;
+  float* out = a.out + i;
+  float o[kShadeOut];
+  shade_lane(in, n, tea16((uint32_t)i + a.lane0, a.fd), a.p, o);
+
+  bool lit = false;
+  if (a.do_vis && o[O_NEE] > 0.5f)
+    lit = light_visible<false>(s, a.light_geom, o[O_SPX], o[O_SPY],
+                               o[O_SPZ], o[O_SDX], o[O_SDY], o[O_SDZ],
+                               all_chunks(s));
+  out[B_RR * n] = o[O_RR] + (lit ? o[O_CR] * a.emit_r : 0.f);
+  out[B_RG * n] = o[O_RG] + (lit ? o[O_CG] * a.emit_g : 0.f);
+  out[B_RB * n] = o[O_RB] + (lit ? o[O_CB] * a.emit_b : 0.f);
+  out[B_SPX * n] = o[O_SPX];
+  out[B_SPY * n] = o[O_SPY];
+  out[B_SPZ * n] = o[O_SPZ];
+  out[B_DX * n] = o[O_DX];
+  out[B_DY * n] = o[O_DY];
+  out[B_DZ * n] = o[O_DZ];
+  out[B_TR * n] = o[O_TR];
+  out[B_TG * n] = o[O_TG];
+  out[B_TB * n] = o[O_TB];
+  out[B_DIF * n] = o[O_DIF];
+
+  if (!a.do_next) {
+    // last depth: the current intersection stays (only the radiance
+    // survives; the rest stays finite)
+    out[B_T * n] = in[I_T * n];
+    out[B_NX * n] = in[I_NX * n];
+    out[B_NY * n] = in[I_NY * n];
+    out[B_NZ * n] = in[I_NZ * n];
+    out[B_MAT * n] = in[I_MAT * n];
+    out[B_ACT * n] = o[O_ACT];
+    out[B_UU * n] = 0.f;
+    out[B_VV * n] = 0.f;
+    return;
+  }
+  const Hit h = closest_hit<false>(s, o[O_SPX], o[O_SPY], o[O_SPZ], o[O_DX],
+                                   o[O_DY], o[O_DZ], o[O_ACT] > 0.5f,
+                                   all_chunks(s));
+  out[B_T * n] = h.t;
+  out[B_NX * n] = h.nx;
+  out[B_NY * n] = h.ny;
+  out[B_NZ * n] = h.nz;
+  out[B_MAT * n] = (float)h.mat;
+  out[B_ACT * n] = o[O_ACT] * (h.geom >= 0 ? 1.f : 0.f);
+  out[B_UU * n] = h.u;
+  out[B_VV * n] = h.v;
+}
+
 }  // namespace
 
 extern "C" int ptdn_trace_bounce(const ptdn::SceneDev* s,
@@ -150,6 +242,16 @@ extern "C" int ptdn_trace_bounce(const ptdn::SceneDev* s,
     const int block = 128;
     trace_kernel<<<(a->n + block - 1) / block, block, 0,
                    (cudaStream_t)stream>>>(*s, *a);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ptdn_bounce_fused(const ptdn::SceneDev* s,
+                                 const ptdn::BounceArgs* a, void* stream) {
+  if (a->n > 0) {
+    const int block = 128;
+    bounce_fused_kernel<<<(a->n + block - 1) / block, block, 0,
+                          (cudaStream_t)stream>>>(*s, *a);
   }
   return (int)cudaGetLastError();
 }

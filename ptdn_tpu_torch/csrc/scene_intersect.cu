@@ -1,57 +1,143 @@
-// Kernel A: fully resolved closest hit for a batch of rays.
+// Kernels A, J and I: the fully resolved closest hit of a batch of rays,
+// the same with each ray's texel index, and the NEE visibility of a
+// batch of shadow rays.
 //
-// Replaces the TPU kernel ptdn_tpu/ops/pallas/scene_intersect.py:
+// A replaces the TPU kernel ptdn_tpu/ops/pallas/scene_intersect.py:
 // scene_intersect_full_pallas (_kernel_full). One thread per ray runs
 // the analytic geoms in scene order, the 128-triangle chunks in leaf
 // order behind a per-ray AABB cull, the exact refine of the winning
 // triangle and the merge (ptdn.cuh:closest_hit).
 //
-// What bounds it: arithmetic and divergence, not bytes. A ray reads 24 B
-// and writes 32 B; the scene (cornell: 10 geoms, 38 triangles, ~10 KB)
-// stays in L1/L2 and is read by every thread of a warp at the same
-// address, which the cache broadcasts. The TPU kernel tested 8 triangles
-// against a 128-lane row at once and culled per 1024-ray block; here
-// each thread culls each chunk for its own ray and keeps its running
-// best in registers.
+// J replaces scene_intersect_full_tex_pallas (_kernel_full_tex): A's hit
+// plus the flat texel index of the hit's material at its uv, -1 where the
+// material is untextured (tex_index_tiles, here ptdn.cuh:tex_index), on
+// every ray, hit or not, as the TPU kernel computes it. Dropped: the
+// per-row compaction of those indices (cidx, slot, count; compact.py:
+// compact_tile), which the TPU needed because its gathers are
+// count-bound. A GPU thread of kernel K reads its own texel.
+//
+// I replaces light_visibility_pallas (_vis_kernel,
+// light_visibility_tiles): per ray, the closest analytic hit is the light
+// geom and no triangle lies in front of it (ptdn.cuh:light_visible), on
+// every ray, with no NEE mask, as the TPU kernel computes it. The TPU
+// kernel's loop ends when every lane of its block is occluded; a thread
+// here returns at its own first occluder.
+//
+// All three take the full dot products of the scene matrices, as the
+// TPU per-bounce kernels do (no baked rows: that is B1's form). A ray's
+// component c lies at o[k * o_rs + c * o_cs], so the rays may be an
+// (N, 3) tensor or three planes of a plane stack.
+//
+// What bounds them: arithmetic and divergence, not bytes. A ray reads
+// 24 B and writes at most 36 B; the scene (cornell: 10 geoms, 38
+// triangles, ~10 KB) stays in L1/L2 and is read by every thread of a warp
+// at the same address, which the cache broadcasts. The TPU kernels tested
+// 8 triangles against a 128-lane row at once and culled per 1024-ray
+// block; here each thread culls each chunk for its own ray and keeps its
+// running best in registers.
 #include "ptdn.cuh"
+
+namespace ptdn {
+
+struct RayArgs {
+  const float* o;  // ray k's component c at o[k * o_rs + c * o_cs]
+  const float* d;
+  int o_rs, o_cs, d_rs, d_cs;
+  int n;
+};
+
+struct IsectArgs {
+  float* t;    // (N,)
+  float* nrm;  // (N, 3)
+  float* uv;   // (N, 2)
+  int* geom;   // (N,)
+  int* mat;    // (N,)
+  int* tidx;   // (N,) texel index, written by J only
+};
+
+}  // namespace ptdn
 
 namespace {
 
-__global__ void scene_intersect_full_kernel(ptdn::SceneDev s,
-                                            const float* __restrict__ o,
-                                            const float* __restrict__ d,
-                                            int n, float* __restrict__ t_out,
-                                            float* __restrict__ n_out,
-                                            float* __restrict__ uv_out,
-                                            int* __restrict__ geom_out,
-                                            int* __restrict__ mat_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+template <bool Tex>
+__device__ __forceinline__ void closest_hit_ray(const ptdn::SceneDev& s,
+                                                const ptdn::RayArgs& r,
+                                                const ptdn::IsectArgs& a,
+                                                int i) {
+  const float* o = r.o + (size_t)i * r.o_rs;
+  const float* d = r.d + (size_t)i * r.d_rs;
   const ptdn::Hit h = ptdn::closest_hit<false>(
-      s, o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i], d[3 * i + 1],
-      d[3 * i + 2], true, ptdn::all_chunks(s));
-  t_out[i] = h.t;
-  n_out[3 * i] = h.nx;
-  n_out[3 * i + 1] = h.ny;
-  n_out[3 * i + 2] = h.nz;
-  uv_out[2 * i] = h.u;
-  uv_out[2 * i + 1] = h.v;
-  geom_out[i] = h.geom;
-  mat_out[i] = h.mat;
+      s, o[0], o[r.o_cs], o[2 * r.o_cs], d[0], d[r.d_cs], d[2 * r.d_cs],
+      true, ptdn::all_chunks(s));
+  a.t[i] = h.t;
+  a.nrm[3 * i] = h.nx;
+  a.nrm[3 * i + 1] = h.ny;
+  a.nrm[3 * i + 2] = h.nz;
+  a.uv[2 * i] = h.u;
+  a.uv[2 * i + 1] = h.v;
+  a.geom[i] = h.geom;
+  a.mat[i] = h.mat;
+  if (Tex) a.tidx[i] = ptdn::tex_index(s, h.mat, h.u, h.v);
 }
+
+__global__ void scene_intersect_full_kernel(ptdn::SceneDev s, ptdn::RayArgs r,
+                                            ptdn::IsectArgs a) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < r.n) closest_hit_ray<false>(s, r, a, i);
+}
+
+__global__ void scene_intersect_full_tex_kernel(ptdn::SceneDev s,
+                                                ptdn::RayArgs r,
+                                                ptdn::IsectArgs a) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < r.n) closest_hit_ray<true>(s, r, a, i);
+}
+
+__global__ void light_visibility_kernel(ptdn::SceneDev s, ptdn::RayArgs r,
+                                        int light_geom,
+                                        unsigned char* __restrict__ lit) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= r.n) return;
+  const float* o = r.o + (size_t)i * r.o_rs;
+  const float* d = r.d + (size_t)i * r.d_rs;
+  lit[i] = ptdn::light_visible<false>(s, light_geom, o[0], o[r.o_cs],
+                                      o[2 * r.o_cs], d[0], d[r.d_cs],
+                                      d[2 * r.d_cs], ptdn::all_chunks(s))
+               ? 1
+               : 0;
+}
+
+constexpr int kBlock = 128;
+
+int grid(int n) { return (n + kBlock - 1) / kBlock; }
 
 }  // namespace
 
 extern "C" int ptdn_scene_intersect_full(const ptdn::SceneDev* s,
-                                         const float* o, const float* d,
-                                         int n, float* t_out, float* n_out,
-                                         float* uv_out, int* geom_out,
-                                         int* mat_out, void* stream) {
-  if (n > 0) {
-    const int block = 128;
-    scene_intersect_full_kernel<<<(n + block - 1) / block, block, 0,
-                                  (cudaStream_t)stream>>>(
-        *s, o, d, n, t_out, n_out, uv_out, geom_out, mat_out);
-  }
+                                         const ptdn::RayArgs* r,
+                                         const ptdn::IsectArgs* a,
+                                         void* stream) {
+  if (r->n > 0)
+    scene_intersect_full_kernel<<<grid(r->n), kBlock, 0,
+                                  (cudaStream_t)stream>>>(*s, *r, *a);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ptdn_scene_intersect_full_tex(const ptdn::SceneDev* s,
+                                             const ptdn::RayArgs* r,
+                                             const ptdn::IsectArgs* a,
+                                             void* stream) {
+  if (r->n > 0)
+    scene_intersect_full_tex_kernel<<<grid(r->n), kBlock, 0,
+                                      (cudaStream_t)stream>>>(*s, *r, *a);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ptdn_light_visibility(const ptdn::SceneDev* s,
+                                     const ptdn::RayArgs* r, int light_geom,
+                                     unsigned char* lit, void* stream) {
+  if (r->n > 0)
+    light_visibility_kernel<<<grid(r->n), kBlock, 0, (cudaStream_t)stream>>>(
+        *s, *r, light_geom, lit);
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,6 @@
-// Per-lane shading shared by kernels B1 (path.cu) and E (shade.cu): the
-// masked LCG draw, the NEE disk sample toward the light and scatterRay.
+// Per-lane shading shared by kernels B1 (path.cu), E (shade.cu) and H
+// (bounce.cu): the masked LCG draw, the NEE disk sample toward the light,
+// scatterRay, and the whole shading of one lane's planes (shade_lane).
 //
 // The per-thread form of the JAX package's shade body
 // (ptdn_tpu/ops/pallas/shade.py:shade_tiles) and of the plain version
@@ -142,6 +143,115 @@ __device__ inline Scattered scatter_ray(uint32_t& seed, bool active, float dx,
     o.dz = up * nz + ca * p1z + sa * p2z;
   }
   return o;
+}
+
+// The plane layouts of a bounce's shading (ops/pallas/shade.py:35-43):
+// 22 input planes, 21 output planes, masks as 0.0 / 1.0.
+enum ShadeIn {
+  I_OX, I_OY, I_OZ, I_DX, I_DY, I_DZ, I_T, I_NX, I_NY, I_NZ,
+  I_AR, I_AG, I_AB, I_TR, I_TG, I_TB, I_RR, I_RG, I_RB,
+  I_MAT, I_ACT, I_DIF, kShadeIn
+};
+enum ShadeOut {
+  O_DX, O_DY, O_DZ, O_SPX, O_SPY, O_SPZ, O_TR, O_TG, O_TB,
+  O_RR, O_RG, O_RB, O_DIF, O_ACT, O_SDX, O_SDY, O_SDZ,
+  O_CR, O_CG, O_CB, O_NEE, kShadeOut
+};
+
+struct ShadeParams {
+  const float* mats;  // (M, 16): scene.mat_attr
+  int shadow_ray;
+  int reduce_var;
+  int alb_skip;
+  float light_x, light_y, light_z;
+  float lrad;
+  float sint;
+};
+
+// One lane's shading of a bounce (shade.py:shade_tiles): `in` points at
+// the lane's value of input plane 0, plane k lies at in[k * n]; `seed` is
+// the lane's TEA seed. Emissive termination, albedo modulation, the NEE
+// disk sample and scatterRay; every output is computed, dead lanes
+// included, as the plain version (ops/bsdf.py:shade) computes it.
+__device__ inline void shade_lane(const float* in, size_t n, uint32_t seed,
+                                  const ShadeParams& a,
+                                  float (&out)[kShadeOut]) {
+  const float ox = in[I_OX * n], oy = in[I_OY * n], oz = in[I_OZ * n];
+  const float dx = in[I_DX * n], dy = in[I_DY * n], dz = in[I_DZ * n];
+  const float t = in[I_T * n];
+  const float nx = in[I_NX * n], ny = in[I_NY * n], nz = in[I_NZ * n];
+  float tr = in[I_TR * n], tg = in[I_TG * n], tb = in[I_TB * n];
+  const int mat = (int)in[I_MAT * n];
+  bool active = in[I_ACT * n] > 0.5f;
+  const bool dif = in[I_DIF * n] > 0.5f;
+  const float* m = a.mats + 16 * mat;
+  const float m_emit = m[10], m_refl = m[7], m_refr = m[8], m_ior = m[9];
+
+  // emissive hit terminates; skipped for NEE'd diffuse paths
+  const bool emissive = m_emit > 0.f;
+  bool add_emit = active && emissive;
+  if (a.shadow_ray && a.reduce_var) add_emit = add_emit && !dif;
+  const float add_f = add_emit ? 1.f : 0.f;
+  const float rr = in[I_RR * n] + add_f * tr * m[0] * m_emit;
+  const float rg = in[I_RG * n] + add_f * tg * m[1] * m_emit;
+  const float rb = in[I_RB * n] + add_f * tb * m[2] * m_emit;
+  active = active && !emissive;
+
+  // hit point + spawn origin (+1e-4 n, pathtrace.cu:338)
+  const float spx = (ox + t * dx) + 1e-4f * nx;
+  const float spy = (oy + t * dy) + 1e-4f * ny;
+  const float spz = (oz + t * dz) + 1e-4f * nz;
+
+  // throughput *= albedo (pathtrace.cu:343-355)
+  const float af = (active && !a.alb_skip) ? 1.f : 0.f;
+  tr = tr * (1.f + af * (in[I_AR * n] - 1.f));
+  tg = tg * (1.f + af * (in[I_AG * n] - 1.f));
+  tb = tb * (1.f + af * (in[I_AB * n] - 1.f));
+
+  // NEE disk sample toward the light (pathtrace.cu:357-366)
+  float sdx = 0.f, sdy = 0.f, sdz = 0.f, cr = 0.f, cg = 0.f, cb = 0.f;
+  bool nee = false;
+  if (a.shadow_ray) {
+    nee = active && (m_refl < 1e-6f) && (m_refr < 1e-6f);
+    const ShadowSample ss = shadow_sample(seed, nee, a.light_x, a.light_y,
+                                          a.light_z, a.lrad, spx, spy, spz);
+    const float lambert = jmax(0.f, ss.dx * nx + ss.dy * ny + ss.dz * nz);
+    const float scale = a.sint / ss.dist2 * lambert;
+    const float neef = nee ? 1.f : 0.f;
+    sdx = ss.dx;
+    sdy = ss.dy;
+    sdz = ss.dz;
+    cr = tr * scale * neef;
+    cg = tg * scale * neef;
+    cb = tb * scale * neef;
+  }
+
+  // scatterRay (interactions.h:94-136)
+  const Scattered sc = scatter_ray(seed, active, dx, dy, dz, nx, ny, nz,
+                                   m_refl, m_refr, m_ior);
+  const float rff = (active && sc.reflect) ? 1.f : 0.f;
+  const float actf = active ? 1.f : 0.f;
+  out[O_DX] = actf * sc.dx + (1.f - actf) * dx;
+  out[O_DY] = actf * sc.dy + (1.f - actf) * dy;
+  out[O_DZ] = actf * sc.dz + (1.f - actf) * dz;
+  out[O_SPX] = actf * spx + (1.f - actf) * ox;
+  out[O_SPY] = actf * spy + (1.f - actf) * oy;
+  out[O_SPZ] = actf * spz + (1.f - actf) * oz;
+  out[O_TR] = active ? tr * (1.f + rff * (m[3] - 1.f)) : tr;
+  out[O_TG] = active ? tg * (1.f + rff * (m[4] - 1.f)) : tg;
+  out[O_TB] = active ? tb * (1.f + rff * (m[5] - 1.f)) : tb;
+  out[O_RR] = rr;
+  out[O_RG] = rg;
+  out[O_RB] = rb;
+  out[O_DIF] = (dif || (active && sc.diffuse)) ? 1.f : 0.f;
+  out[O_ACT] = actf;
+  out[O_SDX] = sdx;
+  out[O_SDY] = sdy;
+  out[O_SDZ] = sdz;
+  out[O_CR] = cr;
+  out[O_CG] = cg;
+  out[O_CB] = cb;
+  out[O_NEE] = nee ? 1.f : 0.f;
 }
 
 }  // namespace ptdn

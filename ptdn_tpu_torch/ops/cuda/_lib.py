@@ -98,8 +98,11 @@ def load(path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     for name, args in {
-        "ptdn_scene_intersect_full": [vp, vp, vp, i32, vp, vp, vp, vp, vp,
-                                      vp],
+        "ptdn_scene_intersect_full": [vp, vp, vp, vp],
+        "ptdn_scene_intersect_full_tex": [vp, vp, vp, vp],
+        "ptdn_light_visibility": [vp, vp, i32, vp, vp],
+        "ptdn_sparse_gather": [vp, vp],
+        "ptdn_bounce_fused": [vp, vp, vp],
         "ptdn_path_trace": [vp, vp, vp],
         "ptdn_deferred_radiance": [vp, vp, vp, i32, i32, vp, vp],
         "ptdn_back_projection_stencil": [vp, vp],

@@ -1,14 +1,18 @@
-"""Kernel A: the fully resolved closest hit (csrc/scene_intersect.cu),
-its plain PyTorch version, and the scene-level hit and visibility code
-the path kernel's plain version shares.
+"""Kernels A (the fully resolved closest hit), J (the same with each
+ray's texel index) and I (NEE visibility) (csrc/scene_intersect.cu),
+their plain PyTorch versions, and the scene-level hit and visibility code
+the other kernels' plain versions share.
 
-Replaces the TPU kernel ptdn_tpu/ops/pallas/scene_intersect.py:
-scene_intersect_full_pallas. The kernel runs one thread per ray; what
-bounds it and what its design does about that is in the source note of
-csrc/scene_intersect.cu. Both versions visit the analytic geoms in scene
-order and the triangles chunk by chunk in ascending index, with strict <
-throughout, so ties go to the first geom and the lowest triangle; a chunk
-whose AABB a ray does not cross before its running best is skipped.
+They replace the TPU kernels ptdn_tpu/ops/pallas/scene_intersect.py:
+scene_intersect_full_pallas (A), scene_intersect_full_tex_pallas (J,
+without its per-row compaction of the texel indices: kernel K reads each
+lane's texel) and light_visibility_pallas (I). The kernels run one thread
+per ray; what bounds them and what their design does about that is in
+the source note of csrc/scene_intersect.cu. All versions visit the
+analytic geoms in scene order and the triangles chunk by chunk in
+ascending index, with strict < throughout, so ties go to the first geom
+and the lowest triangle; a chunk whose AABB a ray does not cross before
+its running best is skipped.
 """
 
 from __future__ import annotations
@@ -257,8 +261,53 @@ def scene_intersect_full_plain(ds, gi: GeomInfo, o,
             "geom_id": geom, "hit": geom >= 0}
 
 
+def scene_intersect_full_tex_plain(ds, gi: GeomInfo, o, d):
+    """Plain PyTorch version of kernel J: kernel A's dict and the int32
+    texel index of every ray's hit material at its uv (-1 untextured)."""
+    isect = scene_intersect_full_plain(ds, gi, o, d)
+    tidx = tex_index(ds, isect["mat_id"].to(torch.int64), isect["uv"][:, 0],
+                     isect["uv"][:, 1])
+    return isect, tidx.to(torch.int32)
+
+
+def light_visibility_plain(ds, gi: GeomInfo, o, d,
+                           light_geom: int) -> torch.Tensor:
+    """Plain PyTorch version of kernel I: light_visible on every ray."""
+    ot = tuple(o[:, k] for k in range(3))
+    dt = tuple(d[:, k] for k in range(3))
+    return light_visible(ds, gi, ot, dt, light_geom,
+                         torch.ones(o.shape[0], dtype=torch.bool,
+                                    device=o.device))
+
+
 # ---------------------------------------------------------------------------
-# the wrapper
+# the wrappers
+
+class RayArgs(ctypes.Structure):
+    """Mirror of csrc/scene_intersect.cu:RayArgs."""
+    _fields_ = ([(k, ctypes.c_void_p) for k in ("o", "d")]
+                + [(k, ctypes.c_int) for k in ("o_rs", "o_cs", "d_rs", "d_cs",
+                                               "n")])
+
+
+class IsectArgs(ctypes.Structure):
+    """Mirror of csrc/scene_intersect.cu:IsectArgs."""
+    _fields_ = [(k, ctypes.c_void_p) for k in ("t", "nrm", "uv", "geom",
+                                                 "mat", "tidx")]
+
+
+def _ray_args(o: torch.Tensor, d: torch.Tensor) -> RayArgs:
+    """Rays o, d: (N, 3) float32 CUDA tensors of any strides (a view of
+    three planes of a plane stack is taken as it is)."""
+    n = o.shape[0]
+    for name, x in (("o", o), ("d", d)):
+        if (x.dtype != torch.float32 or tuple(x.shape) != (n, 3)
+                or x.device.type != "cuda"):
+            raise ValueError(f"{name}: expected float32 ({n}, 3) on cuda, "
+                             f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+    return RayArgs(o=o.data_ptr(), d=d.data_ptr(), o_rs=o.stride(0),
+                   o_cs=o.stride(1), d_rs=d.stride(0), d_cs=d.stride(1), n=n)
+
 
 def scene_intersect_full(ds, gi: GeomInfo, o: torch.Tensor,
                          d: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -271,23 +320,69 @@ def scene_intersect_full(ds, gi: GeomInfo, o: torch.Tensor,
     return _scene_intersect_full_kernel(ds, gi, o, d)
 
 
-def _scene_intersect_full_kernel(ds, gi, o, d):
-    n = o.shape[0]
-    _lib.check_tensor(o, torch.float32, (n, 3), "o")
-    _lib.check_tensor(d, torch.float32, (n, 3), "d")
+def scene_intersect_full_tex(ds, gi: GeomInfo, o: torch.Tensor,
+                             d: torch.Tensor):
+    """Kernel A's hit dict of rays o, d (N, 3) and the (N,) int32 flat
+    texel index of each hit material at its uv, -1 where untextured (on
+    every ray, hit or not; kernel K reads the texels). CPU tensors take
+    the plain version; CUDA tensors launch kernel J."""
+    _lib.require(o.device, "scene_intersect_full_tex")
+    if o.device.type == "cpu":
+        return scene_intersect_full_tex_plain(ds, gi, o, d)
+    return _scene_intersect_full_tex_kernel(ds, gi, o, d)
+
+
+def light_visibility(ds, gi: GeomInfo, o: torch.Tensor, d: torch.Tensor,
+                     light_geom: int) -> torch.Tensor:
+    """NEE visibility of shadow rays o, d (N, 3): bool (N,), True where
+    the closest analytic hit is geom `light_geom` and no triangle lies in
+    front of it, on every ray (the caller masks the NEE lanes). CPU
+    tensors take the plain version; CUDA tensors launch kernel I."""
+    _lib.require(o.device, "light_visibility")
+    if o.device.type == "cpu":
+        return light_visibility_plain(ds, gi, o, d, light_geom)
+    return _light_visibility_kernel(ds, gi, o, d, light_geom)
+
+
+def _isect_kernel(name, ds, gi, o, d, tex: bool):
+    ray = _ray_args(o, d)
+    n = ray.n
     f32 = dict(dtype=torch.float32, device=o.device)
     i32 = dict(dtype=torch.int32, device=o.device)
     out = {"t": torch.empty(n, **f32), "normal": torch.empty(n, 3, **f32),
            "uv": torch.empty(n, 2, **f32), "mat_id": torch.empty(n, **i32),
            "geom_id": torch.empty(n, **i32)}
-    sd = scene_dev(ds, gi, o.device)
+    tidx = torch.empty(n, **i32) if tex else None
     p = _lib.ptr
-    _lib.launch("ptdn_scene_intersect_full", sd, p(o), p(d), ctypes.c_int(n),
-                p(out["t"]), p(out["normal"]), p(out["uv"]),
-                p(out["geom_id"]), p(out["mat_id"]))
-    scene_intersect_full.launches += 1     # counts kernel launches only
+    args = IsectArgs(t=p(out["t"]), nrm=p(out["normal"]), uv=p(out["uv"]),
+                     geom=p(out["geom_id"]), mat=p(out["mat_id"]),
+                     tidx=p(tidx))
+    _lib.launch(name, scene_dev(ds, gi, o.device), ray, args)
     out["hit"] = out["geom_id"] >= 0
+    return out, tidx
+
+
+def _scene_intersect_full_kernel(ds, gi, o, d):
+    out, _ = _isect_kernel("ptdn_scene_intersect_full", ds, gi, o, d, False)
+    scene_intersect_full.launches += 1     # counts kernel launches only
     return out
 
 
+def _scene_intersect_full_tex_kernel(ds, gi, o, d):
+    out = _isect_kernel("ptdn_scene_intersect_full_tex", ds, gi, o, d, True)
+    scene_intersect_full_tex.launches += 1
+    return out
+
+
+def _light_visibility_kernel(ds, gi, o, d, light_geom):
+    ray = _ray_args(o, d)
+    lit = torch.empty(ray.n, dtype=torch.bool, device=o.device)
+    _lib.launch("ptdn_light_visibility", scene_dev(ds, gi, o.device), ray,
+                ctypes.c_int(light_geom), _lib.ptr(lit))
+    light_visibility.launches += 1
+    return lit
+
+
 scene_intersect_full.launches = 0
+scene_intersect_full_tex.launches = 0
+light_visibility.launches = 0

@@ -34,15 +34,31 @@ I_PIX = N_IN
 N_OUT = 21
 
 
-class ShadeArgs(ctypes.Structure):
-    """Mirror of csrc/shade.cu:ShadeArgs."""
-    _fields_ = ([(k, ctypes.c_void_p) for k in ("inp", "out", "mats")]
-                + [("n", ctypes.c_int)]
-                + [(k, ctypes.c_uint) for k in ("fd", "lane0")]
+class ShadeParams(ctypes.Structure):
+    """Mirror of csrc/shade.cuh:ShadeParams."""
+    _fields_ = ([("mats", ctypes.c_void_p)]
                 + [(k, ctypes.c_int) for k in ("shadow_ray", "reduce_var",
                                                "alb_skip")]
                 + [(k, ctypes.c_float) for k in ("light_x", "light_y",
                                                  "light_z", "lrad", "sint")])
+
+
+class ShadeArgs(ctypes.Structure):
+    """Mirror of csrc/shade.cu:ShadeArgs."""
+    _fields_ = ([(k, ctypes.c_void_p) for k in ("inp", "out")]
+                + [("n", ctypes.c_int)]
+                + [(k, ctypes.c_uint) for k in ("fd", "lane0")]
+                + [("p", ShadeParams)])
+
+
+def shade_params(mat_attr, *, light_pos, lrad, sint, alb_skip, shadow_ray,
+                 reduce_var) -> ShadeParams:
+    """The shading parameters of kernels E and H."""
+    return ShadeParams(
+        mats=_lib.ptr(mat_attr), shadow_ray=int(shadow_ray),
+        reduce_var=int(reduce_var), alb_skip=int(alb_skip),
+        light_x=light_pos[0], light_y=light_pos[1], light_z=light_pos[2],
+        lrad=lrad, sint=sint)
 
 
 def _mask(b: torch.Tensor) -> torch.Tensor:
@@ -99,13 +115,12 @@ def _shade_bounce_kernel(planes, mat_attr, *, fd, lane0, light_pos, lrad,
                       "mat_attr")
     out = torch.empty((N_OUT,) + shape, dtype=torch.float32,
                       device=planes.device)
-    p = _lib.ptr
     args = ShadeArgs(
-        inp=p(planes), out=p(out), mats=p(mat_attr), n=out[0].numel(),
+        inp=_lib.ptr(planes), out=_lib.ptr(out), n=out[0].numel(),
         fd=fd & 0xFFFFFFFF, lane0=lane0 & 0xFFFFFFFF,
-        shadow_ray=int(shadow_ray), reduce_var=int(reduce_var),
-        alb_skip=int(alb_skip), light_x=light_pos[0], light_y=light_pos[1],
-        light_z=light_pos[2], lrad=lrad, sint=sint)
+        p=shade_params(mat_attr, light_pos=light_pos, lrad=lrad, sint=sint,
+                       alb_skip=alb_skip, shadow_ray=shadow_ray,
+                       reduce_var=reduce_var))
     _lib.launch("ptdn_shade_bounce", args)
     shade_bounce.launches += 1
     return out

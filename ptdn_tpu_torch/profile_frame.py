@@ -1,17 +1,20 @@
 """Where a frame's time goes on the card: the device's busy and idle
-share, the kernels by device time, the sorted wavefront's stages per
-bounce, and the per-frame glue's correctly rounded multiply-adds.
+share, the kernels by device time, the per-bounce engines' stages, and
+the per-frame glue's correctly rounded multiply-adds.
 
     python3 -m ptdn_tpu_torch.profile_frame [scene] [--frames N]
-        [--whole-path] [--fma-sites]
+        [--engine sorted|whole_path|bounce_fused|bounce_split]
+        [--fma-sites]
 
 Renders `scene` (default diamond) at its own resolution with the
 headline settings of bench.py (1 spp, depth 8, static camera, temporal
-SVGF with 5 à-trous levels), warms up, then over N frames (default 10):
+SVGF with 5 à-trous levels) through the engine the scene takes by
+default or the one named, warms up, then over N frames (default 10):
 
-* CUDA events around each stage of the sorted wavefront's bounce (E,
-  ranges_and_key, permute_planes with G inside it, F): mean ms per
-  frame of each;
+* CUDA events around each stage of the bounce (the sorted wavefront's
+  E, ranges_and_key, permute_planes with G inside it and F; the fused
+  per-bounce engine's H, tex_index and K; the split one's E, I, J or A,
+  and K): mean ms per frame of each;
 * torch.profiler over the same number of frames: device time by kernel,
   the device's busy share of the frame's wall time, and the kernels
   launched per frame;
@@ -41,7 +44,14 @@ from ptdn_tpu_torch.utils.assets import scene_path
 from ptdn_tpu_torch.utils.config import RenderConfig
 
 STAGES = ("shade_bounce", "ranges_and_key", "permute_planes",
-          "inrow_permute", "trace_bounce")
+          "inrow_permute", "trace_bounce", "bounce_fused", "tex_index",
+          "light_visibility", "scene_intersect_full_tex",
+          "scene_intersect_full", "sparse_gather")
+# the flags that select each engine on every scene
+ENGINES = {"sorted": dict(sort_rays=True),
+           "whole_path": dict(sort_rays=False),
+           "bounce_fused": dict(fuse_path=False, sort_rays=False),
+           "bounce_split": dict(fuse_path=False, fuse_bounce=False)}
 PKG = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -169,8 +179,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("scene", nargs="?", default="diamond")
     ap.add_argument("--frames", type=int, default=10)
-    ap.add_argument("--whole-path", action="store_true",
-                    help="render with sort_rays=False (kernel B1)")
+    ap.add_argument("--engine", choices=sorted(ENGINES),
+                    help="the tracer engine (default: the scene's)")
     ap.add_argument("--fma-sites", action="store_true",
                     help="split the glue's fp.fma calls by call site")
     a = ap.parse_args()
@@ -181,14 +191,12 @@ def main():
     sc = Scene(scene_path(a.scene))
     cfg = RenderConfig(trace_depth=8, denoise_enable=True,
                        temporal_enable=True, spatial_enable=True,
-                       atrous_nlevel=5,
-                       sort_rays=False if a.whole_path else None)
+                       atrous_nlevel=5, **ENGINES.get(a.engine, {}))
     r = Renderer(sc, cfg, resolution=sc.resolution, device="cuda")
     for _ in range(5):
         r.render_frame()
-    engine = "sorted" if r.step.tracer.use_sort else "whole path"
-    tag = (f"{a.scene} {sc.resolution[0]}x{sc.resolution[1]}, {engine}, "
-           f"[{card}]")
+    tag = (f"{a.scene} {sc.resolution[0]}x{sc.resolution[1]}, "
+           f"{r.step.tracer.engine}, [{card}]")
     stages = timed_stages(r, a.frames)
     for k, ms in stages.items():
         print(f"stage {k}: {ms:.3f} ms/frame ({ms / 8:.3f} per bounce) "

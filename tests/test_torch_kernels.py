@@ -31,6 +31,7 @@ from ptdn_tpu_torch.ops.cuda import reproject as C
 from ptdn_tpu_torch.ops.cuda import scene_intersect as A
 from ptdn_tpu_torch.scene import Scene
 from ptdn_tpu_torch.utils.config import RenderConfig
+from test_torch_mesh import torch_on_one_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -40,6 +40,18 @@ FRAC_BUDGET = {"diamond_raw_d4": 0.01, "bunny_svgf_d3": 0.16,
 RMSE_BUDGET = 0.012
 
 
+@pytest.fixture(autouse=True, scope="module")
+def torch_on_one_thread():
+    """Run the plain versions' torch ops on one thread. The suite's
+    workers share the machine's cores: a torch op spread over every core
+    in each worker makes the workers wait on one another (a 5 s frame
+    test took minutes), while one thread alone is as fast as many here."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _scenes(scenes_dir, name):
     """The JAX package's scene, its DeviceScene, and the same arrays as
     the port's DeviceScene."""
@@ -335,18 +347,19 @@ def test_sorted_matches_whole_path(scenes_dir):
 def test_mesh_engine_choice(scenes_dir):
     """The JAX package's engine choice: the sort for more than four
     chunks, B1 at any chunk count with sort_rays=False, regroup 4 on at
-    most 8 chunks; the paths that are not ported raise."""
+    most 8 chunks; the options that are not ported raise (the per-bounce
+    engines render: tests/test_torch_bounce.py)."""
     bunny = Scene(str(scenes_dir / "bunny.txt"))
     diamond = Scene(str(scenes_dir / "diamond.txt"))
 
     def tracer(scene, **kw):
         return Renderer(scene, RenderConfig(**kw), (16, 16),
                         device="cpu").step.tracer
-    assert tracer(bunny).use_sort and tracer(bunny).regroup == 0
-    assert tracer(diamond).use_sort and tracer(diamond).regroup == 4
-    assert not tracer(bunny, sort_rays=False).use_sort
-    for kw in (dict(sort_rays=False, fuse_path=False),
-               dict(sort_group=2), dict(sort_every=2), dict(compat=False)):
+    assert tracer(bunny).engine == "sorted" and tracer(bunny).regroup == 0
+    assert tracer(diamond).engine == "sorted"
+    assert tracer(diamond).regroup == 4
+    assert tracer(bunny, sort_rays=False).engine == "whole_path"
+    for kw in (dict(sort_group=2), dict(sort_every=2), dict(compat=False)):
         with pytest.raises(NotImplementedError):
             tracer(bunny, **kw)
 

@@ -15,6 +15,7 @@ from ptdn_tpu.utils.config import RenderConfig as JConfig
 from ptdn_tpu_torch.engine import Renderer
 from ptdn_tpu_torch.scene import Scene
 from ptdn_tpu_torch.utils.config import RenderConfig
+from test_torch_mesh import torch_on_one_thread  # noqa: F401 (autouse)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 _SVGF = dict(denoise_enable=True, temporal_enable=True, spatial_enable=True,
