@@ -16,7 +16,20 @@ scene at its own resolution):
   D;
 * cornell and bunny through the split per-bounce engine (fuse_path=False,
   fuse_bounce=False): A, E, I, then J and K on cornell (textured) or A
-  on bunny, C, D.
+  on bunny, C, D;
+* the camera-motion runs: cornell with fuse_reproject_l1 (L on every
+  frame after the first, C's band mode then D on frame 0), cornell with
+  tests/test_golden.py's cornell_svgf_anim_slow camera speeds with the
+  flag off and on (C's band mode on every frame), and bench.py's
+  room_1080p_animated (room at 1920x1080 with a moving camera, the flag
+  on: its gate keeps L off at that width);
+* the trace bench (ptdn_tpu_torch/trace_bench.py): A, M and I on 800x800
+  random rays in cornell.
+
+Every frame's reprojection branch (C's stencil mode or L where the
+motion is within a pixel, else C's band mode) is read from motion_bounds,
+which each run wraps; C's band mode runs on frame 0 of every run, whose
+previous view is the identity.
 
 Phases, one line or more each, with their wall time:
 
@@ -24,17 +37,23 @@ Phases, one line or more each, with their wall time:
 1. build every kernel from ptdn_tpu_torch/csrc (one nvcc per source, all
    at once), with each kernel's registers and spills;
 2. each kernel against its plain PyTorch version on the card, on its
-   path's shapes and a mid-sequence state: A, B1 + B2, C, D on cornell;
-   E and G on diamond (equal); F on diamond, bunny and room; H on
-   cornell and bunny; I, J (and J against A) and K on cornell and room;
-3. 32 frames per scene and engine through ptdn_tpu_torch's Renderer with
-   every launch count checked, finite outputs, and the RMSE against the
+   path's shapes and a mid-sequence state: A, B1 + B2, C, D, L (and L
+   against C then D) on cornell; C's band mode on a moving cornell
+   camera; E and G on diamond (equal); F on diamond, bunny and room; H
+   on cornell and bunny; I, J (and J against A) and K on cornell and
+   room; M on the trace bench's rays;
+3. 32 frames per scene and engine (16 of room at 1920x1080) through
+   ptdn_tpu_torch's Renderer with every launch count checked, finite
+   outputs, and, where the camera is still, the RMSE against the
    converged ground truth (benchmarks/gt): denoised below half the raw
-   1-spp RMSE on cornell and diamond, below the raw one elsewhere;
+   1-spp RMSE on cornell and diamond, below the raw one elsewhere; the
+   trace bench's three launches;
 4. CUDA-event times: each kernel beside its plain version (G beside
    torch.gather, K beside torch.take) and its bound; ms/frame of cornell
-   and bunny through each of their engines, and of diamond through the
-   sort and through B1 (sort_rays=False), in turns.
+   (still, with fuse_reproject_l1, and moving with the flag off and on)
+   and bunny through each of their engines, of diamond through the sort
+   and through B1 (sort_rays=False), and of room at 1920x1080 moving, in
+   turns; the trace bench's kernel times.
 
 The line before the last is a JSON object with every kernel's numbers;
 the last is {"ok": true, "device": {...}}. Any failed check raises, so
@@ -59,7 +78,9 @@ sys.path.insert(0, ROOT)
 
 import torch  # noqa: E402
 
-from ptdn_tpu_torch.denoise.reproject import motion_bounds  # noqa: E402
+from ptdn_tpu_torch import trace_bench  # noqa: E402
+from ptdn_tpu_torch.app.automate import CameraAutomation  # noqa: E402
+from ptdn_tpu_torch.denoise import reproject, svgf  # noqa: E402
 from ptdn_tpu_torch.engine import Renderer  # noqa: E402
 from ptdn_tpu_torch.engine import wavefront as W  # noqa: E402
 from ptdn_tpu_torch.ops.camera import generate_camera_rays  # noqa: E402
@@ -70,6 +91,7 @@ from ptdn_tpu_torch.ops.cuda import compact as K  # noqa: E402
 from ptdn_tpu_torch.ops.cuda import inrow as G  # noqa: E402
 from ptdn_tpu_torch.ops.cuda import path as B  # noqa: E402
 from ptdn_tpu_torch.ops.cuda import reproject as C  # noqa: E402
+from ptdn_tpu_torch.ops.cuda import reproject_atrous as L  # noqa: E402
 from ptdn_tpu_torch.ops.cuda import scene_intersect as A  # noqa: E402
 from ptdn_tpu_torch.ops.cuda import shade as E  # noqa: E402
 from ptdn_tpu_torch.scene import Scene  # noqa: E402
@@ -98,6 +120,24 @@ SPLIT = dict(fuse_path=False, fuse_bounce=False)
 RUNS = ([(name, {}) for name in SCENES]
         + [(name, FUSED) for name in ("cornell", "room", "bunny")]
         + [(name, SPLIT) for name in ("cornell", "bunny")])
+# the camera-motion runs of phase 3: label -> (scene, flags, frames,
+# resolution or None for the scene's own). ANIM_SLOW is
+# tests/test_golden.py's cornell_svgf_anim_slow camera, ROOM_1080 bench.py's
+# room_1080p_animated one (there with the flag off; on here, where its
+# gate keeps L off all the same)
+FUSE_L1 = dict(fuse_reproject_l1=True)
+ANIM_SLOW = dict(automate_camera=True, camera_speed_theta=0.4,
+                 camera_speed_phi=0.08)
+ROOM_1080 = dict(automate_camera=True, camera_speed_x=0.02,
+                 camera_speed_theta=0.01, camera_speed_phi=0.015)
+MOTION_RUNS = {
+    "fuse_l1": ("cornell", FUSE_L1, FRAMES, None),
+    "anim_slow": ("cornell", ANIM_SLOW, FRAMES, None),
+    "anim_slow_fuse_l1": ("cornell", dict(ANIM_SLOW, **FUSE_L1), FRAMES,
+                          None),
+    "1080p_animated": ("room", dict(ROOM_1080, **FUSE_L1), 16,
+                            (1920, 1080)),
+}
 KERNELS = {  # name: (wrapper, source, TPU kernel it replaces)
     "scene_intersect_full": (A.scene_intersect_full, "csrc/scene_intersect.cu",
                              "ptdn_tpu/ops/pallas/scene_intersect.py:1478"),
@@ -108,6 +148,13 @@ KERNELS = {  # name: (wrapper, source, TPU kernel it replaces)
     "back_projection_stencil": (C.back_projection_stencil,
                                 "csrc/reproject.cu",
                                 "ptdn_tpu/ops/pallas/reproject.py:194"),
+    # C's band mode: the far branch, XLA code in the JAX package
+    "back_projection_banded": (C.back_projection_banded,
+                               "csrc/reproject.cu",
+                               "ptdn_tpu/denoise/reproject.py:406"),
+    "back_projection_atrous1": (
+        L.back_projection_atrous1, "csrc/reproject_atrous.cu",
+        "ptdn_tpu/ops/pallas/reproject_atrous.py:298"),
     "atrous_level": (D.atrous_level, "csrc/atrous.cu",
                      "ptdn_tpu/ops/pallas/atrous.py:275"),
     "shade_bounce": (E.shade_bounce, "csrc/shade.cu",
@@ -129,12 +176,16 @@ KERNELS = {  # name: (wrapper, source, TPU kernel it replaces)
     "sparse_gather": (K.sparse_gather, "csrc/compact.cu",
                       "ptdn_tpu/ops/pallas/compact.py:181, "
                       "ptdn_tpu/ops/pallas/compact.py:207"),
+    "scene_intersect": (A.scene_intersect, "csrc/scene_intersect.cu",
+                        "ptdn_tpu/ops/pallas/scene_intersect.py:1526"),
 }
 # the run whose launch counts the kernels' JSON line reports
 LAUNCH_RUN = {"scene_intersect_full": ("cornell", "whole_path"),
               "path_trace": ("cornell", "whole_path"),
               "deferred_radiance": ("cornell", "whole_path"),
               "back_projection_stencil": ("cornell", "whole_path"),
+              "back_projection_banded": ("cornell", "anim_slow"),
+              "back_projection_atrous1": ("cornell", "fuse_l1"),
               "atrous_level": ("cornell", "whole_path"),
               "shade_bounce": ("diamond", "sorted"),
               "trace_bounce": ("diamond", "sorted"),
@@ -142,7 +193,8 @@ LAUNCH_RUN = {"scene_intersect_full": ("cornell", "whole_path"),
               "bounce_fused": ("cornell", "bounce_fused"),
               "light_visibility": ("cornell", "bounce_split"),
               "scene_intersect_full_tex": ("cornell", "bounce_split"),
-              "sparse_gather": ("cornell", "bounce_fused")}
+              "sparse_gather": ("cornell", "bounce_fused"),
+              "scene_intersect": ("cornell", "trace_bench")}
 # the one PyTorch call timed beside a kernel, where one computes its gather
 LIBRARY = {"inrow_permute": "torch.gather", "sparse_gather": "torch.take"}
 # the card's peaks (NVIDIA H100 SXM data sheet): HBM bytes/s, float32
@@ -184,15 +236,25 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2,
     return start.elapsed_time(end) / reps
 
 
+def kernel_name(mangled: str) -> str:
+    """The kernel's own name in an Itanium-mangled entry name: the
+    length-prefixed identifier that ends in _kernel."""
+    for m in re.finditer(r"(?=([0-9]+))", mangled):   # every digit suffix
+        end = m.start() + len(m.group(1))
+        name = mangled[end:end + int(m.group(1))]
+        if re.fullmatch(r"[a-z][a-z0-9_]*_kernel", name):
+            return name
+    return mangled
+
+
 def ptxas_summary(log: str):
     """'<kernel> N registers, S B spilled' per entry function of nvcc's
     -Xptxas -v report."""
     out, name, spill = [], "?", "?"
     for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '\w*?\d([a-z][a-z_]*_kernel)",
-                      ln)
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
-            name = m.group(1)
+            name = kernel_name(m.group(1))
         m = re.search(r"(\d+) bytes spill stores", ln)
         if m:
             spill = m.group(1)
@@ -212,6 +274,13 @@ def max_abs(a, b) -> float:
 def same(a, b) -> bool:
     """Equal lane for lane, NaN where NaN."""
     return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def floats_close(a, b) -> bool:
+    """Each float tensor of a within 1e-6 (absolute and relative) of b's,
+    D's agreement with its plain version."""
+    return all(torch.allclose(x, y, rtol=1e-6, atol=1e-6)
+               for x, y in zip(a, b))
 
 
 def nbytes(*tensors) -> int:
@@ -235,10 +304,47 @@ def scene(name):
     return Scene(scene_path(name))
 
 
-def renderer(name, **kw):
-    res, _ = SCENES[name]
+def renderer(name, res=None, **kw):
     return Renderer(scene(name), dataclasses.replace(CFG, **kw),
-                    resolution=res, device=DEVICE)
+                    resolution=res or SCENES[name][0], device=DEVICE)
+
+
+class Motion:
+    """Drives a renderer's frames, moving its camera by CameraAutomation
+    where its config says so, and records each frame's reprojection
+    branch as motion_bounds decides it (read after the run: the wrap adds
+    no host read)."""
+
+    def __init__(self, r):
+        self.r, self.auto = r, CameraAutomation(r.cfg)
+        self.calls, self.moved = [], []
+
+    def frame(self):
+        moved = self.auto.step(self.r.camera)
+        if moved:
+            self.r.cam_changed = True
+        self.moved.append(moved or self.r.cam_changed)
+        real = svgf.motion_bounds
+
+        def spy(*args):
+            out = real(*args)
+            self.calls.append((len(self.moved) - 1, out))
+            return out
+        svgf.motion_bounds = spy
+        try:
+            return self.r.render_frame()
+        finally:
+            svgf.motion_bounds = real
+
+    def near_frames(self):
+        """Per frame, whether it took the near branch (the last decision
+        made up to it)."""
+        decided = {k: bool(b[0]) for k, b in self.calls}
+        near, out = None, []
+        for k in range(len(self.moved)):
+            near = decided.get(k, near)
+            out.append(near)
+        return out
 
 
 def reset_counts():
@@ -278,14 +384,23 @@ def capture_bounce(r, depth: int,
     return got
 
 
-def expected_launches(tr):
-    """The launches of every kernel over FRAMES frames of tracer tr's
-    engine with a static camera, but C's (one per frame after the
-    first, or more if the kernel-C choice changes)."""
+def expected_launches(r, motion):
+    """The launches of every kernel over the frames that `motion` (a
+    Motion) drove renderer r through: the primary hit on every frame
+    whose camera moved (frame 0 among them), the engine's bounces, C's
+    stencil mode (or L, with fuse_reproject_l1 through its gate) on the
+    near frames and C's band mode on the others, and D at every level
+    but the first that L takes."""
+    tr, frames = r.step.tracer, len(motion.moved)
+    near = sum(motion.near_frames())
+    fused = r.step.denoiser.fuse_l1
     want = dict.fromkeys(KERNELS, 0)
-    want["scene_intersect_full"] = 1            # frame 0's primary hit
-    want["atrous_level"] = FRAMES * NLEVEL
-    bounces, below_last = FRAMES * DEPTH, FRAMES * (DEPTH - 1)
+    want["scene_intersect_full"] = sum(motion.moved)
+    want["back_projection_banded"] = frames - near
+    want["back_projection_atrous1" if fused
+         else "back_projection_stencil"] = near
+    want["atrous_level"] = frames * NLEVEL - (near if fused else 0)
+    bounces, below_last = frames * DEPTH, frames * (DEPTH - 1)
     tex = tr.flags["show_tex"]
     if tr.engine == "whole_path":
         want["path_trace"] = want["deferred_radiance"] = FRAMES
@@ -302,7 +417,6 @@ def expected_launches(tr):
             want["sparse_gather"] = below_last
         else:
             want["scene_intersect_full"] += below_last
-    del want["back_projection_stencil"]
     return want
 
 
@@ -346,7 +460,7 @@ def main():
     log = _lib.build(force=True)
     _lib.kernels()
     regs = ptxas_summary(log)
-    check(len(regs) == 12, f"12 kernels built, got {regs}")
+    check(len(regs) == 15, f"15 kernels built, got {regs}")
     print(f"phase 1: built {len(list(_lib.CSRC.glob('*.cu')))} sources for "
           f"sm_90a in {time.perf_counter() - t0:.1f} s; ptxas: "
           + "; ".join(regs))
@@ -426,7 +540,7 @@ def main():
     cargs = (res, raw, gb, prev, st["prev_view"], st["color_history"],
              st["moment_history"], st["history_length"],
              float(CFG.color_alpha), float(CFG.moment_alpha))
-    check(bool(motion_bounds(res, gb, st["prev_view"])),
+    check(bool(reproject.motion_bounds(res, gb, st["prev_view"])[0]),
           "C: a static camera is in the stencil domain")
     kcr = C._back_projection_stencil_kernel(*cargs)
     pcr = C.back_projection_stencil_plain(*cargs)
@@ -457,6 +571,87 @@ def main():
         nbytes(pcr[1], pcr[0], gb["position"], gb["normal"], *kd),
         n * 25 * 40)
     print(f"phase 2: D levels 1-{NLEVEL} max |d| {dmax:.3g}")
+
+    # L on the same state: against its plain version, and against C's
+    # then D's kernels (the same code, so equal bit for bit)
+    largs = cargs + (*sig, CFG.blur_variance)
+    kl = L._back_projection_atrous1_kernel(*largs)
+    pl_ = L.back_projection_atrous1_plain(*largs)
+    kd1 = D._atrous_level_kernel(kcr[1], kcr[0], gb["position"],
+                                 gb["normal"], None, 1, *sig,
+                                 CFG.blur_variance)
+    stats["back_projection_atrous1"] = max(max_abs(a, b)
+                                           for a, b in zip(kl, pl_))
+    check(floats_close(kl[:3], pl_[:3]) and torch.equal(kl[3], pl_[3]),
+          f"L against its plain version: max |d| "
+          f"{stats['back_projection_atrous1']}")
+    check(all(same(a, b) for a, b in zip(kl, kd1 + kcr[2:])),
+          "L equals C's then D's kernels")
+    work["back_projection_atrous1"] = bound(
+        nbytes(raw, gb["position"], gb["normal"], gb["geom_id"],
+               prev["normal"], prev["geom_id"], st["color_history"],
+               st["moment_history"], st["history_length"], *kl),
+        n * (200 + 25 * 40))
+    print(f"phase 2: L max |d| {stats['back_projection_atrous1']:.3g}, "
+          f"equal to C then D (kernels) on every pixel")
+
+    # C's band mode on a moving camera: the last of the first four frames
+    # of cornell_svgf_anim_slow's camera that takes it, its arguments
+    # captured from the frame
+    mov = Motion(renderer("cornell", **ANIM_SLOW))
+    real_banded, got = reproject.back_projection_banded, []
+    reproject.back_projection_banded = (
+        lambda *a, starts: got.append(a + (starts, reproject.BAND_ROWS,
+                                           reproject.BAND_MARGIN))
+        or real_banded(*a, starts=starts))
+    try:
+        for _ in range(4):
+            mov.frame()
+    finally:
+        reproject.back_projection_banded = real_banded
+    check(len(got) > 1, "C's band mode runs on a moving camera's frames")
+    bargs_c = got[-1]
+    kb = C._back_projection_banded_kernel(*bargs_c)
+    pb = C.back_projection_banded_plain(*bargs_c)
+    stats["back_projection_banded"] = max(max_abs(a, b)
+                                          for a, b in zip(kb, pb))
+    rejected = int((kb[3] == 1).sum())
+    check(floats_close(kb[:3], pb[:3]) and torch.equal(kb[3], pb[3]),
+          f"C's band mode against its plain version: max |d| "
+          f"{stats['back_projection_banded']}")
+    cur_gb, prev_gb = bargs_c[2], bargs_c[3]
+    work["back_projection_banded"] = bound(
+        nbytes(bargs_c[1], cur_gb["position"], cur_gb["normal"],
+               cur_gb["geom_id"], prev_gb["normal"], prev_gb["geom_id"],
+               *bargs_c[5:8], bargs_c[10], *kb), n * 200)
+    print(f"phase 2: C band mode on a moving camera max |d| "
+          f"{stats['back_projection_banded']:.3g}, histories equal; "
+          f"{rejected} pixels restart their history")
+
+    # M on the trace bench's rays, with and without the chunk cull
+    tb_args = trace_bench.setup(DEVICE)
+    for cull in (True, False):
+        km = A._scene_intersect_kernel(*tb_args, cull)
+        A.mesh_best.tri_tests = 0
+        pm = A.scene_intersect_plain(*tb_args, cull)
+        m_tests = A.mesh_best.tri_tests
+        m_err = max(max_abs(km[k], pm[k]) for k in ("t_a", "normal_a",
+                                                    "t_m"))
+        check(torch.equal(km["geom_a"], pm["geom_a"])
+              and torch.equal(km["tri_m"], pm["tri_m"])
+              and all(torch.allclose(km[k], pm[k], rtol=1e-5, atol=1e-5)
+                      for k in ("t_a", "normal_a", "t_m")),
+              f"M (cull {cull}) against its plain version: max |d| {m_err}")
+        if cull:
+            stats["scene_intersect"] = m_err
+            work["scene_intersect"] = bound(
+                nbytes(*tb_args[2:], *km.values()),
+                tb_args[2].shape[0] * n_analytic(tb_args[1]) * ANALYTIC_OPS
+                + m_tests * MOLLER_OPS)
+        print(f"phase 2: M on {tb_args[2].shape[0]} trace-bench rays, cull "
+              f"{cull}: indices equal, max |d| {m_err:.3g}, {m_tests} "
+              f"lane-triangle tests in the plain scan, "
+              f"{int((km['tri_m'] >= 0).sum())} mesh hits")
 
     # the sorted wavefront, mid-sequence: bounce 2 of frame 4
     mesh = {}
@@ -606,58 +801,117 @@ def main():
 
     # ---- phase 3: the main paths, every launch counted ----
     t0 = time.perf_counter()
-    rmse, runs = {}, {}
-    for name, flags in RUNS:
-        r = renderer(name, **flags)
+    rmse, runs, motion = {}, {}, {}
+    plan = ([(f"{name} {{engine}}", name, flags, FRAMES, None)
+             for name, flags in RUNS]
+            + [(f"{name} {label}", name, flags, frames, res)
+               for label, (name, flags, frames, res) in MOTION_RUNS.items()])
+    for label, name, flags, frames, res in plan:
+        r = renderer(name, res, **flags)
         tr = r.step.tracer
-        label = f"{name} {tr.engine}"
+        label = label.format(engine=tr.engine)
+        mov = Motion(r)
         reset_counts()
-        for _ in range(FRAMES):
-            left, right = r.render_frame()
+        for _ in range(frames):
+            left, right = mov.frame()
         torch.cuda.synchronize()
         c = counts()
-        runs[name, tr.engine] = c
-        want = expected_launches(tr)
+        runs[tuple(label.split(" ", 1))] = c
+        want = expected_launches(r, mov)
         check({k: c[k] for k in want} == want,
               f"{label}: launches {c}, expected {want}")
-        check(c["back_projection_stencil"] >= FRAMES - 1,
-              f"{label}: C on every frame after the first")
+        near = mov.near_frames()
+        # frame 0 (previous view: the identity) is far; a still camera's
+        # frames after it near; a moving camera reads motion_bounds once
+        # on every frame
+        if not r.cfg.automate_camera:
+            check(near == [False] + [True] * (frames - 1)
+                  and len(mov.calls) == 2,
+                  f"{label}: far on frame 0 only, motion_bounds read on "
+                  f"frames 0 and 1: {near}, {len(mov.calls)} reads")
+        else:
+            check(all(mov.moved) and len(mov.calls) == frames,
+                  f"{label}: motion_bounds read once per moved frame")
         check(bool(torch.isfinite(left).all())
               and bool(torch.isfinite(right).all()), f"{label}: finite")
-        e_dn, e_raw = rmse_vs_gt(name, left, right)
-        rmse[label] = {"denoised": e_dn, "raw": e_raw}
-        limit = 0.5 if name in ("cornell", "diamond") else 1.0
-        check(e_dn < limit * e_raw,
-              f"{label}: denoised RMSE {e_dn} < {limit} x raw {e_raw}")
-        print(f"phase 3: {label} {r.resolution[0]}x{r.resolution[1]}: "
-              f"{FRAMES} frames, launches {json.dumps(c)}; RMSE vs GT "
-              f"denoised {e_dn:.5f} raw {e_raw:.5f}")
-        if (name, tr.engine) == ("cornell", "whole_path"):
+        line = (f"phase 3: {label} {r.resolution[0]}x{r.resolution[1]}: "
+                f"{frames} frames ({frames - sum(near)} far), launches "
+                f"{json.dumps(c)}")
+        if r.cfg.automate_camera:
+            motion[label] = r
+        else:
+            e_dn, e_raw = rmse_vs_gt(name, left, right)
+            rmse[label] = {"denoised": e_dn, "raw": e_raw}
+            limit = 0.5 if name in ("cornell", "diamond") else 1.0
+            check(e_dn < limit * e_raw,
+                  f"{label}: denoised RMSE {e_dn} < {limit} x raw {e_raw}")
+            line += f"; RMSE vs GT denoised {e_dn:.5f} raw {e_raw:.5f}"
+        print(line)
+        if label == "cornell whole_path":
             cornell_r = r
+    # the motion checks the task sets: L on every frame of the flagged
+    # still cornell after the first, C's band mode on every frame of the
+    # moving cornell, and the gate keeping L off at 1920 wide
+    check(runs["cornell", "fuse_l1"]["back_projection_atrous1"] == FRAMES - 1
+          and runs["cornell", "fuse_l1"]["back_projection_stencil"] == 0,
+          "cornell fuse_l1: L on every frame after the first, C never")
+    for label in ("anim_slow", "anim_slow_fuse_l1"):
+        check(runs["cornell", label]["back_projection_banded"] == FRAMES,
+              f"cornell {label}: C's band mode on every moved frame")
+    room_r = motion["room 1080p_animated"]
+    check(not room_r.step.denoiser.fuse_l1
+          and runs["room", "1080p_animated"]["back_projection_atrous1"] == 0,
+          "room 1920x1080: the gate keeps L off")
+    # the trace bench: A, M and I once each on its rays
+    reset_counts()
+    for fn in trace_bench.calls(*tb_args).values():
+        fn()
+    torch.cuda.synchronize()
+    runs["cornell", "trace_bench"] = c = counts()
+    check(c["scene_intersect_full"] == c["scene_intersect"]
+          == c["light_visibility"] == 1 and sum(c.values()) == 3,
+          f"trace bench: launches {c}")
+    print(f"phase 3: trace bench on {tb_args[2].shape[0]} rays: launches "
+          f"{json.dumps(c)}")
     launches = {k: runs[LAUNCH_RUN[k]][k] for k in KERNELS}
     print(f"phase 3: {time.perf_counter() - t0:.1f} s")
 
     # ---- phase 4: times ----
     t0 = time.perf_counter()
     frame_ms = {"cornell": cuda_ms(cornell_r.render_frame, reps=20)}
-    # each scene's engines in turns, there and back
-    for name, engines in (
-            ("cornell", {"B1": {}, "fused": FUSED, "split": SPLIT}),
-            ("diamond", {"sort": {}, "B1": dict(sort_rays=False)}),
-            ("bunny", {"sort": {}, "B1": dict(sort_rays=False),
-                       "fused": FUSED, "split": SPLIT})):
-        eng = {k: renderer(name, **kw) for k, kw in engines.items()}
-        for rr in eng.values():
+    # each scene's engines in turns, there and back (a moving camera's
+    # frames move it on every call)
+    for group, name, res, reps, engines in (
+            ("cornell", "cornell", None, 10,
+             {"B1": {}, "fuse_l1": FUSE_L1, "fused": FUSED,
+              "split": SPLIT}),
+            ("cornell moving", "cornell", None, 10,
+             {"B1": ANIM_SLOW, "fuse_l1": dict(ANIM_SLOW, **FUSE_L1)}),
+            ("diamond", "diamond", None, 10,
+             {"sort": {}, "B1": dict(sort_rays=False)}),
+            ("bunny", "bunny", None, 10,
+             {"sort": {}, "B1": dict(sort_rays=False), "fused": FUSED,
+              "split": SPLIT}),
+            ("room 1920x1080 moving", "room", (1920, 1080), 4,
+             {"sort": MOTION_RUNS["1080p_animated"][1]})):
+        eng = {k: Motion(renderer(name, res, **kw)).frame
+               for k, kw in engines.items()}
+        for frame in eng.values():
             for _ in range(3):
-                rr.render_frame()
+                frame()
         ms = {k: [] for k in eng}
         order = list(eng) + list(eng)[::-1]
         for k in order:
-            ms[k].append(cuda_ms(eng[k].render_frame, reps=10, warmup=1))
-        frame_ms[name + " turns"] = ms
-        print(f"phase 4: {name} ms/frame "
+            ms[k].append(cuda_ms(eng[k], reps=reps, warmup=1))
+        frame_ms[group + " turns"] = ms
+        print(f"phase 4: {group} ms/frame "
               + ", ".join(f"{k} {v}" for k, v in ms.items())
               + f" (turns {', '.join(order)}) [{card}]")
+    bench_ms = trace_bench.run()
+    frame_ms["trace bench"] = bench_ms
+    print("phase 4: trace bench (cornell, 800x800 random rays) "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in bench_ms.items())
+          + f" [{card}]")
     (f_planes_d, f_kw_d) = mesh["diamond"][1]["trace_bounce"]
     i_args, j_args, k_args = ijk_args      # cornell's
     fds, fgi, f_planes = f_planes_d
@@ -676,6 +930,12 @@ def main():
         "back_projection_stencil": (
             lambda: C._back_projection_stencil_kernel(*cargs),
             lambda: C.back_projection_stencil_plain(*cargs), None),
+        "back_projection_banded": (
+            lambda: C._back_projection_banded_kernel(*bargs_c),
+            lambda: C.back_projection_banded_plain(*bargs_c), None),
+        "back_projection_atrous1": (
+            lambda: L._back_projection_atrous1_kernel(*largs),
+            lambda: L.back_projection_atrous1_plain(*largs), None),
         "atrous_level": (
             lambda: D._atrous_level_kernel(pcr[1], pcr[0], gb["position"],
                                            gb["normal"], None, 1, *sig,
@@ -708,6 +968,9 @@ def main():
             lambda: K._sparse_gather_kernel(*k_args),
             lambda: K.sparse_gather_plain(*k_args),
             lambda: torch.take(k_args[0], take_idx)),
+        "scene_intersect": (
+            lambda: A._scene_intersect_kernel(*tb_args),
+            lambda: A.scene_intersect_plain(*tb_args), None),
     }
     check(same(times["inrow_permute"][2](), pg),
           "torch.gather computes G's function")

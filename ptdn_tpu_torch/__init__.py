@@ -14,6 +14,7 @@ layout mirrors ``ptdn_tpu``:
   engine/    path tracer, frame step, Renderer
   denoise/   SVGF: reprojection, à-trous, orchestration
   utils/     config, assets, image loading
+  app/       camera automation
 
 Every tensor lives on the device the caller names. A wrapper in
 ``ops/cuda`` runs its plain version on CPU tensors and launches its

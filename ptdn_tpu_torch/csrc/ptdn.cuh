@@ -314,14 +314,16 @@ __device__ __forceinline__ ChunkRange all_chunks(const SceneDev& s) {
 // cross before its running best is skipped. Only chunks of `cr` are
 // visited: a range that holds every chunk the ray crosses gives the
 // whole scan's answer. Returns the triangle index, -1 if none beats bt.
+// With cull false every chunk of `cr` is scanned (the same answer, more
+// work: the TPU kernels' cull switch).
 __device__ inline int mesh_best(const SceneDev& s, float ox, float oy, float oz,
                          float dx, float dy, float dz, float& bt,
-                         ChunkRange cr) {
+                         ChunkRange cr, bool cull = true) {
   const float ix = 1.0f / dx, iy = 1.0f / dy, iz = 1.0f / dz;
   int bi = -1;
   const int hi = min(cr.hi, s.n_chunks - 1);
   for (int c = max(cr.lo, 0); c <= hi; ++c) {
-    if (!chunk_crossed(s, c, ox, oy, oz, ix, iy, iz, bt)) continue;
+    if (cull && !chunk_crossed(s, c, ox, oy, oz, ix, iy, iz, bt)) continue;
     const int end = min((c + 1) * kChunk, s.n_tris);
     for (int k = c * kChunk; k < end; ++k) {
       float t;

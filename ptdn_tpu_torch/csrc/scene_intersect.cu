@@ -1,6 +1,6 @@
-// Kernels A, J and I: the fully resolved closest hit of a batch of rays,
-// the same with each ray's texel index, and the NEE visibility of a
-// batch of shadow rays.
+// Kernels A, J, I and M: the fully resolved closest hit of a batch of
+// rays, the same with each ray's texel index, the NEE visibility of a
+// batch of shadow rays, and the unmerged analytic and mesh bests.
 //
 // A replaces the TPU kernel ptdn_tpu/ops/pallas/scene_intersect.py:
 // scene_intersect_full_pallas (_kernel_full). One thread per ray runs
@@ -23,7 +23,14 @@
 // kernel's loop ends when every lane of its block is occluded; a thread
 // here returns at its own first occluder.
 //
-// All three take the full dot products of the scene matrices, as the
+// M replaces scene_intersect_pallas (_kernel): A without the refine and
+// the merge. Per ray the closest analytic hit (t, or -1 where none, geom,
+// normal) and the closest triangle whose t beats it (t, or -1, index),
+// unmerged, as the TPU kernel hands them to the engine. `cull` false
+// scans every chunk for every ray (the same answer, more work), as the
+// TPU kernel's switch does.
+//
+// All four take the full dot products of the scene matrices, as the
 // TPU per-bounce kernels do (no baked rows: that is B1's form). A ray's
 // component c lies at o[k * o_rs + c * o_cs], so the rays may be an
 // (N, 3) tensor or three planes of a plane stack.
@@ -53,6 +60,14 @@ struct IsectArgs {
   int* geom;   // (N,)
   int* mat;    // (N,)
   int* tidx;   // (N,) texel index, written by J only
+};
+
+struct BestArgs {
+  float* t_a;    // (N,) closest analytic t, -1 where none
+  int* geom_a;   // (N,) its geom, -1 where none
+  float* nrm_a;  // (N, 3) its normal, 0 where none
+  float* t_m;    // (N,) closest triangle's t where it beats t_a, else -1
+  int* tri_m;    // (N,) that triangle's index, else -1
 };
 
 }  // namespace ptdn
@@ -107,6 +122,29 @@ __global__ void light_visibility_kernel(ptdn::SceneDev s, ptdn::RayArgs r,
                : 0;
 }
 
+__global__ void scene_intersect_kernel(ptdn::SceneDev s, ptdn::RayArgs r,
+                                       ptdn::BestArgs a, int cull) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= r.n) return;
+  const float* o = r.o + (size_t)i * r.o_rs;
+  const float* d = r.d + (size_t)i * r.d_rs;
+  const float ox = o[0], oy = o[r.o_cs], oz = o[2 * r.o_cs];
+  const float dx = d[0], dy = d[r.d_cs], dz = d[2 * r.d_cs];
+  const ptdn::Analytic an =
+      ptdn::analytic_best<false>(s, ox, oy, oz, dx, dy, dz, true);
+  a.t_a[i] = an.geom >= 0 ? an.t : -1.f;
+  a.geom_a[i] = an.geom;
+  a.nrm_a[3 * i] = an.nx;
+  a.nrm_a[3 * i + 1] = an.ny;
+  a.nrm_a[3 * i + 2] = an.nz;
+  float bt = an.geom >= 0 ? an.t : ptdn::kFltMax;
+  const int bi = s.n_tris > 0 ? ptdn::mesh_best(s, ox, oy, oz, dx, dy, dz, bt,
+                                                ptdn::all_chunks(s), cull != 0)
+                              : -1;
+  a.t_m[i] = bi >= 0 ? bt : -1.f;
+  a.tri_m[i] = bi;
+}
+
 constexpr int kBlock = 128;
 
 int grid(int n) { return (n + kBlock - 1) / kBlock; }
@@ -139,5 +177,15 @@ extern "C" int ptdn_light_visibility(const ptdn::SceneDev* s,
   if (r->n > 0)
     light_visibility_kernel<<<grid(r->n), kBlock, 0, (cudaStream_t)stream>>>(
         *s, *r, light_geom, lit);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ptdn_scene_intersect(const ptdn::SceneDev* s,
+                                    const ptdn::RayArgs* r,
+                                    const ptdn::BestArgs* a, int cull,
+                                    void* stream) {
+  if (r->n > 0)
+    scene_intersect_kernel<<<grid(r->n), kBlock, 0, (cudaStream_t)stream>>>(
+        *s, *r, *a, cull);
   return (int)cudaGetLastError();
 }

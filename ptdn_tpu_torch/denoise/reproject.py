@@ -15,12 +15,17 @@ Replicates the reference kernel (reference src/denoise.cu:185-317) over
 * variance = max(0, m2 - m1^2); total rejection writes history=1,
   variance=100 (denoise.cu:311-315).
 
-`back_projection_auto` dispatches: motion of at most one pixel (every
-static-camera frame) goes to kernel C (ops/cuda/reproject.py); anything
-else, such as frame 0 whose previous view is the identity, to the plain
-`back_projection` here. That choice reads `motion_bounds`' flag on the
-host, one device-to-host sync, unless the caller passes it (the SVGF
-module keeps it while the camera is still).
+`back_projection_auto` dispatches as the JAX package's pallas backend
+does: motion of at most one pixel (every static-camera frame) goes to
+kernel C (ops/cuda/reproject.py); anything else, such as frame 0 whose
+previous view is the identity or a moving camera, to the banded
+reprojection (`back_projection_banded`, kernel C's band mode), which
+rejects a tap whose row falls outside its band's slab. The choice and
+the band starts come from `motion_bounds`, read on the host in one
+device-to-host sync, unless the caller passes them (the SVGF module keeps
+them while the camera is still). `back_projection`, the plain gather with
+clamped indices and no band rule, stays as the oracle the tests hold the
+other branches against.
 """
 
 from __future__ import annotations
@@ -147,15 +152,15 @@ def tap_valid(vals, inb, curr_geom, curr_normal):
     return inb & same & (nd <= 0.1)
 
 
-def back_projection(res, current_color, curr_gb, prev_gb, prev_viewmat,
-                    color_history, moment_history, history_length,
-                    color_alpha_min, moment_alpha_min):
-    """Back-projection for any motion, by gathers with clamped indices
-    (the JAX package's XLA oracle, denoise/reproject.py:716). Returns
-    (variance, color_acc, moment_acc, history_update)."""
+def gather_back_projection(res, current_color, curr_gb, prev_gb, base,
+                           color_history, moment_history, history_length,
+                           color_alpha_min, moment_alpha_min, in_slab=None):
+    """The 3x3 taps of `base` (_reproj_base's output) gathered with
+    clamped indices, then _accumulate_from_taps. `in_slab` (H, W) bool,
+    where given, rejects the base and every tap of the pixels where it is
+    False (the banded path's rule)."""
     w, h = res
-    fx, fy, fracx, fracy, base_valid = _reproj_base(
-        res, curr_gb["position"], prev_viewmat)
+    fx, fy, fracx, fracy, base_valid = base
     pack = prev_pack(color_history, moment_history, history_length,
                      prev_gb["normal"], prev_gb["geom_id"])
     taps = {}
@@ -163,19 +168,94 @@ def back_projection(res, current_color, curr_gb, prev_gb, prev_viewmat,
         for dx in (-1, 0, 1):
             qx, qy = fx + dx, fy + dy
             inb = (qx >= 0) & (qx < w) & (qy >= 0) & (qy < h)
+            if in_slab is not None:
+                inb = inb & in_slab
             vals = pack[qy.clamp(0, h - 1), qx.clamp(0, w - 1)]
             taps[(dy, dx)] = (vals[..., 0:6],
                               tap_valid(vals, inb, curr_gb["geom_id"],
                                         curr_gb["normal"]))
+    if in_slab is not None:
+        base_valid = base_valid & in_slab
     return _accumulate_from_taps(taps, base_valid, fracx, fracy,
                                  current_color, curr_gb["geom_id"],
                                  history_length, luminance(current_color),
                                  color_alpha_min, moment_alpha_min)
 
 
-def motion_bounds(res, curr_gb, prev_viewmat) -> torch.Tensor:
-    """0-dim bool tensor: every reprojected base of a pixel with geometry
-    lies within +-1 px of the pixel itself (the kernel-C domain)."""
+def back_projection(res, current_color, curr_gb, prev_gb, prev_viewmat,
+                    color_history, moment_history, history_length,
+                    color_alpha_min, moment_alpha_min):
+    """Back-projection for any motion, by gathers with clamped indices
+    (the JAX package's XLA oracle, denoise/reproject.py:716). Returns
+    (variance, color_acc, moment_acc, history_update)."""
+    base = _reproj_base(res, curr_gb["position"], prev_viewmat)
+    return gather_back_projection(res, current_color, curr_gb, prev_gb,
+                                  base, color_history, moment_history,
+                                  history_length, color_alpha_min,
+                                  moment_alpha_min)
+
+
+# rows per band of the banded reprojection, and the rows its slab reaches
+# beyond the band's mean vertical shift (ptdn_tpu/denoise/reproject.py:577)
+BAND_ROWS = 64
+BAND_MARGIN = 16
+
+
+def slab_rows(h: int, band_rows: int, margin: int) -> int:
+    """Rows of a band's slab in the padded grid of h + 2 rows."""
+    return min(band_rows + 2 * margin + 1, h + 2)
+
+
+def band_starts(res, fy, geom_id, band_rows: int = BAND_ROWS,
+                margin: int = BAND_MARGIN) -> torch.Tensor:
+    """Each band's slab start in the padded grid (int64 (n_bands,)):
+    start = clip(r0 + s_b - margin, 0, h + 2 - slab_h), s_b the band's
+    mean vertical displacement over pixels with geometry, rounded half up
+    (ptdn_tpu/denoise/reproject.py:466-476).
+
+    The JAX package sums the displacements in float32, exact only while
+    the band's sum stays below 2**24 in magnitude (a 64-row band at 1920
+    wide holds 122,880 pixels, so a mean vertical flow above ~136 px can
+    round there). This sums in int64, then divides in float32 as it
+    does: the two agree wherever the float32 sum is exact, and may differ
+    by a row of s_b beyond it."""
+    w, h = res
+    n_bands = -(-h // band_rows)
+    pad = n_bands * band_rows - h
+    dev = fy.device
+    iy = torch.arange(h, device=dev)[:, None]
+    valid = geom_id >= 0
+    dyv = torch.where(valid, fy - iy, 0)
+    rows = torch.nn.functional.pad(dyv, (0, 0, 0, pad))
+    vrows = torch.nn.functional.pad(valid.to(torch.int64), (0, 0, 0, pad))
+    total = rows.reshape(n_bands, -1).sum(dim=1)
+    cnt = vrows.reshape(n_bands, -1).sum(dim=1).clamp_min(1)
+    s_b = torch.floor(total.to(torch.float32) / cnt.to(torch.float32)
+                      + 0.5).to(torch.int64)
+    r0 = torch.arange(n_bands, device=dev) * band_rows
+    return (r0 + s_b - margin).clamp(0, h + 2 - slab_rows(h, band_rows,
+                                                          margin))
+
+
+def in_slab(res, fy, starts, band_rows: int = BAND_ROWS,
+            margin: int = BAND_MARGIN) -> torch.Tensor:
+    """(H, W) bool: the pixel's clipped padded base row gi = clip(fy + 1,
+    0, h + 1) lies in its band's slab [start, start + slab_h)
+    (ptdn_tpu/denoise/reproject.py:486-491)."""
+    w, h = res
+    gi = (fy + 1).clamp(0, h + 1)
+    band = torch.arange(h, device=fy.device) // band_rows
+    li = gi - starts.to(torch.int64)[band][:, None]
+    return (li >= 0) & (li < slab_rows(h, band_rows, margin))
+
+
+def motion_bounds(res, curr_gb, prev_viewmat, band_rows: int = BAND_ROWS,
+                  margin: int = BAND_MARGIN) -> torch.Tensor:
+    """int32 (1 + n_bands,): [0] is 1 where every reprojected base of a
+    pixel with geometry lies within +-1 px of the pixel itself (the
+    kernel-C domain), else 0; [1:] are the band starts of the banded
+    reprojection (band_starts), from the same reprojection. One host read
+    of it decides the branch, and the starts stay on the device."""
     w, h = res
     fx, fy, _, _, _ = _reproj_base(res, curr_gb["position"], prev_viewmat)
     dev = fx.device
@@ -184,20 +264,56 @@ def motion_bounds(res, curr_gb, prev_viewmat) -> torch.Tensor:
     valid = curr_gb["geom_id"] >= 0
     dyv = torch.where(valid, (fy - iy).abs(), 0)
     dxv = torch.where(valid, (fx - ix).abs(), 0)
-    return (dyv.max() <= 1) & (dxv.max() <= 1)
+    near = (dyv.max() <= 1) & (dxv.max() <= 1)
+    starts = band_starts(res, fy, curr_gb["geom_id"], band_rows, margin)
+    return torch.cat([near.to(torch.int64)[None], starts]).to(torch.int32)
+
+
+def back_projection_banded(res, current_color, curr_gb, prev_gb,
+                           prev_viewmat, color_history, moment_history,
+                           history_length, color_alpha_min,
+                           moment_alpha_min, band_rows: int = BAND_ROWS,
+                           margin: int = BAND_MARGIN, starts=None):
+    """Back-projection for any motion with the JAX package's band rule
+    (ptdn_tpu/denoise/reproject.py:406 back_projection_banded): per band
+    of `band_rows` rows, a slab of band_rows + 2 * margin + 1 padded rows
+    centred on the band's mean vertical shift; a pixel whose base row
+    falls outside its band's slab is rejected (history restart) instead
+    of read. The JAX function gathers from a packed slab table because a
+    TPU's gathers are count-bound; here the taps are read directly (with
+    clamped indices in the plain version), which gives the same values
+    wherever a tap is valid. `starts` are band_starts (the tail of
+    motion_bounds), computed here when not given. CPU tensors take the
+    plain version; CUDA tensors launch kernel C's band mode."""
+    from ptdn_tpu_torch.ops.cuda import reproject as kernel_c
+
+    if starts is None:
+        _, fy, _, _, _ = _reproj_base(res, curr_gb["position"],
+                                      prev_viewmat)
+        starts = band_starts(res, fy, curr_gb["geom_id"], band_rows,
+                             margin).to(torch.int32)
+    return kernel_c.back_projection_banded(
+        res, current_color, curr_gb, prev_gb, prev_viewmat, color_history,
+        moment_history, history_length, color_alpha_min, moment_alpha_min,
+        starts, band_rows, margin)
 
 
 def back_projection_auto(res, current_color, curr_gb, prev_gb, prev_viewmat,
                          color_history, moment_history, history_length,
-                         color_alpha_min, moment_alpha_min, near=None):
+                         color_alpha_min, moment_alpha_min, near=None,
+                         starts=None):
     """Kernel C (or its plain version on CPU) where the motion allows it,
-    else the gather path. `near` is motion_bounds' flag, computed here
-    (one host sync) when not given."""
+    else the banded path (back_projection_banded). `near` and `starts`
+    are motion_bounds' flag and band starts, computed here (one host
+    read) when not given."""
     from ptdn_tpu_torch.ops.cuda.reproject import back_projection_stencil
 
     if near is None:
-        near = bool(motion_bounds(res, curr_gb, prev_viewmat))
-    fn = back_projection_stencil if near else back_projection
-    return fn(res, current_color, curr_gb, prev_gb, prev_viewmat,
-              color_history, moment_history, history_length,
-              color_alpha_min, moment_alpha_min)
+        bounds = motion_bounds(res, curr_gb, prev_viewmat)
+        near, starts = bool(bounds[0]), bounds[1:]
+    args = (res, current_color, curr_gb, prev_gb, prev_viewmat,
+            color_history, moment_history, history_length, color_alpha_min,
+            moment_alpha_min)
+    if near:
+        return back_projection_stencil(*args)
+    return back_projection_banded(*args, starts=starts)

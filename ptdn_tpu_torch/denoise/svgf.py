@@ -1,12 +1,17 @@
 """SVGF: the reference's denoise() host routine (src/denoise.cu:349-402)
 as a module whose registered buffers hold the temporal history.
 
-* temporal on  -> back-projection (kernel C for a static camera), then
-  color history <- accumulated color; the choice of kernel C reads the
-  reprojected motion back to the host, which happens only when the
+* temporal on  -> back-projection (kernel C for a static camera, its band
+  mode for any other motion), then color history <- accumulated color;
+  the choice of branch reads the reprojected motion back to the host
+  (motion_bounds, with the band starts), which happens only when the
   camera moved this frame or the one before (the choice's inputs, the
   primary-hit G-buffer and the last frame's view, change with the camera
   alone);
+* with fuse_reproject_l1, where its gate allows, the back-projection and
+  the à-trous level 1 run as one kernel L for a static camera, and as
+  C's band mode then D at level 1 otherwise; level 1's output is the
+  color history;
 * temporal off -> EstimateVariance STUB writing 10.0 (denoise.cu:320-329,
   replicated) and color history <- raw input;
 * debug views (history/100, variance/0.1) bypass filtering;
@@ -25,8 +30,10 @@ import torch
 from torch import nn
 
 from ptdn_tpu_torch.denoise.reproject import (back_projection_auto,
+                                              back_projection_banded,
                                               motion_bounds)
 from ptdn_tpu_torch.ops.cuda.atrous import atrous_level
+from ptdn_tpu_torch.ops.cuda.reproject_atrous import back_projection_atrous1
 
 STATE_KEYS = ("color_history", "moment_history", "history_length",
               "prev_position", "prev_normal", "prev_geom_id", "prev_view")
@@ -60,18 +67,36 @@ class SVGFDenoiser(nn.Module):
         if not cfg.compat:
             raise NotImplementedError("native mode (compat=False) is not "
                                       "ported")
-        if cfg.fuse_reproject_l1:
-            raise NotImplementedError("the fused reprojection + level-1 "
-                                      "kernel is not ported")
         self.cfg = cfg
         self.resolution = tuple(resolution)
+        # the JAX package's gate of the fused reprojection + level 1
+        # (ptdn_tpu/denoise/svgf.py:62-79), term for term: level 1 is not
+        # the last level (no albedo inside), its output is the new color
+        # history, no debug view bypasses the filter. Its backend term is
+        # the pallas backend, whose kernels the port's are. w <= 1024 is
+        # a TPU limit there (wider compiles took the TPU worker down); it
+        # stays here so that the port takes the same path as the JAX
+        # package on the same config.
+        self.fuse_l1 = (cfg.fuse_reproject_l1 and cfg.temporal_enable
+                        and cfg.spatial_enable and cfg.atrous_nlevel >= 2
+                        and cfg.history_level == 1
+                        and cfg.right_view_option == 0
+                        and self.resolution[0] <= 1024)
         for k, v in init_denoise_state(resolution, device).items():
             self.register_buffer(k, v)
         self.forget_motion()
 
     def forget_motion(self):
-        """Drop the kept kernel-C choice (the history was replaced)."""
-        self.near, self.moved = None, True
+        """Drop the kept branch choice (the history was replaced)."""
+        self.near, self.starts, self.moved = None, None, True
+
+    def _motion(self, gbuffer, cam_changed):
+        """The near/far choice and band starts (motion_bounds), read on
+        the host only when the camera moved this frame or the last."""
+        if cam_changed or self.moved or self.near is None:
+            bounds = motion_bounds(self.resolution, gbuffer, self.prev_view)
+            self.near, self.starts = bool(bounds[0]), bounds[1:]
+        self.moved = cam_changed
 
     def forward(self, raw: torch.Tensor, gbuffer: Dict[str, torch.Tensor],
                 view_mat: torch.Tensor, params,
@@ -81,16 +106,32 @@ class SVGFDenoiser(nn.Module):
         prev_gb = {"position": self.prev_position,
                    "normal": self.prev_normal,
                    "geom_id": self.prev_geom_id}
-        if cfg.temporal_enable:
-            if cam_changed or self.moved or self.near is None:
-                self.near = bool(motion_bounds((w, h), gbuffer,
-                                               self.prev_view))
-            self.moved = cam_changed
+        sig = (params["sigma_l"], params["sigma_n"], params["sigma_x"])
+        bp_args = ((w, h), raw, gbuffer, prev_gb, self.prev_view,
+                   self.color_history, self.moment_history,
+                   self.history_length, params["color_alpha"],
+                   params["moment_alpha"])
+        first = 1       # the first à-trous level left to run
+        if self.fuse_l1:
+            # the fuse_reproject_l1 frame (ptdn_tpu/denoise/svgf.py:80-135):
+            # kernel L where the motion is near, else C's band mode then D
+            # at level 1; level 1's output is the color history
+            self._motion(gbuffer, cam_changed)
+            if self.near:
+                color_history, variance, moment_acc, hist_up = (
+                    back_projection_atrous1(*bp_args, *sig,
+                                            cfg.blur_variance))
+            else:
+                var0, acc, moment_acc, hist_up = back_projection_banded(
+                    *bp_args, starts=self.starts)
+                color_history, variance = atrous_level(
+                    acc, var0, gbuffer["position"], gbuffer["normal"], None,
+                    1, *sig, cfg.blur_variance)
+            first = 2
+        elif cfg.temporal_enable:
+            self._motion(gbuffer, cam_changed)
             variance, color_acc, moment_acc, hist_up = back_projection_auto(
-                (w, h), raw, gbuffer, prev_gb, self.prev_view,
-                self.color_history, self.moment_history,
-                self.history_length, params["color_alpha"],
-                params["moment_alpha"], near=self.near)
+                *bp_args, near=self.near, starts=self.starts)
             color_history = color_acc
         else:
             color_history = raw
@@ -111,12 +152,12 @@ class SVGFDenoiser(nn.Module):
             if cfg.sep_color and cfg.add_color:
                 albedo = (gbuffer["albedo"] * gbuffer["ialbedo"]).contiguous()
             src, var = color_history, variance
-            for level in range(1, cfg.atrous_nlevel + 1):
+            for level in range(first, cfg.atrous_nlevel + 1):
                 last = level == cfg.atrous_nlevel
                 src, var = atrous_level(
                     src, var, gbuffer["position"], gbuffer["normal"],
-                    albedo if last else None, level, params["sigma_l"],
-                    params["sigma_n"], params["sigma_x"], cfg.blur_variance)
+                    albedo if last else None, level, *sig,
+                    cfg.blur_variance)
                 if level == cfg.history_level:
                     color_history = src
             output = src

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from ptdn_tpu_torch.engine.step import make_frame_step
@@ -33,12 +34,26 @@ class Renderer:
         self.cfg = cfg or RenderConfig()
         self.resolution = tuple(resolution or scene.resolution)
         self.camera = OrbitCamera(scene.camera, resolution=self.resolution)
-        self.step = make_frame_step(scene, self.cfg, self.resolution,
-                                    self.device)
-        self._params = self.cfg.traced_params()
         self._cam = None
         self.cam_changed = True
+        self._build()
         self.reset_state()
+
+    def _build(self):
+        self.step = make_frame_step(self.scene, self.cfg, self.resolution,
+                                    self.device)
+        self._params = self.cfg.traced_params()
+
+    def set_config(self, cfg: RenderConfig):
+        """Swap the config. A structural change (static_key) rebuilds the
+        frame step and resets the state; a continuous one only changes
+        the step's parameters."""
+        rebuild = cfg.static_key() != self.cfg.static_key()
+        self.cfg = cfg
+        self._params = cfg.traced_params()
+        if rebuild:
+            self._build()
+            self.reset_state()
 
     def reset_state(self):
         """pathtraceFree/Init + denoiseFree/Init (main.cpp:194-201)."""
@@ -74,3 +89,23 @@ class Renderer:
         for _ in range(n_frames):
             left, right = self.render_frame()
         return left.cpu().numpy(), right.cpu().numpy()
+
+    # -- interactive-style camera controls (main.cpp:231-304 semantics) --
+    def orbit(self, dphi: float = 0.0, dtheta: float = 0.0):
+        self.camera.phi += dphi
+        self.camera.theta = float(np.clip(self.camera.theta + dtheta,
+                                          0.001, np.pi))
+        self.cam_changed = True
+
+    def dolly(self, dzoom: float):
+        self.camera.zoom = max(0.1, self.camera.zoom + dzoom)
+        self.cam_changed = True
+
+    def pan(self, delta):
+        self.camera.look_at = self.camera.look_at + np.asarray(
+            delta, np.float32)
+        self.cam_changed = True
+
+    def reset_camera(self):
+        self.camera.reset()
+        self.cam_changed = True

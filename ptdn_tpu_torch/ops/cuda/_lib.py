@@ -105,7 +105,10 @@ def load(path) -> ctypes.CDLL:
         "ptdn_bounce_fused": [vp, vp, vp],
         "ptdn_path_trace": [vp, vp, vp],
         "ptdn_deferred_radiance": [vp, vp, vp, i32, i32, vp, vp],
+        "ptdn_scene_intersect": [vp, vp, vp, i32, vp],
         "ptdn_back_projection_stencil": [vp, vp],
+        "ptdn_back_projection_banded": [vp, vp],
+        "ptdn_back_projection_atrous1": [vp, vp],
         "ptdn_atrous_level": [vp, vp],
         "ptdn_shade_bounce": [vp, vp],
         "ptdn_trace_bounce": [vp, vp, vp],

@@ -1,13 +1,16 @@
-"""Kernel C: SVGF back-projection for motion of at most one pixel
-(csrc/reproject.cu), with its plain PyTorch version.
+"""Kernel C: SVGF back-projection (csrc/reproject.cu) in its two modes,
+each with its plain PyTorch version.
 
-Replaces the TPU kernel ptdn_tpu/ops/pallas/reproject.py:
+Stencil mode replaces the TPU kernel ptdn_tpu/ops/pallas/reproject.py:
 back_projection_stencil_pallas. Its caller gates it on
 denoise.reproject.motion_bounds; inside that domain every 3x3 tap lies
 within two pixels of the pixel itself, so each tap is read at the pixel
 plus the clipped base offset plus the tap offset, from previous-frame
 planes padded with zeros and geom id -1 (a tap outside the image can
-never validate). The math after the taps is _accumulate_from_taps.
+never validate). Band mode is the far branch for any motion: the taps
+are read at the true base, and the band rule of the JAX package's
+back_projection_banded rejects a pixel whose base row leaves its band's
+slab. The math after the taps is _accumulate_from_taps in both.
 """
 
 from __future__ import annotations
@@ -18,8 +21,10 @@ import torch
 import torch.nn.functional as F
 
 from ptdn_tpu_torch.denoise.reproject import (_accumulate_from_taps,
-                                              _reproj_base, luminance,
-                                              prev_pack, tap_valid)
+                                              _reproj_base,
+                                              gather_back_projection,
+                                              in_slab, luminance, prev_pack,
+                                              slab_rows, tap_valid)
 from ptdn_tpu_torch.ops.cuda import _lib
 
 
@@ -30,7 +35,9 @@ class ReprojArgs(ctypes.Structure):
         "view")]
         + [(k, ctypes.c_float) for k in ("color_alpha", "moment_alpha")]
         + [(k, ctypes.c_int) for k in ("w", "h")]
-        + [(k, ctypes.c_void_p) for k in ("var", "acc", "mom", "hist")])
+        + [(k, ctypes.c_void_p) for k in ("var", "acc", "mom", "hist",
+                                          "starts")]
+        + [(k, ctypes.c_int) for k in ("band_rows", "slab_h")])
 
 
 def back_projection_stencil_plain(res, current_color, curr_gb, prev_gb,
@@ -89,10 +96,49 @@ def back_projection_stencil(res, current_color, curr_gb, prev_gb,
         moment_history, history_length, color_alpha_min, moment_alpha_min)
 
 
-def _back_projection_stencil_kernel(res, current_color, curr_gb, prev_gb,
-                                    prev_viewmat, color_history,
-                                    moment_history, history_length,
-                                    color_alpha_min, moment_alpha_min):
+def back_projection_banded_plain(res, current_color, curr_gb, prev_gb,
+                                 prev_viewmat, color_history, moment_history,
+                                 history_length, color_alpha_min,
+                                 moment_alpha_min, starts, band_rows: int,
+                                 margin: int):
+    """Plain PyTorch version of kernel C's band mode (see
+    back_projection_banded)."""
+    base = _reproj_base(res, curr_gb["position"], prev_viewmat)
+    slab = in_slab(res, base[1], starts, band_rows, margin)
+    return gather_back_projection(res, current_color, curr_gb, prev_gb,
+                                  base, color_history, moment_history,
+                                  history_length, color_alpha_min,
+                                  moment_alpha_min, in_slab=slab)
+
+
+def back_projection_banded(res, current_color, curr_gb, prev_gb,
+                           prev_viewmat, color_history, moment_history,
+                           history_length, color_alpha_min,
+                           moment_alpha_min, starts, band_rows: int,
+                           margin: int):
+    """Back-projection for any motion under the band rule: `starts` is
+    the int32 (n_bands,) slab start of each band of `band_rows` rows
+    (denoise.reproject.band_starts), `margin` the rows a slab reaches
+    beyond its band. Tensors and returns as back_projection_stencil. CPU
+    tensors take the plain version; CUDA tensors launch kernel C's band
+    mode."""
+    _lib.require(current_color.device, "back_projection_banded")
+    args = (res, current_color, curr_gb, prev_gb, prev_viewmat,
+            color_history, moment_history, history_length, color_alpha_min,
+            moment_alpha_min)
+    if current_color.device.type == "cpu":
+        return back_projection_banded_plain(*args, starts, band_rows, margin)
+    return _back_projection_banded_kernel(*args, starts, band_rows, margin)
+
+
+def reproj_args(res, current_color, curr_gb, prev_gb, prev_viewmat,
+                color_history, moment_history, history_length,
+                color_alpha_min, moment_alpha_min, name: str, outs=True,
+                band=None):
+    """Kernel C's argument struct over checked CUDA tensors, with new
+    outputs (variance, color_acc, moment_acc, history_update), or with
+    only the moments and history when `outs` is False (kernel L). `band`
+    = (starts, band_rows, margin) selects the band mode's fields."""
     w, h = res
     f32, i32 = torch.float32, torch.int32
     ins = [(current_color, f32, (h, w, 3)), (curr_gb["position"], f32, (h, w, 3)),
@@ -100,20 +146,38 @@ def _back_projection_stencil_kernel(res, current_color, curr_gb, prev_gb,
            (color_history, f32, (h, w, 3)), (moment_history, f32, (h, w, 2)),
            (history_length, i32, (h, w)), (prev_gb["normal"], f32, (h, w, 3)),
            (prev_gb["geom_id"], i32, (h, w)), (prev_viewmat, f32, (4, 4))]
+    starts, band_rows, margin = band or (None, 1, 0)
+    if band is not None:
+        ins.append((starts, i32, (-(-h // band_rows),)))
     for k, (t, dt, shape) in enumerate(ins):
-        _lib.check_tensor(t, dt, shape, f"back_projection_stencil arg {k}")
+        _lib.check_tensor(t, dt, shape, f"{name} arg {k}")
     dev = current_color.device
-    var = torch.empty((h, w), dtype=f32, device=dev)
-    acc = torch.empty((h, w, 3), dtype=f32, device=dev)
+    var = torch.empty((h, w), dtype=f32, device=dev) if outs else None
+    acc = torch.empty((h, w, 3), dtype=f32, device=dev) if outs else None
     mom = torch.empty((h, w, 2), dtype=f32, device=dev)
     hist = torch.empty((h, w), dtype=i32, device=dev)
     p = _lib.ptr
-    args = ReprojArgs(*[p(t) for t, _, _ in ins], float(color_alpha_min),
+    args = ReprojArgs(*[p(t) for t, _, _ in ins[:10]], float(color_alpha_min),
                       float(moment_alpha_min), w, h, p(var), p(acc), p(mom),
-                      p(hist))
-    _lib.launch("ptdn_back_projection_stencil", args)
+                      p(hist), p(starts), band_rows,
+                      slab_rows(h, band_rows, margin))
+    return args, (var, acc, mom, hist)
+
+
+def _back_projection_stencil_kernel(*args):
+    c_args, out = reproj_args(*args, name="back_projection_stencil")
+    _lib.launch("ptdn_back_projection_stencil", c_args)
     back_projection_stencil.launches += 1
-    return var, acc, mom, hist
+    return out
+
+
+def _back_projection_banded_kernel(*args):
+    c_args, out = reproj_args(*args[:10], name="back_projection_banded",
+                              band=args[10:])
+    _lib.launch("ptdn_back_projection_banded", c_args)
+    back_projection_banded.launches += 1
+    return out
 
 
 back_projection_stencil.launches = 0
+back_projection_banded.launches = 0

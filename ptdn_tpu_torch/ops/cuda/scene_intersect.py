@@ -1,12 +1,14 @@
 """Kernels A (the fully resolved closest hit), J (the same with each
-ray's texel index) and I (NEE visibility) (csrc/scene_intersect.cu),
-their plain PyTorch versions, and the scene-level hit and visibility code
-the other kernels' plain versions share.
+ray's texel index), I (NEE visibility) and M (the unmerged analytic and
+mesh bests) (csrc/scene_intersect.cu), their plain PyTorch versions, and
+the scene-level hit and visibility code the other kernels' plain versions
+share.
 
 They replace the TPU kernels ptdn_tpu/ops/pallas/scene_intersect.py:
 scene_intersect_full_pallas (A), scene_intersect_full_tex_pallas (J,
 without its per-row compaction of the texel indices: kernel K reads each
-lane's texel) and light_visibility_pallas (I). The kernels run one thread
+lane's texel), light_visibility_pallas (I) and scene_intersect_pallas
+(M). The kernels run one thread
 per ray; what bounds them and what their design does about that is in
 the source note of csrc/scene_intersect.cu. All versions visit the
 analytic geoms in scene order and the triangles chunk by chunk in
@@ -143,18 +145,21 @@ def _rows(x, sel):
     return tuple(c[sel][:, None] for c in x)
 
 
-def mesh_best(ds, n_tris, o, d, bt):
+def mesh_best(ds, n_tris, o, d, bt, cull: bool = True):
     """Closest triangle beating the running best `bt`: (bt, index), index
     -1 where none does. Each chunk is tested only on the lanes that cross
     its AABB before their running best, which is the kernels' per-lane
-    cull (and keeps the plain version's work near the kernels'). The
-    lane-triangle tests made add up in mesh_best.tri_tests, the count
-    chip_smoke.py bounds the kernels' operations with."""
+    cull (and keeps the plain version's work near the kernels'); with
+    `cull` False on every lane. The lane-triangle tests made add up in
+    mesh_best.tri_tests, the count chip_smoke.py bounds the kernels'
+    operations with."""
     inv_d = tuple(1.0 / c for c in d)
     bt = bt.clone()
     bi = torch.full(bt.shape, -1, dtype=torch.int64, device=bt.device)
+    every = torch.ones(bt.shape, dtype=torch.bool, device=bt.device)
     for c, lo, v0, e1, e2 in _chunks(ds, n_tris):
-        sel = _crossed(ds, c, o, inv_d, bt).nonzero().squeeze(1)
+        crossed = _crossed(ds, c, o, inv_d, bt) if cull else every
+        sel = crossed.nonzero().squeeze(1)
         if sel.numel() == 0:
             continue
         mesh_best.tri_tests += sel.numel() * v0[0].shape[1]
@@ -270,6 +275,26 @@ def scene_intersect_full_tex_plain(ds, gi: GeomInfo, o, d):
     return isect, tidx.to(torch.int32)
 
 
+def scene_intersect_plain(ds, gi: GeomInfo, o, d,
+                          cull: bool = True) -> Dict[str, torch.Tensor]:
+    """Plain PyTorch version of kernel M; o, d: (N, 3)."""
+    ot = tuple(o[:, k] for k in range(3))
+    dt = tuple(d[:, k] for k in range(3))
+    ta, ga, an = analytic_best(ds, gi.types, ot, dt)
+    a_valid = ga >= 0
+    t_m = torch.full_like(ta, -1.0)
+    tri_m = torch.full_like(ga, -1)
+    if gi.n_tris:
+        bt, bi = mesh_best(ds, gi.n_tris, ot, dt,
+                           torch.where(a_valid, ta, FLT_MAX), cull)
+        t_m = torch.where(bi >= 0, bt, -1.0)
+        tri_m = bi
+    return {"t_a": torch.where(a_valid, ta, -1.0),
+            "geom_a": ga.to(torch.int32),
+            "normal_a": torch.stack(an, dim=-1),
+            "t_m": t_m, "tri_m": tri_m.to(torch.int32)}
+
+
 def light_visibility_plain(ds, gi: GeomInfo, o, d,
                            light_geom: int) -> torch.Tensor:
     """Plain PyTorch version of kernel I: light_visible on every ray."""
@@ -288,6 +313,12 @@ class RayArgs(ctypes.Structure):
     _fields_ = ([(k, ctypes.c_void_p) for k in ("o", "d")]
                 + [(k, ctypes.c_int) for k in ("o_rs", "o_cs", "d_rs", "d_cs",
                                                "n")])
+
+
+class BestArgs(ctypes.Structure):
+    """Mirror of csrc/scene_intersect.cu:BestArgs."""
+    _fields_ = [(k, ctypes.c_void_p) for k in ("t_a", "geom_a", "nrm_a",
+                                                 "t_m", "tri_m")]
 
 
 class IsectArgs(ctypes.Structure):
@@ -332,6 +363,20 @@ def scene_intersect_full_tex(ds, gi: GeomInfo, o: torch.Tensor,
     return _scene_intersect_full_tex_kernel(ds, gi, o, d)
 
 
+def scene_intersect(ds, gi: GeomInfo, o: torch.Tensor, d: torch.Tensor,
+                    cull: bool = True) -> Dict[str, torch.Tensor]:
+    """The unmerged closest hits of rays o, d (N, 3), as the TPU kernel
+    scene_intersect_pallas returns them: the closest analytic hit (t_a,
+    -1 where none; geom_a; normal_a, 0 where none) and the closest
+    triangle beating it (t_m, -1 where none; tri_m). `cull` False scans
+    every chunk for every ray (the same answer, more work). CPU tensors
+    take the plain version; CUDA tensors launch kernel M."""
+    _lib.require(o.device, "scene_intersect")
+    if o.device.type == "cpu":
+        return scene_intersect_plain(ds, gi, o, d, cull)
+    return _scene_intersect_kernel(ds, gi, o, d, cull)
+
+
 def light_visibility(ds, gi: GeomInfo, o: torch.Tensor, d: torch.Tensor,
                      light_geom: int) -> torch.Tensor:
     """NEE visibility of shadow rays o, d (N, 3): bool (N,), True where
@@ -374,6 +419,24 @@ def _scene_intersect_full_tex_kernel(ds, gi, o, d):
     return out
 
 
+def _scene_intersect_kernel(ds, gi, o, d, cull=True):
+    ray = _ray_args(o, d)
+    n = ray.n
+    f32 = dict(dtype=torch.float32, device=o.device)
+    i32 = dict(dtype=torch.int32, device=o.device)
+    out = {"t_a": torch.empty(n, **f32), "geom_a": torch.empty(n, **i32),
+           "normal_a": torch.empty(n, 3, **f32), "t_m": torch.empty(n, **f32),
+           "tri_m": torch.empty(n, **i32)}
+    p = _lib.ptr
+    args = BestArgs(t_a=p(out["t_a"]), geom_a=p(out["geom_a"]),
+                    nrm_a=p(out["normal_a"]), t_m=p(out["t_m"]),
+                    tri_m=p(out["tri_m"]))
+    _lib.launch("ptdn_scene_intersect", scene_dev(ds, gi, o.device), ray,
+                args, ctypes.c_int(int(cull)))
+    scene_intersect.launches += 1
+    return out
+
+
 def _light_visibility_kernel(ds, gi, o, d, light_geom):
     ray = _ray_args(o, d)
     lit = torch.empty(ray.n, dtype=torch.bool, device=o.device)
@@ -385,4 +448,5 @@ def _light_visibility_kernel(ds, gi, o, d, light_geom):
 
 scene_intersect_full.launches = 0
 scene_intersect_full_tex.launches = 0
+scene_intersect.launches = 0
 light_visibility.launches = 0

@@ -4,12 +4,15 @@ the per-frame glue's correctly rounded multiply-adds.
 
     python3 -m ptdn_tpu_torch.profile_frame [scene] [--frames N]
         [--engine sorted|whole_path|bounce_fused|bounce_split]
-        [--fma-sites]
+        [--res WxH] [--moving anim_slow|room_1080p] [--fma-sites]
 
-Renders `scene` (default diamond) at its own resolution with the
-headline settings of bench.py (1 spp, depth 8, static camera, temporal
-SVGF with 5 à-trous levels) through the engine the scene takes by
-default or the one named, warms up, then over N frames (default 10):
+Renders `scene` (default diamond) at its own resolution (or WxH) with
+the headline settings of bench.py (1 spp, depth 8, static camera,
+temporal SVGF with 5 à-trous levels) through the engine the scene takes
+by default or the one named, with `--moving` a camera that
+CameraAutomation moves every frame at the speeds of
+tests/test_golden.py's cornell_svgf_anim_slow or of bench.py's
+room_1080p_animated, warms up, then over N frames (default 10):
 
 * CUDA events around each stage of the bounce (the sorted wavefront's
   E, ranges_and_key, permute_planes with G inside it and F; the fused
@@ -36,6 +39,7 @@ import time
 
 import torch
 
+from ptdn_tpu_torch.app.automate import CameraAutomation
 from ptdn_tpu_torch.engine import Renderer
 from ptdn_tpu_torch.engine import wavefront as W
 from ptdn_tpu_torch.ops import fp
@@ -52,6 +56,10 @@ ENGINES = {"sorted": dict(sort_rays=True),
            "whole_path": dict(sort_rays=False),
            "bounce_fused": dict(fuse_path=False, sort_rays=False),
            "bounce_split": dict(fuse_path=False, fuse_bounce=False)}
+# the camera speeds of --moving
+MOVING = {"anim_slow": dict(camera_speed_theta=0.4, camera_speed_phi=0.08),
+          "room_1080p": dict(camera_speed_x=0.02, camera_speed_theta=0.01,
+                             camera_speed_phi=0.015)}
 PKG = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -181,6 +189,9 @@ def main():
     ap.add_argument("--frames", type=int, default=10)
     ap.add_argument("--engine", choices=sorted(ENGINES),
                     help="the tracer engine (default: the scene's)")
+    ap.add_argument("--res", help="WxH (default: the scene's)")
+    ap.add_argument("--moving", choices=sorted(MOVING),
+                    help="move the camera every frame at these speeds")
     ap.add_argument("--fma-sites", action="store_true",
                     help="split the glue's fp.fma calls by call site")
     a = ap.parse_args()
@@ -189,14 +200,26 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     sc = Scene(scene_path(a.scene))
+    res = (tuple(int(x) for x in a.res.split("x")) if a.res
+           else sc.resolution)
     cfg = RenderConfig(trace_depth=8, denoise_enable=True,
                        temporal_enable=True, spatial_enable=True,
-                       atrous_nlevel=5, **ENGINES.get(a.engine, {}))
-    r = Renderer(sc, cfg, resolution=sc.resolution, device="cuda")
+                       atrous_nlevel=5, automate_camera=bool(a.moving),
+                       **MOVING.get(a.moving, {}),
+                       **ENGINES.get(a.engine, {}))
+    r = Renderer(sc, cfg, resolution=res, device="cuda")
+    if a.moving:
+        auto, still_frame = CameraAutomation(cfg), r.render_frame
+
+        def moving_frame():
+            if auto.step(r.camera):
+                r.cam_changed = True
+            return still_frame()
+        r.render_frame = moving_frame
     for _ in range(5):
         r.render_frame()
-    tag = (f"{a.scene} {sc.resolution[0]}x{sc.resolution[1]}, "
-           f"{r.step.tracer.engine}, [{card}]")
+    tag = (f"{a.scene} {res[0]}x{res[1]}, {r.step.tracer.engine}"
+           f"{', moving ' + a.moving if a.moving else ''}, [{card}]")
     stages = timed_stages(r, a.frames)
     for k, ms in stages.items():
         print(f"stage {k}: {ms:.3f} ms/frame ({ms / 8:.3f} per bounce) "

@@ -78,3 +78,19 @@ class RenderConfig:
             "sigma_x": f(self.sigma_x),
             "sigma_n": f(self.sigma_n),
         }
+
+    def static_key(self):
+        """Hashable key of the structural fields, which shape the frame
+        step when it is built (the JAX package's static_key without its
+        backend field)."""
+        return (
+            self.trace_depth, self.shadow_ray, self.reduce_var, self.use_bvh,
+            self.show_texture,
+            self.denoise_enable, self.temporal_enable, self.spatial_enable,
+            self.blur_variance, self.atrous_nlevel, self.history_level,
+            self.sep_color, self.add_color, self.right_view_option,
+            self.mesh_mode, self.compat,
+            self.fuse_bounce, self.fuse_path, self.sort_rays,
+            self.sort_group, self.sort_regroup, self.sort_every,
+            self.fuse_reproject_l1,
+        )
