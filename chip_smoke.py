@@ -35,13 +35,15 @@ Phases, one line or more each, with their wall time:
 
 0. the card (name and power limit from nvidia-smi); TF32 off;
 1. build every kernel from ptdn_tpu_torch/csrc (one nvcc per source, all
-   at once), with each kernel's registers and spills;
+   at once, and kernel B1 for cornell's constants), with each kernel's
+   registers, shared memory and spills;
 2. each kernel against its plain PyTorch version on the card, on its
    path's shapes and a mid-sequence state: A, B1 + B2, C, D, L (and L
-   against C then D) on cornell; C's band mode on a moving cornell
-   camera; E and G on diamond (equal); F on diamond, bunny and room; H
-   on cornell and bunny; I, J (and J against A) and K on cornell and
-   room; M on the trace bench's rays;
+   against C then D) on cornell, B1 and D (every level, on the frame's
+   packed and unpacked layouts) equal bit for bit; C's band mode on a
+   moving cornell camera; E and G on diamond (equal); F on diamond,
+   bunny and room; H on cornell and bunny; I, J (and J against A) and K
+   on cornell and room; M on the trace bench's rays;
 3. 32 frames per scene and engine (16 of room at 1920x1080) through
    ptdn_tpu_torch's Renderer with every launch count checked, finite
    outputs, and, where the camera is still, the RMSE against the
@@ -49,7 +51,8 @@ Phases, one line or more each, with their wall time:
    1-spp RMSE on cornell and diamond, below the raw one elsewhere; the
    trace bench's three launches;
 4. CUDA-event times: each kernel beside its plain version (G beside
-   torch.gather, K beside torch.take) and its bound; ms/frame of cornell
+   torch.gather, K beside torch.take) and its bound, D at level 1 and
+   at each level of the frame; ms/frame of cornell
    (still, with fuse_reproject_l1, and moving with the flag off and on)
    and bunny through each of their engines, of diamond through the sort
    and through B1 (sort_rays=False), and of room at 1920x1080 moving, in
@@ -141,7 +144,7 @@ MOTION_RUNS = {
 KERNELS = {  # name: (wrapper, source, TPU kernel it replaces)
     "scene_intersect_full": (A.scene_intersect_full, "csrc/scene_intersect.cu",
                              "ptdn_tpu/ops/pallas/scene_intersect.py:1478"),
-    "path_trace": (B.path_trace, "csrc/path.cu",
+    "path_trace": (B.path_trace, "csrc/scene/path_trace.cu",
                    "ptdn_tpu/ops/pallas/path.py:258"),
     "deferred_radiance": (B.deferred_radiance, "csrc/path.cu",
                           "ptdn_tpu/ops/pallas/path.py:239"),
@@ -248,8 +251,8 @@ def kernel_name(mangled: str) -> str:
 
 
 def ptxas_summary(log: str):
-    """'<kernel> N registers, S B spilled' per entry function of nvcc's
-    -Xptxas -v report."""
+    """'<kernel> N registers, M B smem, S B spilled' per entry function of
+    nvcc's -Xptxas -v report."""
     out, name, spill = [], "?", "?"
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
@@ -260,7 +263,10 @@ def ptxas_summary(log: str):
             spill = m.group(1)
         m = re.search(r"Used (\d+) registers", ln)
         if m:
-            out.append(f"{name} {m.group(1)} registers, {spill} B spilled")
+            smem = re.search(r"(\d+) bytes smem", ln)
+            out.append(f"{name} {m.group(1)} registers, "
+                       f"{smem.group(1) if smem else 0} B smem, "
+                       f"{spill} B spilled")
     return out
 
 
@@ -459,10 +465,17 @@ def main():
     t0 = time.perf_counter()
     log = _lib.build(force=True)
     _lib.kernels()
-    regs = ptxas_summary(log)
+    # kernel B1 is built per scene, with the scene's baked rows as
+    # constants; here cornell's, the main path's
+    t1 = time.perf_counter()
+    _, b1_log = _lib.build_scene(
+        A.geom_info(scene("cornell"), DEVICE).path_scene, force=True)
+    t_b1 = time.perf_counter() - t1
+    regs = ptxas_summary(log + b1_log)
     check(len(regs) == 15, f"15 kernels built, got {regs}")
     print(f"phase 1: built {len(list(_lib.CSRC.glob('*.cu')))} sources for "
-          f"sm_90a in {time.perf_counter() - t0:.1f} s; ptxas: "
+          f"sm_90a and B1 for cornell (csrc/scene/path_trace.cu, "
+          f"{t_b1:.1f} s) in {time.perf_counter() - t0:.1f} s; ptxas: "
           + "; ".join(regs))
 
     # ---- phase 2: kernels against their plain versions ----
@@ -515,6 +528,8 @@ def main():
     stats["deferred_radiance"] = max_abs(
         B._deferred_radiance_kernel(ds, pc, pt, DEPTH), prad)
     check(bfrac < 0.01 and brmse < 0.012, f"B1+B2: frac {bfrac} rmse {brmse}")
+    check(same(kc, pc) and torch.equal(kt, pt),
+          f"B1 equals its plain version: max |d| {stats['path_trace']}")
     b_in = [prim[k] for k in ("o", "d", "t", "normal", "albedo", "mat_id",
                               "hit")]
     work["path_trace"] = bound(
@@ -554,31 +569,43 @@ def main():
                st["history_length"], *kcr), n * 200)
     print(f"phase 2: C max |d| {stats['back_projection_stencil']:.3g}")
 
-    src, var = pcr[1], pcr[0]
-    dmax = 0.0
+    # D at every level as the frame runs it: the packed G-buffer, level 1
+    # on C's output and feeding the color history, levels 2-4 passing
+    # their color and variance on packed, the last level with the albedo
+    # back to the SVGF layout
     sig = (float(CFG.sigma_l), float(CFG.sigma_n), float(CFG.sigma_x))
+    static = D.pack_static_planes(gb["position"], gb["normal"])
+    albedo = ((gb["albedo"] * gb["ialbedo"]).contiguous()
+              if CFG.sep_color and CFG.add_color else None)
+    d_args, src, var, dmax = [], pcr[1], pcr[0], 0.0
     for level in range(1, NLEVEL + 1):
-        dargs = (src, var, gb["position"], gb["normal"], None, level, *sig,
-                 CFG.blur_variance)
+        last = level == NLEVEL
+        dargs = (src, var, static, albedo if last else None, level, *sig,
+                 CFG.blur_variance, not (last or level == CFG.history_level))
         kd = D._atrous_level_kernel(*dargs)
         pd = D.atrous_level_plain(*dargs)
-        check(all(torch.allclose(a, b, rtol=1e-5, atol=1e-5)
-                  for a, b in zip(kd, pd)), f"D level {level}: allclose 1e-5")
+        check(same(kd[0], pd[0]) and same(kd[1], pd[1]),
+              f"D level {level} equals its plain version: max |d| "
+              f"{max_abs(kd[0], pd[0])}, {max_abs(kd[1], pd[1])}")
         dmax = max(dmax, max_abs(kd[0], pd[0]), max_abs(kd[1], pd[1]))
+        d_args.append(dargs)
         src, var = pd
     stats["atrous_level"] = dmax
+    # the work of one level, counted on the SVGF layout whatever the
+    # kernel's: color, variance, position and normal in, color and
+    # variance out, 25 taps of ~40 operations a pixel
     work["atrous_level"] = bound(
-        nbytes(pcr[1], pcr[0], gb["position"], gb["normal"], *kd),
-        n * 25 * 40)
-    print(f"phase 2: D levels 1-{NLEVEL} max |d| {dmax:.3g}")
+        nbytes(pcr[1], pcr[0], gb["position"], gb["normal"], pcr[1],
+               pcr[0]), n * 25 * 40)
+    print(f"phase 2: D levels 1-{NLEVEL} max |d| {dmax:.3g} (packed "
+          f"levels {[a[4] for a in d_args if a[-1]]})")
 
     # L on the same state: against its plain version, and against C's
     # then D's kernels (the same code, so equal bit for bit)
     largs = cargs + (*sig, CFG.blur_variance)
     kl = L._back_projection_atrous1_kernel(*largs)
     pl_ = L.back_projection_atrous1_plain(*largs)
-    kd1 = D._atrous_level_kernel(kcr[1], kcr[0], gb["position"],
-                                 gb["normal"], None, 1, *sig,
+    kd1 = D._atrous_level_kernel(kcr[1], kcr[0], static, None, 1, *sig,
                                  CFG.blur_variance)
     stats["back_projection_atrous1"] = max(max_abs(a, b)
                                            for a, b in zip(kl, pl_))
@@ -937,12 +964,8 @@ def main():
             lambda: L._back_projection_atrous1_kernel(*largs),
             lambda: L.back_projection_atrous1_plain(*largs), None),
         "atrous_level": (
-            lambda: D._atrous_level_kernel(pcr[1], pcr[0], gb["position"],
-                                           gb["normal"], None, 1, *sig,
-                                           CFG.blur_variance),
-            lambda: D.atrous_level_plain(pcr[1], pcr[0], gb["position"],
-                                         gb["normal"], None, 1, *sig,
-                                         CFG.blur_variance), None),
+            lambda: D._atrous_level_kernel(*d_args[0]),
+            lambda: D.atrous_level_plain(*d_args[0]), None),
         "shade_bounce": (
             lambda: E._shade_bounce_kernel(e_planes, e_mats, **e_kw),
             lambda: E.shade_bounce_plain(e_planes, e_mats, **e_kw), None),
@@ -998,6 +1021,13 @@ def main():
               f"bound {bound_ms:.4f} ms ({bound_by})"
               + (f", {LIBRARY[name]} {lib_ms:.4f} ms" if lib_ms else "")
               + f" [{card}]")
+    # D at each level of the frame (the line above: level 1)
+    d_ms = [cuda_ms(lambda a=a: D._atrous_level_kernel(*a), hide_host=True)
+            for a in d_args]
+    frame_ms["atrous_level by level"] = d_ms
+    print("phase 4: atrous_level by level "
+          + ", ".join(f"{a[4]} {t:.4f} ms" for a, t in zip(d_args, d_ms))
+          + f", mean {sum(d_ms) / len(d_ms):.4f} ms [{card}]")
     print(f"phase 4: cornell {frame_ms['cornell']:.3f} ms/frame over 20 "
           f"steady-state frames (depth {DEPTH}, SVGF {NLEVEL} levels) "
           f"[{card}]")

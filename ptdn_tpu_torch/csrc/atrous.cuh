@@ -7,9 +7,16 @@
 // folded into one exp (exact because the reference's min(1, exp(-x))
 // clamps are no-ops for x >= 0), variance propagated with squared
 // weights. Taps outside the image weigh zero, as the zero padding of
-// denoise/atrous.py:36-64 makes them. The level's input color and
-// variance come through `in` (in.color(qy, qx, c), in.var(qy, qx)), so D
-// reads them from device memory and L from its block's shared tile.
+// denoise/atrous.py:36-64 makes them. Every input comes through the
+// accessor `in`, for the image pixel (qy, qx) that is tap (j, i) of the
+// pixel (j = i = 0 the pixel itself):
+//   in.cv(qy, qx, j, i)   color r g b and variance, a float4;
+//   in.pos(qy, qx, j, i)  G-buffer position x y z (w unused);
+//   in.nrm(qy, qx, j, i)  G-buffer normal x y z (w unused);
+//   in.blur_var(qy, qx)   variance of a 3x3 pre-blur neighbour (step 1).
+// D serves the taps from its block's shared tile of a sub-lattice, L
+// the color and variance from its shared tile and the G-buffer from
+// device memory; the arithmetic is this function's for both.
 #pragma once
 
 #include "ptdn.cuh"
@@ -29,6 +36,14 @@ __constant__ float kG3[9] = {1.f / 16, 1.f / 8, 1.f / 16, 1.f / 8, 1.f / 4,
 
 namespace ptdn {
 
+// sqrtf(x) with zeros kept out of sqrtf: IEEE sqrtf takes a called slow
+// path for +-0 (and subnormals), and flat surfaces make many zero normal
+// distances. sqrt(+-0) = +-0, so the result is sqrtf's bit for bit.
+__device__ __forceinline__ float sqrt_dist(float x) {
+  const float r = sqrtf(x == 0.f ? 1.f : x);
+  return x == 0.f ? x : r;
+}
+
 struct AtrousSigmas {
   float l, n, x;
 };
@@ -36,12 +51,11 @@ struct AtrousSigmas {
 // Pixel (y, x) of level `level`; writes the filtered color to out[0..2]
 // and the new variance to out[3] (before any albedo remodulation).
 template <class In>
-__device__ inline void atrous_pixel(const In& in, const float* pos,
-                                    const float* nrm, int w, int h, int y,
-                                    int x, int level, bool blur_variance,
+__device__ inline void atrous_pixel(const In& in, int w, int h, int y, int x,
+                                    int level, bool blur_variance,
                                     AtrousSigmas sg, float out[4]) {
-  const int i = y * w + x;
   const int step = 1 << level;
+  const float4 c0 = in.cv(y, x, 0, 0);
 
   float var_p;
   if (blur_variance) {
@@ -49,52 +63,49 @@ __device__ inline void atrous_pixel(const In& in, const float* pos,
     for (int k = 0; k < 9; ++k) {
       const int qy = y + k / 3 - 1, qx = x + k % 3 - 1;
       if (qy < 0 || qy >= h || qx < 0 || qx >= w) continue;
-      vsum = vsum + kG3[k] * in.var(qy, qx) * 1.f;
+      vsum = vsum + kG3[k] * in.blur_var(qy, qx) * 1.f;
       wsum = wsum + kG3[k] * 1.f;
     }
     var_p = jmax(vsum / wsum, 0.f);
   } else {
-    var_p = jmax(in.var(y, x), 0.f);
+    var_p = jmax(c0.w, 0.f);
   }
   const float denom_l = 1.0f / fmaf(sqrtf(var_p), sg.l, 1e-6f);
   const float inv_sn = 1.0f / (sg.n + 1e-6f);
   const float inv_sx = 1.0f / (sg.x + 1e-6f);
 
-  const float cr = in.color(y, x, 0), cg = in.color(y, x, 1),
-              cb = in.color(y, x, 2);
-  const float lp = dot3(0.2126f, 0.7152f, 0.0722f, cr, cg, cb);
-  const float px = pos[3 * i], py = pos[3 * i + 1], pz = pos[3 * i + 2];
-  const float nx = nrm[3 * i], ny = nrm[3 * i + 1], nz = nrm[3 * i + 2];
+  const float lp = dot3(0.2126f, 0.7152f, 0.0722f, c0.x, c0.y, c0.z);
+  const float4 p0 = in.pos(y, x, 0, 0);
+  const float4 n0 = in.nrm(y, x, 0, 0);
 
   float csr = 0.f, csg = 0.f, csb = 0.f, vs = 0.f, ws = 0.f, w2s = 0.f;
+#pragma unroll
   for (int k = 0; k < 25; ++k) {
     const int j = k / 5 - 2, ii = k % 5 - 2;
     const int qy = y + j * step, qx = x + ii * step;
     if (qy < 0 || qy >= h || qx < 0 || qx >= w) continue;
-    const int q = qy * w + qx;
-    const float qr = in.color(qy, qx, 0), qg = in.color(qy, qx, 1),
-                qb = in.color(qy, qx, 2);
+    const float4 q = in.cv(qy, qx, j, ii);
     float wgt;
     if (j == 0 && ii == 0) {
       wgt = kH5[k] * 1.f;
     } else {
-      const float lq = dot3(0.2126f, 0.7152f, 0.0722f, qr, qg, qb);
-      const float dxp = px - pos[3 * q], dyp = py - pos[3 * q + 1],
-                  dzp = pz - pos[3 * q + 2];
-      const float dist_x = sqrtf(dot3(dxp, dyp, dzp, dxp, dyp, dzp));
-      const float dxn = nx - nrm[3 * q], dyn = ny - nrm[3 * q + 1],
-                  dzn = nz - nrm[3 * q + 2];
-      const float dist_n = sqrtf(dot3(dxn, dyn, dzn, dxn, dyn, dzn));
+      const float lq = dot3(0.2126f, 0.7152f, 0.0722f, q.x, q.y, q.z);
+      const float4 pq = in.pos(qy, qx, j, ii);
+      const float dxp = p0.x - pq.x, dyp = p0.y - pq.y, dzp = p0.z - pq.z;
+      const float dist_x = sqrt_dist(dot3(dxp, dyp, dzp, dxp, dyp, dzp));
+      const float4 nq = in.nrm(qy, qx, j, ii);
+      const float dxn = n0.x - nq.x, dyn = n0.y - nq.y, dzn = n0.z - nq.z;
+      const float dist_n = sqrt_dist(dot3(dxn, dyn, dzn, dxn, dyn, dzn));
       const float arg =
           fmaf(dist_x, inv_sx, fmaf(fabsf(lp - lq), denom_l, dist_n * inv_sn));
       wgt = kH5[k] * expf(-arg) * 1.f;
     }
     ws = ws + wgt;
     w2s = fmaf(wgt, wgt, w2s);
-    csr = fmaf(qr, wgt, csr);
-    csg = fmaf(qg, wgt, csg);
-    csb = fmaf(qb, wgt, csb);
-    vs = fmaf(in.var(qy, qx) * wgt, wgt, vs);
+    csr = fmaf(q.x, wgt, csr);
+    csg = fmaf(q.y, wgt, csg);
+    csb = fmaf(q.z, wgt, csb);
+    vs = fmaf(q.w * wgt, wgt, vs);
   }
 
   if (ws > 1e-5f) {  // 10e-6 (denoise.cu:159)
@@ -104,10 +115,10 @@ __device__ inline void atrous_pixel(const In& in, const float* pos,
     out[2] = csb * inv_w;
     out[3] = vs / (w2s > 0.f ? w2s : 1.f);
   } else {
-    out[0] = cr;
-    out[1] = cg;
-    out[2] = cb;
-    out[3] = in.var(y, x);
+    out[0] = c0.x;
+    out[1] = c0.y;
+    out[2] = c0.z;
+    out[3] = c0.w;
   }
 }
 

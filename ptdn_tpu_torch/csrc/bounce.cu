@@ -130,9 +130,9 @@ __global__ void trace_kernel(SceneDev s, TraceArgs a) {
   bool lit = false;
   if (a.do_vis && in[O_NEE * n] > 0.5f) {
     const ptdn::ChunkRange sr{(int)in[R_SLO * n], (int)in[R_SHI * n]};
-    lit = ptdn::light_visible<false>(s, a.light_geom, spx, spy, spz,
-                                     in[O_SDX * n], in[O_SDY * n],
-                                     in[O_SDZ * n], sr);
+    lit = ptdn::light_visible<ptdn::MatRows>(
+        s, a.light_geom, spx, spy, spz, in[O_SDX * n], in[O_SDY * n],
+        in[O_SDZ * n], sr);
   }
   out[B_RR * n] = in[O_RR * n] + (lit ? in[O_CR * n] * a.emit_r : 0.f);
   out[B_RG * n] = in[O_RG * n] + (lit ? in[O_CG * n] * a.emit_g : 0.f);
@@ -161,8 +161,8 @@ __global__ void trace_kernel(SceneDev s, TraceArgs a) {
     return;
   }
   const ptdn::ChunkRange nr{(int)in[R_NLO * n], (int)in[R_NHI * n]};
-  const ptdn::Hit h =
-      ptdn::closest_hit<false>(s, spx, spy, spz, dx, dy, dz, act > 0.5f, nr);
+  const ptdn::Hit h = ptdn::closest_hit<ptdn::MatRows>(
+      s, spx, spy, spz, dx, dy, dz, act > 0.5f, nr);
   const float act2 = act * (h.geom >= 0 ? 1.f : 0.f);
   out[B_T * n] = h.t;
   out[B_NX * n] = h.nx;
@@ -191,9 +191,9 @@ __global__ void bounce_fused_kernel(SceneDev s, BounceArgs a) {
 
   bool lit = false;
   if (a.do_vis && o[O_NEE] > 0.5f)
-    lit = light_visible<false>(s, a.light_geom, o[O_SPX], o[O_SPY],
-                               o[O_SPZ], o[O_SDX], o[O_SDY], o[O_SDZ],
-                               all_chunks(s));
+    lit = light_visible<MatRows>(s, a.light_geom, o[O_SPX], o[O_SPY],
+                                 o[O_SPZ], o[O_SDX], o[O_SDY], o[O_SDZ],
+                                 all_chunks(s));
   out[B_RR * n] = o[O_RR] + (lit ? o[O_CR] * a.emit_r : 0.f);
   out[B_RG * n] = o[O_RG] + (lit ? o[O_CG] * a.emit_g : 0.f);
   out[B_RB * n] = o[O_RB] + (lit ? o[O_CB] * a.emit_b : 0.f);
@@ -221,9 +221,9 @@ __global__ void bounce_fused_kernel(SceneDev s, BounceArgs a) {
     out[B_VV * n] = 0.f;
     return;
   }
-  const Hit h = closest_hit<false>(s, o[O_SPX], o[O_SPY], o[O_SPZ], o[O_DX],
-                                   o[O_DY], o[O_DZ], o[O_ACT] > 0.5f,
-                                   all_chunks(s));
+  const Hit h = closest_hit<MatRows>(s, o[O_SPX], o[O_SPY], o[O_SPZ],
+                                     o[O_DX], o[O_DY], o[O_DZ],
+                                     o[O_ACT] > 0.5f, all_chunks(s));
   out[B_T * n] = h.t;
   out[B_NX * n] = h.nx;
   out[B_NY * n] = h.ny;

@@ -14,9 +14,10 @@
 // keeps each pixel's accumulated color and variance in shared memory
 // (16 B a pixel, 25.6 KB a block). It writes the moments and history
 // length of its own tile pixels only. After one barrier each thread runs
-// atrous.cuh:atrous_pixel at level 1 from the shared tile, with position
-// and normal read from device memory. Halo pixels outside the image are
-// never read: the a-trous taps' in-bounds test excludes them, as in D.
+// atrous.cuh:atrous_pixel at level 1 with color and variance from the
+// shared tile, position and normal from device memory. Halo pixels
+// outside the image are never read: the a-trous taps' in-bounds test
+// excludes them, as in D.
 // Both halves are C's and D's own code, so L's outputs equal C's then
 // D's bit for bit.
 //
@@ -50,20 +51,27 @@ constexpr int kHalo = 4;                // 2 * step at level 1
 constexpr int kSide = kTile + 2 * kHalo;
 constexpr int kRows = 8;                // thread block kTile x kRows
 
-// The level's input from the block's shared tile, whose pixel (0, 0) is
-// image pixel (y0, x0)
+// The level's input color and variance from the block's shared tile,
+// whose pixel (0, 0) is image pixel (y0, x0); the G-buffer from device
+// memory
 struct TileIn {
   const float4* tile;
-  int y0, x0;
-  __device__ __forceinline__ const float4& at(int y, int x) const {
+  const float* pos_;
+  const float* nrm_;
+  int y0, x0, w;
+  __device__ __forceinline__ float4 cv(int y, int x, int, int) const {
     return tile[(y - y0) * kSide + (x - x0)];
   }
-  __device__ __forceinline__ float color(int y, int x, int c) const {
-    const float4& p = at(y, x);
-    return c == 0 ? p.x : (c == 1 ? p.y : p.z);
+  __device__ __forceinline__ float4 pos(int y, int x, int, int) const {
+    const int i = y * w + x;
+    return make_float4(pos_[3 * i], pos_[3 * i + 1], pos_[3 * i + 2], 0.f);
   }
-  __device__ __forceinline__ float var(int y, int x) const {
-    return at(y, x).w;
+  __device__ __forceinline__ float4 nrm(int y, int x, int, int) const {
+    const int i = y * w + x;
+    return make_float4(nrm_[3 * i], nrm_[3 * i + 1], nrm_[3 * i + 2], 0.f);
+  }
+  __device__ __forceinline__ float blur_var(int y, int x) const {
+    return cv(y, x, 0, 0).w;
   }
 };
 
@@ -90,15 +98,14 @@ __global__ void __launch_bounds__(kTile* kRows)
   }
   __syncthreads();
 
-  const TileIn in{tile, y0, x0};
+  const TileIn in{tile, a.r.pos, a.r.nrm, y0, x0, w};
   const ptdn::AtrousSigmas sg{a.sigma_l, a.sigma_n, a.sigma_x};
   const int x = tx + threadIdx.x;
   for (int k = 0; k < kTile / kRows; ++k) {
     const int y = ty + threadIdx.y + k * kRows;
     if (y >= h || x >= w) continue;
     float out[4];
-    ptdn::atrous_pixel(in, a.r.pos, a.r.nrm, w, h, y, x, 1,
-                       a.blur_variance != 0, sg, out);
+    ptdn::atrous_pixel(in, w, h, y, x, 1, a.blur_variance != 0, sg, out);
     const int i = y * w + x;
     a.color_out[3 * i] = out[0];
     a.color_out[3 * i + 1] = out[1];

@@ -81,7 +81,7 @@ __device__ __forceinline__ void closest_hit_ray(const ptdn::SceneDev& s,
                                                 int i) {
   const float* o = r.o + (size_t)i * r.o_rs;
   const float* d = r.d + (size_t)i * r.d_rs;
-  const ptdn::Hit h = ptdn::closest_hit<false>(
+  const ptdn::Hit h = ptdn::closest_hit<ptdn::MatRows>(
       s, o[0], o[r.o_cs], o[2 * r.o_cs], d[0], d[r.d_cs], d[2 * r.d_cs],
       true, ptdn::all_chunks(s));
   a.t[i] = h.t;
@@ -115,9 +115,9 @@ __global__ void light_visibility_kernel(ptdn::SceneDev s, ptdn::RayArgs r,
   if (i >= r.n) return;
   const float* o = r.o + (size_t)i * r.o_rs;
   const float* d = r.d + (size_t)i * r.d_rs;
-  lit[i] = ptdn::light_visible<false>(s, light_geom, o[0], o[r.o_cs],
-                                      o[2 * r.o_cs], d[0], d[r.d_cs],
-                                      d[2 * r.d_cs], ptdn::all_chunks(s))
+  lit[i] = ptdn::light_visible<ptdn::MatRows>(
+               s, light_geom, o[0], o[r.o_cs], o[2 * r.o_cs], d[0],
+               d[r.d_cs], d[2 * r.d_cs], ptdn::all_chunks(s))
                ? 1
                : 0;
 }
@@ -131,7 +131,7 @@ __global__ void scene_intersect_kernel(ptdn::SceneDev s, ptdn::RayArgs r,
   const float ox = o[0], oy = o[r.o_cs], oz = o[2 * r.o_cs];
   const float dx = d[0], dy = d[r.d_cs], dz = d[2 * r.d_cs];
   const ptdn::Analytic an =
-      ptdn::analytic_best<false>(s, ox, oy, oz, dx, dy, dz, true);
+      ptdn::analytic_best<ptdn::MatRows>(s, ox, oy, oz, dx, dy, dz, true);
   a.t_a[i] = an.geom >= 0 ? an.t : -1.f;
   a.geom_a[i] = an.geom;
   a.nrm_a[3 * i] = an.nx;

@@ -9,7 +9,7 @@ sample (pathtrace.cu:284-297) rotated by glm::rotation's quaternion
 (glm/gtx/quaternion.inl:248-283), and the per-lane LCG advancing only at
 the draw sites the reference's control flow reaches, so each lane
 consumes the reference's exact variate sequence. The CUDA path kernel
-(csrc/path.cu) runs the same body per thread.
+(csrc/scene/path_trace.cu) runs the same body per thread.
 
 Material properties come from the packed (M, 16) material table
 (scene.DeviceScene.mat_attr: color 0:3, spec color 3:6, spec exponent 6,

@@ -4,10 +4,12 @@ nvcc compiles every ``csrc/*.cu`` for ``sm_90a``, one process per
 source, all at once, and links the objects into one shared library with a
 plain C interface, which ctypes loads. The build runs at first use, into
 ``ptdn_tpu_torch/build/`` (ignored by git), and again only when a source
-is newer than the library. No fast-math flag is passed and
-``--fmad=false`` keeps every product rounded on its own, so the kernels
-round like their plain PyTorch versions, which run one operation at a
-time.
+is newer than the library. Kernel B1 (``csrc/scene/path_trace.cu``) is
+built once per scene instead, with the scene's constants in a generated
+header (build_scene), into a library of its own per scene. No fast-math
+flag is passed and ``--fmad=false`` keeps every product rounded on its
+own, so the kernels round like their plain PyTorch versions, which run
+one operation at a time.
 
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` raises when that is not 0.
@@ -17,6 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import hashlib
 import os
 import pathlib
 import shutil
@@ -75,12 +78,54 @@ def build(force: bool = False) -> str:
     return "".join(logs)
 
 
+def build_scene(header: str, force: bool = False):
+    """Compile kernel B1 (csrc/scene/path_trace.cu) for one scene, with
+    `header` (ops/cuda/scene_intersect.py:path_scene_header) as its
+    scene.h, into build/scene-<hash>/, the hash taken over the header and
+    every kernel source; again only when forced or missing. Returns (the
+    library's path, nvcc's output)."""
+    key = hashlib.sha256(header.encode())
+    for src in sorted(CSRC.rglob("*.cu*")):
+        key.update(src.read_bytes())
+    out = BUILD / f"scene-{key.hexdigest()[:16]}"
+    lib, log = out / "libptdn_path.so", out / "nvcc.log"
+    if not force and lib.exists():
+        return lib, log.read_text()
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "scene.h").write_text(header)
+    tmp = out / f"libptdn_path.{os.getpid()}.so"
+    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-shared", "-I", str(out),
+                          "-o", str(tmp), str(CSRC / "scene" /
+                                              "path_trace.cu")],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed on scene/path_trace.cu "
+                           f"({res.returncode}):\n{res.stdout}")
+    log.write_text(res.stdout)
+    os.replace(tmp, lib)
+    return lib, res.stdout
+
+
+@functools.cache
+def scene_kernels(header: str) -> ctypes.CDLL:
+    """Kernel B1 built for the scene of `header`, on first use, loaded
+    once."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("the CUDA kernels need a CUDA device")
+    lib = ctypes.CDLL(str(build_scene(header)[0]))
+    vp = ctypes.c_void_p
+    lib.ptdn_path_trace.argtypes = [vp, vp, vp]
+    lib.ptdn_path_trace.restype = ctypes.c_int
+    return lib
+
+
 class SceneDev(ctypes.Structure):
     """Mirror of csrc/ptdn.cuh:SceneDev."""
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "tf", "inv", "invt", "geom", "tri_moller",
         "chunk_min", "chunk_max", "tri_attr", "mat_attr", "tex_wh",
-        "tex_flat", "plan", "plan_code")] + [(name, ctypes.c_int) for name in (
+        "tex_flat")] + [(name, ctypes.c_int) for name in (
             "n_geoms", "n_tris", "n_chunks", "tex_h", "tex_w")]
 
 
@@ -103,13 +148,12 @@ def load(path) -> ctypes.CDLL:
         "ptdn_light_visibility": [vp, vp, i32, vp, vp],
         "ptdn_sparse_gather": [vp, vp],
         "ptdn_bounce_fused": [vp, vp, vp],
-        "ptdn_path_trace": [vp, vp, vp],
         "ptdn_deferred_radiance": [vp, vp, vp, i32, i32, vp, vp],
         "ptdn_scene_intersect": [vp, vp, vp, i32, vp],
         "ptdn_back_projection_stencil": [vp, vp],
         "ptdn_back_projection_banded": [vp, vp],
         "ptdn_back_projection_atrous1": [vp, vp],
-        "ptdn_atrous_level": [vp, vp],
+        "ptdn_atrous_level": [vp, i32, vp],
         "ptdn_shade_bounce": [vp, vp],
         "ptdn_trace_bounce": [vp, vp, vp],
         "ptdn_inrow_permute": [vp, vp, i32, i32, vp, vp],
@@ -120,12 +164,13 @@ def load(path) -> ctypes.CDLL:
     return lib
 
 
-def launch(name: str, *args):
-    """Call C entry point `name` with `args` (ctypes structs go by
-    address) on the current stream; raise if the launch failed."""
+def launch(name: str, *args, lib=None):
+    """Call C entry point `name` of `lib` (the kernel library by default)
+    with `args` (ctypes structs go by address) on the current stream;
+    raise if the launch failed."""
     conv = [ctypes.addressof(a) if isinstance(a, ctypes.Structure) else a
             for a in args]
-    err = getattr(kernels(), name)(*conv, stream())
+    err = getattr(lib or kernels(), name)(*conv, stream())
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 

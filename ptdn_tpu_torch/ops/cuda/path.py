@@ -1,15 +1,16 @@
-"""Kernels B1 (path_trace) and B2 (deferred_radiance): csrc/path.cu, with
-their plain PyTorch versions.
+"""Kernels B1 (path_trace) and B2 (deferred_radiance), with their plain
+PyTorch versions.
 
-B1 replaces the TPU kernel ptdn_tpu/ops/pallas/path.py:
-path_trace_fused_pallas; B2 replaces uncompact_tiles_pallas with the
-gather of engine/wavefront.py:packed_texel_gather and
-deferred_radiance. The whole depth loop runs with the texture modulation
-of depths >= 2 deferred: B1 walks every path with albedo 1.0 on textured
-lanes and emits per depth the emissive and NEE contributions plus the
-flat texel index the albedo multiply would have sampled; B2 gathers those
-texels and rebuilds the radiance with a running product of per-depth
-ratios (path.py:23-41):
+B1 (csrc/scene/path_trace.cu, built once per scene with the scene's
+baked rows as constants: _lib.build_scene) replaces the TPU kernel
+ptdn_tpu/ops/pallas/path.py: path_trace_fused_pallas; B2 (csrc/path.cu)
+replaces uncompact_tiles_pallas with the gather of
+engine/wavefront.py:packed_texel_gather and deferred_radiance. The whole
+depth loop runs with the texture modulation of depths >= 2 deferred: B1
+walks every path with albedo 1.0 on textured lanes and emits per depth
+the emissive and NEE contributions plus the flat texel index the albedo
+multiply would have sampled; B2 gathers those texels and rebuilds the
+radiance with a running product of per-depth ratios (path.py:23-41):
 
     cum = 1; rad = 0
     for d in 1..D:
@@ -31,6 +32,7 @@ import torch
 
 from ptdn_tpu_torch.ops.bsdf import shade
 from ptdn_tpu_torch.ops.cuda import _lib
+from ptdn_tpu_torch.ops.cuda import scene_intersect as A
 from ptdn_tpu_torch.ops.cuda.scene_intersect import (GeomInfo, closest_hit,
                                                      light_visible, scene_dev,
                                                      tex_index, texel_rgb)
@@ -38,7 +40,7 @@ from ptdn_tpu_torch.ops.rng import init_rand
 
 
 class PathArgs(ctypes.Structure):
-    """Mirror of csrc/path.cu:PathArgs."""
+    """Mirror of csrc/scene/path_trace.cu:PathArgs."""
     _fields_ = ([(k, ctypes.c_void_p) for k in (
         "o", "d", "t", "nrm", "alb", "mat", "act", "contrib", "texidx")]
         + [(k, ctypes.c_int) for k in ("n", "depth")]
@@ -129,6 +131,12 @@ def _path_trace_kernel(ds, gi, prim, frame, lane0, depth, light, flags):
                          ("mat_id", torch.int32, (n,)),
                          ("hit", torch.bool, (n,))):
         _lib.check_tensor(prim[k], dt, shape, k)
+    if gi.path_scene is None:
+        raise ValueError(
+            f"path_trace: kernel B1 is built for scenes of at most "
+            f"{A.B1_MAX_GEOMS} geoms and {A.B1_MAX_MATS} materials with "
+            f"finite matrices and materials; this one has {len(gi.types)} "
+            f"geoms and {ds.mat_attr.shape[0]} materials")
     dev = prim["t"].device
     contrib = torch.empty((6 * depth, n), dtype=torch.float32, device=dev)
     texidx = torch.empty((depth - 1, n), dtype=torch.int32, device=dev)
@@ -145,7 +153,8 @@ def _path_trace_kernel(ds, gi, prim, frame, lane0, depth, light, flags):
         light_z=light["pos"][2], lrad=light["radius"],
         sint=light["intensity"], emit_r=light["emit"][0],
         emit_g=light["emit"][1], emit_b=light["emit"][2])
-    _lib.launch("ptdn_path_trace", scene_dev(ds, gi, dev), args)
+    _lib.launch("ptdn_path_trace", scene_dev(ds, gi, dev), args,
+                lib=_lib.scene_kernels(gi.path_scene))
     path_trace.launches += 1
     return contrib, texidx
 

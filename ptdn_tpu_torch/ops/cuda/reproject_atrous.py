@@ -16,7 +16,8 @@ import ctypes
 import torch
 
 from ptdn_tpu_torch.ops.cuda import _lib
-from ptdn_tpu_torch.ops.cuda.atrous import atrous_level_plain
+from ptdn_tpu_torch.ops.cuda.atrous import (atrous_level_plain,
+                                            pack_static_planes)
 from ptdn_tpu_torch.ops.cuda.reproject import (ReprojArgs,
                                                back_projection_stencil_plain,
                                                reproj_args)
@@ -42,9 +43,9 @@ def back_projection_atrous1_plain(res, current_color, curr_gb, prev_gb,
     var, acc, mom, hist = back_projection_stencil_plain(
         res, current_color, curr_gb, prev_gb, prev_viewmat, color_history,
         moment_history, history_length, color_alpha_min, moment_alpha_min)
-    color1, var1 = atrous_level_plain(acc, var, curr_gb["position"],
-                                      curr_gb["normal"], None, 1, sigma_l,
-                                      sigma_n, sigma_x, blur_variance)
+    color1, var1 = atrous_level_plain(
+        acc, var, pack_static_planes(curr_gb["position"], curr_gb["normal"]),
+        None, 1, sigma_l, sigma_n, sigma_x, blur_variance)
     return color1, var1, mom, hist
 
 

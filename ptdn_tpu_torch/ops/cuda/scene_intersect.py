@@ -20,13 +20,13 @@ its running best is skipped.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ptdn_tpu_torch.ops.cuda import _lib
-from ptdn_tpu_torch.ops.intersect import (FLT_MAX, aabb_slab, baked_row_plan,
+from ptdn_tpu_torch.ops.intersect import (FLT_MAX, aabb_slab, baked_row_form,
                                           box_intersect, interpolate_tri_hit,
                                           moller, ray_triangle,
                                           sphere_intersect)
@@ -39,41 +39,75 @@ COLORDIVIDOR = 0.003921568627   # utilities.h:24
 class GeomInfo(NamedTuple):
     """Static geometry of a scene: per-geom types on the host, an int32
     (G, 2) table of (type, material) on the device, the triangle count,
-    and the baked row-dot plans of kernel B1 (baked_row_plans)."""
+    and the header kernel B1 is built with for this scene
+    (path_scene_header), None where the scene exceeds its limits."""
     types: Tuple[int, ...]
     table: torch.Tensor
     n_tris: int
-    plan: torch.Tensor
-    plan_code: torch.Tensor
+    path_scene: Optional[str]
 
 
-def baked_row_plans(scene):
-    """Per geom, the plans (ops/intersect.py:baked_row_plan) of
-    csrc/ptdn.cuh's five baked row kinds, three rows each: inverse with
-    and without bias, transform with and without bias, inverse transpose.
-    Returns (G * 15, 4) float32 and (G * 15,) int32 arrays."""
-    plans, codes = [], []
+# the limits of kernel B1's build for one scene: its geom loop unrolls
+# over the geoms, and the material table lives in the 64 KB constant bank
+B1_MAX_GEOMS = 64
+B1_MAX_MATS = 1024
+
+
+def _c_floats(xs) -> str:
+    """Finite float32 values as exact C hex-float literals."""
+    return ", ".join(float(np.float32(x)).hex() + "f" for x in xs)
+
+
+def path_scene_header(scene, mat_attr: np.ndarray) -> Optional[str]:
+    """scene.h of kernel B1 built for this scene (csrc/scene/path_trace.cu):
+    the geom count, each geom's type and material, per geom the forms
+    (ops/intersect.py:baked_row_form) of its five kinds of baked rows,
+    three each (the inverse with and without bias, the transform with
+    and without bias, the inverse transpose) as codes and (c0, c1, c2,
+    c3) coefficients, and the (M, 16) material table `mat_attr`. None if
+    the scene has more than B1_MAX_GEOMS geoms or B1_MAX_MATS materials,
+    or a constant that is not finite."""
+    if (len(scene.geoms) > B1_MAX_GEOMS or mat_attr.shape[0] > B1_MAX_MATS
+            or not np.isfinite(mat_attr).all()):
+        return None
+    codes, coefs = [], []
     for g in scene.geoms:
         for m, bias in ((g.inverse, True), (g.inverse, False),
                         (g.transform, True), (g.transform, False),
                         (g.inv_transpose, False)):
             m32 = np.asarray(m, np.float32)
             for r in range(3):
-                p, code = baked_row_plan(m32[r], bias)
-                plans.append(p)
-                codes.append(code)
-    return (np.asarray(plans, np.float32).reshape(-1, 4),
-            np.asarray(codes, np.int32))
+                code, c = baked_row_form(m32[r], bias)
+                if not np.isfinite(c).all():
+                    return None
+                codes.append(str(code))
+                coefs.append("{" + _c_floats(c) + "}")
+    n_g = len(scene.geoms)
+    return "\n".join([
+        "// Kernel B1's scene constants, generated by",
+        "// ptdn_tpu_torch/ops/cuda/scene_intersect.py:path_scene_header",
+        "#pragma once",
+        "namespace scene {",
+        f"constexpr int kGeoms = {n_g};",
+        "__device__ constexpr int kType[] = {"
+        + ", ".join(str(g.type) for g in scene.geoms) + "};",
+        "__device__ constexpr int kMat[] = {"
+        + ", ".join(str(g.material_id) for g in scene.geoms) + "};",
+        "__device__ constexpr int kCode[] = {" + ", ".join(codes) + "};",
+        "__device__ constexpr float kCoef[][4] = {" + ", ".join(coefs)
+        + "};",
+        "__constant__ float kMatAttr[] = {"
+        + _c_floats(np.asarray(mat_attr, np.float32).reshape(-1)) + "};",
+        "}  // namespace scene", ""])
 
 
 def geom_info(scene, device) -> GeomInfo:
     table = torch.tensor([[t, m] for t, m in zip(scene.geom_types,
                                                   scene.geom_material_ids)],
                          dtype=torch.int32, device=device)
-    plan, code = baked_row_plans(scene)
-    return GeomInfo(scene.geom_types, table, scene.n_tris,
-                    torch.from_numpy(plan).to(device),
-                    torch.from_numpy(code).to(device))
+    header = path_scene_header(
+        scene, scene.device(device).mat_attr.cpu().numpy())
+    return GeomInfo(scene.geom_types, table, scene.n_tris, header)
 
 
 def scene_dev(ds, gi: GeomInfo, device: torch.device) -> _lib.SceneDev:
@@ -84,7 +118,7 @@ def scene_dev(ds, gi: GeomInfo, device: torch.device) -> _lib.SceneDev:
         invt=ds.geom_inv_transpose, geom=gi.table, tri_moller=ds.tri_moller,
         chunk_min=ds.tri_chunk_min, chunk_max=ds.tri_chunk_max,
         tri_attr=ds.tri_attr, mat_attr=ds.mat_attr, tex_wh=ds.tex_wh,
-        tex_flat=ds.tex_flat_u32, plan=gi.plan, plan_code=gi.plan_code)
+        tex_flat=ds.tex_flat_u32)
     for k, t in tensors.items():
         if t.device != device or not t.is_contiguous():
             raise ValueError(f"scene tensor {k}: expected contiguous on "

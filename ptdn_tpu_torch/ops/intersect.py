@@ -48,8 +48,8 @@ def baked_row_plan(row, bias: bool):
     coefficient -0.0, and an absent bias is -0.0: adding -0.0 changes
     nothing, not even the sign of a zero. Since +-1 * v is exact, the
     only choice left is which of the first two terms fuses: the second
-    when the first is +-v and the second a product. csrc/ptdn.cuh:planned
-    evaluates the same plan."""
+    when the first is +-v and the second a product. baked_row_form
+    resolves the plan into the expression that remains."""
     c = [float(x) for x in row[:3]]
     b = float(row[3]) if bias and float(row[3]) != 0.0 else -0.0
     present = [k for k in range(3) if c[k] != 0.0]
@@ -69,34 +69,73 @@ def baked_row_plan(row, bias: bool):
             i | j << 2 | (ONE if k is None else k) << 4)
 
 
-def _planned(row, v, bias: bool):
-    """(value of the baked row at v, its plan)."""
+# The forms of a baked row (baked_row_form): CONST is c3; MUL_X + s is
+# c0 * v[s]; FMA_X + s is fma(c0, v[s], c3); TWO is
+# fma(c0, v[s0], c1 * v[s1]), THREE fma(c2, v[s2], TWO), and TWO_B and
+# THREE_B add the bias c3. v[s] is x, y or z.
+(CONST, MUL_X, MUL_Y, MUL_Z, FMA_X, FMA_Y, FMA_Z, TWO, TWO_B, THREE,
+ THREE_B) = range(11)
+
+
+def baked_row_form(row, bias: bool):
+    """The baked row plan (baked_row_plan) resolved on the host into the
+    one expression its terms leave: (code, (c0, c1, c2, c3)), the form
+    in the code's low 4 bits and, for the forms of two or three terms,
+    the slots s0, s1, s2 in its 2-bit fields from bit 4. Each form equals
+    the plan bit for bit, because the pieces it drops are exact
+    identities: x * 1 = x, fma(-0, 1, y) = y and y + (-0) = y, signed
+    zeros included. A MUL row is the plan's LONE row, which fuses into
+    o - row. csrc/scene/path_trace.cu switches on the same forms."""
     (a0, a1, a2, b), code = baked_row_plan(row, bias)
-    if code & 63 == ONE | ONE << 2 | ONE << 4:
-        # a row of no term is the constant a1, a Python float as in the
-        # reference (a 0-dim tensor here would sit on the host)
-        return a1, (a0, 1.0, code)
-    var = tuple(v) + (1.0,)
-    s = [var[(code >> (2 * k)) & 3] for k in range(3)]
-    return fma(a2, s[2], fma(a0, s[0], a1 * s[1])) + b, (a0, s[0], code)
+    s0, s1, s2 = ((code >> (2 * k)) & 3 for k in range(3))
+    if s0 == ONE:
+        return CONST, (0.0, 0.0, 0.0, a1)
+    if code & LONE:
+        return MUL_X + s0, (a0, 0.0, 0.0, 0.0)
+    if s1 == ONE:
+        return FMA_X + s0, (a0, 0.0, 0.0, a1)
+    form = (TWO if s2 == ONE else THREE) + (1 if b != 0.0 else 0)
+    return form | s0 << 4 | s1 << 6 | (0 if s2 == ONE else s2) << 8, (
+        a0, a1, a2, b)
+
+
+def form_value(code, c, v):
+    """The value of the baked row of form `code` with coefficients c at
+    v = (x, y, z), by that form's own expression (baked_row_form)."""
+    f = code & 15
+    if f == CONST:
+        # a Python float as in the reference (a 0-dim tensor here would
+        # sit on the host)
+        return c[3]
+    if f <= MUL_Z:
+        return c[0] * v[f - MUL_X]
+    if f <= FMA_Z:
+        return fma(c[0], v[f - FMA_X], c[3])
+    s0, s1, s2 = ((code >> (4 + 2 * k)) & 3 for k in range(3))
+    acc = fma(c[0], v[s0], c[1] * v[s1])
+    if f >= THREE:
+        acc = fma(c[2], v[s2], acc)
+    return acc + c[3] if f in (TWO_B, THREE_B) else acc
 
 
 def row_dot(m, r, v, bias: bool, static: bool = False):
     """m[r,0]*x + m[r,1]*y + m[r,2]*z (+ m[r,3]): the full dot product,
-    or with `static` the baked row of baked_row_plan (m is then a nested
+    or with `static` the baked row of baked_row_form (m is then a nested
     list of floats)."""
     if static:
-        return _planned(m[r], v, bias)[0]
+        return form_value(*baked_row_form(m[r], bias), v)
     e = dot3((m[r, 0], m[r, 1], m[r, 2]), v)
     return e + m[r, 3] if bias else e
 
 
 def _sub_row(o, m, r, v, static: bool):
     """o - row_dot(m, r, v, bias=True); a baked row that is one lone
-    term fuses into the subtraction, as XLA contracts c - a*b."""
+    product fuses into the subtraction, as XLA contracts c - a*b."""
     if static:
-        w, (a0, s0, code) = _planned(m[r], v, True)
-        return fma(-a0, s0, o) if code & LONE else o - w
+        code, c = baked_row_form(m[r], True)
+        if MUL_X <= code <= MUL_Z:
+            return fma(-c[0], v[code - MUL_X], o)
+        return o - form_value(code, c, v)
     return o - row_dot(m, r, v, True)
 
 

@@ -150,14 +150,26 @@ def _baked_row_terms(row, v, bias):
     return 0.0 if acc is None else acc
 
 
+def _plan_value(plan, v):
+    """The three-term baked row plan (ops/intersect.py:baked_row_plan)
+    evaluated whole: fma(a2, v[s2], fma(a0, v[s0], a1 * v[s1])) + b."""
+    from ptdn_tpu_torch.ops.fp import fma
+    (a0, a1, a2, b), code = plan
+    var = tuple(v) + (1.0,)
+    s = [var[(code >> (2 * k)) & 3] for k in range(3)]
+    return fma(a2, s[2], fma(a0, s[0], a1 * s[1])) + b
+
+
 def test_baked_row_plans_match_plain():
-    """Kernel B1 and its plain version evaluate each baked row dot through
-    one plan made on the host (ops/intersect.py:baked_row_plan, read by
-    csrc/ptdn.cuh:planned). On 96 seeded rows with zero, -0, +-1 and
-    other coefficients, with and without a bias, the plan's value and its
-    world-distance subtraction o - row (a lone product fuses into it)
-    equal the baked row evaluated term by term under XLA's contraction
-    rules, bit for bit, the sign of a zero included.
+    """Kernel B1 and its plain version evaluate each baked row dot by the
+    form the host resolved it into (ops/intersect.py:baked_row_form, the
+    switch of csrc/path.cu:form_row). On 96 seeded rows with zero, -0,
+    +-1 and other coefficients, with and without a bias, at inputs that
+    include zeros of both signs, subnormals and +-inf, the form's value
+    and its world-distance subtraction o - row (a lone product fuses into
+    it) equal the three-term plan (baked_row_plan) and the baked row
+    evaluated term by term under XLA's contraction rules, bit for bit,
+    the sign of a zero included (NaN, from inf - inf, equals NaN).
     test_path_trace_deferred_radiance_match_pallas holds the result
     against the JAX kernel itself."""
     from ptdn_tpu_torch.ops import intersect
@@ -173,26 +185,77 @@ def test_baked_row_plans_match_plain():
         np.float32)
     v[:, :8] = 0.0          # zero products, whose sign the plan keeps
     v[1, 4:8] = -0.0
+    tiny = np.float32([1e-45, -1e-45, 3e-39, -1.17e-38, 1e-40, -7e-42])
+    v[:, 8:20] = r.choice(tiny, size=(3, 12))           # subnormals
+    v[:, 20:26] = np.float32([np.inf, -np.inf, 1.0, -np.inf, 2.5, np.inf])
+    v[r.integers(0, 3, 6), 26 + np.arange(6)] = np.inf
     o = r.normal(size=n).astype(np.float32)
     o[:4] = v[0, :4]
+    o[8:12] = v[0, 8:12]
+    o[20:23] = np.float32([np.inf, -np.inf, 0.0])
     vt = tuple(torch.from_numpy(x) for x in v)
     ot = torch.from_numpy(o)
 
     def bits(x):
-        return torch.broadcast_to(torch.as_tensor(x, dtype=torch.float32),
-                                  (n,)).numpy().view(np.int32)
+        x = torch.broadcast_to(torch.as_tensor(x, dtype=torch.float32),
+                               (n,))
+        return torch.where(torch.isnan(x), np.nan, x).numpy().view(np.int32)
     m = [row.tolist() for row in rows]
+    forms = set()
     for k, row in enumerate(m):
         for bias in (False, True):
             ref = _baked_row_terms(row, vt, bias)
             value = ref[0] * ref[1] if isinstance(ref, tuple) else ref
+            plan = _plan_value(intersect.baked_row_plan(row, bias), vt)
             got = intersect.row_dot(m, k, vt, bias, static=True)
+            forms.add(intersect.baked_row_form(row, bias)[0] & 15)
             assert np.array_equal(bits(got), bits(value)), (row, bias)
+            assert np.array_equal(bits(got), bits(plan)), (row, bias)
         ref = _baked_row_terms(row, vt, True)
         sub = (fma(-ref[0], ref[1], ot) if isinstance(ref, tuple)
                else ot - ref)
         got = intersect._sub_row(ot, m, k, vt, True)
         assert np.array_equal(bits(got), bits(sub)), row
+    assert forms == set(range(11)), forms       # every form was exercised
+
+
+def test_path_scene_header_holds_the_forms(cornell):
+    """Kernel B1 is built per scene with a generated header
+    (ops/cuda/scene_intersect.py:path_scene_header): its geom types and
+    materials, each baked row's form and coefficients, and the material
+    table. Read back from the header's C text, every constant equals the
+    float32 the plain version uses, bit for bit (hex-float literals), and
+    every row's form is baked_row_form's."""
+    import re
+
+    from ptdn_tpu_torch.ops.intersect import baked_row_form
+    js, jds, ts, ds, gi = cornell
+    text = gi.path_scene
+
+    def array(name):
+        m = re.search(name + r"(?:\[\d*\])+ = \{(.*?)\};", text, re.S)
+        return re.findall(r"-?0x[0-9a-f.]+p[+-]\d+f|-?\d+", m.group(1))
+    g = len(ts.geoms)
+    assert f"constexpr int kGeoms = {g};" in text
+    assert [int(v) for v in array("kType")] == list(ts.geom_types)
+    assert [int(v) for v in array("kMat")] == list(ts.geom_material_ids)
+    codes = [int(v) for v in array("kCode")]
+    coefs = np.float32([float.fromhex(v[:-1]) for v in array("kCoef")])
+    want_codes, want_coefs = [], []
+    for geom in ts.geoms:
+        for m, bias in ((geom.inverse, True), (geom.inverse, False),
+                        (geom.transform, True), (geom.transform, False),
+                        (geom.inv_transpose, False)):
+            for row in np.asarray(m, np.float32)[:3]:
+                code, c = baked_row_form(row, bias)
+                want_codes.append(code)
+                want_coefs += c
+    assert codes == want_codes
+    assert np.array_equal(coefs.view(np.int32),
+                          np.float32(want_coefs).view(np.int32))
+    mats = np.float32([float.fromhex(v[:-1]) for v in array("kMatAttr")])
+    assert np.array_equal(mats.view(np.int32),
+                          ds.mat_attr.numpy().reshape(-1).view(np.int32))
 
 
 def _reproj_inputs(seed, shift_px=0.0):
@@ -297,11 +360,81 @@ def test_atrous_level_matches_pallas(atrous_inputs, level):
                                  (h, w), level, last, 0.45, 0.2, 0.35, True,
                                  last, interpret=True)
     t = {k: torch.from_numpy(v) for k, v in x.items()}
-    gc, gv = D.atrous_level(t["color"], t["variance"], t["position"],
-                            t["normal"], t["albedo"] if last else None,
-                            level, 0.45, 0.2, 0.35, True)
+    gc, gv = D.atrous_level(t["color"], t["variance"],
+                            D.pack_static_planes(t["position"], t["normal"]),
+                            t["albedo"] if last else None, level, 0.45, 0.2,
+                            0.35, True)
     np.testing.assert_allclose(gc.numpy(), np.asarray(rc), atol=1e-5)
     np.testing.assert_allclose(gv.numpy(), np.asarray(rv), atol=1e-5)
+
+
+@pytest.mark.parametrize("level", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("blur", [True, False])
+def test_atrous_level_packed_matches_pallas(blur, level):
+    """Kernel D's plain version on the packed layout the frame passes
+    between levels (color and variance as the views of one (H, W, 4)
+    buffer, position and normal in pack_static_planes' (H, W, 8) one,
+    the output packed again below the last level) against
+    atrous_level_pallas in interpret mode, 64x64, levels 1-5, the blur on
+    and off, the last level with its albedo; to the 1e-5 of the JAX
+    package's own pallas-vs-oracle test. The packed views pass through
+    unchanged: the same level on separate tensors gives the same bits."""
+    r = np.random.default_rng(11)
+    h = w = 64
+    x = {"color": r.uniform(size=(h, w, 3)),
+         "variance": r.uniform(size=(h, w)),
+         "position": r.normal(size=(h, w, 3)),
+         "normal": r.normal(size=(h, w, 3)),
+         "albedo": r.uniform(size=(h, w, 3))}
+    x = {k: v.astype(np.float32) for k, v in x.items()}
+    gb = {"position": jnp.asarray(x["position"]),
+          "normal": jnp.asarray(x["normal"]),
+          "albedo": jnp.asarray(x["albedo"]),
+          "ialbedo": jnp.ones((h, w, 3), jnp.float32)}
+    sp, halo = pack_static_planes(gb, max_level=5)
+    last = level == 5
+    rc, rv = atrous_level_pallas(jnp.asarray(x["color"]),
+                                 jnp.asarray(x["variance"]), sp, halo,
+                                 (h, w), level, last, 0.45, 0.2, 0.35, blur,
+                                 last, interpret=True)
+    t = {k: torch.from_numpy(v) for k, v in x.items()}
+    static = D.pack_static_planes(t["position"], t["normal"])
+    assert static.shape == (h, w, 8)
+    assert torch.equal(static[..., 0:3], t["position"])
+    assert torch.equal(static[..., 4:7], t["normal"])
+    cv = torch.cat((t["color"], t["variance"][..., None]), -1)
+    args = (static, t["albedo"] if last else None, level, 0.45, 0.2, 0.35,
+            blur)
+    gc, gv = D.atrous_level(cv[..., :3], cv[..., 3], *args,
+                            pack_out=not last)
+    if not last:
+        assert gc.shape == (h, w, 3) and gc.stride() == (4 * w, 4, 1)
+        assert gv.data_ptr() == gc.data_ptr() + 12
+    np.testing.assert_allclose(gc.numpy(), np.asarray(rc), atol=1e-5)
+    np.testing.assert_allclose(gv.numpy(), np.asarray(rv), atol=1e-5)
+    sc, sv = D.atrous_level(t["color"], t["variance"], *args)
+    assert torch.equal(gc, sc) and torch.equal(gv, sv)
+
+
+@pytest.mark.parametrize("h,w", [(800, 800), (1080, 1920), (48, 64),
+                                 (29, 37)])
+def test_atrous_tiling_covers_every_pixel_once(h, w):
+    """Kernel D's launch geometry (ops/cuda/atrous.py:atrous_tiling, the
+    block and thread mapping of csrc/atrous.cu spelt out by
+    atrous_tile_pixels): at every step from 1 to 64 each pixel is
+    filtered by exactly one thread, and the bytes a level stages (48 a
+    pixel: color, variance, position, normal) stay within twice its
+    compulsory bytes (56 a pixel: the same inputs once, color and
+    variance out)."""
+    for level in range(7):
+        (y, x), (sy, sx) = D.atrous_tile_pixels(h, w, level)
+        hits = np.zeros((h, w), np.int64)
+        np.add.at(hits, (y, x), 1)
+        assert (hits == 1).all(), (level, hits.min(), hits.max())
+        assert 48 * sy.size <= 2 * 56 * h * w, (level, sy.size / (h * w))
+        blocks, phases, ty, tx = D.atrous_tiling(h, w, level)
+        assert phases == min(4, 1 << level)
+        assert blocks == (1 << level) ** 2 // phases * ty * tx
 
 
 @pytest.mark.parametrize("blur", [True, False])
@@ -374,12 +507,14 @@ def test_kernels_match_plain_on_card(scenes_dir):
                     C.back_projection_stencil_plain(*args)):
         assert torch.allclose(a.double(), b.double(), rtol=1e-5, atol=1e-5)
     src, var = C.back_projection_stencil_plain(*args)[1::-1]
+    static = D.pack_static_planes(gb["position"], gb["normal"])
     for level in range(1, 6):
-        dargs = (src, var, gb["position"], gb["normal"], None, level, 0.45,
-                 0.2, 0.35, True)
+        dargs = (src, var, static, None, level, 0.45, 0.2, 0.35, True,
+                 level < 5)
         for a, b in zip(D._atrous_level_kernel(*dargs),
                         D.atrous_level_plain(*dargs)):
-            assert torch.allclose(a, b, rtol=1e-5, atol=1e-5)
+            assert torch.equal(a, b)
+        src, var = D.atrous_level_plain(*dargs)
 
 
 def test_reference_knobs_on():

@@ -118,3 +118,29 @@ def test_svgf_keeps_kernel_c_choice_while_camera_still(scenes_dir,
         fresh.step.denoiser.forget_motion()
         assert torch.equal(kept.render_frame()[1], fresh.render_frame()[1])
     assert len(calls) == 4 + 6      # kept: frames 0, 1, 3, 4; fresh: all
+
+
+def test_svgf_packs_gbuffer_once_per_camera_move(scenes_dir, monkeypatch):
+    """Kernel D's packed G-buffer (pack_static_planes) is made when the
+    camera moved, and kept while it is still: through an orbit at frame 3
+    the frames equal those of a renderer that packs afresh every frame,
+    with two packs in place of six."""
+    from ptdn_tpu_torch.denoise import svgf
+
+    calls = []
+    real = svgf.pack_static_planes
+    monkeypatch.setattr(svgf, "pack_static_planes",
+                        lambda *a: calls.append(1) or real(*a))
+    scene = Scene(str(scenes_dir / "cornell.txt"))
+    kept, fresh = (Renderer(scene, RenderConfig(**_SVGF), (32, 32),
+                            device="cpu") for _ in range(2))
+    for frame in range(6):
+        if frame == 3:
+            kept.orbit(0.3, 0.1)
+            fresh.orbit(0.3, 0.1)
+        n = len(calls)
+        a = kept.render_frame()[1]
+        kept_packs = len(calls) - n
+        fresh.step.denoiser.forget_motion()
+        assert torch.equal(a, fresh.render_frame()[1])
+        assert kept_packs == (1 if frame in (0, 3) else 0), frame
