@@ -24,7 +24,14 @@ scene at its own resolution):
   room_1080p_animated (room at 1920x1080 with a moving camera, the flag
   on: its gate keeps L off at that width);
 * the trace bench (ptdn_tpu_torch/trace_bench.py): A, M and I on 800x800
-  random rays in cornell.
+  random rays in cornell;
+* a generated scene past kernel B1's per-scene build (cornell plus 55
+  cubes, 65 geoms, at 800x800) through the whole-path engine: A, B1's
+  table build (csrc/path_trace_table.cu), B2, C and D;
+* the ports of the benchmarks/ probes (ptdn_tpu_torch/probes): N
+  (texgather), G at the in-row regroup's K = 29 (regroup), P with A beside
+  it (intersect_v1) and O (dyngather), and reproj_bench (C's two modes
+  beside the PyTorch window, packed and packed2 variants).
 
 Every frame's reprojection branch (C's stencil mode or L where the
 motion is within a pixel, else C's band mode) is read from motion_bounds,
@@ -35,28 +42,37 @@ Phases, one line or more each, with their wall time:
 
 0. the card (name and power limit from nvidia-smi); TF32 off;
 1. build every kernel from ptdn_tpu_torch/csrc (one nvcc per source, all
-   at once, and kernel B1 for cornell's constants), with each kernel's
-   registers, shared memory and spills;
+   at once, B1's table build among them, and kernel B1 for cornell's
+   constants), with each kernel's registers, shared memory and spills;
 2. each kernel against its plain PyTorch version on the card, on its
    path's shapes and a mid-sequence state: A, B1 + B2, C, D, L (and L
    against C then D) on cornell, B1 and D (every level, on the frame's
    packed and unpacked layouts) equal bit for bit; C's band mode on a
    moving cornell camera; E and G on diamond (equal); F on diamond,
    bunny and room; H on cornell and bunny; I, J (and J against A) and K
-   on cornell and room; M on the trace bench's rays;
+   on cornell and room; M on the trace bench's rays; B1's table build
+   equal bit for bit to the per-scene build and the plain version on
+   cornell; N, G at K = 29, O and P's rough (t, tri) equal bit for bit
+   on the probes' inputs (O also to the numpy chain);
 3. 32 frames per scene and engine (16 of room at 1920x1080) through
    ptdn_tpu_torch's Renderer with every launch count checked, finite
    outputs, and, where the camera is still, the RMSE against the
    converged ground truth (benchmarks/gt): denoised below half the raw
    1-spp RMSE on cornell and diamond, below the raw one elsewhere; the
-   trace bench's three launches;
+   trace bench's three launches; 4 frames of the 65-geom scene, every
+   one through B1's table build, finite, and the table build equal bit
+   for bit to its plain version on that scene's primary state (geom
+   indices up to 64); each probe script and
+   reproj_bench run once, with its launches and its times (reproj_bench's
+   parity printouts 0);
 4. CUDA-event times: each kernel beside its plain version (G beside
    torch.gather, K beside torch.take) and its bound, D at level 1 and
    at each level of the frame; ms/frame of cornell
    (still, with fuse_reproject_l1, and moving with the flag off and on)
    and bunny through each of their engines, of diamond through the sort
    and through B1 (sort_rays=False), and of room at 1920x1080 moving, in
-   turns; the trace bench's kernel times.
+   turns; the trace bench's kernel times; B1's table build on the 65-geom
+   scene (its JSON line) and on cornell; the 65-geom scene's ms/frame.
 
 The line before the last is a JSON object with every kernel's numbers;
 the last is {"ok": true, "device": {...}}. Any failed check raises, so
@@ -81,7 +97,7 @@ sys.path.insert(0, ROOT)
 
 import torch  # noqa: E402
 
-from ptdn_tpu_torch import trace_bench  # noqa: E402
+from ptdn_tpu_torch import reproj_bench, trace_bench  # noqa: E402
 from ptdn_tpu_torch.app.automate import CameraAutomation  # noqa: E402
 from ptdn_tpu_torch.denoise import reproject, svgf  # noqa: E402
 from ptdn_tpu_torch.engine import Renderer  # noqa: E402
@@ -91,14 +107,23 @@ from ptdn_tpu_torch.ops.cuda import _lib  # noqa: E402
 from ptdn_tpu_torch.ops.cuda import atrous as D  # noqa: E402
 from ptdn_tpu_torch.ops.cuda import bounce as F  # noqa: E402
 from ptdn_tpu_torch.ops.cuda import compact as K  # noqa: E402
+from ptdn_tpu_torch.ops.cuda import dyngather as O  # noqa: E402
 from ptdn_tpu_torch.ops.cuda import inrow as G  # noqa: E402
+from ptdn_tpu_torch.ops.cuda import intersect_v1 as P  # noqa: E402
 from ptdn_tpu_torch.ops.cuda import path as B  # noqa: E402
 from ptdn_tpu_torch.ops.cuda import reproject as C  # noqa: E402
 from ptdn_tpu_torch.ops.cuda import reproject_atrous as L  # noqa: E402
 from ptdn_tpu_torch.ops.cuda import scene_intersect as A  # noqa: E402
 from ptdn_tpu_torch.ops.cuda import shade as E  # noqa: E402
+from ptdn_tpu_torch.ops.cuda import texgather as N  # noqa: E402
+from ptdn_tpu_torch.probes import dyngather as probe_o  # noqa: E402
+from ptdn_tpu_torch.probes import intersect_v1 as probe_p  # noqa: E402
+from ptdn_tpu_torch.probes import regroup as probe_g  # noqa: E402
+from ptdn_tpu_torch.probes import texgather as probe_n  # noqa: E402
 from ptdn_tpu_torch.scene import Scene  # noqa: E402
-from ptdn_tpu_torch.utils.assets import scene_path  # noqa: E402
+from ptdn_tpu_torch.utils.assets import (scene_path,  # noqa: E402
+                                         write_cornell_plus)
+from ptdn_tpu_torch.utils.card import cuda_ms  # noqa: E402
 from ptdn_tpu_torch.utils.config import RenderConfig  # noqa: E402
 
 DEVICE = "cuda"
@@ -181,7 +206,23 @@ KERNELS = {  # name: (wrapper, source, TPU kernel it replaces)
                       "ptdn_tpu/ops/pallas/compact.py:207"),
     "scene_intersect": (A.scene_intersect, "csrc/scene_intersect.cu",
                         "ptdn_tpu/ops/pallas/scene_intersect.py:1526"),
+    # B1 built once into the library, its rows from a table: the scenes
+    # past the per-scene build's limits (counted in table_launches)
+    "path_trace_table": (B.path_trace, "csrc/path_trace_table.cu",
+                         "ptdn_tpu/ops/pallas/path.py:258"),
+    # the TPU probes of benchmarks/, whose scripts are the only callers
+    "gather_u32": (N.gather_u32, "csrc/texgather.cu",
+                   "benchmarks/pallas_texgather.py:83"),
+    # the probe's Pallas kernel computes G's function: G at its shape
+    "inrow_permute_k29": (G.inrow_permute, "csrc/inrow.cu",
+                          "benchmarks/micro_regroup.py:85"),
+    "mesh_intersect_v1": (P.mesh_intersect_v1, "csrc/intersect_v1.cu",
+                          "benchmarks/pallas_intersect_v1.py:109"),
+    "take_chain": (O.take_chain, "csrc/dyngather.cu",
+                   "benchmarks/micro_dyngather.py:19"),
 }
+# the counter of a kernel whose wrapper counts it apart from .launches
+COUNTER = {"path_trace_table": "table_launches"}
 # the run whose launch counts the kernels' JSON line reports
 LAUNCH_RUN = {"scene_intersect_full": ("cornell", "whole_path"),
               "path_trace": ("cornell", "whole_path"),
@@ -197,9 +238,18 @@ LAUNCH_RUN = {"scene_intersect_full": ("cornell", "whole_path"),
               "light_visibility": ("cornell", "bounce_split"),
               "scene_intersect_full_tex": ("cornell", "bounce_split"),
               "sparse_gather": ("cornell", "bounce_fused"),
-              "scene_intersect": ("cornell", "trace_bench")}
+              "scene_intersect": ("cornell", "trace_bench"),
+              "path_trace_table": ("cornell65", "whole_path"),
+              "gather_u32": ("probe", "texgather"),
+              "inrow_permute_k29": ("probe", "regroup"),
+              "mesh_intersect_v1": ("probe", "intersect_v1"),
+              "take_chain": ("probe", "dyngather")}
 # the one PyTorch call timed beside a kernel, where one computes its gather
-LIBRARY = {"inrow_permute": "torch.gather", "sparse_gather": "torch.take"}
+LIBRARY = {"inrow_permute": "torch.gather", "sparse_gather": "torch.take",
+           "gather_u32": "torch.take", "inrow_permute_k29": "torch.gather"}
+# the generated scene past B1's per-scene build: cornell plus 55 cubes
+# (65 geoms), rendered this many frames at cornell's resolution
+CUBES, CUBE_FRAMES = 55, 4
 # the card's peaks (NVIDIA H100 SXM data sheet): HBM bytes/s, float32
 # operations/s outside the tensor cores
 HBM_RATE = 3.35e12
@@ -208,6 +258,9 @@ F32_RATE = 67e12
 # one Moller-Trumbore lane-triangle test, one analytic geom test of a
 # lane, the winning triangle's refine, one lane's shading
 MOLLER_OPS = 52
+# one plane-form lane-triangle test of kernel P: six 4-term dots, a
+# division, two FMAs, the compares
+PLANE_OPS = 60
 ANALYTIC_OPS = 90
 REFINE_OPS = 70
 SHADE_OPS = 250
@@ -216,27 +269,6 @@ SHADE_OPS = 250
 def check(ok: bool, what: str):
     if not ok:
         raise RuntimeError(f"check failed: {what}")
-
-
-def cuda_ms(fn, reps: int = 10, warmup: int = 2,
-            hide_host: bool = False) -> float:
-    """Mean CUDA-event time of fn over reps calls. hide_host queues the
-    calls behind a ~0.1 s device spin, so that a call whose host side
-    (Python, argument checks, launch) outlasts its kernel is timed by its
-    device work alone; without it the time is the frame's end to end."""
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    if hide_host:
-        torch.cuda._sleep(200_000_000)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def kernel_name(mangled: str) -> str:
@@ -268,6 +300,20 @@ def ptxas_summary(log: str):
                        f"{smem.group(1) if smem else 0} B smem, "
                        f"{spill} B spilled")
     return out
+
+
+def nonzero(c):
+    """The launch counts of c that are not 0."""
+    return {k: v for k, v in c.items() if v}
+
+
+def printable(x):
+    """x with every dict key a string, for json.dumps."""
+    if isinstance(x, dict):
+        return {str(k): printable(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [printable(v) for v in x]
+    return x
 
 
 def max_abs(a, b) -> float:
@@ -315,6 +361,12 @@ def renderer(name, res=None, **kw):
                     resolution=res or SCENES[name][0], device=DEVICE)
 
 
+def renderer_of(path, **kw):
+    """A renderer of the scene file `path` at cornell's resolution."""
+    return Renderer(Scene(str(path)), dataclasses.replace(CFG, **kw),
+                    resolution=SCENES["cornell"][0], device=DEVICE)
+
+
 class Motion:
     """Drives a renderer's frames, moving its camera by CameraAutomation
     where its config says so, and records each frame's reprojection
@@ -354,12 +406,13 @@ class Motion:
 
 
 def reset_counts():
-    for wrapper, _, _ in KERNELS.values():
-        wrapper.launches = 0
+    for name, (wrapper, _, _) in KERNELS.items():
+        setattr(wrapper, COUNTER.get(name, "launches"), 0)
 
 
 def counts():
-    return {name: k[0].launches for name, k in KERNELS.items()}
+    return {name: getattr(k[0], COUNTER.get(name, "launches"))
+            for name, k in KERNELS.items()}
 
 
 def capture_bounce(r, depth: int,
@@ -390,6 +443,40 @@ def capture_bounce(r, depth: int,
     return got
 
 
+def b1_args(r, frame: int = 3):
+    """Kernel B1's arguments on renderer r's primary state (its last
+    frame's primary-hit cache and camera rays), as the whole-path engine
+    passes them: (ds, gi, prim, frame, lane0, depth, light, flags)."""
+    tr = r.step.tracer
+    o, d = generate_camera_rays(r._cam[0], r.resolution)
+    prim = dict({k: getattr(tr, "pcache_" + k) for k in W.PCACHE_KEYS},
+                o=o, d=d)
+    light = dict(tr.light, radius=float(r.cfg.light_radius),
+                 intensity=float(r.cfg.shadow_intensity))
+    return (tr.ds, tr.gi, prim, frame, 0, r.cfg.trace_depth, light, tr.flags)
+
+
+def b1_plain(args):
+    """B1's plain version on b1_args' arguments."""
+    ds, gi, prim, frame, lane0, depth, light, flags = args
+    return B.path_trace_plain(ds, gi, prim, frame=frame, lane0=lane0,
+                              depth=depth, light=light, flags=flags)
+
+
+def b1_work(args, contrib, texidx, tri_tests: int):
+    """B1's bound on b1_args' arguments: its inputs and outputs once,
+    and per lane and bounce the shading, the analytic geoms' tests of the
+    bounce and shadow rays and the winner's refine, plus the lane-triangle
+    tests the plain version counted."""
+    _, gi, prim, _, _, depth, _, _ = args
+    b_in = [prim[k] for k in ("o", "d", "t", "normal", "albedo", "mat_id",
+                              "hit")]
+    n = prim["t"].shape[0]
+    return bound(nbytes(*b_in, contrib, texidx),
+                 n * depth * (SHADE_OPS + 2 * n_analytic(gi) * ANALYTIC_OPS
+                              + REFINE_OPS) + tri_tests * MOLLER_OPS)
+
+
 def expected_launches(r, motion):
     """The launches of every kernel over the frames that `motion` (a
     Motion) drove renderer r through: the primary hit on every frame
@@ -409,7 +496,9 @@ def expected_launches(r, motion):
     bounces, below_last = frames * DEPTH, frames * (DEPTH - 1)
     tex = tr.flags["show_tex"]
     if tr.engine == "whole_path":
-        want["path_trace"] = want["deferred_radiance"] = FRAMES
+        # the per-scene build where the scene has one, else the table's
+        b1 = "path_trace" if tr.gi.path_scene else "path_trace_table"
+        want[b1] = want["deferred_radiance"] = frames
     elif tr.engine == "sorted":
         want["shade_bounce"] = want["trace_bounce"] = bounces
         want["inrow_permute"] = bounces if tr.regroup > 1 else 0
@@ -423,6 +512,8 @@ def expected_launches(r, motion):
             want["sparse_gather"] = below_last
         else:
             want["scene_intersect_full"] += below_last
+    # G at the regroup probe's shape is G: the two rows share its counter
+    want["inrow_permute_k29"] = want["inrow_permute"]
     return want
 
 
@@ -472,7 +563,7 @@ def main():
         A.geom_info(scene("cornell"), DEVICE).path_scene, force=True)
     t_b1 = time.perf_counter() - t1
     regs = ptxas_summary(log + b1_log)
-    check(len(regs) == 15, f"15 kernels built, got {regs}")
+    check(len(regs) == 19, f"19 kernels built, got {regs}")
     print(f"phase 1: built {len(list(_lib.CSRC.glob('*.cu')))} sources for "
           f"sm_90a and B1 for cornell (csrc/scene/path_trace.cu, "
           f"{t_b1:.1f} s) in {time.perf_counter() - t0:.1f} s; ptxas: "
@@ -509,15 +600,10 @@ def main():
     print(f"phase 2: A geom_id agreement {frac:.6f}, max |d| on agreeing "
           f"lanes {stats['scene_intersect_full']:.3g}")
 
-    prim = dict({k: getattr(tr, "pcache_" + k) for k in W.PCACHE_KEYS},
-                o=o, d=d)
-    light = dict(tr.light, radius=float(CFG.light_radius),
-                 intensity=float(CFG.shadow_intensity))
-    bargs = (ds, gi, prim, 3, 0, DEPTH, light, tr.flags)
+    bargs = b1_args(warm)
     kc, kt = B._path_trace_kernel(*bargs)
     A.mesh_best.tri_tests = A.light_visible.tri_tests = 0
-    pc, pt = B.path_trace_plain(ds, gi, prim, frame=3, lane0=0, depth=DEPTH,
-                                light=light, flags=tr.flags)
+    pc, pt = b1_plain(bargs)
     b_tests = A.mesh_best.tri_tests + A.light_visible.tri_tests
     krad = B._deferred_radiance_kernel(ds, kc, kt, DEPTH)
     prad = B.deferred_radiance_plain(ds, pc, pt, DEPTH)
@@ -530,12 +616,7 @@ def main():
     check(bfrac < 0.01 and brmse < 0.012, f"B1+B2: frac {bfrac} rmse {brmse}")
     check(same(kc, pc) and torch.equal(kt, pt),
           f"B1 equals its plain version: max |d| {stats['path_trace']}")
-    b_in = [prim[k] for k in ("o", "d", "t", "normal", "albedo", "mat_id",
-                              "hit")]
-    work["path_trace"] = bound(
-        nbytes(*b_in, kc, kt),
-        n * DEPTH * (SHADE_OPS + 2 * n_analytic(gi) * ANALYTIC_OPS
-                     + REFINE_OPS) + b_tests * MOLLER_OPS)
+    work["path_trace"] = b1_work(bargs, kc, kt, b_tests)
     textured = int((kt >= 0).sum())
     work["deferred_radiance"] = bound(nbytes(kc, kt, krad) + 4 * textured,
                                       n * DEPTH * 15)
@@ -823,6 +904,80 @@ def main():
               f"J equals A on every lane, agrees with its plain version on "
               f"{frac:.6f} (max |d| {j_err:.3g}, texel index equal there); "
               f"K equal on every lane, {int((jt >= 0).sum())} textured")
+
+    # B1's table build on the same cornell state: equal to the per-scene
+    # build and to the plain version (the same rows, from device memory);
+    # phase 3 checks it on the 65-geom scene it serves
+    gi_table = gi._replace(path_scene=None)
+    tc, tt = B._path_trace_kernel(ds, gi_table, *bargs[2:])
+    check(same(tc, kc) and torch.equal(tt, kt) and same(tc, pc)
+          and torch.equal(tt, pt),
+          f"B1's table build equals the per-scene build and the plain "
+          f"version on cornell: max |d| {max_abs(tc, pc)}")
+    print("phase 2: B1's table build equals the per-scene build and the "
+          "plain version on cornell, bit for bit")
+
+    # N on the texgather probe's four tables and index orders
+    n_cases = probe_n.cases(DEVICE)
+    for label, (table, idx) in n_cases.items():
+        kn = N._gather_u32_kernel(table, idx)
+        check(torch.equal(kn.view(torch.int32), N.gather_u32_plain(
+            table, idx).view(torch.int32)), f"N on {label} equals its "
+              f"plain version")
+    stats["gather_u32"] = 0.0
+    n_args = n_cases["room random"]
+    work["gather_u32"] = bound(
+        nbytes(n_args[1], kn) + 4 * torch.unique(n_args[1]).numel(), 0)
+    print(f"phase 2: N equal on {', '.join(n_cases)} "
+          f"({probe_n.N} indices)")
+
+    # G at the regroup probe's K = 29 planes of 5,120 rows
+    g29_planes, g29_key, _, _ = probe_g.inputs(DEVICE)
+    g29_order = probe_g.argsort_rows(g29_key)
+    kg29 = G._inrow_permute_kernel(g29_planes, g29_order)
+    check(same(kg29, G.inrow_permute_plain(g29_planes, g29_order)),
+          "G at K = 29 equals its plain version")
+    stats["inrow_permute_k29"] = 0.0
+    work["inrow_permute_k29"] = bound(nbytes(g29_planes, g29_order, kg29), 0)
+    print(f"phase 2: G equal on {tuple(g29_planes.shape)} planes")
+
+    # O on the dyngather probe's 16 cases and its 4 timed chains, against
+    # its plain version and the numpy chain
+    for case in probe_o.CASES + probe_o.TIMED:
+        x_np, i_np = probe_o.inputs(*case[:3])
+        o_x, o_idx = (torch.from_numpy(a).to(DEVICE) for a in (x_np, i_np))
+        ko = O._take_chain_kernel(o_x, o_idx, *case[2:])
+        check(torch.equal(ko, O.take_chain_plain(o_x, o_idx, *case[2:]))
+              and np.array_equal(ko.cpu().numpy(), probe_o.numpy_chain(
+                  x_np, i_np, *case[2:])), f"O on {case} equals its plain "
+              f"version and the numpy chain")
+    o_args = (o_x, o_idx, *probe_o.TIMED[-1][2:])
+    stats["take_chain"] = 0.0
+    work["take_chain"] = bound(nbytes(o_x, o_idx, ko), 0)
+    print(f"phase 2: O equal on {len(probe_o.CASES)} cases and "
+          f"{len(probe_o.TIMED)} chains of {probe_o.TIMED[0][3]}")
+
+    # P's rough (t, tri) on the intersect_v1 probe's rays, cull on and off
+    p_cases = probe_p.cases(DEVICE)
+    for label, (_, ptab, _, p_o, p_d) in p_cases.items():
+        for cull in (True, False):
+            kt_p, ki_p = P._mesh_intersect_v1_kernel(ptab, p_o, p_d, cull)
+            P.mesh_intersect_v1_plain.tri_tests = 0
+            pt_p, pi_p = P.mesh_intersect_v1_plain(ptab, p_o, p_d, cull)
+            tests = P.mesh_intersect_v1_plain.tri_tests
+            check(same(kt_p, pt_p) and torch.equal(ki_p, pi_p),
+                  f"P on {label} (cull {cull}) equals its plain version: "
+                  f"max |d| {max_abs(kt_p, pt_p)}, "
+                  f"{int((ki_p != pi_p).sum())} indices differ")
+            if label == "bunny camera" and cull:
+                stats["mesh_intersect_v1"] = max_abs(kt_p, pt_p)
+                p_args = (ptab, p_o, p_d)
+                work["mesh_intersect_v1"] = bound(
+                    nbytes(p_o, p_d, ptab.tri_mm, ptab.cmin, ptab.cmax,
+                           kt_p, ki_p), tests * PLANE_OPS)
+            print(f"phase 2: P on {label}, cull {cull}: (t, tri) equal, "
+                  f"{int((ki_p >= 0).sum())} mesh hits, {tests} "
+                  f"lane-triangle tests in the plain scan")
     torch.cuda.synchronize()
     print(f"phase 2: {time.perf_counter() - t0:.1f} s")
 
@@ -863,7 +1018,7 @@ def main():
               and bool(torch.isfinite(right).all()), f"{label}: finite")
         line = (f"phase 3: {label} {r.resolution[0]}x{r.resolution[1]}: "
                 f"{frames} frames ({frames - sum(near)} far), launches "
-                f"{json.dumps(c)}")
+                f"{json.dumps(nonzero(c))}")
         if r.cfg.automate_camera:
             motion[label] = r
         else:
@@ -899,7 +1054,69 @@ def main():
           == c["light_visibility"] == 1 and sum(c.values()) == 3,
           f"trace bench: launches {c}")
     print(f"phase 3: trace bench on {tb_args[2].shape[0]} rays: launches "
-          f"{json.dumps(c)}")
+          f"{json.dumps(nonzero(c))}")
+    # a scene past B1's per-scene build: every frame through its table
+    # build (no ground truth: finite outputs and the launches)
+    cubes = renderer_of(write_cornell_plus(_lib.BUILD / "scenes",
+                                           cubes=CUBES))
+    check(len(cubes.step.tracer.gi.types) == 10 + CUBES
+          and cubes.step.tracer.gi.path_scene is None
+          and cubes.step.tracer.engine == "whole_path",
+          "the generated scene has 65 geoms, no per-scene B1 and the "
+          "whole-path engine")
+    mov = Motion(cubes)
+    reset_counts()
+    for _ in range(CUBE_FRAMES):
+        left, right = mov.frame()
+    torch.cuda.synchronize()
+    runs["cornell65", "whole_path"] = c = counts()
+    want = expected_launches(cubes, mov)
+    check({k: c[k] for k in want} == want
+          and c["path_trace_table"] == CUBE_FRAMES,
+          f"cornell65: launches {c}, expected {want}")
+    check(bool(torch.isfinite(left).all())
+          and bool(torch.isfinite(right).all()), "cornell65: finite")
+    print(f"phase 3: cornell plus {CUBES} cubes (65 geoms) "
+          f"{cubes.resolution[0]}x{cubes.resolution[1]}: {CUBE_FRAMES} "
+          f"frames through B1's table build, finite, launches "
+          f"{json.dumps(nonzero(c))}")
+    # the table build on that scene's primary state, every geom index up
+    # to 64 in its row and geom tables: equal to its plain version
+    targs = b1_args(cubes)
+    tc, tt = B._path_trace_kernel(*targs)
+    A.mesh_best.tri_tests = A.light_visible.tri_tests = 0
+    pc65, pt65 = b1_plain(targs)
+    t_tests = A.mesh_best.tri_tests + A.light_visible.tri_tests
+    stats["path_trace_table"] = max_abs(tc, pc65)
+    check(same(tc, pc65) and torch.equal(tt, pt65),
+          f"B1's table build equals its plain version on the 65-geom "
+          f"scene: max |d| {stats['path_trace_table']}")
+    work["path_trace_table"] = b1_work(targs, tc, tt, t_tests)
+    print(f"phase 3: B1's table build equals its plain version on the "
+          f"65-geom scene's primary state, bit for bit (contributions and "
+          f"texel indices, {int((tt >= 0).sum())} textured)")
+    # the probe scripts and reproj_bench, each run once as its script
+    # runs it, with the launches it made
+    probes = {}
+    for name, run, kernel in (
+            ("texgather", probe_n.run, "gather_u32"),
+            ("regroup", probe_g.run, "inrow_permute_k29"),
+            ("intersect_v1", probe_p.run, "mesh_intersect_v1"),
+            ("dyngather", probe_o.run, "take_chain"),
+            ("reproj_bench", reproj_bench.run, "back_projection_stencil")):
+        reset_counts()
+        probes[name] = run()
+        torch.cuda.synchronize()
+        runs["probe", name] = c = counts()
+        check(c[kernel] > 0, f"{name} launched {kernel}: {c}")
+        print(f"phase 3: {name} launches {json.dumps(nonzero(c))}; "
+              f"{json.dumps(printable(probes[name]))} [{card}]")
+    check(all(ok for ok in probes["dyngather"][0].values())
+          and all(r["ok"] for r in probes["dyngather"][1].values()),
+          "dyngather: every case OK")
+    check(all(d == 0.0 for _, diffs in probes["reproj_bench"][1]
+              for d in diffs), "reproj_bench: window equals C's band mode "
+          "on the local motion and C's stencil mode on the still one")
     launches = {k: runs[LAUNCH_RUN[k]][k] for k in KERNELS}
     print(f"phase 3: {time.perf_counter() - t0:.1f} s")
 
@@ -947,10 +1164,8 @@ def main():
             lambda: A._scene_intersect_full_kernel(ds, gi, o, d),
             lambda: A.scene_intersect_full_plain(ds, gi, o, d), None),
         "path_trace": (
-            lambda: B._path_trace_kernel(*bargs),
-            lambda: B.path_trace_plain(ds, gi, prim, frame=3, lane0=0,
-                                       depth=DEPTH, light=light,
-                                       flags=tr.flags), None),
+            lambda: B._path_trace_kernel(*bargs), lambda: b1_plain(bargs),
+            None),
         "deferred_radiance": (
             lambda: B._deferred_radiance_kernel(ds, pc, pt, DEPTH),
             lambda: B.deferred_radiance_plain(ds, pc, pt, DEPTH), None),
@@ -994,9 +1209,32 @@ def main():
         "scene_intersect": (
             lambda: A._scene_intersect_kernel(*tb_args),
             lambda: A.scene_intersect_plain(*tb_args), None),
+        "path_trace_table": (
+            lambda: B._path_trace_kernel(*targs), lambda: b1_plain(targs),
+            None),
+        "gather_u32": (
+            lambda: N._gather_u32_kernel(*n_args),
+            lambda: N.gather_u32_plain(*n_args),
+            lambda: torch.take(n_table32, n_idx64)),
+        "inrow_permute_k29": (
+            lambda: G._inrow_permute_kernel(g29_planes, g29_order),
+            lambda: G.inrow_permute_plain(g29_planes, g29_order),
+            lambda: probe_g.gather_rows(g29_planes, g29_order)),
+        "mesh_intersect_v1": (
+            lambda: P._mesh_intersect_v1_kernel(*p_args),
+            lambda: P.mesh_intersect_v1_plain(*p_args), None),
+        "take_chain": (
+            lambda: O._take_chain_kernel(*o_args),
+            lambda: O.take_chain_plain(*o_args), None),
     }
+    n_table32, n_idx64 = n_args[0].view(torch.int32), n_args[1].to(
+        torch.int64)
     check(same(times["inrow_permute"][2](), pg),
           "torch.gather computes G's function")
+    check(same(times["inrow_permute_k29"][2](), kg29)
+          and torch.equal(times["gather_u32"][2](), N._gather_u32_kernel(
+              *n_args).view(torch.int32)),
+          "torch.gather and torch.take compute G's and N's functions")
     tex = k_args[1] >= 0
     words = times["sparse_gather"][2]()[tex]
     check(torch.equal(torch.stack([((words >> (8 * c)) & 0xFF).float()
@@ -1006,7 +1244,7 @@ def main():
     out = []
     for name, (_, source, replaces) in KERNELS.items():
         kfn, pfn, lfn = times[name]
-        reps = 3 if name == "path_trace" else 10
+        reps = 3 if name in ("path_trace", "path_trace_table") else 10
         ms = cuda_ms(kfn, reps=reps, hide_host=True)
         plain_ms = cuda_ms(pfn, reps=3, warmup=1, hide_host=True)
         lib_ms = cuda_ms(lfn, reps=reps, hide_host=True) if lfn else None
@@ -1031,6 +1269,17 @@ def main():
     print(f"phase 4: cornell {frame_ms['cornell']:.3f} ms/frame over 20 "
           f"steady-state frames (depth {DEPTH}, SVGF {NLEVEL} levels) "
           f"[{card}]")
+    # the table build on cornell, beside the per-scene build's line above
+    frame_ms["path_trace_table on cornell"] = cuda_ms(
+        lambda: B._path_trace_kernel(ds, gi_table, *bargs[2:]), reps=3,
+        hide_host=True)
+    print(f"phase 4: path_trace_table on cornell "
+          f"{frame_ms['path_trace_table on cornell']:.4f} ms (the per-scene "
+          f"build {next(k['ms'] for k in out if k['name'] == 'path_trace'):.4f} "
+          f"ms) [{card}]")
+    frame_ms["cornell65"] = cuda_ms(cubes.render_frame, reps=10)
+    print(f"phase 4: cornell plus {CUBES} cubes (B1's table build) "
+          f"{frame_ms['cornell65']:.3f} ms/frame over 10 frames [{card}]")
     print(f"phase 4: {time.perf_counter() - t0:.1f} s; all phases "
           f"{time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": out, "frame_ms": frame_ms, "rmse": rmse}))

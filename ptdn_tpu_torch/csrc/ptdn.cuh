@@ -45,6 +45,8 @@ struct SceneDev {
   const float* mat_attr;    // (M, 16) color, spec color, ex, refl, refr, ior, emit, texid
   const int* tex_wh;        // (K, 2) texture (w, h)
   const uint32_t* tex_flat; // (K*Hm*Wm,) r | g << 8 | b << 16
+  const int* row_code;      // (G*15,) baked row forms (B1's table build)
+  const float* row_coef;    // (G*15, 4) their coefficients
   int n_geoms;
   int n_tris;
   int n_chunks;
@@ -87,7 +89,9 @@ enum { kInvBias, kInv, kTfBias, kTf, kInvT, kKinds };
 // The row dots of the analytic tests are a policy: MatRows takes the
 // full dot products of the scene matrices (closest_hit_tiles without
 // static_mats), for A, F, H, I, J and M; kernel B1 brings its own, the
-// whole-path kernel's baked rows (csrc/scene/path_trace.cu:SceneRows).
+// whole-path kernel's baked rows, as constants of a per-scene build
+// (csrc/scene/path_trace.cu:SceneRows) or from a table
+// (csrc/path_trace_table.cu:TableRows).
 // A policy has
 //   kGeoms: the scene's geom count if the kernel is built for one scene,
 //     else 0;

@@ -108,6 +108,20 @@ def _accumulate_from_taps(taps, base_valid, fracx, fracy, current_color,
         fm = fm + mv[..., None] * a[..., 3:5]
         fh = fh + mv * a[..., 5]
         cnt = cnt + mv
+    return _accumulate(bilinear_ok, (pc_b, pm_b, ph_b), (fc, fm, fh, cnt),
+                       current_color, curr_geom, history_length, lum,
+                       color_alpha_min, moment_alpha_min)
+
+
+def _accumulate(bilinear_ok, bilinear, fallback, current_color, curr_geom,
+                history_length, lum, color_alpha_min, moment_alpha_min):
+    """The tail of every back-projection: the bilinear taps' (color,
+    moments, history) where bilinear_ok, else the 3x3 fallback's mean
+    (sums of color, moments, history and the count of valid taps), then
+    EWMA and rejection (denoise.cu:262-315)."""
+    pc_b, pm_b, ph_b = bilinear
+    fc, fm, fh, cnt = fallback
+    n_hist = history_length.to(torch.float32)
     fallback_ok = ~bilinear_ok & (cnt > 0)
     safe_cnt = torch.clamp_min(cnt, 1e-20)
     pc = torch.where(bilinear_ok[..., None], pc_b, fc / safe_cnt[..., None])
@@ -193,6 +207,131 @@ def back_projection(res, current_color, curr_gb, prev_gb, prev_viewmat,
                                   base, color_history, moment_history,
                                   history_length, color_alpha_min,
                                   moment_alpha_min)
+
+
+# The JAX package's 9-gather packed variant (ptdn_tpu/denoise/reproject.py:
+# 205 back_projection_packed): the nine 3x3 taps as row gathers of one
+# packed (H * W, 10) table, the 2x2 bilinear taps among them. The port's
+# back_projection gathers exactly so (gather_back_projection).
+back_projection_packed = back_projection
+
+
+def back_projection_window(res, current_color, curr_gb, prev_gb,
+                           prev_viewmat, color_history, moment_history,
+                           history_length, color_alpha_min,
+                           moment_alpha_min):
+    """Back-projection by one gathered row per pixel (ptdn_tpu/denoise/
+    reproject.py:120 back_projection_window): the previous frame padded
+    by 2 pixels (zeros, geom id -1, so a tap outside the image never
+    validates) and packed as a grid of complete 3x3 windows of 10
+    channels, 90 floats a row, over window centres [-1, h] x [-1, w];
+    each pixel gathers the row of its clipped base and reads every tap
+    from it. The JAX function splits that gather into 8-wide column
+    groups past a 110 MB table, for a TPU gather cliff; this gathers
+    whole rows. Returns (variance, color_acc, moment_acc,
+    history_update)."""
+    w, h = res
+    fx, fy, fracx, fracy, base_valid = _reproj_base(
+        res, curr_gb["position"], prev_viewmat)
+    pack = prev_pack(color_history, moment_history, history_length,
+                     prev_gb["normal"], prev_gb["geom_id"])
+    padded = torch.nn.functional.pad(pack.permute(2, 0, 1),
+                                     (2, 2, 2, 2)).permute(1, 2, 0)
+    border = torch.ones((h + 4, w + 4), dtype=torch.bool,
+                        device=pack.device)
+    border[2:-2, 2:-2] = False
+    padded[..., 9] = torch.where(border, -1.0, padded[..., 9])
+    gh, gw = h + 2, w + 2
+    table = torch.cat([padded[a:a + gh, b:b + gw] for a in range(3)
+                       for b in range(3)], dim=-1).reshape(gh * gw, 90)
+    rows = (fy + 1).clamp(0, gh - 1) * gw + (fx + 1).clamp(0, gw - 1)
+    g = table[rows].reshape(h, w, 9, 10)
+    taps = {}
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            vals = g[..., (dy + 1) * 3 + (dx + 1), :]
+            qx, qy = fx + dx, fy + dy
+            inb = (qx >= 0) & (qx < w) & (qy >= 0) & (qy < h)
+            taps[(dy, dx)] = (vals[..., 0:6],
+                              tap_valid(vals, inb, curr_gb["geom_id"],
+                                        curr_gb["normal"]))
+    return _accumulate_from_taps(taps, base_valid, fracx, fracy,
+                                 current_color, curr_gb["geom_id"],
+                                 history_length, luminance(current_color),
+                                 color_alpha_min, moment_alpha_min)
+
+
+def back_projection_packed2(res, current_color, curr_gb, prev_gb,
+                            prev_viewmat, color_history, moment_history,
+                            history_length, color_alpha_min,
+                            moment_alpha_min):
+    """Back-projection by four gathered rows per pixel (ptdn_tpu/denoise/
+    reproject.py:580 back_projection_packed2): the previous frame packed
+    per 2x2 pixel block (40 floats a row), so the 3x3 window, which always
+    lies in 2x2 blocks, is four rows. Its 16 slots are summed block by
+    block, as the JAX function sums them, so the bilinear sums take the
+    four taps in the order the blocks hold them. h and w must be even.
+    Returns (variance, color_acc, moment_acc, history_update)."""
+    w, h = res
+    hb, wb = h // 2, w // 2
+    fx, fy, fracx, fracy, base_valid = _reproj_base(
+        res, curr_gb["position"], prev_viewmat)
+    curr_geom, curr_normal = curr_gb["geom_id"], curr_gb["normal"]
+    pix = prev_pack(color_history, moment_history, history_length,
+                    prev_gb["normal"], prev_gb["geom_id"])
+    table = pix.reshape(hb, 2, wb, 2, 10).permute(0, 2, 1, 3, 4).reshape(
+        hb * wb, 40)
+    by0 = torch.div(fy - 1, 2, rounding_mode="floor")
+    bx0 = torch.div(fx - 1, 2, rounding_mode="floor")
+    quad = [(0, 0), (1, 0), (0, 1), (1, 1)]
+    vbil = {k: torch.zeros_like(base_valid) for k in quad}
+    slots = []
+    for a in (0, 1):
+        for b in (0, 1):
+            rows = ((by0 + a).clamp(0, hb - 1) * wb
+                    + (bx0 + b).clamp(0, wb - 1))
+            g = table[rows]
+            for i in (0, 1):
+                for j in (0, 1):
+                    vals = g[..., (i * 2 + j) * 10:(i * 2 + j) * 10 + 10]
+                    gy, gx = 2 * (by0 + a) + i, 2 * (bx0 + b) + j
+                    dy, dx = gy - fy, gx - fx
+                    inb = (gx >= 0) & (gx < w) & (gy >= 0) & (gy < h)
+                    valid = tap_valid(vals, inb, curr_geom, curr_normal)
+                    slots.append((vals, dy, dx, valid))
+                    for ty, tx in quad:
+                        vbil[ty, tx] = vbil[ty, tx] | (
+                            (dy == ty) & (dx == tx) & valid)
+    all_valid = base_valid
+    for k in quad:
+        all_valid = all_valid & vbil[k]
+    zero = torch.zeros_like(fracx)
+    pc = torch.zeros_like(current_color)
+    pm = torch.zeros(curr_geom.shape + (2,), device=zero.device)
+    fc, fm = torch.zeros_like(pc), torch.zeros_like(pm)
+    ph = sumw = fh = cnt = zero
+    for vals, dy, dx, valid in slots:
+        wy = torch.where(dy == 0, 1.0 - fracy, torch.where(dy == 1, fracy,
+                                                           0.0))
+        wx = torch.where(dx == 0, 1.0 - fracx, torch.where(dx == 1, fracx,
+                                                           0.0))
+        bw = torch.where(all_valid & valid, wy * wx, 0.0)
+        pc = fma(bw[..., None], vals[..., 0:3], pc)
+        pm = fma(bw[..., None], vals[..., 3:5], pm)
+        ph = fma(bw, vals[..., 5], ph)
+        sumw = sumw + bw
+        fb = torch.where(valid & (dy.abs() <= 1) & (dx.abs() <= 1), 1.0, 0.0)
+        fc = fc + fb[..., None] * vals[..., 0:3]
+        fm = fm + fb[..., None] * vals[..., 3:5]
+        fh = fh + fb * vals[..., 5]
+        cnt = cnt + fb
+    bilinear_ok = all_valid & (sumw >= 0.01)
+    safe = torch.clamp_min(sumw, 1e-20)
+    return _accumulate(bilinear_ok, (pc / safe[..., None],
+                                     pm / safe[..., None], ph / safe),
+                       (fc, fm, fh, cnt), current_color, curr_geom,
+                       history_length, luminance(current_color),
+                       color_alpha_min, moment_alpha_min)
 
 
 # rows per band of the banded reprojection, and the rows its slab reaches

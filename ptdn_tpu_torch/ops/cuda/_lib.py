@@ -4,9 +4,11 @@ nvcc compiles every ``csrc/*.cu`` for ``sm_90a``, one process per
 source, all at once, and links the objects into one shared library with a
 plain C interface, which ctypes loads. The build runs at first use, into
 ``ptdn_tpu_torch/build/`` (ignored by git), and again only when a source
-is newer than the library. Kernel B1 (``csrc/scene/path_trace.cu``) is
-built once per scene instead, with the scene's constants in a generated
-header (build_scene), into a library of its own per scene. No fast-math
+is newer than the library. Kernel B1's per-scene build
+(``csrc/scene/path_trace.cu``) is built once per scene instead, with the
+scene's constants in a generated header (build_scene), into a library of
+its own per scene; its table build (``csrc/path_trace_table.cu``) is in
+the kernel library. No fast-math
 flag is passed and ``--fmad=false`` keeps every product rounded on its
 own, so the kernels round like their plain PyTorch versions, which run
 one operation at a time.
@@ -125,7 +127,7 @@ class SceneDev(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "tf", "inv", "invt", "geom", "tri_moller",
         "chunk_min", "chunk_max", "tri_attr", "mat_attr", "tex_wh",
-        "tex_flat")] + [(name, ctypes.c_int) for name in (
+        "tex_flat", "row_code", "row_coef")] + [(name, ctypes.c_int) for name in (
             "n_geoms", "n_tris", "n_chunks", "tex_h", "tex_w")]
 
 
@@ -157,6 +159,11 @@ def load(path) -> ctypes.CDLL:
         "ptdn_shade_bounce": [vp, vp],
         "ptdn_trace_bounce": [vp, vp, vp],
         "ptdn_inrow_permute": [vp, vp, i32, i32, vp, vp],
+        "ptdn_path_trace_table": [vp, vp, vp],
+        "ptdn_gather_u32": [vp, vp, i32, vp, vp],
+        "ptdn_take_chain": [vp, vp, i32, i32, i32, i32, vp, vp],
+        "ptdn_mesh_intersect_v1": [vp, vp, vp, vp, vp, i32, i32, i32, i32,
+                                   vp, vp, vp],
     }.items():
         fn = getattr(lib, name)
         fn.argtypes = args

@@ -1,10 +1,15 @@
 """Kernels B1 (path_trace) and B2 (deferred_radiance), with their plain
 PyTorch versions.
 
-B1 (csrc/scene/path_trace.cu, built once per scene with the scene's
-baked rows as constants: _lib.build_scene) replaces the TPU kernel
-ptdn_tpu/ops/pallas/path.py: path_trace_fused_pallas; B2 (csrc/path.cu)
-replaces uncompact_tiles_pallas with the gather of
+B1 (csrc/path_trace.cuh) replaces the TPU kernel ptdn_tpu/ops/pallas/
+path.py: path_trace_fused_pallas in two builds of one body: built once per
+scene with the scene's baked rows as constants (csrc/scene/path_trace.cu,
+_lib.build_scene), and, for the scenes past that build's limits
+(GeomInfo.path_scene is None: more than B1_MAX_GEOMS geoms or B1_MAX_MATS
+materials, or a constant that is not finite), the table build, which
+reads the same rows from device memory (csrc/path_trace_table.cu, in the
+kernel library; its launches count in path_trace.table_launches). B2
+(csrc/path.cu) replaces uncompact_tiles_pallas with the gather of
 engine/wavefront.py:packed_texel_gather and deferred_radiance. The whole
 depth loop runs with the texture modulation of depths >= 2 deferred: B1
 walks every path with albedo 1.0 on textured lanes and emits per depth
@@ -32,7 +37,6 @@ import torch
 
 from ptdn_tpu_torch.ops.bsdf import shade
 from ptdn_tpu_torch.ops.cuda import _lib
-from ptdn_tpu_torch.ops.cuda import scene_intersect as A
 from ptdn_tpu_torch.ops.cuda.scene_intersect import (GeomInfo, closest_hit,
                                                      light_visible, scene_dev,
                                                      tex_index, texel_rgb)
@@ -40,7 +44,7 @@ from ptdn_tpu_torch.ops.rng import init_rand
 
 
 class PathArgs(ctypes.Structure):
-    """Mirror of csrc/scene/path_trace.cu:PathArgs."""
+    """Mirror of csrc/path_trace.cuh:PathArgs."""
     _fields_ = ([(k, ctypes.c_void_p) for k in (
         "o", "d", "t", "nrm", "alb", "mat", "act", "contrib", "texidx")]
         + [(k, ctypes.c_int) for k in ("n", "depth")]
@@ -112,7 +116,9 @@ def path_trace(ds, gi: GeomInfo, prim: Dict[str, torch.Tensor], *,
     emittance). flags: shadow_ray, reduce_var, do_vis, alb_skip1,
     show_tex. Returns contrib (6*depth, N) f32 — per depth d the
     emissive rgb then the lit NEE rgb — and texidx (depth-1, N) int32.
-    CPU tensors take the plain version; CUDA tensors launch kernel B1."""
+    CPU tensors take the plain version; CUDA tensors launch kernel B1, its
+    per-scene build where the scene has one (gi.path_scene), else its
+    table build."""
     _lib.require(prim["t"].device, "path_trace")
     if prim["t"].device.type == "cpu":
         return path_trace_plain(ds, gi, prim, frame=frame, lane0=lane0,
@@ -131,12 +137,6 @@ def _path_trace_kernel(ds, gi, prim, frame, lane0, depth, light, flags):
                          ("mat_id", torch.int32, (n,)),
                          ("hit", torch.bool, (n,))):
         _lib.check_tensor(prim[k], dt, shape, k)
-    if gi.path_scene is None:
-        raise ValueError(
-            f"path_trace: kernel B1 is built for scenes of at most "
-            f"{A.B1_MAX_GEOMS} geoms and {A.B1_MAX_MATS} materials with "
-            f"finite matrices and materials; this one has {len(gi.types)} "
-            f"geoms and {ds.mat_attr.shape[0]} materials")
     dev = prim["t"].device
     contrib = torch.empty((6 * depth, n), dtype=torch.float32, device=dev)
     texidx = torch.empty((depth - 1, n), dtype=torch.int32, device=dev)
@@ -153,13 +153,18 @@ def _path_trace_kernel(ds, gi, prim, frame, lane0, depth, light, flags):
         light_z=light["pos"][2], lrad=light["radius"],
         sint=light["intensity"], emit_r=light["emit"][0],
         emit_g=light["emit"][1], emit_b=light["emit"][2])
-    _lib.launch("ptdn_path_trace", scene_dev(ds, gi, dev), args,
-                lib=_lib.scene_kernels(gi.path_scene))
-    path_trace.launches += 1
+    if gi.path_scene is None:
+        _lib.launch("ptdn_path_trace_table", scene_dev(ds, gi, dev), args)
+        path_trace.table_launches += 1
+    else:
+        _lib.launch("ptdn_path_trace", scene_dev(ds, gi, dev), args,
+                    lib=_lib.scene_kernels(gi.path_scene))
+        path_trace.launches += 1
     return contrib, texidx
 
 
-path_trace.launches = 0
+path_trace.launches = 0         # the per-scene build's
+path_trace.table_launches = 0   # the table build's
 
 
 def deferred_radiance_plain(ds, contrib: torch.Tensor, texidx: torch.Tensor,

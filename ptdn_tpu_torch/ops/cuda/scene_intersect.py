@@ -39,16 +39,21 @@ COLORDIVIDOR = 0.003921568627   # utilities.h:24
 class GeomInfo(NamedTuple):
     """Static geometry of a scene: per-geom types on the host, an int32
     (G, 2) table of (type, material) on the device, the triangle count,
-    and the header kernel B1 is built with for this scene
-    (path_scene_header), None where the scene exceeds its limits."""
+    the header kernel B1 is built with for this scene (path_scene_header),
+    None where the scene exceeds its limits, and on the device the baked
+    rows' forms (G * 15,) int32 and coefficients (G * 15, 4) float32
+    (baked_rows), which B1's table build reads."""
     types: Tuple[int, ...]
     table: torch.Tensor
     n_tris: int
     path_scene: Optional[str]
+    row_code: torch.Tensor
+    row_coef: torch.Tensor
 
 
 # the limits of kernel B1's build for one scene: its geom loop unrolls
-# over the geoms, and the material table lives in the 64 KB constant bank
+# over the geoms, and the material table lives in the 64 KB constant bank.
+# A scene past them takes B1's table build (csrc/path_trace_table.cu).
 B1_MAX_GEOMS = 64
 B1_MAX_MATS = 1024
 
@@ -58,18 +63,12 @@ def _c_floats(xs) -> str:
     return ", ".join(float(np.float32(x)).hex() + "f" for x in xs)
 
 
-def path_scene_header(scene, mat_attr: np.ndarray) -> Optional[str]:
-    """scene.h of kernel B1 built for this scene (csrc/scene/path_trace.cu):
-    the geom count, each geom's type and material, per geom the forms
-    (ops/intersect.py:baked_row_form) of its five kinds of baked rows,
-    three each (the inverse with and without bias, the transform with
-    and without bias, the inverse transpose) as codes and (c0, c1, c2,
-    c3) coefficients, and the (M, 16) material table `mat_attr`. None if
-    the scene has more than B1_MAX_GEOMS geoms or B1_MAX_MATS materials,
-    or a constant that is not finite."""
-    if (len(scene.geoms) > B1_MAX_GEOMS or mat_attr.shape[0] > B1_MAX_MATS
-            or not np.isfinite(mat_attr).all()):
-        return None
+def baked_rows(scene):
+    """Per geom the forms (ops/intersect.py:baked_row_form) of its five
+    kinds of baked rows, three each (the inverse with and without bias,
+    the transform with and without bias, the inverse transpose): codes
+    (G * 15,) int32 and (c0, c1, c2, c3) coefficients (G * 15, 4)
+    float32, geom-major, then kind, then row."""
     codes, coefs = [], []
     for g in scene.geoms:
         for m, bias in ((g.inverse, True), (g.inverse, False),
@@ -78,10 +77,24 @@ def path_scene_header(scene, mat_attr: np.ndarray) -> Optional[str]:
             m32 = np.asarray(m, np.float32)
             for r in range(3):
                 code, c = baked_row_form(m32[r], bias)
-                if not np.isfinite(c).all():
-                    return None
-                codes.append(str(code))
-                coefs.append("{" + _c_floats(c) + "}")
+                codes.append(code)
+                coefs.append(c)
+    return (np.asarray(codes, np.int32).reshape(-1),
+            np.asarray(coefs, np.float32).reshape(-1, 4))
+
+
+def path_scene_header(scene, mat_attr: np.ndarray, codes: np.ndarray,
+                      coefs: np.ndarray) -> Optional[str]:
+    """scene.h of kernel B1 built for this scene (csrc/scene/path_trace.cu):
+    the geom count, each geom's type and material, the forms of its baked
+    rows as codes and coefficients (baked_rows), and the (M, 16) material
+    table `mat_attr`. None if the scene has more than B1_MAX_GEOMS geoms
+    or B1_MAX_MATS materials, or a constant that is not finite: B1's table
+    build takes such a scene."""
+    if (len(scene.geoms) > B1_MAX_GEOMS or mat_attr.shape[0] > B1_MAX_MATS
+            or not np.isfinite(mat_attr).all()
+            or not np.isfinite(coefs).all()):
+        return None
     n_g = len(scene.geoms)
     return "\n".join([
         "// Kernel B1's scene constants, generated by",
@@ -93,9 +106,10 @@ def path_scene_header(scene, mat_attr: np.ndarray) -> Optional[str]:
         + ", ".join(str(g.type) for g in scene.geoms) + "};",
         "__device__ constexpr int kMat[] = {"
         + ", ".join(str(g.material_id) for g in scene.geoms) + "};",
-        "__device__ constexpr int kCode[] = {" + ", ".join(codes) + "};",
-        "__device__ constexpr float kCoef[][4] = {" + ", ".join(coefs)
-        + "};",
+        "__device__ constexpr int kCode[] = {"
+        + ", ".join(str(c) for c in codes) + "};",
+        "__device__ constexpr float kCoef[][4] = {"
+        + ", ".join("{" + _c_floats(c) + "}" for c in coefs) + "};",
         "__constant__ float kMatAttr[] = {"
         + _c_floats(np.asarray(mat_attr, np.float32).reshape(-1)) + "};",
         "}  // namespace scene", ""])
@@ -105,9 +119,12 @@ def geom_info(scene, device) -> GeomInfo:
     table = torch.tensor([[t, m] for t, m in zip(scene.geom_types,
                                                   scene.geom_material_ids)],
                          dtype=torch.int32, device=device)
+    codes, coefs = baked_rows(scene)
     header = path_scene_header(
-        scene, scene.device(device).mat_attr.cpu().numpy())
-    return GeomInfo(scene.geom_types, table, scene.n_tris, header)
+        scene, scene.device(device).mat_attr.cpu().numpy(), codes, coefs)
+    return GeomInfo(scene.geom_types, table, scene.n_tris, header,
+                    torch.from_numpy(codes).to(device),
+                    torch.from_numpy(coefs).to(device))
 
 
 def scene_dev(ds, gi: GeomInfo, device: torch.device) -> _lib.SceneDev:
@@ -118,7 +135,8 @@ def scene_dev(ds, gi: GeomInfo, device: torch.device) -> _lib.SceneDev:
         invt=ds.geom_inv_transpose, geom=gi.table, tri_moller=ds.tri_moller,
         chunk_min=ds.tri_chunk_min, chunk_max=ds.tri_chunk_max,
         tri_attr=ds.tri_attr, mat_attr=ds.mat_attr, tex_wh=ds.tex_wh,
-        tex_flat=ds.tex_flat_u32)
+        tex_flat=ds.tex_flat_u32, row_code=gi.row_code,
+        row_coef=gi.row_coef)
     for k, t in tensors.items():
         if t.device != device or not t.is_contiguous():
             raise ValueError(f"scene tensor {k}: expected contiguous on "

@@ -85,7 +85,7 @@ def baked_row_form(row, bias: bool):
     the plan bit for bit, because the pieces it drops are exact
     identities: x * 1 = x, fma(-0, 1, y) = y and y + (-0) = y, signed
     zeros included. A MUL row is the plan's LONE row, which fuses into
-    o - row. csrc/scene/path_trace.cu switches on the same forms."""
+    o - row. csrc/path_trace.cuh:form_row switches on the same forms."""
     (a0, a1, a2, b), code = baked_row_plan(row, bias)
     s0, s1, s2 = ((code >> (2 * k)) & 3 for k in range(3))
     if s0 == ONE:

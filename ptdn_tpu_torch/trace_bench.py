@@ -18,7 +18,6 @@ One line per kernel, each with the card's name and power limit
 from __future__ import annotations
 
 import argparse
-import subprocess
 
 import numpy as np
 import torch
@@ -26,6 +25,7 @@ import torch
 from ptdn_tpu_torch.ops.cuda import scene_intersect as A
 from ptdn_tpu_torch.scene import Scene
 from ptdn_tpu_torch.utils.assets import scene_path
+from ptdn_tpu_torch.utils.card import card_name, cuda_ms
 
 RES = (800, 800)
 LIGHT_GEOM = 0
@@ -61,24 +61,9 @@ def calls(ds, gi, o, d):
     }
 
 
-def event_ms(fn, reps: int) -> float:
-    """Mean CUDA-event time of fn over reps calls, after two warm-ups."""
-    for _ in range(2):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def run(reps: int = 20):
     """name -> ms per launch of each kernel on the card."""
-    return {name: event_ms(fn, reps)
+    return {name: cuda_ms(fn, reps, hide_host=True)
             for name, fn in calls(*setup("cuda")).items()}
 
 
@@ -86,12 +71,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("trace_bench needs a CUDA device")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    card = card_name()
     n = RES[0] * RES[1]
     for name, ms in run(args.reps).items():
         print(f"{name}: {ms:.4f} ms for {n} rays [{card}]")
