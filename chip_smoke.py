@@ -42,15 +42,20 @@ Phases, one line or more each, with their wall time:
 
 0. the card (name and power limit from nvidia-smi); TF32 off;
 1. build every kernel from ptdn_tpu_torch/csrc (one nvcc per source, all
-   at once, B1's table build among them, and kernel B1 for cornell's
-   constants), with each kernel's registers, shared memory and spills;
+   at once, B1's table build and F's and H's library build among them),
+   then kernels B1, F and H for each scene's constants (csrc/scene/*.cu,
+   every scene at once), with each kernel's registers, shared memory and
+   spills;
 2. each kernel against its plain PyTorch version on the card, on its
    path's shapes and a mid-sequence state: A, B1 + B2, C, D, L (and L
    against C then D) on cornell, B1 and D (every level, on the frame's
    packed and unpacked layouts) equal bit for bit; C's band mode on a
    moving cornell camera; E and G on diamond (equal); F on diamond,
-   bunny and room; H on cornell and bunny; I, J (and J against A) and K
-   on cornell and room; M on the trace bench's rays; B1's table build
+   bunny and room; H on cornell, bunny and room; F and H there plane by
+   plane, through the scene's build and the kernel library's, no plane
+   with more lanes off their plain versions than the per-lane scan they
+   replaced had (LANES_OFF_ALLOWED); I, J (and J against A) and K on
+   cornell and room; M on the trace bench's rays; B1's table build
    equal bit for bit to the per-scene build and the plain version on
    cornell; N, G at K = 29, O and P's rough (t, tri) equal bit for bit
    on the probes' inputs (O also to the numpy chain);
@@ -70,9 +75,13 @@ Phases, one line or more each, with their wall time:
    at each level of the frame; ms/frame of cornell
    (still, with fuse_reproject_l1, and moving with the flag off and on)
    and bunny through each of their engines, of diamond through the sort
-   and through B1 (sort_rays=False), and of room at 1920x1080 moving, in
-   turns; the trace bench's kernel times; B1's table build on the 65-geom
-   scene (its JSON line) and on cornell; the 65-geom scene's ms/frame.
+   and through B1 (sort_rays=False), of room 600x600 through the sort and
+   the fused engine, and of room at 1920x1080 moving, in turns; F at
+   bounce 2 of bunny and of room at 1920x1080 and H at bounce 2 of bunny
+   and room (ptdn_tpu_torch/bounce_bench.py), each build in turns, with
+   bound and launches; the trace bench's kernel times; B1's table build
+   on the 65-geom scene (its JSON line) and on cornell; the 65-geom
+   scene's ms/frame.
 
 The line before the last is a JSON object with every kernel's numbers;
 the last is {"ok": true, "device": {...}}. Any failed check raises, so
@@ -81,11 +90,11 @@ the exit code is not 0 and no result line is printed. Needs one card.
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import functools
 import json
 import os
-import re
 import subprocess
 import sys
 import time
@@ -97,6 +106,7 @@ sys.path.insert(0, ROOT)
 
 import torch  # noqa: E402
 
+from ptdn_tpu_torch import bounce_bench as BB  # noqa: E402
 from ptdn_tpu_torch import reproj_bench, trace_bench  # noqa: E402
 from ptdn_tpu_torch.app.automate import CameraAutomation  # noqa: E402
 from ptdn_tpu_torch.denoise import reproject, svgf  # noqa: E402
@@ -123,7 +133,10 @@ from ptdn_tpu_torch.probes import texgather as probe_n  # noqa: E402
 from ptdn_tpu_torch.scene import Scene  # noqa: E402
 from ptdn_tpu_torch.utils.assets import (scene_path,  # noqa: E402
                                          write_cornell_plus)
-from ptdn_tpu_torch.utils.card import cuda_ms  # noqa: E402
+from ptdn_tpu_torch.utils.card import (ANALYTIC_OPS,  # noqa: E402
+                                       MOLLER_OPS, REFINE_OPS, SHADE_OPS,
+                                       bound, cuda_ms, nbytes,
+                                       ptxas_summary)
 from ptdn_tpu_torch.utils.config import RenderConfig  # noqa: E402
 
 DEVICE = "cuda"
@@ -188,13 +201,14 @@ KERNELS = {  # name: (wrapper, source, TPU kernel it replaces)
     "shade_bounce": (E.shade_bounce, "csrc/shade.cu",
                      "ptdn_tpu/ops/pallas/shade.py:345"),
     # on textured scenes F also does the albedo fetch's texel route,
-    # the TPU kernel uncompact_tiles_pallas
-    "trace_bounce": (F.trace_bounce, "csrc/bounce.cu",
+    # the TPU kernel uncompact_tiles_pallas. F and H run their per-scene
+    # build (the kernel library's, csrc/bounce.cu, past its limits)
+    "trace_bounce": (F.trace_bounce, "csrc/scene/bounce.cu",
                      "ptdn_tpu/ops/pallas/bounce.py:376, "
                      "ptdn_tpu/ops/pallas/path.py:239"),
     "inrow_permute": (G.inrow_permute, "csrc/inrow.cu",
                       "ptdn_tpu/ops/pallas/inrow.py:34"),
-    "bounce_fused": (F.bounce_fused, "csrc/bounce.cu",
+    "bounce_fused": (F.bounce_fused, "csrc/scene/bounce.cu",
                      "ptdn_tpu/ops/pallas/bounce.py:161"),
     "light_visibility": (A.light_visibility, "csrc/scene_intersect.cu",
                          "ptdn_tpu/ops/pallas/scene_intersect.py:452"),
@@ -250,56 +264,20 @@ LIBRARY = {"inrow_permute": "torch.gather", "sparse_gather": "torch.take",
 # the generated scene past B1's per-scene build: cornell plus 55 cubes
 # (65 geoms), rendered this many frames at cornell's resolution
 CUBES, CUBE_FRAMES = 55, 4
-# the card's peaks (NVIDIA H100 SXM data sheet): HBM bytes/s, float32
-# operations/s outside the tensor cores
-HBM_RATE = 3.35e12
-F32_RATE = 67e12
-# float operations per unit of work, counted from the kernels' code:
-# one Moller-Trumbore lane-triangle test, one analytic geom test of a
-# lane, the winning triangle's refine, one lane's shading
-MOLLER_OPS = 52
-# one plane-form lane-triangle test of kernel P: six 4-term dots, a
-# division, two FMAs, the compares
+# float operations of one plane-form lane-triangle test of kernel P: six
+# 4-term dots, a division, two FMAs, the compares (the other counts and
+# the card's peaks are utils/card.py's)
 PLANE_OPS = 60
-ANALYTIC_OPS = 90
-REFINE_OPS = 70
-SHADE_OPS = 250
+# lanes of F and H that differ from their plain versions on any one
+# output plane: what the per-lane scan F and H replaced counted at bounce
+# 2 of diamond, bunny and room (F) and cornell, bunny and room (H)
+# (bounce_bench, PERF.md), the most the per-plane checks allow
+LANES_OFF_ALLOWED = 0
 
 
 def check(ok: bool, what: str):
     if not ok:
         raise RuntimeError(f"check failed: {what}")
-
-
-def kernel_name(mangled: str) -> str:
-    """The kernel's own name in an Itanium-mangled entry name: the
-    length-prefixed identifier that ends in _kernel."""
-    for m in re.finditer(r"(?=([0-9]+))", mangled):   # every digit suffix
-        end = m.start() + len(m.group(1))
-        name = mangled[end:end + int(m.group(1))]
-        if re.fullmatch(r"[a-z][a-z0-9_]*_kernel", name):
-            return name
-    return mangled
-
-
-def ptxas_summary(log: str):
-    """'<kernel> N registers, M B smem, S B spilled' per entry function of
-    nvcc's -Xptxas -v report."""
-    out, name, spill = [], "?", "?"
-    for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", ln)
-        if m:
-            name = kernel_name(m.group(1))
-        m = re.search(r"(\d+) bytes spill stores", ln)
-        if m:
-            spill = m.group(1)
-        m = re.search(r"Used (\d+) registers", ln)
-        if m:
-            smem = re.search(r"(\d+) bytes smem", ln)
-            out.append(f"{name} {m.group(1)} registers, "
-                       f"{smem.group(1) if smem else 0} B smem, "
-                       f"{spill} B spilled")
-    return out
 
 
 def nonzero(c):
@@ -333,18 +311,6 @@ def floats_close(a, b) -> bool:
     D's agreement with its plain version."""
     return all(torch.allclose(x, y, rtol=1e-6, atol=1e-6)
                for x, y in zip(a, b))
-
-
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors
-               if t is not None)
-
-
-def bound(n_bytes: float, ops: float):
-    """(ms, what bounds it): the larger of the bytes over the HBM rate
-    and the operations over the float32 rate."""
-    tb, to = n_bytes / HBM_RATE, ops / F32_RATE
-    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
 
 def n_analytic(gi) -> int:
@@ -413,34 +379,6 @@ def reset_counts():
 def counts():
     return {name: getattr(k[0], COUNTER.get(name, "launches"))
             for name, k in KERNELS.items()}
-
-
-def capture_bounce(r, depth: int,
-                   names=("shade_bounce", "trace_bounce", "inrow_permute")):
-    """Render one frame of r and return, for each engine function of
-    `names` (attributes of engine/wavefront.py) that the frame calls, the
-    arguments of its call on bounce `depth` (each wrapper still runs, so
-    the frame is unchanged)."""
-    got, seen = {}, dict.fromkeys(names, 0)
-    real = {k: getattr(W, k) for k in names}
-
-    def spy(key, fn):
-        def call(*args, **kw):
-            seen[key] += 1
-            if seen[key] == depth:
-                got[key] = ([a.clone() if torch.is_tensor(a) else a
-                             for a in args], kw)
-            return fn(*args, **kw)
-        return call
-    for k in names:
-        setattr(W, k, spy(k, real[k]))
-    try:
-        r.render_frame()
-    finally:
-        for k in names:
-            setattr(W, k, real[k])
-    torch.cuda.synchronize()
-    return got
 
 
 def b1_args(r, frame: int = 3):
@@ -526,6 +464,30 @@ def rmse_vs_gt(name, left, right):
             float(np.sqrt(np.mean((raw - gt) ** 2))))
 
 
+def plane_check(kernel, label, args, kw, got, ref):
+    """Kernel F or H (bounce_bench's `kernel`) against its plain version's
+    output `ref` plane by plane, through both builds (`got`: the scene's
+    own, from the wrapper; then the kernel library's, launched here): no
+    plane may have more differing lanes than the per-lane scan had.
+    Returns the per-plane counts of the two builds."""
+    ds, gi, planes = args
+    lib = BB.kernel_fn(kernel)(ds, gi._replace(path_scene=None), planes,
+                               **kw)
+    ref = BB.out_planes(kernel, ref)
+    out = {build: BB.plane_diffs(BB.out_planes(kernel, g), ref)
+           for build, g in (("scene", got), ("library", lib))}
+    for build, diffs in out.items():
+        check(max(diffs.values()) <= LANES_OFF_ALLOWED,
+              f"{label}, {build} build: lanes differing by plane {diffs} "
+              f"(per-lane scan: at most {LANES_OFF_ALLOWED})")
+    print(f"phase 2: {label}: lanes differing from the plain version on "
+          f"any of {len(ref)} planes: scene build "
+          f"{max(out['scene'].values())}, library build "
+          f"{max(out['library'].values())} (per-lane scan: "
+          f"{LANES_OFF_ALLOWED})")
+    return out
+
+
 def f_agreement(kf, pf):
     """Lanes where F and its plain version hit the same material with the
     same liveness; the max |d| of t, normal and uv there; and the share
@@ -556,18 +518,25 @@ def main():
     t0 = time.perf_counter()
     log = _lib.build(force=True)
     _lib.kernels()
-    # kernel B1 is built per scene, with the scene's baked rows as
-    # constants; here cornell's, the main path's
+    regs = ptxas_summary(log)
+    check(len(regs) == 18, f"18 kernels in the library, got {regs}")
+    # kernels B1, F and H are built per scene, with the scene's constants
+    # (csrc/scene/*.cu), every scene's at once
     t1 = time.perf_counter()
-    _, b1_log = _lib.build_scene(
-        A.geom_info(scene("cornell"), DEVICE).path_scene, force=True)
-    t_b1 = time.perf_counter() - t1
-    regs = ptxas_summary(log + b1_log)
-    check(len(regs) == 19, f"19 kernels built, got {regs}")
+    with concurrent.futures.ThreadPoolExecutor(len(SCENES)) as pool:
+        scene_logs = dict(zip(SCENES, pool.map(
+            lambda name: _lib.build_scene(A.geom_info(
+                scene(name), DEVICE).path_scene, force=True)[1], SCENES)))
+    t_scene = time.perf_counter() - t1
+    scene_regs = {name: ptxas_summary(lg) for name, lg in scene_logs.items()}
+    check(all(len(r) == 3 for r in scene_regs.values()),
+          f"3 kernels per scene, got {scene_regs}")
     print(f"phase 1: built {len(list(_lib.CSRC.glob('*.cu')))} sources for "
-          f"sm_90a and B1 for cornell (csrc/scene/path_trace.cu, "
-          f"{t_b1:.1f} s) in {time.perf_counter() - t0:.1f} s; ptxas: "
-          + "; ".join(regs))
+          f"sm_90a in {t1 - t0:.1f} s, then B1, F and H for each of "
+          f"{len(SCENES)} scenes (csrc/scene/path_trace.cu, bounce.cu) in "
+          f"{t_scene:.1f} s; ptxas, the library: " + "; ".join(regs))
+    for name, r in scene_regs.items():
+        print(f"phase 1: ptxas, {name}'s build: " + "; ".join(r))
 
     # ---- phase 2: kernels against their plain versions ----
     t0 = time.perf_counter()
@@ -767,7 +736,8 @@ def main():
         r = renderer(name)
         for _ in range(3):
             r.render_frame()
-        mesh[name] = (r, capture_bounce(r, 2))
+        mesh[name] = (r, BB.capture_bounce(
+            r, 2, ("shade_bounce", "trace_bounce", "inrow_permute")))
     dr, cap = mesh["diamond"]
     (e_planes, e_mats), e_kw = cap["shade_bounce"]
     ke = E._shade_bounce_kernel(e_planes, e_mats, **e_kw)
@@ -810,17 +780,20 @@ def main():
               f"max |d| there {err:.3g}, lit agree {lit:.6f}, next albedo "
               f"equal on {alb_eq:.6f} of lanes, {f_tests} lane-triangle "
               f"tests in the plain scan")
+        plane_check("trace_bounce", f"F on {name} bounce 2",
+                    (fds, fgi, f_planes), f_kw, (kf, kalb), (pf, palb))
 
     # the per-bounce engines, mid-sequence: bounce 2 of frame 4. H on
-    # cornell (the textured wall) and bunny (39 chunks, every lane scans
-    # every chunk its rays cross)
+    # cornell (the textured wall), bunny (39 chunks, every lane scans
+    # every chunk its rays cross) and room (22 chunks, two textures)
     shading = (F.B_SPX, F.B_SPY, F.B_SPZ, F.B_DX, F.B_DY, F.B_DZ, F.B_TR,
                F.B_TG, F.B_TB, F.B_DIF)
-    for name in ("cornell", "bunny"):
+    h_cases = {}
+    for name in ("cornell", "bunny", "room"):
         r = renderer(name, **FUSED)
         for _ in range(3):
             r.render_frame()
-        (hds, hgi, h_planes), h_kw = capture_bounce(
+        (hds, hgi, h_planes), h_kw = BB.capture_bounce(
             r, 2, ("bounce_fused",))["bounce_fused"]
         kh = F._bounce_fused_kernel(hds, hgi, h_planes, **h_kw)
         A.mesh_best.tri_tests = A.light_visible.tri_tests = 0
@@ -843,6 +816,9 @@ def main():
         print(f"phase 2: H on {name} bounce 2: shading planes equal, hits "
               f"agree {agree:.6f}, max |d| there {err:.3g}, lit agree "
               f"{lit:.6f}, {h_tests} lane-triangle tests in the plain scan")
+        plane_check("bounce_fused", f"H on {name} bounce 2",
+                    (hds, hgi, h_planes), h_kw, kh, ph)
+        h_cases[name] = ((hds, hgi, h_planes), h_kw)
 
     # I, J (and J against A) and K on cornell and room, through the split
     # engine's bounce 2
@@ -850,8 +826,8 @@ def main():
         r = renderer(name, **SPLIT)
         for _ in range(3):
             r.render_frame()
-        scap = capture_bounce(r, 2, ("light_visibility",
-                                     "scene_intersect_full_tex"))
+        scap = BB.capture_bounce(r, 2, ("light_visibility",
+                                        "scene_intersect_full_tex"))
         i_args = tuple(scap["light_visibility"][0])
         k_i = A._light_visibility_kernel(*i_args)
         A.light_visible.tri_tests = 0
@@ -1136,6 +1112,7 @@ def main():
             ("bunny", "bunny", None, 10,
              {"sort": {}, "B1": dict(sort_rays=False), "fused": FUSED,
               "split": SPLIT}),
+            ("room", "room", None, 10, {"sort": {}, "fused": FUSED}),
             ("room 1920x1080 moving", "room", (1920, 1080), 4,
              {"sort": MOTION_RUNS["1080p_animated"][1]})):
         eng = {k: Motion(renderer(name, res, **kw)).frame
@@ -1259,6 +1236,33 @@ def main():
               f"bound {bound_ms:.4f} ms ({bound_by})"
               + (f", {LIBRARY[name]} {lib_ms:.4f} ms" if lib_ms else "")
               + f" [{card}]")
+    # F and H at bounce 2 where their users feel them most: F on bunny and
+    # on room at 1920x1080 (a still camera), H on bunny and room 600x600;
+    # each build in turns, with its bound and its launches in phase 3
+    bounce_cases = {
+        "F bunny": ("trace_bounce", mesh["bunny"][1]["trace_bounce"],
+                    ("bunny", "sorted")),
+        "F room 1920x1080": ("trace_bounce", BB.capture(
+            "trace_bounce", "room", (1920, 1080)), ("room", "1080p_animated")),
+        "H bunny": ("bounce_fused", h_cases["bunny"],
+                    ("bunny", "bounce_fused")),
+        "H room": ("bounce_fused", h_cases["room"],
+                   ("room", "bounce_fused"))}
+    for label, (kernel, (b_args, b_kw), run) in bounce_cases.items():
+        m = BB.measure(kernel, b_args, b_kw, reps=10)
+        check(all(max(b["diffs"].values()) <= LANES_OFF_ALLOWED
+                  for b in m["builds"].values()),
+              f"{label}: lanes differing by plane "
+              f"{ {k: b['diffs'] for k, b in m['builds'].items()} }")
+        m["launches"] = runs[run][kernel]
+        frame_ms["bounce " + label] = m
+        print(f"phase 4: {label} bounce 2 ({m['lanes']} lanes): "
+              + ", ".join(f"{k} build {v['ms']}" for k, v in
+                          m["builds"].items())
+              + f" ms, bound {m['bound_ms']:.4f} ms ({m['bound_by']}, "
+              f"{m['tri_tests']} lane-triangle tests), plain "
+              f"{m['plain_ms']:.1f} ms; {m['launches']} launches in the "
+              f"{' '.join(run)} run of phase 3 [{card}]")
     # D at each level of the frame (the line above: level 1)
     d_ms = [cuda_ms(lambda a=a: D._atrous_level_kernel(*a), hide_host=True)
             for a in d_args]

@@ -182,7 +182,7 @@ __device__ __forceinline__ void path_trace_lane(const ptdn::SceneDev& s,
       const float scale = a.sint / ss.dist2 * lambert;
       if (a.do_vis &&
           ptdn::light_visible<Rows>(s, a.light_geom, spx, spy, spz, ss.dx,
-                                    ss.dy, ss.dz, ptdn::all_chunks(s))) {
+                                    ss.dy, ss.dz)) {
         lit_r = tr * scale * 1.f * a.emit_r;
         lit_g = tg * scale * 1.f * a.emit_g;
         lit_b = tb * scale * 1.f * a.emit_b;
@@ -219,7 +219,7 @@ __device__ __forceinline__ void path_trace_lane(const ptdn::SceneDev& s,
 
     // next closest hit and next albedo
     const ptdn::Hit h = ptdn::closest_hit<Rows>(s, ox, oy, oz, dx, dy, dz,
-                                                true, ptdn::all_chunks(s));
+                                                true);
     active = h.geom >= 0;
     int tidx = -1;
     if (active) {

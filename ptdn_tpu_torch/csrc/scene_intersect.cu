@@ -83,7 +83,7 @@ __device__ __forceinline__ void closest_hit_ray(const ptdn::SceneDev& s,
   const float* d = r.d + (size_t)i * r.d_rs;
   const ptdn::Hit h = ptdn::closest_hit<ptdn::MatRows>(
       s, o[0], o[r.o_cs], o[2 * r.o_cs], d[0], d[r.d_cs], d[2 * r.d_cs],
-      true, ptdn::all_chunks(s));
+      true);
   a.t[i] = h.t;
   a.nrm[3 * i] = h.nx;
   a.nrm[3 * i + 1] = h.ny;
@@ -117,7 +117,7 @@ __global__ void light_visibility_kernel(ptdn::SceneDev s, ptdn::RayArgs r,
   const float* d = r.d + (size_t)i * r.d_rs;
   lit[i] = ptdn::light_visible<ptdn::MatRows>(
                s, light_geom, o[0], o[r.o_cs], o[2 * r.o_cs], d[0],
-               d[r.d_cs], d[2 * r.d_cs], ptdn::all_chunks(s))
+               d[r.d_cs], d[2 * r.d_cs])
                ? 1
                : 0;
 }
@@ -138,9 +138,9 @@ __global__ void scene_intersect_kernel(ptdn::SceneDev s, ptdn::RayArgs r,
   a.nrm_a[3 * i + 1] = an.ny;
   a.nrm_a[3 * i + 2] = an.nz;
   float bt = an.geom >= 0 ? an.t : ptdn::kFltMax;
-  const int bi = s.n_tris > 0 ? ptdn::mesh_best(s, ox, oy, oz, dx, dy, dz, bt,
-                                                ptdn::all_chunks(s), cull != 0)
-                              : -1;
+  const int bi = s.n_tris > 0
+                     ? ptdn::mesh_best(s, ox, oy, oz, dx, dy, dz, bt, cull != 0)
+                     : -1;
   a.t_m[i] = bi >= 0 ? bt : -1.f;
   a.tri_m[i] = bi;
 }

@@ -4,11 +4,12 @@ nvcc compiles every ``csrc/*.cu`` for ``sm_90a``, one process per
 source, all at once, and links the objects into one shared library with a
 plain C interface, which ctypes loads. The build runs at first use, into
 ``ptdn_tpu_torch/build/`` (ignored by git), and again only when a source
-is newer than the library. Kernel B1's per-scene build
-(``csrc/scene/path_trace.cu``) is built once per scene instead, with the
-scene's constants in a generated header (build_scene), into a library of
-its own per scene; its table build (``csrc/path_trace_table.cu``) is in
-the kernel library. No fast-math
+is newer than the library. The per-scene builds (``csrc/scene/*.cu``:
+kernel B1, and kernels F and H) are built once per scene instead, with
+the scene's constants in a generated header (build_scene), into
+libraries of their own per scene; the builds that serve the scenes past
+their limits (B1's table build, ``csrc/path_trace_table.cu``; F and H,
+``csrc/bounce.cu``) are in the kernel library. No fast-math
 flag is passed and ``--fmad=false`` keeps every product rounded on its
 own, so the kernels round like their plain PyTorch versions, which run
 one operation at a time.
@@ -80,45 +81,57 @@ def build(force: bool = False) -> str:
     return "".join(logs)
 
 
+# the C entry points of each per-scene source, csrc/scene/<stem>.cu
+SCENE_ENTRIES = {"path_trace": ("ptdn_path_trace",),
+                 "bounce": ("ptdn_trace_bounce", "ptdn_bounce_fused")}
+
+
 def build_scene(header: str, force: bool = False):
-    """Compile kernel B1 (csrc/scene/path_trace.cu) for one scene, with
-    `header` (ops/cuda/scene_intersect.py:path_scene_header) as its
-    scene.h, into build/scene-<hash>/, the hash taken over the header and
-    every kernel source; again only when forced or missing. Returns (the
-    library's path, nvcc's output)."""
+    """Compile every per-scene source (csrc/scene/<stem>.cu: kernel B1,
+    and kernels F and H) for one scene, with `header`
+    (ops/cuda/scene_intersect.py:path_scene_header) as its scene.h, each
+    into build/scene-<hash>/lib<stem>.so, the hash taken over the header
+    and every kernel source; one nvcc per source, all at once; again only
+    when forced or missing. Returns ({stem: the library's path}, nvcc's
+    output)."""
     key = hashlib.sha256(header.encode())
     for src in sorted(CSRC.rglob("*.cu*")):
         key.update(src.read_bytes())
     out = BUILD / f"scene-{key.hexdigest()[:16]}"
-    lib, log = out / "libptdn_path.so", out / "nvcc.log"
-    if not force and lib.exists():
-        return lib, log.read_text()
+    libs = {stem: out / f"lib{stem}.so" for stem in SCENE_ENTRIES}
+    log = out / "nvcc.log"
+    if not force and all(p.exists() for p in libs.values()):
+        return libs, log.read_text()
     out.mkdir(parents=True, exist_ok=True)
     (out / "scene.h").write_text(header)
-    tmp = out / f"libptdn_path.{os.getpid()}.so"
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-shared", "-I", str(out),
-                          "-o", str(tmp), str(CSRC / "scene" /
-                                              "path_trace.cu")],
-                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                         text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed on scene/path_trace.cu "
-                           f"({res.returncode}):\n{res.stdout}")
-    log.write_text(res.stdout)
-    os.replace(tmp, lib)
-    return lib, res.stdout
+    tmp = {stem: out / f"lib{stem}.{os.getpid()}.so" for stem in libs}
+    procs = {stem: subprocess.Popen(
+        [_nvcc(), *NVCC_FLAGS, "-shared", "-I", str(out), "-o",
+         str(tmp[stem]), str(CSRC / "scene" / f"{stem}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for stem in libs}
+    logs = {stem: proc.communicate()[0] for stem, proc in procs.items()}
+    for stem, proc in procs.items():
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on scene/{stem}.cu "
+                               f"({proc.returncode}):\n{logs[stem]}")
+    log.write_text("".join(logs.values()))
+    for stem in libs:
+        os.replace(tmp[stem], libs[stem])
+    return libs, log.read_text()
 
 
 @functools.cache
-def scene_kernels(header: str) -> ctypes.CDLL:
-    """Kernel B1 built for the scene of `header`, on first use, loaded
-    once."""
+def scene_kernels(header: str, stem: str = "path_trace") -> ctypes.CDLL:
+    """The per-scene source csrc/scene/<stem>.cu built for the scene of
+    `header`, on first use, loaded once."""
     if not torch.cuda.is_available():
         raise RuntimeError("the CUDA kernels need a CUDA device")
-    lib = ctypes.CDLL(str(build_scene(header)[0]))
+    lib = ctypes.CDLL(str(build_scene(header)[0][stem]))
     vp = ctypes.c_void_p
-    lib.ptdn_path_trace.argtypes = [vp, vp, vp]
-    lib.ptdn_path_trace.restype = ctypes.c_int
+    for name in SCENE_ENTRIES[stem]:
+        getattr(lib, name).argtypes = [vp, vp, vp]
+        getattr(lib, name).restype = ctypes.c_int
     return lib
 
 

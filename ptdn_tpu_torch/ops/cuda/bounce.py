@@ -1,5 +1,8 @@
-"""Kernels F (trace_bounce) and H (bounce_fused) (csrc/bounce.cu), with
-their plain PyTorch versions.
+"""Kernels F (trace_bounce) and H (bounce_fused) (csrc/bounce.cuh), with
+their plain PyTorch versions. The kernels run their build for the
+scene's constants (csrc/scene/bounce.cu) where the scene has one
+(GeomInfo.path_scene), else the kernel library's (csrc/bounce.cu); both
+compute the same bits.
 
 F: NEE visibility, the lit radiance add, the next closest hit and the
 next albedo of the sorted wavefront's bounce.
@@ -12,11 +15,13 @@ ptdn_tpu/ops/pallas/path.py:uncompact_tiles_pallas. Input: kernel E's 21
 O_* planes followed by the crossed-chunk range planes nlo, nhi, slo, shi
 (engine/wavefront.py:ranges_and_key); output: the 21 planes of the B_*
 layout and, when do_next, the (3, NB, 128) albedo of the next bounce.
-The kernel bounds each lane's chunk scans by its own ranges; the plain
-version scans every chunk with the per-lane cull, which visits the same
-chunks (csrc/bounce.cu says why), so the two compute one function. The
-TPU kernel's tile-wide texel compaction is dropped: a GPU thread reads
-its own texel at no such cost.
+The kernel scans each block of 128 lanes' chunks once, from triangles
+staged in shared memory, each lane within its own ranges
+(csrc/chunk_scan.cuh); the plain version scans every chunk with the
+per-lane cull, which visits the same chunks (csrc/bounce.cuh says why),
+so the two compute one function. The TPU kernel's tile-wide texel
+compaction is dropped: a GPU thread reads its own texel at no such
+cost.
 
 H: the whole bounce of the unsorted per-bounce engine in one launch,
 replacing the TPU kernel ptdn_tpu/ops/pallas/bounce.py:bounce_fused_pallas
@@ -160,6 +165,14 @@ def trace_bounce(ds, gi: GeomInfo, planes: torch.Tensor, *, light_geom: int,
     return _trace_bounce_kernel(ds, gi, planes, **kw)
 
 
+def _scene_build(gi: GeomInfo):
+    """The library F and H launch from: the scene's own build
+    (csrc/scene/bounce.cu) where it has one, else (None) the kernel
+    library's (csrc/bounce.cu), for the scenes past its limits."""
+    return (None if gi.path_scene is None
+            else _lib.scene_kernels(gi.path_scene, "bounce"))
+
+
 def _trace_bounce_kernel(ds, gi, planes, *, light_geom, do_vis, do_next,
                          emit, show_tex):
     shape = tuple(planes.shape[1:])
@@ -173,7 +186,8 @@ def _trace_bounce_kernel(ds, gi, planes, *, light_geom, do_vis, do_next,
                      light_geom=light_geom, do_vis=int(do_vis),
                      do_next=int(do_next), show_tex=int(show_tex),
                      emit_r=emit[0], emit_g=emit[1], emit_b=emit[2])
-    _lib.launch("ptdn_trace_bounce", scene_dev(ds, gi, dev), args)
+    _lib.launch("ptdn_trace_bounce", scene_dev(ds, gi, dev), args,
+                lib=_scene_build(gi))
     trace_bounce.launches += 1
     return out, alb
 
@@ -246,7 +260,8 @@ def _bounce_fused_kernel(ds, gi, planes, *, fd, lane0, light_pos, lrad, sint,
                        reduce_var=reduce_var),
         light_geom=light_geom, do_vis=int(do_vis), do_next=int(do_next),
         emit_r=emit[0], emit_g=emit[1], emit_b=emit[2])
-    _lib.launch("ptdn_bounce_fused", scene_dev(ds, gi, planes.device), args)
+    _lib.launch("ptdn_bounce_fused", scene_dev(ds, gi, planes.device), args,
+                lib=_scene_build(gi))
     bounce_fused.launches += 1
     return out
 

@@ -39,10 +39,10 @@ COLORDIVIDOR = 0.003921568627   # utilities.h:24
 class GeomInfo(NamedTuple):
     """Static geometry of a scene: per-geom types on the host, an int32
     (G, 2) table of (type, material) on the device, the triangle count,
-    the header kernel B1 is built with for this scene (path_scene_header),
-    None where the scene exceeds its limits, and on the device the baked
-    rows' forms (G * 15,) int32 and coefficients (G * 15, 4) float32
-    (baked_rows), which B1's table build reads."""
+    the header kernels B1, F and H are built with for this scene
+    (path_scene_header), None where the scene exceeds its limits, and on
+    the device the baked rows' forms (G * 15,) int32 and coefficients
+    (G * 15, 4) float32 (baked_rows), which B1's table build reads."""
     types: Tuple[int, ...]
     table: torch.Tensor
     n_tris: int
@@ -51,9 +51,11 @@ class GeomInfo(NamedTuple):
     row_coef: torch.Tensor
 
 
-# the limits of kernel B1's build for one scene: its geom loop unrolls
-# over the geoms, and the material table lives in the 64 KB constant bank.
-# A scene past them takes B1's table build (csrc/path_trace_table.cu).
+# the limits of the per-scene builds (kernels B1, F and H): their geom
+# loops unroll over the geoms, and B1's material table lives in the 64 KB
+# constant bank. A scene past them takes B1's table build
+# (csrc/path_trace_table.cu) and F's and H's build in the kernel library
+# (csrc/bounce.cu).
 B1_MAX_GEOMS = 64
 B1_MAX_MATS = 1024
 
@@ -84,20 +86,24 @@ def baked_rows(scene):
 
 
 def path_scene_header(scene, mat_attr: np.ndarray, codes: np.ndarray,
-                      coefs: np.ndarray) -> Optional[str]:
-    """scene.h of kernel B1 built for this scene (csrc/scene/path_trace.cu):
-    the geom count, each geom's type and material, the forms of its baked
-    rows as codes and coefficients (baked_rows), and the (M, 16) material
-    table `mat_attr`. None if the scene has more than B1_MAX_GEOMS geoms
-    or B1_MAX_MATS materials, or a constant that is not finite: B1's table
-    build takes such a scene."""
+                      coefs: np.ndarray, mats) -> Optional[str]:
+    """scene.h of the kernels built for this scene (csrc/scene/*.cu: B1,
+    F and H): the geom count, each geom's type and material, the forms of
+    its baked rows as codes and coefficients (baked_rows), for B1, the
+    (M, 16) material table `mat_attr`, and `mats`, the scene's float32
+    (G, 4, 4) inverse, transform and inverse-transpose matrices, for F
+    and H. None if the scene has more than B1_MAX_GEOMS geoms or
+    B1_MAX_MATS materials, or a constant that is not finite: B1's table
+    build and F's and H's library build take such a scene."""
+    mats = [np.asarray(m, np.float32) for m in mats]
     if (len(scene.geoms) > B1_MAX_GEOMS or mat_attr.shape[0] > B1_MAX_MATS
             or not np.isfinite(mat_attr).all()
-            or not np.isfinite(coefs).all()):
+            or not np.isfinite(coefs).all()
+            or not all(np.isfinite(m).all() for m in mats)):
         return None
     n_g = len(scene.geoms)
     return "\n".join([
-        "// Kernel B1's scene constants, generated by",
+        "// The per-scene kernels' constants, generated by",
         "// ptdn_tpu_torch/ops/cuda/scene_intersect.py:path_scene_header",
         "#pragma once",
         "namespace scene {",
@@ -112,6 +118,10 @@ def path_scene_header(scene, mat_attr: np.ndarray, codes: np.ndarray,
         + ", ".join("{" + _c_floats(c) + "}" for c in coefs) + "};",
         "__constant__ float kMatAttr[] = {"
         + _c_floats(np.asarray(mat_attr, np.float32).reshape(-1)) + "};",
+        *(f"__device__ constexpr float {key}[][16] = {{"
+          + ", ".join("{" + _c_floats(m[g].reshape(-1)) + "}"
+                      for g in range(n_g)) + "};"
+          for key, m in zip(("kInvM", "kTfM", "kInvTM"), mats)),
         "}  // namespace scene", ""])
 
 
@@ -120,8 +130,11 @@ def geom_info(scene, device) -> GeomInfo:
                                                   scene.geom_material_ids)],
                          dtype=torch.int32, device=device)
     codes, coefs = baked_rows(scene)
+    ds = scene.device(device)
     header = path_scene_header(
-        scene, scene.device(device).mat_attr.cpu().numpy(), codes, coefs)
+        scene, ds.mat_attr.cpu().numpy(), codes, coefs,
+        [m.cpu().numpy() for m in (ds.geom_inverse, ds.geom_transform,
+                                   ds.geom_inv_transpose)])
     return GeomInfo(scene.geom_types, table, scene.n_tris, header,
                     torch.from_numpy(codes).to(device),
                     torch.from_numpy(coefs).to(device))

@@ -29,7 +29,7 @@ from ptdn_tpu_torch.ops.cuda import compact as K
 from ptdn_tpu_torch.ops.cuda import scene_intersect as A
 from ptdn_tpu_torch.scene import Scene
 from ptdn_tpu_torch.utils.config import RenderConfig
-from test_torch_mesh import _bits_equal, _scenes
+from test_torch_mesh import _bits_equal, _no_plane_differs, _scenes
 from test_torch_mesh import torch_on_one_thread  # noqa: F401 (autouse)
 
 GOLDEN = "tests/golden"
@@ -388,7 +388,8 @@ def test_per_bounce_kernels_match_plain_on_card(scenes_dir):
     """H, I, J and K against their plain versions on the card at 128x96
     (chip_smoke.py does this at the main path's shapes), on cornell's
     bounce 2: H's hits on >= 99.9% of lanes and its shading planes equal,
-    I, J and K equal."""
+    I, J and K equal; and H on bunny's and room's bounce 2, each build,
+    with no lane differing on any of its 21 planes."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     r = Renderer(Scene(str(scenes_dir / "cornell.txt")),
@@ -430,3 +431,4 @@ def test_per_bounce_kernels_match_plain_on_card(scenes_dir):
     assert agree.float().mean() >= 0.999
     for k in (H.B_SPX, H.B_DX, H.B_TR, H.B_DIF):
         assert _bits_equal(kh[k].cpu().numpy(), ph[k].cpu().numpy()), k
+    _no_plane_differs("bounce_fused", ("bunny", "room"))

@@ -18,6 +18,7 @@ from ptdn_tpu.ops.pallas.bounce import trace_bounce_pallas
 from ptdn_tpu.ops.pallas.inrow import inrow_permute_pallas
 from ptdn_tpu.ops.pallas.shade import shade_bounce_pallas
 from ptdn_tpu.scene import Scene as JScene
+from ptdn_tpu_torch import bounce_bench as BB
 from ptdn_tpu_torch import interop
 from ptdn_tpu_torch.engine import Renderer
 from ptdn_tpu_torch.engine import wavefront as W
@@ -387,7 +388,10 @@ def test_sorted_wavefront_launches_no_kernel_on_cpu(mesh_renders):
 def test_mesh_kernels_match_plain_on_card(scenes_dir):
     """E, F and G against their plain versions on the card at 128x96
     (chip_smoke.py does this at the main path's shapes): E and G
-    bit-equal, F on >= 99.9% of hits."""
+    bit-equal, F on >= 99.9% of hits on diamond; and F on bunny's and
+    room's bounce 2, each build (the scene's own, the kernel library's),
+    with no lane differing on any of its 24 planes (the count of the
+    per-lane scan it replaced, PERF.md)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     r = Renderer(Scene(str(scenes_dir / "diamond.txt")),
@@ -420,3 +424,21 @@ def test_mesh_kernels_match_plain_on_card(scenes_dir):
         tplanes.shape[1])]).int().cuda()
     assert torch.equal(G._inrow_permute_kernel(tplanes, order),
                        G.inrow_permute_plain(tplanes, order))
+    _no_plane_differs("trace_bounce", ("bunny", "room"))
+
+
+def _no_plane_differs(kernel, names):
+    """Kernel F or H (bounce_bench's `kernel`) at bounce 2 of each scene of
+    `names` at 128x96, through both builds: no lane differs from the plain
+    version in any bit of any output plane."""
+    for name in names:
+        (ds, gi, planes), kw = BB.capture(kernel, name, (128, 96))
+        ref = BB.out_planes(kernel, BB.plain_fn(kernel)(ds, gi, planes,
+                                                        **kw))
+        assert gi.path_scene is not None
+        for g in (gi, gi._replace(path_scene=None)):
+            got = BB.out_planes(kernel, BB.kernel_fn(kernel)(ds, g, planes,
+                                                             **kw))
+            diffs = BB.plane_diffs(got, ref)
+            assert not any(diffs.values()), (name, g.path_scene is None,
+                                             diffs)
