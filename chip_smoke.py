@@ -14,9 +14,9 @@ scene at its own resolution):
 * cornell, room and bunny through the unsorted fused per-bounce engine
   (fuse_path=False, sort_rays=False): A, H, K on the textured scenes, C,
   D;
-* cornell and bunny through the split per-bounce engine (fuse_path=False,
-  fuse_bounce=False): A, E, I, then J and K on cornell (textured) or A
-  on bunny, C, D;
+* cornell, bunny and room through the split per-bounce engine
+  (fuse_path=False, fuse_bounce=False): A, E, I, then J and K on cornell
+  and room (textured) or A on bunny, C, D;
 * the camera-motion runs: cornell with fuse_reproject_l1 (L on every
   frame after the first, C's band mode then D on frame 0), cornell with
   tests/test_golden.py's cornell_svgf_anim_slow camera speeds with the
@@ -42,10 +42,10 @@ Phases, one line or more each, with their wall time:
 
 0. the card (name and power limit from nvidia-smi); TF32 off;
 1. build every kernel from ptdn_tpu_torch/csrc (one nvcc per source, all
-   at once, B1's table build and F's and H's library build among them),
-   then kernels B1, F and H for each scene's constants (csrc/scene/*.cu,
-   every scene at once), with each kernel's registers, shared memory and
-   spills;
+   at once, B1's table build and the library builds of F, H, A and J
+   among them), then kernels B1, F, H, A and J for each scene's
+   constants (csrc/scene/*.cu, every scene at once), with each kernel's
+   registers, shared memory and spills;
 2. each kernel against its plain PyTorch version on the card, on its
    path's shapes and a mid-sequence state: A, B1 + B2, C, D, L (and L
    against C then D) on cornell, B1 and D (every level, on the frame's
@@ -55,9 +55,11 @@ Phases, one line or more each, with their wall time:
    plane, through the scene's build and the kernel library's, no plane
    with more lanes off their plain versions than the per-lane scan they
    replaced had (LANES_OFF_ALLOWED); I, J (and J against A) and K on
-   cornell and room; M on the trace bench's rays; B1's table build
-   equal bit for bit to the per-scene build and the plain version on
-   cornell; N, G at K = 29, O and P's rough (t, tri) equal bit for bit
+   cornell and room; A and J output by output the same way, A on
+   cornell's camera rays and bunny's bounce 2, J on cornell's and room's
+   bounce 2 (the split engine); M on the trace bench's rays; B1's table
+   build equal bit for bit to the per-scene build and the plain version
+   on cornell; N, G at K = 29, O and P's rough (t, tri) equal bit for bit
    on the probes' inputs (O also to the numpy chain);
 3. 32 frames per scene and engine (16 of room at 1920x1080) through
    ptdn_tpu_torch's Renderer with every launch count checked, finite
@@ -76,10 +78,12 @@ Phases, one line or more each, with their wall time:
    (still, with fuse_reproject_l1, and moving with the flag off and on)
    and bunny through each of their engines, of diamond through the sort
    and through B1 (sort_rays=False), of room 600x600 through the sort and
-   the fused engine, and of room at 1920x1080 moving, in turns; F at
-   bounce 2 of bunny and of room at 1920x1080 and H at bounce 2 of bunny
-   and room (ptdn_tpu_torch/bounce_bench.py), each build in turns, with
-   bound and launches; the trace bench's kernel times; B1's table build
+   the fused and the split engines, and of room at 1920x1080 moving, in
+   turns; F at bounce 2 of bunny and of room at 1920x1080, H at bounce 2
+   of bunny and room, J at bounce 2 of cornell and room, A at bounce 2 of
+   bunny and on room's primary hit at 1920x1080
+   (ptdn_tpu_torch/bounce_bench.py), each build in turns, with bound and
+   launches; the trace bench's kernel times; B1's table build
    on the 65-geom scene (its JSON line) and on cornell; the 65-geom
    scene's ms/frame.
 
@@ -160,7 +164,7 @@ SPLIT = dict(fuse_path=False, fuse_bounce=False)
 # and the sort on the mesh scenes
 RUNS = ([(name, {}) for name in SCENES]
         + [(name, FUSED) for name in ("cornell", "room", "bunny")]
-        + [(name, SPLIT) for name in ("cornell", "bunny")])
+        + [(name, SPLIT) for name in ("cornell", "bunny", "room")])
 # the camera-motion runs of phase 3: label -> (scene, flags, frames,
 # resolution or None for the scene's own). ANIM_SLOW is
 # tests/test_golden.py's cornell_svgf_anim_slow camera, ROOM_1080 bench.py's
@@ -180,7 +184,11 @@ MOTION_RUNS = {
                             (1920, 1080)),
 }
 KERNELS = {  # name: (wrapper, source, TPU kernel it replaces)
-    "scene_intersect_full": (A.scene_intersect_full, "csrc/scene_intersect.cu",
+    # A and J run one closest-hit chunk scan per block (csrc/closest_hit.cuh
+    # over csrc/chunk_scan.cuh), their per-scene build (the kernel
+    # library's, csrc/scene_intersect.cu, past its limits)
+    "scene_intersect_full": (A.scene_intersect_full,
+                             "csrc/scene/scene_intersect.cu",
                              "ptdn_tpu/ops/pallas/scene_intersect.py:1478"),
     "path_trace": (B.path_trace, "csrc/scene/path_trace.cu",
                    "ptdn_tpu/ops/pallas/path.py:258"),
@@ -212,8 +220,9 @@ KERNELS = {  # name: (wrapper, source, TPU kernel it replaces)
                      "ptdn_tpu/ops/pallas/bounce.py:161"),
     "light_visibility": (A.light_visibility, "csrc/scene_intersect.cu",
                          "ptdn_tpu/ops/pallas/scene_intersect.py:452"),
+    # J: A's chunk scan and build, then the texel index
     "scene_intersect_full_tex": (
-        A.scene_intersect_full_tex, "csrc/scene_intersect.cu",
+        A.scene_intersect_full_tex, "csrc/scene/scene_intersect.cu",
         "ptdn_tpu/ops/pallas/scene_intersect.py:1429"),
     "sparse_gather": (K.sparse_gather, "csrc/compact.cu",
                       "ptdn_tpu/ops/pallas/compact.py:181, "
@@ -268,10 +277,11 @@ CUBES, CUBE_FRAMES = 55, 4
 # 4-term dots, a division, two FMAs, the compares (the other counts and
 # the card's peaks are utils/card.py's)
 PLANE_OPS = 60
-# lanes of F and H that differ from their plain versions on any one
-# output plane: what the per-lane scan F and H replaced counted at bounce
-# 2 of diamond, bunny and room (F) and cornell, bunny and room (H)
-# (bounce_bench, PERF.md), the most the per-plane checks allow
+# lanes of F, H, A and J that differ from their plain versions on any one
+# output: what the per-lane scans they replaced counted at bounce 2 of
+# diamond, bunny and room (F), cornell, bunny and room (H), cornell and
+# room (J) and bunny (A), and on the camera rays of cornell and room (A)
+# (bounce_bench, PERF.md), the most the per-output checks allow
 LANES_OFF_ALLOWED = 0
 
 
@@ -465,13 +475,14 @@ def rmse_vs_gt(name, left, right):
 
 
 def plane_check(kernel, label, args, kw, got, ref):
-    """Kernel F or H (bounce_bench's `kernel`) against its plain version's
-    output `ref` plane by plane, through both builds (`got`: the scene's
-    own, from the wrapper; then the kernel library's, launched here): no
-    plane may have more differing lanes than the per-lane scan had.
-    Returns the per-plane counts of the two builds."""
-    ds, gi, planes = args
-    lib = BB.kernel_fn(kernel)(ds, gi._replace(path_scene=None), planes,
+    """Kernel F, H, A or J (bounce_bench's `kernel`) against its plain
+    version's output `ref` plane by plane (A's and J's: output by output),
+    through both builds (`got`: the scene's own, from the wrapper; then
+    the kernel library's, launched here): no plane may have more
+    differing lanes than the per-lane scan had. Returns the per-plane
+    counts of the two builds."""
+    ds, gi, *rest = args
+    lib = BB.kernel_fn(kernel)(ds, gi._replace(path_scene=None), *rest,
                                **kw)
     ref = BB.out_planes(kernel, ref)
     out = {build: BB.plane_diffs(BB.out_planes(kernel, g), ref)
@@ -520,8 +531,8 @@ def main():
     _lib.kernels()
     regs = ptxas_summary(log)
     check(len(regs) == 18, f"18 kernels in the library, got {regs}")
-    # kernels B1, F and H are built per scene, with the scene's constants
-    # (csrc/scene/*.cu), every scene's at once
+    # kernels B1, F, H, A and J are built per scene, with the scene's
+    # constants (csrc/scene/*.cu), every scene's at once
     t1 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(SCENES)) as pool:
         scene_logs = dict(zip(SCENES, pool.map(
@@ -529,12 +540,13 @@ def main():
                 scene(name), DEVICE).path_scene, force=True)[1], SCENES)))
     t_scene = time.perf_counter() - t1
     scene_regs = {name: ptxas_summary(lg) for name, lg in scene_logs.items()}
-    check(all(len(r) == 3 for r in scene_regs.values()),
-          f"3 kernels per scene, got {scene_regs}")
+    check(all(len(r) == 5 for r in scene_regs.values()),
+          f"5 kernels per scene, got {scene_regs}")
     print(f"phase 1: built {len(list(_lib.CSRC.glob('*.cu')))} sources for "
-          f"sm_90a in {t1 - t0:.1f} s, then B1, F and H for each of "
-          f"{len(SCENES)} scenes (csrc/scene/path_trace.cu, bounce.cu) in "
-          f"{t_scene:.1f} s; ptxas, the library: " + "; ".join(regs))
+          f"sm_90a in {t1 - t0:.1f} s, then B1, F, H, A and J for each of "
+          f"{len(SCENES)} scenes (csrc/scene/path_trace.cu, bounce.cu, "
+          f"scene_intersect.cu) in {t_scene:.1f} s; ptxas, the library: "
+          + "; ".join(regs))
     for name, r in scene_regs.items():
         print(f"phase 1: ptxas, {name}'s build: " + "; ".join(r))
 
@@ -568,6 +580,8 @@ def main():
         + a_tests * MOLLER_OPS)
     print(f"phase 2: A geom_id agreement {frac:.6f}, max |d| on agreeing "
           f"lanes {stats['scene_intersect_full']:.3g}")
+    plane_check("scene_intersect_full", "A on cornell's camera rays",
+                (ds, gi, o, d), {}, ka, pa)
 
     bargs = b1_args(warm)
     kc, kt = B._path_trace_kernel(*bargs)
@@ -822,6 +836,7 @@ def main():
 
     # I, J (and J against A) and K on cornell and room, through the split
     # engine's bounce 2
+    j_cases = {}
     for name in ("cornell", "room"):
         r = renderer(name, **SPLIT)
         for _ in range(3):
@@ -880,6 +895,23 @@ def main():
               f"J equals A on every lane, agrees with its plain version on "
               f"{frac:.6f} (max |d| {j_err:.3g}, texel index equal there); "
               f"K equal on every lane, {int((jt >= 0).sum())} textured")
+        plane_check("scene_intersect_full_tex", f"J on {name} bounce 2",
+                    j_args, {}, (kj, jt), (pj, pjt))
+        j_cases[name] = (j_args, {})
+    # A on bunny's bounce 2 through the split engine (39 chunks)
+    r = renderer("bunny", **SPLIT)
+    for _ in range(3):
+        r.render_frame()
+    a_case = BB.capture_bounce(r, 2, ("scene_intersect_full",))[
+        "scene_intersect_full"]
+    A.mesh_best.tri_tests = 0
+    pab = A.scene_intersect_full_plain(*a_case[0])
+    plane_check("scene_intersect_full", "A on bunny bounce 2 (split)",
+                a_case[0], {}, A._scene_intersect_full_kernel(*a_case[0]),
+                pab)
+    print(f"phase 2: A on bunny bounce 2: {A.mesh_best.tri_tests} "
+          f"lane-triangle tests in the plain scan, "
+          f"{int((pab['geom_id'] >= 0).sum())} hits")
 
     # B1's table build on the same cornell state: equal to the per-scene
     # build and to the plain version (the same rows, from device memory);
@@ -1112,7 +1144,8 @@ def main():
             ("bunny", "bunny", None, 10,
              {"sort": {}, "B1": dict(sort_rays=False), "fused": FUSED,
               "split": SPLIT}),
-            ("room", "room", None, 10, {"sort": {}, "fused": FUSED}),
+            ("room", "room", None, 10,
+             {"sort": {}, "fused": FUSED, "split": SPLIT}),
             ("room 1920x1080 moving", "room", (1920, 1080), 4,
              {"sort": MOTION_RUNS["1080p_animated"][1]})):
         eng = {k: Motion(renderer(name, res, **kw)).frame
@@ -1236,18 +1269,32 @@ def main():
               f"bound {bound_ms:.4f} ms ({bound_by})"
               + (f", {LIBRARY[name]} {lib_ms:.4f} ms" if lib_ms else "")
               + f" [{card}]")
-    # F and H at bounce 2 where their users feel them most: F on bunny and
-    # on room at 1920x1080 (a still camera), H on bunny and room 600x600;
-    # each build in turns, with its bound and its launches in phase 3
+    # F, H, J and A where their users feel them most: F at bounce 2 of
+    # bunny and of room at 1920x1080 (a still camera), H at bounce 2 of
+    # bunny and room 600x600, J at bounce 2 of cornell and room, A at
+    # bounce 2 of bunny and on the camera rays of room at 1920x1080 after
+    # a move; each build in turns, with its bound and its launches in
+    # phase 3
     bounce_cases = {
-        "F bunny": ("trace_bounce", mesh["bunny"][1]["trace_bounce"],
-                    ("bunny", "sorted")),
-        "F room 1920x1080": ("trace_bounce", BB.capture(
-            "trace_bounce", "room", (1920, 1080)), ("room", "1080p_animated")),
-        "H bunny": ("bounce_fused", h_cases["bunny"],
-                    ("bunny", "bounce_fused")),
-        "H room": ("bounce_fused", h_cases["room"],
-                   ("room", "bounce_fused"))}
+        "F bunny bounce 2": ("trace_bounce", mesh["bunny"][1]["trace_bounce"],
+                             ("bunny", "sorted")),
+        "F room 1920x1080 bounce 2": (
+            "trace_bounce", BB.capture("trace_bounce", "room", (1920, 1080)),
+            ("room", "1080p_animated")),
+        "H bunny bounce 2": ("bounce_fused", h_cases["bunny"],
+                             ("bunny", "bounce_fused")),
+        "H room bounce 2": ("bounce_fused", h_cases["room"],
+                            ("room", "bounce_fused")),
+        "J cornell bounce 2": ("scene_intersect_full_tex", j_cases["cornell"],
+                               ("cornell", "bounce_split")),
+        "J room bounce 2": ("scene_intersect_full_tex", j_cases["room"],
+                            ("room", "bounce_split")),
+        "A bunny bounce 2": ("scene_intersect_full", a_case,
+                             ("bunny", "bounce_split")),
+        "A room 1920x1080 primary": (
+            "scene_intersect_full", BB.capture(
+                "scene_intersect_full", "room", (1920, 1080), "primary"),
+            ("room", "1080p_animated"))}
     for label, (kernel, (b_args, b_kw), run) in bounce_cases.items():
         m = BB.measure(kernel, b_args, b_kw, reps=10)
         check(all(max(b["diffs"].values()) <= LANES_OFF_ALLOWED
@@ -1256,7 +1303,7 @@ def main():
               f"{ {k: b['diffs'] for k, b in m['builds'].items()} }")
         m["launches"] = runs[run][kernel]
         frame_ms["bounce " + label] = m
-        print(f"phase 4: {label} bounce 2 ({m['lanes']} lanes): "
+        print(f"phase 4: {label} ({m['lanes']} lanes): "
               + ", ".join(f"{k} build {v['ms']}" for k, v in
                           m["builds"].items())
               + f" ms, bound {m['bound_ms']:.4f} ms ({m['bound_by']}, "

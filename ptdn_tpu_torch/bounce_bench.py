@@ -1,37 +1,47 @@
-"""Kernels F (trace_bounce) and H (bounce_fused) on the card, at bounce 2
-of the scenes whose users feel them.
+"""Kernels F (trace_bounce), H (bounce_fused), A (scene_intersect_full)
+and J (scene_intersect_full_tex) on the card, on the calls of the scenes
+whose users feel them.
 
     python3 -m ptdn_tpu_torch.bounce_bench [--reps N] [--cases LIST]
                                            [--variant NAME=DIR]...
                                            [--out FILE]
 
 Each case renders three frames of a scene through its engine (depth 8,
-RenderConfig's defaults otherwise), captures the arguments of the fourth
-frame's bounce-2 call of F (the sorted wavefront) or H (the fused
-per-bounce engine), and on them, for each build of the kernel (the
-scene's own, csrc/scene/bounce.cu, where the scene has one, and the
-kernel library's, csrc/bounce.cu)
+RenderConfig's defaults otherwise) and captures the arguments of one
+call of the kernel on the fourth frame: the bounce-2 call of F (the
+sorted wavefront), of H (the fused per-bounce engine) or of A or J (the
+split per-bounce engine), or A's primary hit, the camera rays of a frame
+whose camera moved. On them, for each build of the kernel (the scene's
+own, csrc/scene/bounce.cu or scene_intersect.cu, where the scene has
+one, and the kernel library's)
 
-* counts, per output plane, the lanes where the kernel's value differs
-  from its plain version's in any bit (two NaNs count as equal): the 21
-  B_* planes, and F's three next-albedo planes;
+* counts, per output, the lanes where the kernel's value differs from
+  its plain version's in any bit (two NaNs count as equal): the 21 B_*
+  planes, and F's three next-albedo planes; A's t, normal, uv, material
+  and geom, and J's texel index besides; and the same against the first
+  build's output;
 * times the kernel with CUDA events over N launches (default 20), the
   host hidden behind a device spin (utils/card.py:cuda_ms), the builds
   in turns there and back, and the plain version once;
-* computes the kernel's bound: its planes in and out once over the HBM
+* computes the kernel's bound: its inputs and outputs once over the HBM
   rate, or its operations over the float32 rate, counting the analytic
-  tests of both rays, the refine and, in H, the shading of every lane,
-  and the lane-triangle tests that the plain version's scan made.
+  tests of every ray (both rays in F and H), the refine and, in H, the
+  shading of every lane, and the lane-triangle tests that the plain
+  version's scan made.
 
-Cases (CASES): F on diamond and bunny at 800x800 and room at 1920x1080,
-H on cornell and bunny at 800x800 and room at 600x600.
+Cases (CASES): F on diamond and bunny at 800x800 and room at 1920x1080;
+H on cornell and bunny at 800x800 and room at 600x600; J on cornell at
+800x800 and room at 600x600; A on bunny at 800x800, and on the primary
+hits of room at 1920x1080 and of cornell at 800x800.
 
---variant NAME=DIR (repeatable) builds DIR/bounce.cu, a copy of csrc/
-with bounce.cu or its headers changed (an older tree's csrc, or a source
-with one part of the work taken out), into a library of its own with the
-same C interface, and runs every case's kernel from it too, on the same
-captured inputs, as the wrappers run the kernel library's build, so that
-two designs are compared in one process on one card.
+--variant NAME=DIR (repeatable) builds DIR's copy of each timed kernel's
+source (SOURCE: DIR/bounce.cu for F and H, DIR/scene_intersect.cu for A
+and J), a copy of csrc/ with that source or its headers changed (an
+older tree's csrc, or a source with one part of the work taken out),
+into a library of its own with the same C interface, and runs every
+case's kernel from it too, on the same captured inputs, as the wrappers
+run the kernel library's build, so that two designs are compared in one
+process on one card.
 
 Prints one line per case and build with the card's name and power
 limit, then each build's registers and spills as ptxas reported them
@@ -64,15 +74,41 @@ from ptdn_tpu_torch.utils.config import RenderConfig
 
 CFG = RenderConfig(trace_depth=8)
 # the flags of each kernel's engine: the sort (the mesh scenes' default)
-# for F, the unsorted fused per-bounce engine for H
+# for F, the unsorted fused per-bounce engine for H, the split one for A
+# and J
+SPLIT = dict(fuse_path=False, fuse_bounce=False)
 ENGINE = {"trace_bounce": {},
-          "bounce_fused": dict(fuse_path=False, sort_rays=False)}
-CASES = {"F diamond": ("trace_bounce", "diamond", (800, 800)),
-         "F bunny": ("trace_bounce", "bunny", (800, 800)),
-         "F room 1920x1080": ("trace_bounce", "room", (1920, 1080)),
-         "H cornell": ("bounce_fused", "cornell", (800, 800)),
-         "H bunny": ("bounce_fused", "bunny", (800, 800)),
-         "H room": ("bounce_fused", "room", (600, 600))}
+          "bounce_fused": dict(fuse_path=False, sort_rays=False),
+          "scene_intersect_full": SPLIT, "scene_intersect_full_tex": SPLIT}
+# each kernel's source in csrc/, which a variant rebuilds, and its C
+# entry point
+SOURCE = {"trace_bounce": ("bounce.cu", "ptdn_trace_bounce"),
+          "bounce_fused": ("bounce.cu", "ptdn_bounce_fused"),
+          "scene_intersect_full": ("scene_intersect.cu",
+                                   "ptdn_scene_intersect_full"),
+          "scene_intersect_full_tex": ("scene_intersect.cu",
+                                       "ptdn_scene_intersect_full_tex")}
+# the kernels with a per-scene build (csrc/scene/*.cu), and the
+# closest-hit kernels, which take rays (o, d) and return A's dict
+PER_SCENE = tuple(k for k, (_, entry) in SOURCE.items()
+                  if any(entry in e for e in _lib.SCENE_ENTRIES.values()))
+HIT_KERNELS = ("scene_intersect_full", "scene_intersect_full_tex")
+# label -> (kernel, scene, resolution, call): the bounce-2 call of a
+# still frame, or "primary", the primary hit of a frame whose camera
+# moved (A, every engine)
+CASES = {"F diamond": ("trace_bounce", "diamond", (800, 800), 2),
+         "F bunny": ("trace_bounce", "bunny", (800, 800), 2),
+         "F room 1920x1080": ("trace_bounce", "room", (1920, 1080), 2),
+         "H cornell": ("bounce_fused", "cornell", (800, 800), 2),
+         "H bunny": ("bounce_fused", "bunny", (800, 800), 2),
+         "H room": ("bounce_fused", "room", (600, 600), 2),
+         "J cornell": ("scene_intersect_full_tex", "cornell", (800, 800), 2),
+         "J room": ("scene_intersect_full_tex", "room", (600, 600), 2),
+         "A bunny": ("scene_intersect_full", "bunny", (800, 800), 2),
+         "A room 1920x1080 primary": ("scene_intersect_full", "room",
+                                      (1920, 1080), "primary"),
+         "A cornell primary": ("scene_intersect_full", "cornell", (800, 800),
+                               "primary")}
 B_PLANES = ("spx", "spy", "spz", "dx", "dy", "dz", "t", "nx", "ny", "nz",
             "tr", "tg", "tb", "rr", "rg", "rb", "mat", "act", "dif", "uu",
             "vv")
@@ -107,29 +143,55 @@ def capture_bounce(r, depth: int, names):
     return got
 
 
-def capture(kernel: str, scene: str, res, device="cuda"):
-    """(args, kw) of `kernel`'s bounce-2 call on the fourth frame of
-    `scene` at `res` through the kernel's engine."""
+def capture(kernel: str, scene: str, res, call=2, device="cuda"):
+    """(args, kw) of `kernel`'s call on the fourth frame of `scene` at
+    `res` through the kernel's engine: its bounce-2 call (call 2, the
+    camera still), or with call "primary" its first call after the
+    camera moved."""
     r = Renderer(Scene(scene_path(scene)),
                  dataclasses.replace(CFG, **ENGINE[kernel]), res, device)
     for _ in range(3):
         r.render_frame()
-    return capture_bounce(r, 2, (kernel,))[kernel]
+    if call == "primary":
+        r.orbit(dphi=0.015, dtheta=0.01)
+        call = 1
+    return capture_bounce(r, call, (kernel,))[kernel]
 
 
 def kernel_fn(kernel: str):
     return {"trace_bounce": F._trace_bounce_kernel,
-            "bounce_fused": F._bounce_fused_kernel}[kernel]
+            "bounce_fused": F._bounce_fused_kernel,
+            "scene_intersect_full": A._scene_intersect_full_kernel,
+            "scene_intersect_full_tex":
+                A._scene_intersect_full_tex_kernel}[kernel]
 
 
 def plain_fn(kernel: str):
     return {"trace_bounce": F.trace_bounce_plain,
-            "bounce_fused": F.bounce_fused_plain}[kernel]
+            "bounce_fused": F.bounce_fused_plain,
+            "scene_intersect_full": A.scene_intersect_full_plain,
+            "scene_intersect_full_tex":
+                A.scene_intersect_full_tex_plain}[kernel]
+
+
+def hit_planes(isect, tidx=None):
+    """A's outputs by name (each a column of its dict), and J's texel
+    index."""
+    out = {"t": isect["t"], "mat": isect["mat_id"], "geom": isect["geom_id"]}
+    out.update({"n" + k: isect["normal"][:, c] for c, k in enumerate("xyz")})
+    out.update({k: isect["uv"][:, c] for c, k in enumerate("uv")})
+    if tidx is not None:
+        out["texel"] = tidx
+    return out
 
 
 def out_planes(kernel: str, out):
     """The output planes by name: F's B_* planes and next albedo, H's
-    B_* planes."""
+    B_* planes, A's outputs, J's and its texel index."""
+    if kernel == "scene_intersect_full":
+        return hit_planes(out)
+    if kernel == "scene_intersect_full_tex":
+        return hit_planes(*out)
     if kernel == "bounce_fused":
         return dict(zip(B_PLANES, out))
     b, alb = out
@@ -149,35 +211,49 @@ def plane_diffs(got, ref):
     return out
 
 
+def n_lanes(kernel: str, args) -> int:
+    """The lanes (rays) of a call's arguments."""
+    return args[2].shape[0] if kernel in HIT_KERNELS else args[2][0].numel()
+
+
 def work(kernel: str, args, out, tri_tests: int):
     """The kernel's bound on these inputs (utils/card.py:bound)."""
-    ds, gi, planes = args
-    lanes = planes[0].numel()
+    gi = args[1]
     n_an = sum(1 for t in gi.types if t != 2)
-    per_lane = 2 * n_an * ANALYTIC_OPS + REFINE_OPS
-    if kernel == "bounce_fused":
-        per_lane += SHADE_OPS
-    outs = out if isinstance(out, tuple) else (out,)
-    return bound(nbytes(planes, *outs), lanes * per_lane
+    if kernel in HIT_KERNELS:
+        per_lane = n_an * ANALYTIC_OPS + REFINE_OPS
+        ins = args[2:4]
+        outs = list(out_planes(kernel, out).values())
+    else:
+        per_lane = 2 * n_an * ANALYTIC_OPS + REFINE_OPS
+        if kernel == "bounce_fused":
+            per_lane += SHADE_OPS
+        ins = args[2:3]
+        outs = out if isinstance(out, tuple) else (out,)
+    return bound(nbytes(*ins, *outs), n_lanes(kernel, args) * per_lane
                  + tri_tests * MOLLER_OPS)
 
 
-def build_variant(name: str, src_dir) -> tuple:
-    """Compile src_dir/bounce.cu with the kernel library's flags into
-    build/variant-<name>.so; returns (the library with F's and H's entry
-    points declared, ptxas's report of it)."""
+def build_variant(name: str, src_dir, kernels=tuple(SOURCE)) -> tuple:
+    """Compile src_dir's copy of the source of each of `kernels` (SOURCE)
+    with the kernel library's flags into build/variant-<name>.so; returns
+    (the library with their entry points declared, ptxas's report of
+    it)."""
     _lib.BUILD.mkdir(exist_ok=True)
     so = _lib.BUILD / f"variant-{name}.so"
+    sources = dict.fromkeys(SOURCE[k][0] for k in kernels)
     res = subprocess.run([_lib._nvcc(), *_lib.NVCC_FLAGS, "-shared", "-o",
-                          str(so), str(pathlib.Path(src_dir) / "bounce.cu")],
+                          str(so), *(str(pathlib.Path(src_dir) / src)
+                                     for src in sources)],
                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                          text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed on variant {name}:\n{res.stdout}")
     lib = ctypes.CDLL(str(so))
-    for fn in ("ptdn_trace_bounce", "ptdn_bounce_fused"):
-        getattr(lib, fn).argtypes = [ctypes.c_void_p] * 3
-        getattr(lib, fn).restype = ctypes.c_int
+    for k in kernels:
+        fn = getattr(lib, SOURCE[k][1])
+        fn.argtypes = [ctypes.c_void_p] * (4 if k in HIT_KERNELS else 3)
+        fn.restype = ctypes.c_int
     return lib, res.stdout
 
 
@@ -197,15 +273,16 @@ def _with_lib(lib, fn):
 def measure(kernel: str, args, kw, libs=None, reps: int = 20):
     """The numbers of one case: lanes, the plain scan's lane-triangle
     tests, the plain version's ms, the bound, and per build the per-plane
-    differing lanes and the kernel's ms, all timed in turns there and
-    back: the scene's own build ("scene", where the scene has one), the
-    kernel library's ("library"), and each library of `libs` (name ->
+    differing lanes (against the plain version, and against the first
+    build) and the kernel's ms, all timed in turns there and back: the
+    scene's own build ("scene", where the kernel and the scene have one),
+    the kernel library's ("library"), and each library of `libs` (name ->
     library, built by build_variant), which the wrappers take as they
     take the kernel library's."""
-    ds, gi, planes = args
-    lib_args = (ds, gi._replace(path_scene=None), planes)
+    ds, gi, *rest = args
+    lib_args = (ds, gi._replace(path_scene=None), *rest)
     builds = {"library": (None, lib_args)}
-    if gi.path_scene is not None:
+    if gi.path_scene is not None and kernel in PER_SCENE:
         builds = {"scene": (None, args), **builds}
     builds.update({name: (lib, lib_args)
                    for name, lib in (libs or {}).items()})
@@ -214,11 +291,12 @@ def measure(kernel: str, args, kw, libs=None, reps: int = 20):
     ref = pfn(*args, **kw)
     tests = A.mesh_best.tri_tests + A.light_visible.tri_tests
     ref_planes = out_planes(kernel, ref)
-    per = {}
+    per, first = {}, None
     for name, (lib, a) in builds.items():
-        got = _with_lib(lib, lambda: kfn(*a, **kw))
-        per[name] = {"diffs": plane_diffs(out_planes(kernel, got),
-                                          ref_planes), "ms": []}
+        got = out_planes(kernel, _with_lib(lib, lambda: kfn(*a, **kw)))
+        first = first or got
+        per[name] = {"diffs": plane_diffs(got, ref_planes),
+                     "diffs_first": plane_diffs(got, first), "ms": []}
     order = list(builds) + list(builds)[::-1]
     for name in order:
         lib, a = builds[name]
@@ -227,7 +305,7 @@ def measure(kernel: str, args, kw, libs=None, reps: int = 20):
     plain_ms = cuda_ms(lambda: pfn(*args, **kw), reps=1, warmup=0,
                        hide_host=True)
     bound_ms, bound_by = work(kernel, args, ref, tests)
-    return {"lanes": planes[0].numel(), "tri_tests": tests,
+    return {"lanes": n_lanes(kernel, args), "tri_tests": tests,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "turns": order, "builds": per}
 
@@ -237,8 +315,8 @@ def run(cases=None, libs=None, reps: int = 20):
     default)."""
     out = {}
     for label in cases or CASES:
-        kernel, scene, res = CASES[label]
-        args, kw = capture(kernel, scene, res)
+        kernel, scene, res, call = CASES[label]
+        args, kw = capture(kernel, scene, res, call)
         out[label] = measure(kernel, args, kw, libs, reps)
     return out
 
@@ -253,31 +331,37 @@ def main(argv=None):
     ap.add_argument("--out", help="write the numbers as JSON here")
     args = ap.parse_args(argv)
     card = card_name()
-    mine = ("trace_kernel", "bounce_fused_kernel")
+    cases = args.cases.split(",")
+    kernels = tuple(dict.fromkeys(CASES[c][0] for c in cases))
+    mine = tuple({"trace_bounce": "trace_kernel"}.get(k, k + "_kernel")
+                 for k in kernels)
     regs = {"library": [r for r in ptxas_summary(_lib.build(force=True))
                         if r.split()[0] in mine]}
     libs = {}
     for spec in args.variant:
         name, src = spec.split("=", 1)
-        libs[name], log = build_variant(name, src)
+        libs[name], log = build_variant(name, src, kernels)
         regs[name] = [r for r in ptxas_summary(log) if r.split()[0] in mine]
-    res = run(args.cases.split(","), libs, args.reps)
-    for scene in dict.fromkeys(CASES[c][1] for c in res):
+    res = run(cases, libs, args.reps)
+    for scene in dict.fromkeys(CASES[c][1] for c in res
+                               if CASES[c][0] in PER_SCENE):
         header = A.geom_info(Scene(scene_path(scene)), "cuda").path_scene
         if header is not None:
             regs[f"scene {scene}"] = [
                 r for r in ptxas_summary(_lib.build_scene(header)[1])
                 if r.split()[0] in mine]
     for label, m in res.items():
+        first = next(iter(m["builds"]))
         for name, v in m["builds"].items():
             bad = {k: n for k, n in v["diffs"].items() if n}
+            off = {k: n for k, n in v["diffs_first"].items() if n}
             print(f"{label} [{name}]: "
                   + ", ".join(f"{t:.4f}" for t in v["ms"])
                   + f" ms, bound {m['bound_ms']:.4f} ms ({m['bound_by']}), "
                   f"plain {m['plain_ms']:.2f} ms, {m['lanes']} lanes, "
                   f"{m['tri_tests']} lane-triangle tests; lanes differing "
-                  f"from the plain version by plane: {bad or 'none'} "
-                  f"[{card}]")
+                  f"from the plain version by plane: {bad or 'none'}, from "
+                  f"the {first} build: {off or 'none'} [{card}]")
     for name, r in regs.items():
         print(f"ptxas [{name}]: " + "; ".join(r))
     if args.out:

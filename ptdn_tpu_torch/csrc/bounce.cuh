@@ -100,16 +100,10 @@ enum {
   B_TR, B_TG, B_TB, B_RR, B_RG, B_RB, B_MAT, B_ACT, B_DIF, B_UU, B_VV
 };
 
-// A lane's query that scans nothing: off, best -1
-__device__ __forceinline__ ScanQuery no_query() {
-  return ScanQuery{ScanRay{0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f},
-                   0.f, -1, 0, -1, false};
-}
-
 template <class Rows>
 __global__ void __launch_bounds__(kScanBlock, kScanBlocksPerSM)
     trace_kernel(SceneDev s, TraceArgs a) {
-  __shared__ ScanSmem sm;
+  __shared__ ScanSmem<true> sm;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool lane = i < a.n;
   const size_t n = (size_t)a.n;
@@ -198,7 +192,7 @@ __global__ void __launch_bounds__(kScanBlock, kScanBlocksPerSM)
 template <class Rows>
 __global__ void __launch_bounds__(kScanBlock, kScanBlocksPerSM)
     bounce_fused_kernel(SceneDev s, BounceArgs a) {
-  __shared__ ScanSmem sm;
+  __shared__ ScanSmem<true> sm;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool lane = i < a.n;
   const size_t n = (size_t)a.n;

@@ -1,10 +1,13 @@
-// The block-level chunk scan of kernels F and H (bounce.cu): a block of
-// kScanBlock lanes walks the scene's triangle chunks once, in ascending
-// order, and tests each chunk's 128 triangles, staged in shared memory,
-// against every ray of the block that crosses the chunk: the next rays
-// (closest hit) and the shadow rays (any hit) in one joint loop. The TPU
-// kernels' joint scan (ptdn_tpu/ops/pallas/scene_intersect.py:
-// joint_mesh_tiles) in the form this card wants.
+// The block-level chunk scan of kernels F and H (bounce.cuh) and A and J
+// (scene_intersect.cu): a block of kScanBlock lanes walks the scene's
+// triangle chunks once, in ascending order, and tests each chunk's 128
+// triangles, staged in shared memory, against every ray of the block
+// that crosses the chunk. F and H scan the next rays (closest hit) and
+// the shadow rays (any hit) in one joint loop, the TPU kernels' joint
+// scan (ptdn_tpu/ops/pallas/scene_intersect.py:joint_mesh_tiles) in the
+// form this card wants; A and J the closest-hit query alone. Whether a
+// lane carries a shadow query is a compile-time option (Shadow), so the
+// closest-hit scan pays for no second list, vote or ballot.
 //
 // The block's chunk range is the union of its lanes' ranges (a block
 // reduction). The AABBs of its first kAabbStaged chunks are loaded into
@@ -52,13 +55,14 @@
 
 namespace ptdn {
 
-// Sizes chosen on an H100: 256 lanes a block, and 5 or 7 blocks an SM
-// (96 or 72 registers), each ran slower on some of the timed cases
+// Sizes chosen on an H100 for F and H: 256 lanes a block, and 5 or 7
+// blocks an SM (96 or 72 registers), each ran slower on some of the
+// timed cases. A and J take 60 registers under any cap from 5 to 8
+// blocks an SM, and ran the same under each.
 constexpr int kScanBlock = 128;       // threads per block: one per triangle
 constexpr int kScanBlocksPerSM = 6;   // at most 80 registers a thread
 constexpr int kStages = 2;         // the triangle ring
 constexpr int kAabbStaged = 256;   // chunk AABBs kept in shared memory
-constexpr int kRaysPerChunk = 2 * kScanBlock;   // next + shadow per lane
 static_assert(kScanBlock == kChunk, "a thread per triangle of a chunk");
 
 // A ray of the list that crosses the current chunk: origin and limit,
@@ -68,11 +72,16 @@ struct ScanEntry {
   float4 d;
 };
 
+// The block's shared state; Shadow: a lane carries a shadow query
+// beside its closest-hit one
+template <bool Shadow>
 struct ScanSmem {
+  // the list's slots: the next ray (and the shadow ray) of every lane
+  static constexpr int kRays = (Shadow ? 2 : 1) * kScanBlock;
   float4 tri[kStages][kChunk * 3];     // 128 tri_moller rows per stage
   float aabb[kAabbStaged][6];          // lo xyz, hi xyz
-  ScanEntry ray[kRaysPerChunk];
-  unsigned long long key[kRaysPerChunk];
+  ScanEntry ray[kRays];
+  unsigned long long key[kRays];
   int count[kScanBlock / 32];          // rays per warp
   int lo, hi;                          // the block's chunk range
 };
@@ -100,6 +109,12 @@ struct ScanQuery {
   bool on;
 };
 
+// A lane's query that scans nothing: off, best -1
+__device__ __forceinline__ ScanQuery no_query() {
+  return ScanQuery{ScanRay{0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f},
+                   0.f, -1, 0, -1, false};
+}
+
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned sa = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(sa),
@@ -116,9 +131,10 @@ __device__ __forceinline__ void cp_async_wait_one() {
 // Does query q want chunk c: on, c in its range, and its ray crosses the
 // chunk's AABB below its limit (the AABB from shared memory within the
 // staged ones, else from device memory: the same values)
+template <bool Shadow>
 __device__ __forceinline__ bool query_wants(const SceneDev& s,
-                                            const ScanSmem& sm, int c,
-                                            const ScanQuery& q) {
+                                            const ScanSmem<Shadow>& sm,
+                                            int c, const ScanQuery& q) {
   if (!q.on || c < q.lo || c > q.hi) return false;
   const int k = c - sm.lo;
   if (k < kAabbStaged)
@@ -130,21 +146,24 @@ __device__ __forceinline__ bool query_wants(const SceneDev& s,
 
 // The first chunk after c that some lane of the block wants, hi + 1 if
 // none (block-uniform; every thread of the block calls it)
+template <bool Shadow>
 __device__ __forceinline__ int next_voted(const SceneDev& s,
-                                          const ScanSmem& sm, int c, int hi,
-                                          const ScanQuery& nq,
+                                          const ScanSmem<Shadow>& sm, int c,
+                                          int hi, const ScanQuery& nq,
                                           const ScanQuery& sq) {
   for (++c; c <= hi; ++c)
     if (__syncthreads_or(query_wants(s, sm, c, nq) ||
-                         query_wants(s, sm, c, sq)))
+                         (Shadow && query_wants(s, sm, c, sq))))
       return c;
   return c;
 }
 
 // Copy chunk c's tri_moller rows into ring stage `stage`: 384 16-byte
 // pieces, three per thread. tri_moller is padded to whole chunks.
-__device__ __forceinline__ void stage_chunk(const SceneDev& s, ScanSmem& sm,
-                                            int c, int stage) {
+template <bool Shadow>
+__device__ __forceinline__ void stage_chunk(const SceneDev& s,
+                                            ScanSmem<Shadow>& sm, int c,
+                                            int stage) {
   const float4* src =
       reinterpret_cast<const float4*>(s.tri_moller) + (size_t)c * kChunk * 3;
   for (int k = threadIdx.x; k < kChunk * 3; k += kScanBlock)
@@ -152,18 +171,20 @@ __device__ __forceinline__ void stage_chunk(const SceneDev& s, ScanSmem& sm,
 }
 
 // Put query q's ray into list slot k, its key empty
-__device__ __forceinline__ void put_ray(ScanSmem& sm, int k,
+template <bool Shadow>
+__device__ __forceinline__ void put_ray(ScanSmem<Shadow>& sm, int k,
                                         const ScanQuery& q) {
   sm.ray[k].ol = make_float4(q.r.ox, q.r.oy, q.r.oz, q.lim);
   sm.ray[k].d = make_float4(q.r.dx, q.r.dy, q.r.dz, 0.f);
   sm.key[k] = ~0ull;
 }
 
-// The joint scan of a block's lanes: nq, the next ray's closest-hit
-// query, and sq, the shadow ray's any-hit query (each with best -1 and
-// its limit on entry). Every thread of the block calls it, a thread
-// without a lane with both queries off.
-__device__ inline void chunk_scan(const SceneDev& s, ScanSmem& sm,
+// The scan of a block's lanes: nq, the next ray's closest-hit query,
+// and with Shadow sq, the shadow ray's any-hit query (each with best -1
+// and its limit on entry; without Shadow sq is not read). Every thread
+// of the block calls it, a thread without a lane with its queries off.
+template <bool Shadow>
+__device__ inline void chunk_scan(const SceneDev& s, ScanSmem<Shadow>& sm,
                                   ScanQuery& nq, ScanQuery& sq) {
   const int tid = threadIdx.x, warp = tid / 32, wl = tid % 32;
   if (tid == 0) {
@@ -172,14 +193,16 @@ __device__ inline void chunk_scan(const SceneDev& s, ScanSmem& sm,
   }
   nq.lo = max(nq.lo, 0);
   nq.hi = min(nq.hi, s.n_chunks - 1);
-  sq.lo = max(sq.lo, 0);
-  sq.hi = min(sq.hi, s.n_chunks - 1);
+  if (Shadow) {
+    sq.lo = max(sq.lo, 0);
+    sq.hi = min(sq.hi, s.n_chunks - 1);
+  }
   int lo = 0x7fffffff, hi = -1;
   if (nq.on && nq.lo <= nq.hi) {
     lo = nq.lo;
     hi = nq.hi;
   }
-  if (sq.on && sq.lo <= sq.hi) {
+  if (Shadow && sq.on && sq.lo <= sq.hi) {
     lo = min(lo, sq.lo);
     hi = max(hi, sq.hi);
   }
@@ -217,9 +240,9 @@ __device__ inline void chunk_scan(const SceneDev& s, ScanSmem& sm,
     // the list of rays that want chunk c: each warp's next rays, then
     // its shadow rays, warp after warp
     const bool wn = query_wants(s, sm, c, nq);
-    const bool ws = query_wants(s, sm, c, sq);
+    const bool ws = Shadow && query_wants(s, sm, c, sq);
     const unsigned bn = __ballot_sync(0xffffffffu, wn);
-    const unsigned bs = __ballot_sync(0xffffffffu, ws);
+    const unsigned bs = Shadow ? __ballot_sync(0xffffffffu, ws) : 0u;
     if (wl == 0) sm.count[warp] = __popc(bn) + __popc(bs);
     __syncthreads();
     int base = 0, m = 0;
@@ -269,6 +292,13 @@ __device__ inline void chunk_scan(const SceneDev& s, ScanSmem& sm,
     }
     c = c2;
   }
+}
+
+// The closest-hit scan alone (kernels A and J): q as chunk_scan's nq
+__device__ inline void chunk_scan(const SceneDev& s, ScanSmem<false>& sm,
+                                  ScanQuery& q) {
+  ScanQuery none = no_query();
+  chunk_scan(s, sm, q, none);
 }
 
 }  // namespace ptdn

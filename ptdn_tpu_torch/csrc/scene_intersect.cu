@@ -3,18 +3,27 @@
 // batch of shadow rays, and the unmerged analytic and mesh bests.
 //
 // A replaces the TPU kernel ptdn_tpu/ops/pallas/scene_intersect.py:
-// scene_intersect_full_pallas (_kernel_full). One thread per ray runs
-// the analytic geoms in scene order, the 128-triangle chunks in leaf
-// order behind a per-ray AABB cull, the exact refine of the winning
-// triangle and the merge (ptdn.cuh:closest_hit).
-//
-// J replaces scene_intersect_full_tex_pallas (_kernel_full_tex): A's hit
-// plus the flat texel index of the hit's material at its uv, -1 where the
+// scene_intersect_full_pallas (_kernel_full). J replaces
+// scene_intersect_full_tex_pallas (_kernel_full_tex): A's hit plus the
+// flat texel index of the hit's material at its uv, -1 where the
 // material is untextured (tex_index_tiles, here ptdn.cuh:tex_index), on
 // every ray, hit or not, as the TPU kernel computes it. Dropped: the
 // per-row compaction of those indices (cidx, slot, count; compact.py:
 // compact_tile), which the TPU needed because its gathers are
 // count-bound. A GPU thread of kernel K reads its own texel.
+//
+// A and J run on the block-level chunk scan (closest_hit.cuh, over
+// chunk_scan.cuh with its shadow query compiled out): a block of 128
+// rays, a thread each, runs the analytic geoms in scene order per ray,
+// then walks the scene's 128-triangle chunks once, in ascending order,
+// each crossed chunk staged in shared memory and tested by a thread per
+// triangle against the block's rays that cross it (each ray behind its
+// own AABB cull against its running best, over every chunk), then each
+// ray takes the exact refine of its winning triangle and the merge
+// (ptdn.cuh:resolve_hit). The result is ptdn.cuh:mesh_best's, bit for
+// bit (chunk_scan.cuh says why). I and M keep the per-lane walk
+// (ptdn.cuh:light_visible, mesh_best): one thread per ray scans the
+// chunks behind its own cull.
 //
 // I replaces light_visibility_pallas (_vis_kernel,
 // light_visibility_tiles): per ray, the closest analytic hit is the light
@@ -31,36 +40,25 @@
 // TPU kernel's switch does.
 //
 // All four take the full dot products of the scene matrices, as the
-// TPU per-bounce kernels do (no baked rows: that is B1's form). A ray's
-// component c lies at o[k * o_rs + c * o_cs], so the rays may be an
-// (N, 3) tensor or three planes of a plane stack.
+// TPU per-bounce kernels do (no baked rows: that is B1's form); A and J
+// are built once per scene as well, with the matrices as constants
+// (scene/scene_intersect.cu), this file's build serving the scenes past
+// that build's limits. A ray's component c lies at o[k * o_rs + c * o_cs],
+// so the rays may be an (N, 3) tensor or three planes of a plane stack.
 //
-// What bounds them: arithmetic and divergence, not bytes. A ray reads
-// 24 B and writes at most 36 B; the scene (cornell: 10 geoms, 38
-// triangles, ~10 KB) stays in L1/L2 and is read by every thread of a warp
-// at the same address, which the cache broadcasts. The TPU kernels tested
-// 8 triangles against a 128-lane row at once and culled per 1024-ray
-// block; here each thread culls each chunk for its own ray and keeps its
-// running best in registers.
-#include "ptdn.cuh"
+// What bounds them: the lane-triangle tests (~52 float operations each,
+// with a reciprocal) and, on cornell (one chunk of 38 triangles, nine
+// analytic geoms), the analytic tests; not bytes: a ray reads 24 B and
+// writes at most 36 B, and the scene stays in L1/L2. The deviation from
+// the TPU design: the TPU kernels tested 8 triangles against a 128-lane
+// row at once and culled per 1024-ray block (a block's rays all test a
+// chunk that any of them crosses); here every ray is culled on its own,
+// and in A and J the block's vote skips the chunks no ray of the block
+// crosses while a thread per triangle meets the compacted list of the
+// rays that cross its chunk.
+#include "closest_hit.cuh"
 
 namespace ptdn {
-
-struct RayArgs {
-  const float* o;  // ray k's component c at o[k * o_rs + c * o_cs]
-  const float* d;
-  int o_rs, o_cs, d_rs, d_cs;
-  int n;
-};
-
-struct IsectArgs {
-  float* t;    // (N,)
-  float* nrm;  // (N, 3)
-  float* uv;   // (N, 2)
-  int* geom;   // (N,)
-  int* mat;    // (N,)
-  int* tidx;   // (N,) texel index, written by J only
-};
 
 struct BestArgs {
   float* t_a;    // (N,) closest analytic t, -1 where none
@@ -73,40 +71,6 @@ struct BestArgs {
 }  // namespace ptdn
 
 namespace {
-
-template <bool Tex>
-__device__ __forceinline__ void closest_hit_ray(const ptdn::SceneDev& s,
-                                                const ptdn::RayArgs& r,
-                                                const ptdn::IsectArgs& a,
-                                                int i) {
-  const float* o = r.o + (size_t)i * r.o_rs;
-  const float* d = r.d + (size_t)i * r.d_rs;
-  const ptdn::Hit h = ptdn::closest_hit<ptdn::MatRows>(
-      s, o[0], o[r.o_cs], o[2 * r.o_cs], d[0], d[r.d_cs], d[2 * r.d_cs],
-      true);
-  a.t[i] = h.t;
-  a.nrm[3 * i] = h.nx;
-  a.nrm[3 * i + 1] = h.ny;
-  a.nrm[3 * i + 2] = h.nz;
-  a.uv[2 * i] = h.u;
-  a.uv[2 * i + 1] = h.v;
-  a.geom[i] = h.geom;
-  a.mat[i] = h.mat;
-  if (Tex) a.tidx[i] = ptdn::tex_index(s, h.mat, h.u, h.v);
-}
-
-__global__ void scene_intersect_full_kernel(ptdn::SceneDev s, ptdn::RayArgs r,
-                                            ptdn::IsectArgs a) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < r.n) closest_hit_ray<false>(s, r, a, i);
-}
-
-__global__ void scene_intersect_full_tex_kernel(ptdn::SceneDev s,
-                                                ptdn::RayArgs r,
-                                                ptdn::IsectArgs a) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < r.n) closest_hit_ray<true>(s, r, a, i);
-}
 
 __global__ void light_visibility_kernel(ptdn::SceneDev s, ptdn::RayArgs r,
                                         int light_geom,
@@ -155,20 +119,14 @@ extern "C" int ptdn_scene_intersect_full(const ptdn::SceneDev* s,
                                          const ptdn::RayArgs* r,
                                          const ptdn::IsectArgs* a,
                                          void* stream) {
-  if (r->n > 0)
-    scene_intersect_full_kernel<<<grid(r->n), kBlock, 0,
-                                  (cudaStream_t)stream>>>(*s, *r, *a);
-  return (int)cudaGetLastError();
+  return ptdn::launch_closest_hit<false, ptdn::MatRows>(s, r, a, stream);
 }
 
 extern "C" int ptdn_scene_intersect_full_tex(const ptdn::SceneDev* s,
                                              const ptdn::RayArgs* r,
                                              const ptdn::IsectArgs* a,
                                              void* stream) {
-  if (r->n > 0)
-    scene_intersect_full_tex_kernel<<<grid(r->n), kBlock, 0,
-                                      (cudaStream_t)stream>>>(*s, *r, *a);
-  return (int)cudaGetLastError();
+  return ptdn::launch_closest_hit<true, ptdn::MatRows>(s, r, a, stream);
 }
 
 extern "C" int ptdn_light_visibility(const ptdn::SceneDev* s,

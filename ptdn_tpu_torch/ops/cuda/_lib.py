@@ -5,11 +5,12 @@ source, all at once, and links the objects into one shared library with a
 plain C interface, which ctypes loads. The build runs at first use, into
 ``ptdn_tpu_torch/build/`` (ignored by git), and again only when a source
 is newer than the library. The per-scene builds (``csrc/scene/*.cu``:
-kernel B1, and kernels F and H) are built once per scene instead, with
-the scene's constants in a generated header (build_scene), into
-libraries of their own per scene; the builds that serve the scenes past
-their limits (B1's table build, ``csrc/path_trace_table.cu``; F and H,
-``csrc/bounce.cu``) are in the kernel library. No fast-math
+kernel B1, kernels F and H, and kernels A and J) are built once per
+scene instead, with the scene's constants in a generated header
+(build_scene), into libraries of their own per scene; the builds that
+serve the scenes past their limits (B1's table build,
+``csrc/path_trace_table.cu``; F and H, ``csrc/bounce.cu``; A and J,
+``csrc/scene_intersect.cu``) are in the kernel library. No fast-math
 flag is passed and ``--fmad=false`` keeps every product rounded on its
 own, so the kernels round like their plain PyTorch versions, which run
 one operation at a time.
@@ -81,14 +82,17 @@ def build(force: bool = False) -> str:
     return "".join(logs)
 
 
-# the C entry points of each per-scene source, csrc/scene/<stem>.cu
-SCENE_ENTRIES = {"path_trace": ("ptdn_path_trace",),
-                 "bounce": ("ptdn_trace_bounce", "ptdn_bounce_fused")}
+# the C entry points of each per-scene source, csrc/scene/<stem>.cu,
+# with their pointer arguments (the stream's included)
+SCENE_ENTRIES = {"path_trace": {"ptdn_path_trace": 3},
+                 "bounce": {"ptdn_trace_bounce": 3, "ptdn_bounce_fused": 3},
+                 "scene_intersect": {"ptdn_scene_intersect_full": 4,
+                                     "ptdn_scene_intersect_full_tex": 4}}
 
 
 def build_scene(header: str, force: bool = False):
     """Compile every per-scene source (csrc/scene/<stem>.cu: kernel B1,
-    and kernels F and H) for one scene, with `header`
+    kernels F and H, kernels A and J) for one scene, with `header`
     (ops/cuda/scene_intersect.py:path_scene_header) as its scene.h, each
     into build/scene-<hash>/lib<stem>.so, the hash taken over the header
     and every kernel source; one nvcc per source, all at once; again only
@@ -128,9 +132,8 @@ def scene_kernels(header: str, stem: str = "path_trace") -> ctypes.CDLL:
     if not torch.cuda.is_available():
         raise RuntimeError("the CUDA kernels need a CUDA device")
     lib = ctypes.CDLL(str(build_scene(header)[0][stem]))
-    vp = ctypes.c_void_p
-    for name in SCENE_ENTRIES[stem]:
-        getattr(lib, name).argtypes = [vp, vp, vp]
+    for name, n_args in SCENE_ENTRIES[stem].items():
+        getattr(lib, name).argtypes = [ctypes.c_void_p] * n_args
         getattr(lib, name).restype = ctypes.c_int
     return lib
 

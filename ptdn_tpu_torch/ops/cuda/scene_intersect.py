@@ -8,9 +8,12 @@ They replace the TPU kernels ptdn_tpu/ops/pallas/scene_intersect.py:
 scene_intersect_full_pallas (A), scene_intersect_full_tex_pallas (J,
 without its per-row compaction of the texel indices: kernel K reads each
 lane's texel), light_visibility_pallas (I) and scene_intersect_pallas
-(M). The kernels run one thread
-per ray; what bounds them and what their design does about that is in
-the source note of csrc/scene_intersect.cu. All versions visit the
+(M). A and J run a block of 128 rays on one chunk scan
+(csrc/closest_hit.cuh over csrc/chunk_scan.cuh), built per scene where
+the scene has a header (csrc/scene/scene_intersect.cu) and in the kernel
+library otherwise; I and M run one thread per ray. What bounds them and
+what their design does about that is in the source note of
+csrc/scene_intersect.cu. All versions visit the
 analytic geoms in scene order and the triangles chunk by chunk in
 ascending index, with strict < throughout, so ties go to the first geom
 and the lowest triangle; a chunk whose AABB a ray does not cross before
@@ -39,7 +42,7 @@ COLORDIVIDOR = 0.003921568627   # utilities.h:24
 class GeomInfo(NamedTuple):
     """Static geometry of a scene: per-geom types on the host, an int32
     (G, 2) table of (type, material) on the device, the triangle count,
-    the header kernels B1, F and H are built with for this scene
+    the header kernels B1, F, H, A and J are built with for this scene
     (path_scene_header), None where the scene exceeds its limits, and on
     the device the baked rows' forms (G * 15,) int32 and coefficients
     (G * 15, 4) float32 (baked_rows), which B1's table build reads."""
@@ -51,11 +54,11 @@ class GeomInfo(NamedTuple):
     row_coef: torch.Tensor
 
 
-# the limits of the per-scene builds (kernels B1, F and H): their geom
-# loops unroll over the geoms, and B1's material table lives in the 64 KB
-# constant bank. A scene past them takes B1's table build
-# (csrc/path_trace_table.cu) and F's and H's build in the kernel library
-# (csrc/bounce.cu).
+# the limits of the per-scene builds (kernels B1, F, H, A and J): their
+# geom loops unroll over the geoms, and B1's material table lives in the
+# 64 KB constant bank. A scene past them takes B1's table build
+# (csrc/path_trace_table.cu) and the other kernels' builds in the kernel
+# library (csrc/bounce.cu, csrc/scene_intersect.cu).
 B1_MAX_GEOMS = 64
 B1_MAX_MATS = 1024
 
@@ -88,13 +91,13 @@ def baked_rows(scene):
 def path_scene_header(scene, mat_attr: np.ndarray, codes: np.ndarray,
                       coefs: np.ndarray, mats) -> Optional[str]:
     """scene.h of the kernels built for this scene (csrc/scene/*.cu: B1,
-    F and H): the geom count, each geom's type and material, the forms of
-    its baked rows as codes and coefficients (baked_rows), for B1, the
-    (M, 16) material table `mat_attr`, and `mats`, the scene's float32
-    (G, 4, 4) inverse, transform and inverse-transpose matrices, for F
-    and H. None if the scene has more than B1_MAX_GEOMS geoms or
+    F, H, A and J): the geom count, each geom's type and material, the
+    forms of its baked rows as codes and coefficients (baked_rows), for
+    B1, the (M, 16) material table `mat_attr`, and `mats`, the scene's
+    float32 (G, 4, 4) inverse, transform and inverse-transpose matrices,
+    for the others. None if the scene has more than B1_MAX_GEOMS geoms or
     B1_MAX_MATS materials, or a constant that is not finite: B1's table
-    build and F's and H's library build take such a scene."""
+    build and the others' library builds take such a scene."""
     mats = [np.asarray(m, np.float32) for m in mats]
     if (len(scene.geoms) > B1_MAX_GEOMS or mat_attr.shape[0] > B1_MAX_MATS
             or not np.isfinite(mat_attr).all()
@@ -455,6 +458,9 @@ def light_visibility(ds, gi: GeomInfo, o: torch.Tensor, d: torch.Tensor,
 
 
 def _isect_kernel(name, ds, gi, o, d, tex: bool):
+    """Kernel A or J (`name`, its C entry point): the scene's own build
+    where the scene has one (gi.path_scene), else the kernel library's;
+    both compute the same bits."""
     ray = _ray_args(o, d)
     n = ray.n
     f32 = dict(dtype=torch.float32, device=o.device)
@@ -467,7 +473,9 @@ def _isect_kernel(name, ds, gi, o, d, tex: bool):
     args = IsectArgs(t=p(out["t"]), nrm=p(out["normal"]), uv=p(out["uv"]),
                      geom=p(out["geom_id"]), mat=p(out["mat_id"]),
                      tidx=p(tidx))
-    _lib.launch(name, scene_dev(ds, gi, o.device), ray, args)
+    lib = (None if gi.path_scene is None
+           else _lib.scene_kernels(gi.path_scene, "scene_intersect"))
+    _lib.launch(name, scene_dev(ds, gi, o.device), ray, args, lib=lib)
     out["hit"] = out["geom_id"] >= 0
     return out, tidx
 

@@ -1,9 +1,11 @@
-"""The block-level chunk scan of kernels F and H (csrc/chunk_scan.cuh) as
-plain PyTorch, held to the per-lane scans it replaces; the Moller
+"""The block-level chunk scan of kernels F, H, A and J
+(csrc/chunk_scan.cuh) as plain PyTorch, held to the per-lane scans it
+replaces: F's joint scan of next and shadow rays, and A's and J's
+closest-hit scan alone (the shadow query compiled out); the Moller
 predicate with its reciprocal deferred (the variant PERF.md measured)
-held to moller; and the scene constants of F's and H's per-scene build
-(path_scene_header's matrices). The CUDA kernels themselves are held to
-their plain versions on the card (tests/test_torch_mesh.py,
+held to moller; and the scene constants of the per-scene builds of F, H,
+A and J (path_scene_header's matrices). The CUDA kernels themselves are
+held to their plain versions on the card (tests/test_torch_mesh.py,
 tests/test_torch_bounce.py, chip_smoke.py)."""
 
 import functools
@@ -16,6 +18,7 @@ import torch
 
 from ptdn_tpu_torch.bounce_bench import capture_bounce
 from ptdn_tpu_torch.engine import Renderer
+from ptdn_tpu_torch.engine import wavefront as W
 from ptdn_tpu_torch.ops.cuda import bounce as F
 from ptdn_tpu_torch.ops.cuda import scene_intersect as A
 from ptdn_tpu_torch.ops.cuda.shade import (O_ACT, O_DX, O_NEE, O_SDX,
@@ -205,6 +208,21 @@ def block_scan(ds, n_tris, nq, sq, visits):
         c = c2
 
 
+def scan_blocks(ds, n_tris, nq, sq):
+    """block_scan over consecutive blocks of BLOCK lanes of the queries
+    nq, sq (updated in place); returns the blocks' chunk visits."""
+    visits = [0]
+    for b in range(0, nq["lim"].numel(), BLOCK):
+        sl = slice(b, b + BLOCK)
+        part = [{k: (tuple(x[sl] for x in v) if isinstance(v, tuple)
+                     else v[sl]) for k, v in q.items()} for q in (nq, sq)]
+        block_scan(ds, n_tris, *part, visits)
+        for q, sub in zip((nq, sq), part):
+            for k in ("lim", "best", "on"):
+                q[k][sl] = sub[k]
+    return visits[0]
+
+
 def joint_scan(ds, gi, planes, do_next, light_geom):
     """The block scans of F's lanes (planes: its (25, NB, 128) input) as
     the kernel sets them up: the analytic part of both rays, then per
@@ -223,16 +241,8 @@ def joint_scan(ds, gi, planes, do_next, light_geom):
     lim0 = torch.where(alive, torch.where(gn >= 0, tn, FLT_MAX), -FLT_MAX)
     nq = _query(o, d, lim0, rng[0], rng[1], alive)
     sq = _query(o, sd, ts, rng[2], rng[3], to_light)
-    visits = [0]
-    for b in range(0, o[0].numel(), BLOCK):
-        sl = slice(b, b + BLOCK)
-        part = [{k: (tuple(x[sl] for x in v) if isinstance(v, tuple)
-                     else v[sl]) for k, v in q.items()} for q in (nq, sq)]
-        block_scan(ds, gi.n_tris, *part, visits)
-        for q, sub in zip((nq, sq), part):
-            for k in ("lim", "best", "on"):
-                q[k][sl] = sub[k]
-    return nq, lim0, sq, to_light, visits[0]
+    visits = scan_blocks(ds, gi.n_tris, nq, sq)
+    return nq, lim0, sq, to_light, visits
 
 
 @pytest.mark.parametrize("last", [False, True])
@@ -285,6 +295,95 @@ def test_block_scan_equals_the_lane_scans(scenes_dir, monkeypatch, name,
             assert torch.equal(_bits(a), _bits(b))
 
 
+@functools.cache
+def _split_calls(path, name):
+    """The arguments of every call of the engine function `name` (A's
+    scene_intersect_full or J's scene_intersect_full_tex) in the first
+    frame of the scene at `path` through the split per-bounce engine
+    (64x64, depth 3): A's primary hit first, then one call per bounce
+    below the last."""
+    r = Renderer(_scene(path), RenderConfig(trace_depth=3, fuse_path=False,
+                                            fuse_bounce=False), (64, 64),
+                 device="cpu")
+    real, calls = getattr(W, name), []
+
+    def spy(*args, **kw):
+        calls.append(tuple(a.clone() if torch.is_tensor(a) else a
+                           for a in args))
+        return real(*args, **kw)
+    setattr(W, name, spy)
+    try:
+        r.render_frame()
+    finally:
+        setattr(W, name, real)
+    return calls
+
+
+def hit_scan(ds, gi, o, d):
+    """The block scans of kernel A's or J's rays o, d (N, 3) as the kernel
+    sets them up: per ray the closest analytic hit, then per block of
+    BLOCK rays the closest-hit query over every chunk (each ray behind its
+    own cull) and no shadow query. Returns (the query, its starting
+    limit, the blocks' chunk visits)."""
+    ot = tuple(o[:, k] for k in range(3))
+    dt = tuple(d[:, k] for k in range(3))
+    ta, ga, _ = A.analytic_best(ds, gi.types, ot, dt)
+    lim0 = torch.where(ga >= 0, ta, FLT_MAX)
+    n = lim0.numel()
+    lo = torch.zeros(n, dtype=torch.int64)
+    hi = torch.full((n,), -(-gi.n_tris // BLOCK) - 1, dtype=torch.int64)
+    q = _query(ot, dt, lim0, lo, hi,
+               torch.full((n,), gi.n_tris > 0, dtype=torch.bool))
+    off = _query(ot, dt, lim0, lo, hi, torch.zeros(n, dtype=torch.bool))
+    visits = scan_blocks(ds, gi.n_tris, q, off)
+    assert torch.equal(off["best"], torch.full((n,), -1))
+    return q, lim0, visits
+
+
+@pytest.mark.parametrize("name,kernel,call", [
+    ("cornell", "scene_intersect_full", 0),        # A, camera rays
+    ("bunny", "scene_intersect_full", 0),          # A, camera rays
+    ("room", "scene_intersect_full_tex", 1),       # J, bounce 2
+    ("bunny", "scene_intersect_full", 2)])         # A, bounce 2
+def test_hit_scan_equals_mesh_best(scenes_dir, monkeypatch, name, kernel,
+                                   call):
+    """The closest-hit scan alone (the shadow query off), emulated over
+    128-ray blocks of kernel A's and J's real calls in the split engine's
+    first 64x64 frame (the camera rays of A's primary hit; the bounce-2
+    rays of J on room and of A on bunny), gives mesh_best's closest (t,
+    index) bit for bit; and A's and J's plain versions with mesh_best
+    replaced by the scan's results give every output bit for bit: t,
+    normal, uv, material, geom and J's texel index."""
+    ds, gi, o, d = _split_calls(scenes_dir / f"{name}.txt", kernel)[call]
+    q, lim0, visits = hit_scan(ds, gi, o, d)
+    n_blocks = -(-o.shape[0] // BLOCK)
+    assert 0 < visits <= n_blocks * -(-gi.n_tris // BLOCK)
+    bt, bi = A.mesh_best(ds, gi.n_tris, tuple(o[:, k] for k in range(3)),
+                         tuple(d[:, k] for k in range(3)), lim0)
+    assert torch.equal(q["best"], bi)
+    assert torch.equal(_bits(q["lim"]), _bits(bt))
+    assert bool((bi >= 0).any()) and bool((bi < 0).any())
+
+    plain = {"scene_intersect_full": A.scene_intersect_full_plain,
+             "scene_intersect_full_tex": A.scene_intersect_full_tex_plain}[
+                 kernel]
+    ref = plain(ds, gi, o, d)
+
+    def scanned_best(ds_, n_tris, o_, d_, bt0, cull=True):
+        assert torch.equal(_bits(bt0), _bits(lim0))
+        return q["lim"], q["best"]
+
+    monkeypatch.setattr(A, "mesh_best", scanned_best)
+    got = plain(ds, gi, o, d)
+    if kernel == "scene_intersect_full_tex":
+        (got, got_idx), (ref, ref_idx) = got, ref
+        assert torch.equal(got_idx, ref_idx)
+        assert bool((ref_idx >= 0).any())
+    assert got.keys() == ref.keys()
+    for k in ref:
+        assert torch.equal(got[k].view(torch.int8), ref[k].view(torch.int8)), k
+
+
 # ---------------------------------------------------------------------------
 # the per-scene build's constants
 
@@ -298,9 +397,10 @@ def _floats(header, key):
                                   "terrain30k"])
 def test_scene_header_holds_the_matrices(scenes_dir, name):
     """path_scene_header writes each geom's inverse, transform and inverse
-    transpose (kInvM, kTfM, kInvTM), which F's and H's per-scene build
-    (csrc/scene/bounce.cu) folds into its code, as hex-float literals that
-    parse back to the scene's float32 matrices bit for bit."""
+    transpose (kInvM, kTfM, kInvTM), which the per-scene builds of F, H, A
+    and J (csrc/scene/scene_mats.cuh) fold into their code, as hex-float
+    literals that parse back to the scene's float32 matrices bit for
+    bit."""
     scene = _scene(scenes_dir / f"{name}.txt")
     gi = A.geom_info(scene, "cpu")
     ds = scene.device("cpu")
@@ -314,8 +414,8 @@ def test_scene_header_holds_the_matrices(scenes_dir, name):
 
 def test_scene_header_is_none_past_the_limits(scenes_dir, tmp_path):
     """Past the per-scene builds' limits (65 geoms) or with a matrix that
-    is not finite the header is None: F and H then launch from the kernel
-    library (csrc/bounce.cu)."""
+    is not finite the header is None: F, H, A and J then launch from the
+    kernel library (csrc/bounce.cu, csrc/scene_intersect.cu)."""
     gi = A.geom_info(Scene(write_cornell_plus(tmp_path, cubes=55)), "cpu")
     assert gi.path_scene is None
     scene = _scene(scenes_dir / "cornell.txt")

@@ -40,7 +40,7 @@ def cornell(scenes_dir):
     jds = js.device()
     ds = interop.device_scene_from_numpy(
         {f.name: np.asarray(getattr(jds, f.name))
-         for f in dataclasses.fields(jds)})
+         for f in dataclasses.fields(jds)}, device="cpu")
     ts = Scene(str(scenes_dir / "cornell.txt"))
     return js, jds, ts, ds, A.geom_info(ts, "cpu")
 
@@ -310,7 +310,7 @@ def test_back_projection_matches_jax(branch):
     last bit)."""
     shift = 0.0 if branch == "stencil" else 3.0
     res, cur, st_np = _reproj_inputs(7, shift)
-    st_t = interop.frame_state_from_numpy(st_np)
+    st_t = interop.frame_state_from_numpy(st_np, device="cpu")
     st_j = {k: jnp.asarray(v) for k, v in st_np.items()}
     gb_t = {"position": torch.from_numpy(cur["position"]),
             "geom_id": torch.from_numpy(cur["geom_id"])}

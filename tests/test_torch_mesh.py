@@ -60,7 +60,7 @@ def _scenes(scenes_dir, name):
     jds = js.device()
     ds = interop.device_scene_from_numpy(
         {f.name: np.asarray(getattr(jds, f.name))
-         for f in dataclasses.fields(jds)})
+         for f in dataclasses.fields(jds)}, device="cpu")
     return js, jds, ds
 
 

@@ -218,7 +218,7 @@ def scenes(scenes_dir):
         jds = js.device()
         ds = interop.device_scene_from_numpy(
             {f.name: np.asarray(getattr(jds, f.name))
-             for f in dataclasses.fields(jds)})
+             for f in dataclasses.fields(jds)}, device="cpu")
         out[name] = (js, jds, ds, A.geom_info(Scene(str(
             scenes_dir / f"{name}.txt")), "cpu"))
     return out

@@ -41,12 +41,25 @@ def test_device_scene_equals_jax(scenes_dir, name):
 
 def test_interop_roundtrip(scenes_dir):
     ref = _jax_arrays(JScene(str(scenes_dir / "cornell.txt")).device())
-    ds = interop.device_scene_from_numpy(ref)
+    ds = interop.device_scene_from_numpy(ref, device="cpu")
     for k, v in ref.items():
         assert np.array_equal(getattr(ds, k).numpy(), v), k
     st = interop.frame_state_from_numpy(
-        {"history_length": np.arange(6, dtype=np.int32).reshape(2, 3)})
+        {"history_length": np.arange(6, dtype=np.int32).reshape(2, 3)},
+        device="cpu")
     assert st["history_length"].dtype == torch.int32
+
+
+def test_interop_defaults_to_the_card(scenes_dir, monkeypatch):
+    """Both interop functions run on the card unless asked for the CPU:
+    without a card the default raises instead of running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ref = _jax_arrays(JScene(str(scenes_dir / "cornell.txt")).device())
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        interop.device_scene_from_numpy(ref)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        interop.frame_state_from_numpy(
+            {"history_length": np.zeros((2, 3), np.int32)})
 
 
 def test_scene_device_is_cached_per_device(scenes_dir):
