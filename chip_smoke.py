@@ -42,8 +42,8 @@ Phases, one line or more each, with their wall time:
 
 0. the card (name and power limit from nvidia-smi); TF32 off;
 1. build every kernel from ptdn_tpu_torch/csrc (one nvcc per source, all
-   at once, B1's table build and the library builds of F, H, A and J
-   among them), then kernels B1, F, H, A and J for each scene's
+   at once, B1's table build and the library builds of F, H, A, J and I
+   among them), then kernels B1, F, H, A, J and I for each scene's
    constants (csrc/scene/*.cu, every scene at once), with each kernel's
    registers, shared memory and spills;
 2. each kernel against its plain PyTorch version on the card, on its
@@ -55,9 +55,10 @@ Phases, one line or more each, with their wall time:
    plane, through the scene's build and the kernel library's, no plane
    with more lanes off their plain versions than the per-lane scan they
    replaced had (LANES_OFF_ALLOWED); I, J (and J against A) and K on
-   cornell and room; A and J output by output the same way, A on
-   cornell's camera rays and bunny's bounce 2, J on cornell's and room's
-   bounce 2 (the split engine); M on the trace bench's rays; B1's table
+   cornell and room; A, J and I output by output the same way, A on
+   cornell's camera rays and bunny's bounce 2, J and I on cornell's and
+   room's bounce 2 (the split engine), with I's lanes off its plain
+   version counted; M and I on the trace bench's rays; B1's table
    build equal bit for bit to the per-scene build and the plain version
    on cornell; N, G at K = 29, O and P's rough (t, tri) equal bit for bit
    on the probes' inputs (O also to the numpy chain);
@@ -81,9 +82,11 @@ Phases, one line or more each, with their wall time:
    the fused and the split engines, and of room at 1920x1080 moving, in
    turns; F at bounce 2 of bunny and of room at 1920x1080, H at bounce 2
    of bunny and room, J at bounce 2 of cornell and room, A at bounce 2 of
-   bunny and on room's primary hit at 1920x1080
-   (ptdn_tpu_torch/bounce_bench.py), each build in turns, with bound and
-   launches; the trace bench's kernel times; B1's table build
+   bunny and on room's primary hit at 1920x1080, I at bounce 2 of
+   cornell, bunny and room (ptdn_tpu_torch/bounce_bench.py), each build
+   in turns, with bound and launches; L on cornell in turns beside C
+   alone and D at level 1 alone, with its pixels off C's then D's
+   kernels; the trace bench's kernel times; B1's table build
    on the 65-geom scene (its JSON line) and on cornell; the 65-geom
    scene's ms/frame.
 
@@ -218,7 +221,9 @@ KERNELS = {  # name: (wrapper, source, TPU kernel it replaces)
                       "ptdn_tpu/ops/pallas/inrow.py:34"),
     "bounce_fused": (F.bounce_fused, "csrc/scene/bounce.cu",
                      "ptdn_tpu/ops/pallas/bounce.py:161"),
-    "light_visibility": (A.light_visibility, "csrc/scene_intersect.cu",
+    # I: the any-hit half of the chunk scan alone (csrc/chunk_scan.cuh,
+    # csrc/light_visibility.cuh), built with A and J
+    "light_visibility": (A.light_visibility, "csrc/scene/scene_intersect.cu",
                          "ptdn_tpu/ops/pallas/scene_intersect.py:452"),
     # J: A's chunk scan and build, then the texel index
     "scene_intersect_full_tex": (
@@ -277,11 +282,12 @@ CUBES, CUBE_FRAMES = 55, 4
 # 4-term dots, a division, two FMAs, the compares (the other counts and
 # the card's peaks are utils/card.py's)
 PLANE_OPS = 60
-# lanes of F, H, A and J that differ from their plain versions on any one
-# output: what the per-lane scans they replaced counted at bounce 2 of
-# diamond, bunny and room (F), cornell, bunny and room (H), cornell and
-# room (J) and bunny (A), and on the camera rays of cornell and room (A)
-# (bounce_bench, PERF.md), the most the per-output checks allow
+# lanes of F, H, A, J and I that differ from their plain versions on any
+# one output: what the per-lane scans they replaced counted at bounce 2
+# of diamond, bunny and room (F), cornell, bunny and room (H), cornell
+# and room (J), bunny (A) and cornell, bunny and room (I), and on the
+# camera rays of cornell and room (A) (bounce_bench, PERF.md), the most
+# the per-output checks allow
 LANES_OFF_ALLOWED = 0
 
 
@@ -475,12 +481,12 @@ def rmse_vs_gt(name, left, right):
 
 
 def plane_check(kernel, label, args, kw, got, ref):
-    """Kernel F, H, A or J (bounce_bench's `kernel`) against its plain
-    version's output `ref` plane by plane (A's and J's: output by output),
-    through both builds (`got`: the scene's own, from the wrapper; then
-    the kernel library's, launched here): no plane may have more
-    differing lanes than the per-lane scan had. Returns the per-plane
-    counts of the two builds."""
+    """Kernel F, H, A, J or I (bounce_bench's `kernel`) against its plain
+    version's output `ref` plane by plane (A's, J's and I's: output by
+    output), through both builds (`got`: the scene's own, from the
+    wrapper; then the kernel library's, launched here): no plane may have
+    more differing lanes than the per-lane scan had. Returns the
+    per-plane counts of the two builds."""
     ds, gi, *rest = args
     lib = BB.kernel_fn(kernel)(ds, gi._replace(path_scene=None), *rest,
                                **kw)
@@ -531,7 +537,7 @@ def main():
     _lib.kernels()
     regs = ptxas_summary(log)
     check(len(regs) == 18, f"18 kernels in the library, got {regs}")
-    # kernels B1, F, H, A and J are built per scene, with the scene's
+    # kernels B1, F, H, A, J and I are built per scene, with the scene's
     # constants (csrc/scene/*.cu), every scene's at once
     t1 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(SCENES)) as pool:
@@ -540,10 +546,10 @@ def main():
                 scene(name), DEVICE).path_scene, force=True)[1], SCENES)))
     t_scene = time.perf_counter() - t1
     scene_regs = {name: ptxas_summary(lg) for name, lg in scene_logs.items()}
-    check(all(len(r) == 5 for r in scene_regs.values()),
-          f"5 kernels per scene, got {scene_regs}")
+    check(all(len(r) == 6 for r in scene_regs.values()),
+          f"6 kernels per scene, got {scene_regs}")
     print(f"phase 1: built {len(list(_lib.CSRC.glob('*.cu')))} sources for "
-          f"sm_90a in {t1 - t0:.1f} s, then B1, F, H, A and J for each of "
+          f"sm_90a in {t1 - t0:.1f} s, then B1, F, H, A, J and I for each of "
           f"{len(SCENES)} scenes (csrc/scene/path_trace.cu, bounce.cu, "
           f"scene_intersect.cu) in {t_scene:.1f} s; ptxas, the library: "
           + "; ".join(regs))
@@ -666,7 +672,7 @@ def main():
 
     # L on the same state: against its plain version, and against C's
     # then D's kernels (the same code, so equal bit for bit)
-    largs = cargs + (*sig, CFG.blur_variance)
+    largs = cargs + (*sig, CFG.blur_variance, static)
     kl = L._back_projection_atrous1_kernel(*largs)
     pl_ = L.back_projection_atrous1_plain(*largs)
     kd1 = D._atrous_level_kernel(kcr[1], kcr[0], static, None, 1, *sig,
@@ -678,11 +684,7 @@ def main():
           f"{stats['back_projection_atrous1']}")
     check(all(same(a, b) for a, b in zip(kl, kd1 + kcr[2:])),
           "L equals C's then D's kernels")
-    work["back_projection_atrous1"] = bound(
-        nbytes(raw, gb["position"], gb["normal"], gb["geom_id"],
-               prev["normal"], prev["geom_id"], st["color_history"],
-               st["moment_history"], st["history_length"], *kl),
-        n * (200 + 25 * 40))
+    work["back_projection_atrous1"] = BB.l_work(largs, kl)
     print(f"phase 2: L max |d| {stats['back_projection_atrous1']:.3g}, "
           f"equal to C then D (kernels) on every pixel")
 
@@ -743,6 +745,15 @@ def main():
               f"{cull}: indices equal, max |d| {m_err:.3g}, {m_tests} "
               f"lane-triangle tests in the plain scan, "
               f"{int((km['tri_m'] >= 0).sum())} mesh hits")
+    # I on the same rays (light geom 0), through both builds
+    tb_i = tb_args + (trace_bench.LIGHT_GEOM,)
+    A.light_visible.tri_tests = 0
+    p_tb = A.light_visibility_plain(*tb_i)
+    plane_check("light_visibility", "I on the trace bench's rays", tb_i, {},
+                A._light_visibility_kernel(*tb_i), p_tb)
+    print(f"phase 2: I on {tb_args[2].shape[0]} trace-bench rays: "
+          f"{int(p_tb.sum())} lit, {A.light_visible.tri_tests} "
+          f"lane-triangle tests in the plain scan")
 
     # the sorted wavefront, mid-sequence: bounce 2 of frame 4
     mesh = {}
@@ -836,7 +847,7 @@ def main():
 
     # I, J (and J against A) and K on cornell and room, through the split
     # engine's bounce 2
-    j_cases = {}
+    j_cases, i_cases = {}, {}
     for name in ("cornell", "room"):
         r = renderer(name, **SPLIT)
         for _ in range(3):
@@ -848,7 +859,7 @@ def main():
         A.light_visible.tri_tests = 0
         p_i = A.light_visibility_plain(*i_args)
         i_tests = A.light_visible.tri_tests
-        i_eq = float((k_i == p_i).float().mean())
+        i_off = int((k_i != p_i).sum())
         j_args = tuple(scap["scene_intersect_full_tex"][0])
         kj, jt = A._scene_intersect_full_tex_kernel(*j_args)
         A.mesh_best.tri_tests = 0
@@ -867,9 +878,8 @@ def main():
         pk = K.sparse_gather_plain(*k_args)
         k_eq = same(kk, pk)
         frac = float(j_agree.float().mean())
-        check(i_eq >= 0.999 and j_is_a and frac >= 0.999 and j_err <= 1e-5
-              and t_eq and k_eq,
-              f"I, J, K on {name}: I {i_eq} J is A {j_is_a} J agree {frac} "
+        check(j_is_a and frac >= 0.999 and j_err <= 1e-5 and t_eq and k_eq,
+              f"J, K on {name}: J is A {j_is_a} J agree {frac} "
               f"err {j_err} texel index {t_eq} K {k_eq}")
         if name == "cornell":
             stats["light_visibility"] = float((k_i != p_i).any())
@@ -890,20 +900,26 @@ def main():
                 rays * 6)
             ijk_args = (i_args, j_args, k_args)
             take_idx = jt.clamp(min=0).to(torch.int64)
-        print(f"phase 2: {name} split bounce 2: I equal on {i_eq:.6f} of "
-              f"{k_i.numel()} shadow rays ({i_tests} lane-triangle tests); "
+        print(f"phase 2: {name} split bounce 2: I off its plain version on "
+              f"{i_off} of {k_i.numel()} shadow rays ({i_tests} "
+              f"lane-triangle tests, {int(p_i.sum())} lit); "
               f"J equals A on every lane, agrees with its plain version on "
               f"{frac:.6f} (max |d| {j_err:.3g}, texel index equal there); "
               f"K equal on every lane, {int((jt >= 0).sum())} textured")
         plane_check("scene_intersect_full_tex", f"J on {name} bounce 2",
                     j_args, {}, (kj, jt), (pj, pjt))
+        plane_check("light_visibility", f"I on {name} bounce 2", i_args, {},
+                    k_i, p_i)
         j_cases[name] = (j_args, {})
+        i_cases[name] = (i_args, {})
     # A on bunny's bounce 2 through the split engine (39 chunks)
     r = renderer("bunny", **SPLIT)
     for _ in range(3):
         r.render_frame()
-    a_case = BB.capture_bounce(r, 2, ("scene_intersect_full",))[
-        "scene_intersect_full"]
+    bcap = BB.capture_bounce(r, 2, ("scene_intersect_full",
+                                    "light_visibility"))
+    a_case = bcap["scene_intersect_full"]
+    i_cases["bunny"] = bcap["light_visibility"]
     A.mesh_best.tri_tests = 0
     pab = A.scene_intersect_full_plain(*a_case[0])
     plane_check("scene_intersect_full", "A on bunny bounce 2 (split)",
@@ -1269,12 +1285,12 @@ def main():
               f"bound {bound_ms:.4f} ms ({bound_by})"
               + (f", {LIBRARY[name]} {lib_ms:.4f} ms" if lib_ms else "")
               + f" [{card}]")
-    # F, H, J and A where their users feel them most: F at bounce 2 of
+    # F, H, J, A and I where their users feel them most: F at bounce 2 of
     # bunny and of room at 1920x1080 (a still camera), H at bounce 2 of
     # bunny and room 600x600, J at bounce 2 of cornell and room, A at
     # bounce 2 of bunny and on the camera rays of room at 1920x1080 after
-    # a move; each build in turns, with its bound and its launches in
-    # phase 3
+    # a move, I at bounce 2 of cornell, bunny and room; each build in
+    # turns, with its bound and its launches in phase 3
     bounce_cases = {
         "F bunny bounce 2": ("trace_bounce", mesh["bunny"][1]["trace_bounce"],
                              ("bunny", "sorted")),
@@ -1294,7 +1310,10 @@ def main():
         "A room 1920x1080 primary": (
             "scene_intersect_full", BB.capture(
                 "scene_intersect_full", "room", (1920, 1080), "primary"),
-            ("room", "1080p_animated"))}
+            ("room", "1080p_animated")),
+        **{f"I {name} bounce 2": ("light_visibility", i_cases[name],
+                                  (name, "bounce_split"))
+           for name in ("cornell", "bunny", "room")}}
     for label, (kernel, (b_args, b_kw), run) in bounce_cases.items():
         m = BB.measure(kernel, b_args, b_kw, reps=10)
         check(all(max(b["diffs"].values()) <= LANES_OFF_ALLOWED
@@ -1310,6 +1329,23 @@ def main():
               f"{m['tri_tests']} lane-triangle tests), plain "
               f"{m['plain_ms']:.1f} ms; {m['launches']} launches in the "
               f"{' '.join(run)} run of phase 3 [{card}]")
+    # L beside what it fuses, C (stencil mode) alone then D at level 1
+    # alone on C's output, all in turns on the same state
+    m = BB.measure_l(largs, {}, reps=10)
+    check(all(max(b["diffs_c_then_d"].values()) == 0
+              for b in m["builds"].values()),
+          f"L equals C's then D's kernels: "
+          f"{ {k: b['diffs_c_then_d'] for k, b in m['builds'].items()} }")
+    m["launches"] = runs["cornell", "fuse_l1"]["back_projection_atrous1"]
+    frame_ms["L beside C and D level 1"] = m
+    print(f"phase 4: L on cornell ({m['lanes']} pixels): "
+          + ", ".join(f"{k} {v}" for k, v in
+                      [("L", m["builds"]["library"]["ms"])]
+                      + list(m["parts"].items()))
+          + f" ms (turns {', '.join(m['turns'])}), bound "
+          f"{m['bound_ms']:.4f} ms ({m['bound_by']}); equal to C's then "
+          f"D's kernels on every pixel; {m['launches']} launches in the "
+          f"cornell fuse_l1 run of phase 3 [{card}]")
     # D at each level of the frame (the line above: level 1)
     d_ms = [cuda_ms(lambda a=a: D._atrous_level_kernel(*a), hide_host=True)
             for a in d_args]

@@ -1,6 +1,7 @@
-"""Kernels F (trace_bounce), H (bounce_fused), A (scene_intersect_full)
-and J (scene_intersect_full_tex) on the card, on the calls of the scenes
-whose users feel them.
+"""Kernels F (trace_bounce), H (bounce_fused), A (scene_intersect_full),
+J (scene_intersect_full_tex), I (light_visibility) and L
+(back_projection_atrous1) on the card, on the calls of the scenes whose
+users feel them.
 
     python3 -m ptdn_tpu_torch.bounce_bench [--reps N] [--cases LIST]
                                            [--variant NAME=DIR]...
@@ -9,17 +10,17 @@ whose users feel them.
 Each case renders three frames of a scene through its engine (depth 8,
 RenderConfig's defaults otherwise) and captures the arguments of one
 call of the kernel on the fourth frame: the bounce-2 call of F (the
-sorted wavefront), of H (the fused per-bounce engine) or of A or J (the
-split per-bounce engine), or A's primary hit, the camera rays of a frame
-whose camera moved. On them, for each build of the kernel (the scene's
-own, csrc/scene/bounce.cu or scene_intersect.cu, where the scene has
-one, and the kernel library's)
+sorted wavefront), of H (the fused per-bounce engine) or of A, J or I
+(the split per-bounce engine), or A's primary hit, the camera rays of a
+frame whose camera moved. On them, for each build of the kernel (the
+scene's own, csrc/scene/bounce.cu or scene_intersect.cu, where the
+scene has one, and the kernel library's)
 
 * counts, per output, the lanes where the kernel's value differs from
   its plain version's in any bit (two NaNs count as equal): the 21 B_*
   planes, and F's three next-albedo planes; A's t, normal, uv, material
-  and geom, and J's texel index besides; and the same against the first
-  build's output;
+  and geom, and J's texel index besides; I's lit flag; and the same
+  against the first build's output;
 * times the kernel with CUDA events over N launches (default 20), the
   host hidden behind a device spin (utils/card.py:cuda_ms), the builds
   in turns there and back, and the plain version once;
@@ -29,15 +30,25 @@ one, and the kernel library's)
   shading of every lane, and the lane-triangle tests that the plain
   version's scan made.
 
+The L case takes L's call on the fourth frame of cornell at 800x800
+with fuse_reproject_l1 (a still camera: L on every frame after the
+first), and times there, in turns, each build of L beside kernel C
+(stencil mode) alone and kernel D at level 1 alone on C's output and
+the packed G-buffer planes, as the frame without the flag runs them;
+per output (color, variance, moments, history) it counts the pixels off
+L's plain version and off C's then D's kernels.
+
 Cases (CASES): F on diamond and bunny at 800x800 and room at 1920x1080;
 H on cornell and bunny at 800x800 and room at 600x600; J on cornell at
 800x800 and room at 600x600; A on bunny at 800x800, and on the primary
-hits of room at 1920x1080 and of cornell at 800x800.
+hits of room at 1920x1080 and of cornell at 800x800; I on cornell and
+bunny at 800x800 and room at 600x600; L on cornell at 800x800.
 
 --variant NAME=DIR (repeatable) builds DIR's copy of each timed kernel's
-source (SOURCE: DIR/bounce.cu for F and H, DIR/scene_intersect.cu for A
-and J), a copy of csrc/ with that source or its headers changed (an
-older tree's csrc, or a source with one part of the work taken out),
+source (SOURCE: DIR/bounce.cu for F and H, DIR/scene_intersect.cu for A,
+J and I, DIR/reproject_atrous.cu for L), a copy of csrc/ with that
+source or its headers changed (an older tree's csrc, or a source with
+one part of the work taken out),
 into a library of its own with the same C interface, and runs every
 case's kernel from it too, on the same captured inputs, as the wrappers
 run the kernel library's build, so that two designs are compared in one
@@ -60,10 +71,14 @@ import subprocess
 
 import torch
 
+from ptdn_tpu_torch.denoise import svgf
 from ptdn_tpu_torch.engine import Renderer
 from ptdn_tpu_torch.engine import wavefront as W
 from ptdn_tpu_torch.ops.cuda import _lib
+from ptdn_tpu_torch.ops.cuda import atrous as D
 from ptdn_tpu_torch.ops.cuda import bounce as F
+from ptdn_tpu_torch.ops.cuda import reproject as C
+from ptdn_tpu_torch.ops.cuda import reproject_atrous as L
 from ptdn_tpu_torch.ops.cuda import scene_intersect as A
 from ptdn_tpu_torch.scene import Scene
 from ptdn_tpu_torch.utils.assets import scene_path
@@ -74,12 +89,16 @@ from ptdn_tpu_torch.utils.config import RenderConfig
 
 CFG = RenderConfig(trace_depth=8)
 # the flags of each kernel's engine: the sort (the mesh scenes' default)
-# for F, the unsorted fused per-bounce engine for H, the split one for A
-# and J
+# for F, the unsorted fused per-bounce engine for H, the split one for A,
+# J and I; for L the headline frame's temporal SVGF with its 5-level
+# filter and fuse_reproject_l1
 SPLIT = dict(fuse_path=False, fuse_bounce=False)
+FUSE_L1 = dict(denoise_enable=True, temporal_enable=True,
+               spatial_enable=True, atrous_nlevel=5, fuse_reproject_l1=True)
 ENGINE = {"trace_bounce": {},
           "bounce_fused": dict(fuse_path=False, sort_rays=False),
-          "scene_intersect_full": SPLIT, "scene_intersect_full_tex": SPLIT}
+          "scene_intersect_full": SPLIT, "scene_intersect_full_tex": SPLIT,
+          "light_visibility": SPLIT, "back_projection_atrous1": FUSE_L1}
 # each kernel's source in csrc/, which a variant rebuilds, and its C
 # entry point
 SOURCE = {"trace_bounce": ("bounce.cu", "ptdn_trace_bounce"),
@@ -87,15 +106,20 @@ SOURCE = {"trace_bounce": ("bounce.cu", "ptdn_trace_bounce"),
           "scene_intersect_full": ("scene_intersect.cu",
                                    "ptdn_scene_intersect_full"),
           "scene_intersect_full_tex": ("scene_intersect.cu",
-                                       "ptdn_scene_intersect_full_tex")}
-# the kernels with a per-scene build (csrc/scene/*.cu), and the
-# closest-hit kernels, which take rays (o, d) and return A's dict
+                                       "ptdn_scene_intersect_full_tex"),
+          "light_visibility": ("scene_intersect.cu", "ptdn_light_visibility"),
+          "back_projection_atrous1": ("reproject_atrous.cu",
+                                      "ptdn_back_projection_atrous1")}
+# the kernels with a per-scene build (csrc/scene/*.cu); the closest-hit
+# kernels, which take rays (o, d) and return A's dict; the kernels that
+# take rays
 PER_SCENE = tuple(k for k, (_, entry) in SOURCE.items()
                   if any(entry in e for e in _lib.SCENE_ENTRIES.values()))
 HIT_KERNELS = ("scene_intersect_full", "scene_intersect_full_tex")
+RAY_KERNELS = HIT_KERNELS + ("light_visibility",)
 # label -> (kernel, scene, resolution, call): the bounce-2 call of a
 # still frame, or "primary", the primary hit of a frame whose camera
-# moved (A, every engine)
+# moved (A, every engine), or L's call (its only one in a frame)
 CASES = {"F diamond": ("trace_bounce", "diamond", (800, 800), 2),
          "F bunny": ("trace_bounce", "bunny", (800, 800), 2),
          "F room 1920x1080": ("trace_bounce", "room", (1920, 1080), 2),
@@ -108,20 +132,28 @@ CASES = {"F diamond": ("trace_bounce", "diamond", (800, 800), 2),
          "A room 1920x1080 primary": ("scene_intersect_full", "room",
                                       (1920, 1080), "primary"),
          "A cornell primary": ("scene_intersect_full", "cornell", (800, 800),
-                               "primary")}
+                               "primary"),
+         "I cornell": ("light_visibility", "cornell", (800, 800), 2),
+         "I bunny": ("light_visibility", "bunny", (800, 800), 2),
+         "I room": ("light_visibility", "room", (600, 600), 2),
+         "L cornell": ("back_projection_atrous1", "cornell", (800, 800), 1)}
 B_PLANES = ("spx", "spy", "spz", "dx", "dy", "dz", "t", "nx", "ny", "nz",
             "tr", "tg", "tb", "rr", "rg", "rb", "mat", "act", "dif", "uu",
             "vv")
 ALB_PLANES = ("alb_r", "alb_g", "alb_b")
+# the module whose attribute each kernel's caller calls, where it is not
+# engine/wavefront.py
+CALLER = {"back_projection_atrous1": svgf}
 
 
-def capture_bounce(r, depth: int, names):
-    """Render one frame of renderer r and return, for each engine function
-    of `names` (attributes of engine/wavefront.py) that the frame calls,
-    the arguments of its call on bounce `depth` as (args, kw) (each
-    wrapper still runs, so the frame is unchanged)."""
+def capture_bounce(r, depth: int, names, module=W):
+    """Render one frame of renderer r and return, for each function of
+    `names` (attributes of `module`, engine/wavefront.py by default) that
+    the frame calls, the arguments of its call on bounce `depth` (its
+    depth-th call) as (args, kw) (each wrapper still runs, so the frame
+    is unchanged)."""
     got, seen = {}, dict.fromkeys(names, 0)
-    real = {k: getattr(W, k) for k in names}
+    real = {k: getattr(module, k) for k in names}
 
     def spy(key, fn):
         def call(*args, **kw):
@@ -132,12 +164,12 @@ def capture_bounce(r, depth: int, names):
             return fn(*args, **kw)
         return call
     for k in names:
-        setattr(W, k, spy(k, real[k]))
+        setattr(module, k, spy(k, real[k]))
     try:
         r.render_frame()
     finally:
         for k in names:
-            setattr(W, k, real[k])
+            setattr(module, k, real[k])
     if r.device.type == "cuda":
         torch.cuda.synchronize()
     return got
@@ -155,7 +187,7 @@ def capture(kernel: str, scene: str, res, call=2, device="cuda"):
     if call == "primary":
         r.orbit(dphi=0.015, dtheta=0.01)
         call = 1
-    return capture_bounce(r, call, (kernel,))[kernel]
+    return capture_bounce(r, call, (kernel,), CALLER.get(kernel, W))[kernel]
 
 
 def kernel_fn(kernel: str):
@@ -163,7 +195,10 @@ def kernel_fn(kernel: str):
             "bounce_fused": F._bounce_fused_kernel,
             "scene_intersect_full": A._scene_intersect_full_kernel,
             "scene_intersect_full_tex":
-                A._scene_intersect_full_tex_kernel}[kernel]
+                A._scene_intersect_full_tex_kernel,
+            "light_visibility": A._light_visibility_kernel,
+            "back_projection_atrous1":
+                L._back_projection_atrous1_kernel}[kernel]
 
 
 def plain_fn(kernel: str):
@@ -171,7 +206,10 @@ def plain_fn(kernel: str):
             "bounce_fused": F.bounce_fused_plain,
             "scene_intersect_full": A.scene_intersect_full_plain,
             "scene_intersect_full_tex":
-                A.scene_intersect_full_tex_plain}[kernel]
+                A.scene_intersect_full_tex_plain,
+            "light_visibility": A.light_visibility_plain,
+            "back_projection_atrous1":
+                L.back_projection_atrous1_plain}[kernel]
 
 
 def hit_planes(isect, tidx=None):
@@ -187,7 +225,15 @@ def hit_planes(isect, tidx=None):
 
 def out_planes(kernel: str, out):
     """The output planes by name: F's B_* planes and next albedo, H's
-    B_* planes, A's outputs, J's and its texel index."""
+    B_* planes, A's outputs, J's and its texel index, I's lit flag, L's
+    color, variance, moments and history."""
+    if kernel == "light_visibility":
+        return {"lit": out.to(torch.int32)}
+    if kernel == "back_projection_atrous1":
+        color, var, mom, hist = out
+        return {"r": color[..., 0], "g": color[..., 1], "b": color[..., 2],
+                "var": var, "m1": mom[..., 0], "m2": mom[..., 1],
+                "hist": hist}
     if kernel == "scene_intersect_full":
         return hit_planes(out)
     if kernel == "scene_intersect_full_tex":
@@ -213,14 +259,17 @@ def plane_diffs(got, ref):
 
 def n_lanes(kernel: str, args) -> int:
     """The lanes (rays) of a call's arguments."""
-    return args[2].shape[0] if kernel in HIT_KERNELS else args[2][0].numel()
+    return args[2].shape[0] if kernel in RAY_KERNELS else args[2][0].numel()
 
 
 def work(kernel: str, args, out, tri_tests: int):
     """The kernel's bound on these inputs (utils/card.py:bound)."""
     gi = args[1]
     n_an = sum(1 for t in gi.types if t != 2)
-    if kernel in HIT_KERNELS:
+    if kernel == "light_visibility":
+        per_lane = n_an * ANALYTIC_OPS
+        ins, outs = args[2:4], (out,)
+    elif kernel in HIT_KERNELS:
         per_lane = n_an * ANALYTIC_OPS + REFINE_OPS
         ins = args[2:4]
         outs = list(out_planes(kernel, out).values())
@@ -249,12 +298,9 @@ def build_variant(name: str, src_dir, kernels=tuple(SOURCE)) -> tuple:
                          text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed on variant {name}:\n{res.stdout}")
-    lib = ctypes.CDLL(str(so))
-    for k in kernels:
-        fn = getattr(lib, SOURCE[k][1])
-        fn.argtypes = [ctypes.c_void_p] * (4 if k in HIT_KERNELS else 3)
-        fn.restype = ctypes.c_int
-    return lib, res.stdout
+    entries = [SOURCE[k][1] for k in kernels]
+    return (_lib.declare(ctypes.CDLL(str(so)),
+                         {e: _lib.ENTRIES[e] for e in entries}), res.stdout)
 
 
 def _with_lib(lib, fn):
@@ -310,6 +356,67 @@ def measure(kernel: str, args, kw, libs=None, reps: int = 20):
             "bound_by": bound_by, "turns": order, "builds": per}
 
 
+def l_work(args, out):
+    """Kernel L's bound on its arguments `args` and outputs `out`: the
+    current frame's color and G-buffer (position, normal, geom), the
+    previous frame's normal and geom and the three histories in, its four
+    outputs out, and per pixel C's ~200 operations and D's 25 taps of
+    ~40."""
+    res, raw, gb, prev, _, ch, mh, hl = args[:8]
+    return bound(nbytes(raw, gb["position"], gb["normal"], gb["geom_id"],
+                        prev["normal"], prev["geom_id"], ch, mh, hl, *out),
+                 res[0] * res[1] * (200 + 25 * 40))
+
+
+def measure_l(args, kw, libs=None, reps: int = 20):
+    """The numbers of L's case, as measure()'s: per build of L (the
+    kernel library's and each of `libs`) the pixels off its plain version,
+    off the first build and off C's then D's kernels by output, and its
+    ms; and in "parts", kernel C (stencil mode) alone and kernel D at
+    level 1 alone on C's output and the packed G-buffer, as the frame
+    without fuse_reproject_l1 runs them; all timed in turns there and
+    back."""
+    kernel = "back_projection_atrous1"
+    cargs, (sl, sn, sx, blur, static) = args[:10], args[10:]
+    ref = L.back_projection_atrous1_plain(*args, **kw)
+    var, acc, mom, hist = C._back_projection_stencil_kernel(*cargs)
+    d_args = (acc, var, static, None, 1, sl, sn, sx, blur)
+    c_then_d = out_planes(kernel, D._atrous_level_kernel(*d_args)
+                          + (mom, hist))
+    ref_planes = out_planes(kernel, ref)
+
+    def fused():
+        return L._back_projection_atrous1_kernel(*args, **kw)
+    runs = {name: (lib, fused)
+            for name, lib in {"library": None, **(libs or {})}.items()}
+    per, first = {}, None
+    for name, (lib, fn) in runs.items():
+        got = out_planes(kernel, _with_lib(lib, fn))
+        first = first or got
+        per[name] = {"diffs": plane_diffs(got, ref_planes),
+                     "diffs_first": plane_diffs(got, first),
+                     "diffs_c_then_d": plane_diffs(got, c_then_d),
+                     "ms": []}
+    parts = {"C": (None, lambda: C._back_projection_stencil_kernel(*cargs)),
+             "D level 1": (None, lambda: D._atrous_level_kernel(*d_args))}
+    runs.update(parts)
+    times = {name: [] for name in runs}
+    order = list(runs) + list(runs)[::-1]
+    for name in order:
+        lib, fn = runs[name]
+        times[name].append(_with_lib(lib, lambda: cuda_ms(
+            fn, reps=reps, hide_host=True)))
+    for name in per:
+        per[name]["ms"] = times[name]
+    plain_ms = cuda_ms(lambda: L.back_projection_atrous1_plain(*args, **kw),
+                       reps=1, warmup=0, hide_host=True)
+    bound_ms, bound_by = l_work(args, ref)
+    return {"lanes": args[0][0] * args[0][1], "tri_tests": 0,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "turns": order, "builds": per,
+            "parts": {k: times[k] for k in parts}}
+
+
 def run(cases=None, libs=None, reps: int = 20):
     """label -> measure()'s numbers for each case of `cases` (all by
     default)."""
@@ -317,7 +424,9 @@ def run(cases=None, libs=None, reps: int = 20):
     for label in cases or CASES:
         kernel, scene, res, call = CASES[label]
         args, kw = capture(kernel, scene, res, call)
-        out[label] = measure(kernel, args, kw, libs, reps)
+        out[label] = (measure_l(args, kw, libs, reps)
+                      if kernel == "back_projection_atrous1"
+                      else measure(kernel, args, kw, libs, reps))
     return out
 
 
@@ -327,7 +436,8 @@ def main(argv=None):
     ap.add_argument("--cases", default=",".join(CASES),
                     help="comma-separated labels of CASES")
     ap.add_argument("--variant", action="append", default=[],
-                    metavar="NAME=DIR", help="also run DIR/bounce.cu")
+                    metavar="NAME=DIR",
+                    help="also run DIR's copy of each kernel's source")
     ap.add_argument("--out", help="write the numbers as JSON here")
     args = ap.parse_args(argv)
     card = card_name()
@@ -335,6 +445,8 @@ def main(argv=None):
     kernels = tuple(dict.fromkeys(CASES[c][0] for c in cases))
     mine = tuple({"trace_bounce": "trace_kernel"}.get(k, k + "_kernel")
                  for k in kernels)
+    if "back_projection_atrous1" in kernels:    # timed beside C and D
+        mine += ("back_projection_stencil_kernel", "atrous_level_kernel")
     regs = {"library": [r for r in ptxas_summary(_lib.build(force=True))
                         if r.split()[0] in mine]}
     libs = {}
@@ -355,13 +467,20 @@ def main(argv=None):
         for name, v in m["builds"].items():
             bad = {k: n for k, n in v["diffs"].items() if n}
             off = {k: n for k, n in v["diffs_first"].items() if n}
+            cd = ""
+            if "diffs_c_then_d" in v:
+                cd = {k: n for k, n in v["diffs_c_then_d"].items() if n}
+                cd = f", from C's then D's kernels: {cd or 'none'}"
             print(f"{label} [{name}]: "
                   + ", ".join(f"{t:.4f}" for t in v["ms"])
                   + f" ms, bound {m['bound_ms']:.4f} ms ({m['bound_by']}), "
                   f"plain {m['plain_ms']:.2f} ms, {m['lanes']} lanes, "
                   f"{m['tri_tests']} lane-triangle tests; lanes differing "
                   f"from the plain version by plane: {bad or 'none'}, from "
-                  f"the {first} build: {off or 'none'} [{card}]")
+                  f"the {first} build: {off or 'none'}{cd} [{card}]")
+        for name, ms in m.get("parts", {}).items():
+            print(f"{label} [{name}]: " + ", ".join(f"{t:.4f}" for t in ms)
+                  + f" ms [{card}]")
     for name, r in regs.items():
         print(f"ptxas [{name}]: " + "; ".join(r))
     if args.out:

@@ -86,29 +86,11 @@ __device__ __forceinline__ float4 load_cv(const ptdn::AtrousArgs& a, int i) {
 }
 
 // The taps from the block's staged tile, laid out [row][column][phase];
-// `c` is the index of the thread's own pixel there, tap (j, i) lies j
-// rows (`row` apart) and i columns (`col` apart) away
-struct TileIn {
-  const float4* cv_;
-  const float4* pos_;
-  const float4* nrm_;
+// the pre-blur's neighbours, off the sub-lattice, from device memory
+struct TileIn : ptdn::StagedTaps {
   const float* cv_in;   // the level's input in device memory (AtrousArgs)
   const float* var_in;
   int w;
-  int row, col;
-  int c;
-  __device__ __forceinline__ int at(int j, int i) const {
-    return c + j * row + i * col;
-  }
-  __device__ __forceinline__ float4 cv(int, int, int j, int i) const {
-    return cv_[at(j, i)];
-  }
-  __device__ __forceinline__ float4 pos(int, int, int j, int i) const {
-    return pos_[at(j, i)];
-  }
-  __device__ __forceinline__ float4 nrm(int, int, int j, int i) const {
-    return nrm_[at(j, i)];
-  }
   __device__ __forceinline__ float blur_var(int qy, int qx) const {
     const int q = qy * w + qx;
     return var_in == nullptr ? cv_in[4 * q + 3] : var_in[q];
@@ -152,8 +134,9 @@ __global__ void __launch_bounds__(kRows * 32, 5)
   const int l = q / np, p = q - l * np;
   const int y = oy + (r + kHalo) * step, x = ox + (l + kHalo) * step + p;
   if (y >= a.h || x >= a.w) return;
-  const TileIn in{s_cv, s_pos, s_nrm, a.cv, a.var, a.w, srow, np,
-                  (r + kHalo) * srow + (l + kHalo) * np + p};
+  const TileIn in{{s_cv, s_pos, s_nrm, srow, np,
+                   (r + kHalo) * srow + (l + kHalo) * np + p},
+                  a.cv, a.var, a.w};
   float out[4];
   ptdn::atrous_pixel(in, a.w, a.h, y, x, level, a.blur_variance != 0,
                      ptdn::AtrousSigmas{a.sigma_l, a.sigma_n, a.sigma_x},

@@ -14,9 +14,10 @@
 //   in.pos(qy, qx, j, i)  G-buffer position x y z (w unused);
 //   in.nrm(qy, qx, j, i)  G-buffer normal x y z (w unused);
 //   in.blur_var(qy, qx)   variance of a 3x3 pre-blur neighbour (step 1).
-// D serves the taps from its block's shared tile of a sub-lattice, L
-// the color and variance from its shared tile and the G-buffer from
-// device memory; the arithmetic is this function's for both.
+// D and L serve the taps from their blocks' staged tiles (StagedTaps: D
+// a tile of a sub-lattice, L a dense tile of the image), D its pre-blur
+// from device memory and L from its tile; the arithmetic is this
+// function's for both.
 #pragma once
 
 #include "ptdn.cuh"
@@ -46,6 +47,30 @@ __device__ __forceinline__ float sqrt_dist(float x) {
 
 struct AtrousSigmas {
   float l, n, x;
+};
+
+// The taps of a pixel from a block's tile of color and variance,
+// position and normal staged in shared memory, a float4 each: `c` is the
+// index of the pixel itself there, and tap (j, i) lies j rows (`row`
+// apart) and i columns (`col` apart) away. Each kernel adds blur_var.
+struct StagedTaps {
+  const float4* cv_;
+  const float4* pos_;
+  const float4* nrm_;
+  int row, col;
+  int c;
+  __device__ __forceinline__ int at(int j, int i) const {
+    return c + j * row + i * col;
+  }
+  __device__ __forceinline__ float4 cv(int, int, int j, int i) const {
+    return cv_[at(j, i)];
+  }
+  __device__ __forceinline__ float4 pos(int, int, int j, int i) const {
+    return pos_[at(j, i)];
+  }
+  __device__ __forceinline__ float4 nrm(int, int, int j, int i) const {
+    return nrm_[at(j, i)];
+  }
 };
 
 // Pixel (y, x) of level `level`; writes the filtered color to out[0..2]

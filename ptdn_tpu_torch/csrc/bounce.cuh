@@ -103,7 +103,7 @@ enum {
 template <class Rows>
 __global__ void __launch_bounds__(kScanBlock, kScanBlocksPerSM)
     trace_kernel(SceneDev s, TraceArgs a) {
-  __shared__ ScanSmem<true> sm;
+  __shared__ ScanSmem<true, true> sm;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool lane = i < a.n;
   const size_t n = (size_t)a.n;
@@ -192,7 +192,7 @@ __global__ void __launch_bounds__(kScanBlock, kScanBlocksPerSM)
 template <class Rows>
 __global__ void __launch_bounds__(kScanBlock, kScanBlocksPerSM)
     bounce_fused_kernel(SceneDev s, BounceArgs a) {
-  __shared__ ScanSmem<true> sm;
+  __shared__ ScanSmem<true, true> sm;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool lane = i < a.n;
   const size_t n = (size_t)a.n;

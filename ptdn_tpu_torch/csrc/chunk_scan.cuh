@@ -1,13 +1,14 @@
-// The block-level chunk scan of kernels F and H (bounce.cuh) and A and J
-// (scene_intersect.cu): a block of kScanBlock lanes walks the scene's
-// triangle chunks once, in ascending order, and tests each chunk's 128
-// triangles, staged in shared memory, against every ray of the block
-// that crosses the chunk. F and H scan the next rays (closest hit) and
-// the shadow rays (any hit) in one joint loop, the TPU kernels' joint
-// scan (ptdn_tpu/ops/pallas/scene_intersect.py:joint_mesh_tiles) in the
-// form this card wants; A and J the closest-hit query alone. Whether a
-// lane carries a shadow query is a compile-time option (Shadow), so the
-// closest-hit scan pays for no second list, vote or ballot.
+// The block-level chunk scan of kernels F and H (bounce.cuh), A and J
+// (closest_hit.cuh) and I (scene_intersect.cu): a block of kScanBlock
+// lanes walks the scene's triangle chunks once, in ascending order, and
+// tests each chunk's 128 triangles, staged in shared memory, against
+// every ray of the block that crosses the chunk. Which queries a lane
+// carries is a compile-time choice: F and H scan the next rays (closest
+// hit, Next) and the shadow rays (any hit, Shadow) in one joint loop, the
+// TPU kernels' joint scan (ptdn_tpu/ops/pallas/scene_intersect.py:
+// joint_mesh_tiles) in the form this card wants; A and J the closest-hit
+// query alone; I the any-hit query alone. A scan without one of the two
+// pays for no second list slot, key, cull or ballot of it.
 //
 // The block's chunk range is the union of its lanes' ranges (a block
 // reduction). The AABBs of its first kAabbStaged chunks are loaded into
@@ -72,12 +73,14 @@ struct ScanEntry {
   float4 d;
 };
 
-// The block's shared state; Shadow: a lane carries a shadow query
-// beside its closest-hit one
-template <bool Shadow>
+// The block's shared state; Next: a lane carries a closest-hit query,
+// Shadow: an any-hit query (one of them at least)
+template <bool Next, bool Shadow>
 struct ScanSmem {
-  // the list's slots: the next ray (and the shadow ray) of every lane
-  static constexpr int kRays = (Shadow ? 2 : 1) * kScanBlock;
+  static_assert(Next || Shadow, "a scan of no query");
+  // the list's slots: the next ray and the shadow ray of every lane, as
+  // the lanes carry them
+  static constexpr int kRays = ((int)Next + (int)Shadow) * kScanBlock;
   float4 tri[kStages][kChunk * 3];     // 128 tri_moller rows per stage
   float aabb[kAabbStaged][6];          // lo xyz, hi xyz
   ScanEntry ray[kRays];
@@ -131,9 +134,9 @@ __device__ __forceinline__ void cp_async_wait_one() {
 // Does query q want chunk c: on, c in its range, and its ray crosses the
 // chunk's AABB below its limit (the AABB from shared memory within the
 // staged ones, else from device memory: the same values)
-template <bool Shadow>
+template <bool Next, bool Shadow>
 __device__ __forceinline__ bool query_wants(const SceneDev& s,
-                                            const ScanSmem<Shadow>& sm,
+                                            const ScanSmem<Next, Shadow>& sm,
                                             int c, const ScanQuery& q) {
   if (!q.on || c < q.lo || c > q.hi) return false;
   const int k = c - sm.lo;
@@ -146,13 +149,13 @@ __device__ __forceinline__ bool query_wants(const SceneDev& s,
 
 // The first chunk after c that some lane of the block wants, hi + 1 if
 // none (block-uniform; every thread of the block calls it)
-template <bool Shadow>
+template <bool Next, bool Shadow>
 __device__ __forceinline__ int next_voted(const SceneDev& s,
-                                          const ScanSmem<Shadow>& sm, int c,
-                                          int hi, const ScanQuery& nq,
+                                          const ScanSmem<Next, Shadow>& sm,
+                                          int c, int hi, const ScanQuery& nq,
                                           const ScanQuery& sq) {
   for (++c; c <= hi; ++c)
-    if (__syncthreads_or(query_wants(s, sm, c, nq) ||
+    if (__syncthreads_or((Next && query_wants(s, sm, c, nq)) ||
                          (Shadow && query_wants(s, sm, c, sq))))
       return c;
   return c;
@@ -160,9 +163,9 @@ __device__ __forceinline__ int next_voted(const SceneDev& s,
 
 // Copy chunk c's tri_moller rows into ring stage `stage`: 384 16-byte
 // pieces, three per thread. tri_moller is padded to whole chunks.
-template <bool Shadow>
+template <bool Next, bool Shadow>
 __device__ __forceinline__ void stage_chunk(const SceneDev& s,
-                                            ScanSmem<Shadow>& sm, int c,
+                                            ScanSmem<Next, Shadow>& sm, int c,
                                             int stage) {
   const float4* src =
       reinterpret_cast<const float4*>(s.tri_moller) + (size_t)c * kChunk * 3;
@@ -171,34 +174,38 @@ __device__ __forceinline__ void stage_chunk(const SceneDev& s,
 }
 
 // Put query q's ray into list slot k, its key empty
-template <bool Shadow>
-__device__ __forceinline__ void put_ray(ScanSmem<Shadow>& sm, int k,
+template <bool Next, bool Shadow>
+__device__ __forceinline__ void put_ray(ScanSmem<Next, Shadow>& sm, int k,
                                         const ScanQuery& q) {
   sm.ray[k].ol = make_float4(q.r.ox, q.r.oy, q.r.oz, q.lim);
   sm.ray[k].d = make_float4(q.r.dx, q.r.dy, q.r.dz, 0.f);
   sm.key[k] = ~0ull;
 }
 
-// The scan of a block's lanes: nq, the next ray's closest-hit query,
-// and with Shadow sq, the shadow ray's any-hit query (each with best -1
-// and its limit on entry; without Shadow sq is not read). Every thread
-// of the block calls it, a thread without a lane with its queries off.
-template <bool Shadow>
-__device__ inline void chunk_scan(const SceneDev& s, ScanSmem<Shadow>& sm,
-                                  ScanQuery& nq, ScanQuery& sq) {
+// The scan of a block's lanes: with Next nq, the next ray's closest-hit
+// query, and with Shadow sq, the shadow ray's any-hit query (each with
+// best -1 and its limit on entry; a query the scan does not carry is not
+// read). Every thread of the block calls it, a thread without a lane
+// with its queries off.
+template <bool Next, bool Shadow>
+__device__ inline void chunk_scan(const SceneDev& s,
+                                  ScanSmem<Next, Shadow>& sm, ScanQuery& nq,
+                                  ScanQuery& sq) {
   const int tid = threadIdx.x, warp = tid / 32, wl = tid % 32;
   if (tid == 0) {
     sm.lo = 0x7fffffff;
     sm.hi = -1;
   }
-  nq.lo = max(nq.lo, 0);
-  nq.hi = min(nq.hi, s.n_chunks - 1);
+  if (Next) {
+    nq.lo = max(nq.lo, 0);
+    nq.hi = min(nq.hi, s.n_chunks - 1);
+  }
   if (Shadow) {
     sq.lo = max(sq.lo, 0);
     sq.hi = min(sq.hi, s.n_chunks - 1);
   }
   int lo = 0x7fffffff, hi = -1;
-  if (nq.on && nq.lo <= nq.hi) {
+  if (Next && nq.on && nq.lo <= nq.hi) {
     lo = nq.lo;
     hi = nq.hi;
   }
@@ -239,9 +246,9 @@ __device__ inline void chunk_scan(const SceneDev& s, ScanSmem<Shadow>& sm,
 
     // the list of rays that want chunk c: each warp's next rays, then
     // its shadow rays, warp after warp
-    const bool wn = query_wants(s, sm, c, nq);
+    const bool wn = Next && query_wants(s, sm, c, nq);
     const bool ws = Shadow && query_wants(s, sm, c, sq);
-    const unsigned bn = __ballot_sync(0xffffffffu, wn);
+    const unsigned bn = Next ? __ballot_sync(0xffffffffu, wn) : 0u;
     const unsigned bs = Shadow ? __ballot_sync(0xffffffffu, ws) : 0u;
     if (wl == 0) sm.count[warp] = __popc(bn) + __popc(bs);
     __syncthreads();
@@ -295,10 +302,17 @@ __device__ inline void chunk_scan(const SceneDev& s, ScanSmem<Shadow>& sm,
 }
 
 // The closest-hit scan alone (kernels A and J): q as chunk_scan's nq
-__device__ inline void chunk_scan(const SceneDev& s, ScanSmem<false>& sm,
-                                  ScanQuery& q) {
+__device__ inline void chunk_scan(const SceneDev& s,
+                                  ScanSmem<true, false>& sm, ScanQuery& q) {
   ScanQuery none = no_query();
   chunk_scan(s, sm, q, none);
+}
+
+// The any-hit scan alone (kernel I): q as chunk_scan's sq
+__device__ inline void chunk_scan(const SceneDev& s,
+                                  ScanSmem<false, true>& sm, ScanQuery& q) {
+  ScanQuery none = no_query();
+  chunk_scan(s, sm, none, q);
 }
 
 }  // namespace ptdn

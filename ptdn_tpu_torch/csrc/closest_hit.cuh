@@ -33,7 +33,7 @@ template <bool Tex, class Rows>
 __device__ __forceinline__ void closest_hit_block(const SceneDev& s,
                                                   const RayArgs& r,
                                                   const IsectArgs& a,
-                                                  ScanSmem<false>& sm) {
+                                                  ScanSmem<true, false>& sm) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool lane = i < r.n;
   float ox = 0.f, oy = 0.f, oz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f;
@@ -70,14 +70,14 @@ __device__ __forceinline__ void closest_hit_block(const SceneDev& s,
 template <class Rows>
 __global__ void __launch_bounds__(kScanBlock, kScanBlocksPerSM)
     scene_intersect_full_kernel(SceneDev s, RayArgs r, IsectArgs a) {
-  __shared__ ScanSmem<false> sm;
+  __shared__ ScanSmem<true, false> sm;
   closest_hit_block<false, Rows>(s, r, a, sm);
 }
 
 template <class Rows>
 __global__ void __launch_bounds__(kScanBlock, kScanBlocksPerSM)
     scene_intersect_full_tex_kernel(SceneDev s, RayArgs r, IsectArgs a) {
-  __shared__ ScanSmem<false> sm;
+  __shared__ ScanSmem<true, false> sm;
   closest_hit_block<true, Rows>(s, r, a, sm);
 }
 

@@ -2,10 +2,10 @@
 // TEA seed hash, the analytic cube/sphere tests, the
 // Moller-Trumbore triangle scan over 128-triangle chunks, the
 // attribute refine, the fully resolved closest hit and the NEE shadow-ray
-// visibility. The kernels use them (A, I, J and M whole, B1 its own
-// bounce loop on them, F and H their analytic tests, Moller test and
-// refine around chunk_scan.cuh's block-level scan), so the primary hit
-// and every bounce run the same code.
+// visibility. The kernels use them (M whole, B1 its own bounce loop on
+// them, F, H, A, J and I their analytic tests, Moller test and refine
+// around chunk_scan.cuh's block-level scan), so the primary hit and
+// every bounce run the same code.
 //
 // Each function is the per-thread form of the JAX package's fused TPU
 // code (ptdn_tpu/ops/pallas/scene_intersect.py: _one_geom, _row_dot,

@@ -1,11 +1,12 @@
-// Kernels A (scene_intersect_full) and J (scene_intersect_full_tex)
-// (../closest_hit.cuh) built for one scene: the analytic tests' full dot
+// Kernels A (scene_intersect_full), J (scene_intersect_full_tex)
+// (../closest_hit.cuh) and I (light_visibility, ../light_visibility.cuh)
+// built for one scene: the analytic tests' full dot
 // products with the scene's matrix entries as constants
 // (scene_mats.cuh:SceneMats), compiled once per scene beside B1, F and H
 // (ops/cuda/_lib.py:build_scene) with the same generated scene.h. Scenes
 // past the header's limits take the kernel library's build
 // (../scene_intersect.cu), which computes the same bits.
-#include "../closest_hit.cuh"
+#include "../light_visibility.cuh"
 #include "scene_mats.cuh"
 
 extern "C" int ptdn_scene_intersect_full(const ptdn::SceneDev* s,
@@ -20,4 +21,11 @@ extern "C" int ptdn_scene_intersect_full_tex(const ptdn::SceneDev* s,
                                              const ptdn::IsectArgs* a,
                                              void* stream) {
   return ptdn::launch_closest_hit<true, SceneMats>(s, r, a, stream);
+}
+
+extern "C" int ptdn_light_visibility(const ptdn::SceneDev* s,
+                                     const ptdn::RayArgs* r, int light_geom,
+                                     unsigned char* lit, void* stream) {
+  return ptdn::launch_light_visibility<SceneMats>(s, r, light_geom, lit,
+                                                  stream);
 }

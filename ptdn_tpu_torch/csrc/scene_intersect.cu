@@ -12,25 +12,13 @@
 // compact_tile), which the TPU needed because its gathers are
 // count-bound. A GPU thread of kernel K reads its own texel.
 //
-// A and J run on the block-level chunk scan (closest_hit.cuh, over
-// chunk_scan.cuh with its shadow query compiled out): a block of 128
-// rays, a thread each, runs the analytic geoms in scene order per ray,
-// then walks the scene's 128-triangle chunks once, in ascending order,
-// each crossed chunk staged in shared memory and tested by a thread per
-// triangle against the block's rays that cross it (each ray behind its
-// own AABB cull against its running best, over every chunk), then each
-// ray takes the exact refine of its winning triangle and the merge
-// (ptdn.cuh:resolve_hit). The result is ptdn.cuh:mesh_best's, bit for
-// bit (chunk_scan.cuh says why). I and M keep the per-lane walk
-// (ptdn.cuh:light_visible, mesh_best): one thread per ray scans the
-// chunks behind its own cull.
-//
 // I replaces light_visibility_pallas (_vis_kernel,
 // light_visibility_tiles): per ray, the closest analytic hit is the light
-// geom and no triangle lies in front of it (ptdn.cuh:light_visible), on
-// every ray, with no NEE mask, as the TPU kernel computes it. The TPU
-// kernel's loop ends when every lane of its block is occluded; a thread
-// here returns at its own first occluder.
+// geom and no triangle lies in front of it, on every ray, with no NEE
+// mask, as the TPU kernel computes it. The TPU kernel's loop ends when
+// every lane of its block is occluded; here a ray leaves the scan at the
+// chunk of its first occluder, and the block stops where no ray wants a
+// chunk.
 //
 // M replaces scene_intersect_pallas (_kernel): A without the refine and
 // the merge. Per ray the closest analytic hit (t, or -1 where none, geom,
@@ -39,9 +27,25 @@
 // scans every chunk for every ray (the same answer, more work), as the
 // TPU kernel's switch does.
 //
+// A, J and I run on the block-level chunk scan (chunk_scan.cuh): a block
+// of 128 rays, a thread each, runs the analytic geoms in scene order per
+// ray, then walks the scene's 128-triangle chunks once, in ascending
+// order, each crossed chunk staged in shared memory and tested by a
+// thread per triangle against the block's rays that cross it, each ray
+// behind its own AABB cull over every chunk. A and J carry the
+// closest-hit query alone (closest_hit.cuh: the cull against the running
+// best, then the exact refine of the winning triangle and the merge,
+// ptdn.cuh:resolve_hit), I the any-hit query alone (light_visibility.cuh:
+// the cull and the test against the light's distance, for the rays whose
+// closest analytic hit is the light): one list slot, one key, one cull
+// and one ballot a ray. The results are ptdn.cuh's per-lane walks'
+// (mesh_best, light_visible), bit for bit (chunk_scan.cuh says why). M
+// keeps the per-lane walk (ptdn.cuh:mesh_best): one thread per ray scans
+// the chunks behind its own cull.
+//
 // All four take the full dot products of the scene matrices, as the
-// TPU per-bounce kernels do (no baked rows: that is B1's form); A and J
-// are built once per scene as well, with the matrices as constants
+// TPU per-bounce kernels do (no baked rows: that is B1's form); A, J and
+// I are built once per scene as well, with the matrices as constants
 // (scene/scene_intersect.cu), this file's build serving the scenes past
 // that build's limits. A ray's component c lies at o[k * o_rs + c * o_cs],
 // so the rays may be an (N, 3) tensor or three planes of a plane stack.
@@ -53,10 +57,10 @@
 // the TPU design: the TPU kernels tested 8 triangles against a 128-lane
 // row at once and culled per 1024-ray block (a block's rays all test a
 // chunk that any of them crosses); here every ray is culled on its own,
-// and in A and J the block's vote skips the chunks no ray of the block
+// and in A, J and I the block's vote skips the chunks no ray of the block
 // crosses while a thread per triangle meets the compacted list of the
 // rays that cross its chunk.
-#include "closest_hit.cuh"
+#include "light_visibility.cuh"
 
 namespace ptdn {
 
@@ -71,20 +75,6 @@ struct BestArgs {
 }  // namespace ptdn
 
 namespace {
-
-__global__ void light_visibility_kernel(ptdn::SceneDev s, ptdn::RayArgs r,
-                                        int light_geom,
-                                        unsigned char* __restrict__ lit) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= r.n) return;
-  const float* o = r.o + (size_t)i * r.o_rs;
-  const float* d = r.d + (size_t)i * r.d_rs;
-  lit[i] = ptdn::light_visible<ptdn::MatRows>(
-               s, light_geom, o[0], o[r.o_cs], o[2 * r.o_cs], d[0],
-               d[r.d_cs], d[2 * r.d_cs])
-               ? 1
-               : 0;
-}
 
 __global__ void scene_intersect_kernel(ptdn::SceneDev s, ptdn::RayArgs r,
                                        ptdn::BestArgs a, int cull) {
@@ -132,10 +122,8 @@ extern "C" int ptdn_scene_intersect_full_tex(const ptdn::SceneDev* s,
 extern "C" int ptdn_light_visibility(const ptdn::SceneDev* s,
                                      const ptdn::RayArgs* r, int light_geom,
                                      unsigned char* lit, void* stream) {
-  if (r->n > 0)
-    light_visibility_kernel<<<grid(r->n), kBlock, 0, (cudaStream_t)stream>>>(
-        *s, *r, light_geom, lit);
-  return (int)cudaGetLastError();
+  return ptdn::launch_light_visibility<ptdn::MatRows>(s, r, light_geom, lit,
+                                                      stream);
 }
 
 extern "C" int ptdn_scene_intersect(const ptdn::SceneDev* s,

@@ -133,7 +133,7 @@ class SVGFDenoiser(nn.Module):
             if self.near:
                 color_history, variance, moment_acc, hist_up = (
                     back_projection_atrous1(*bp_args, *sig,
-                                            cfg.blur_variance))
+                                            cfg.blur_variance, static))
             else:
                 var0, acc, moment_acc, hist_up = back_projection_banded(
                     *bp_args, starts=self.starts)

@@ -5,11 +5,11 @@ source, all at once, and links the objects into one shared library with a
 plain C interface, which ctypes loads. The build runs at first use, into
 ``ptdn_tpu_torch/build/`` (ignored by git), and again only when a source
 is newer than the library. The per-scene builds (``csrc/scene/*.cu``:
-kernel B1, kernels F and H, and kernels A and J) are built once per
+kernel B1, kernels F and H, and kernels A, J and I) are built once per
 scene instead, with the scene's constants in a generated header
 (build_scene), into libraries of their own per scene; the builds that
 serve the scenes past their limits (B1's table build,
-``csrc/path_trace_table.cu``; F and H, ``csrc/bounce.cu``; A and J,
+``csrc/path_trace_table.cu``; F and H, ``csrc/bounce.cu``; A, J and I,
 ``csrc/scene_intersect.cu``) are in the kernel library. No fast-math
 flag is passed and ``--fmad=false`` keeps every product rounded on its
 own, so the kernels round like their plain PyTorch versions, which run
@@ -82,17 +82,44 @@ def build(force: bool = False) -> str:
     return "".join(logs)
 
 
+_VP, _I32 = ctypes.c_void_p, ctypes.c_int
+# the C entry points of the kernel library with their argument types,
+# the stream's last
+ENTRIES = {
+    "ptdn_scene_intersect_full": [_VP, _VP, _VP, _VP],
+    "ptdn_scene_intersect_full_tex": [_VP, _VP, _VP, _VP],
+    "ptdn_light_visibility": [_VP, _VP, _I32, _VP, _VP],
+    "ptdn_sparse_gather": [_VP, _VP],
+    "ptdn_bounce_fused": [_VP, _VP, _VP],
+    "ptdn_deferred_radiance": [_VP, _VP, _VP, _I32, _I32, _VP, _VP],
+    "ptdn_scene_intersect": [_VP, _VP, _VP, _I32, _VP],
+    "ptdn_back_projection_stencil": [_VP, _VP],
+    "ptdn_back_projection_banded": [_VP, _VP],
+    "ptdn_back_projection_atrous1": [_VP, _VP],
+    "ptdn_atrous_level": [_VP, _I32, _VP],
+    "ptdn_shade_bounce": [_VP, _VP],
+    "ptdn_trace_bounce": [_VP, _VP, _VP],
+    "ptdn_inrow_permute": [_VP, _VP, _I32, _I32, _VP, _VP],
+    "ptdn_path_trace_table": [_VP, _VP, _VP],
+    "ptdn_gather_u32": [_VP, _VP, _I32, _VP, _VP],
+    "ptdn_take_chain": [_VP, _VP, _I32, _I32, _I32, _I32, _VP, _VP],
+    "ptdn_mesh_intersect_v1": [_VP, _VP, _VP, _VP, _VP, _I32, _I32, _I32,
+                               _I32, _VP, _VP, _VP],
+}
 # the C entry points of each per-scene source, csrc/scene/<stem>.cu,
-# with their pointer arguments (the stream's included)
-SCENE_ENTRIES = {"path_trace": {"ptdn_path_trace": 3},
-                 "bounce": {"ptdn_trace_bounce": 3, "ptdn_bounce_fused": 3},
-                 "scene_intersect": {"ptdn_scene_intersect_full": 4,
-                                     "ptdn_scene_intersect_full_tex": 4}}
+# with their argument types (each one of the library's but B1's)
+SCENE_ENTRIES = {
+    "path_trace": {"ptdn_path_trace": [_VP, _VP, _VP]},
+    "bounce": {k: ENTRIES[k] for k in ("ptdn_trace_bounce",
+                                       "ptdn_bounce_fused")},
+    "scene_intersect": {k: ENTRIES[k] for k in (
+        "ptdn_scene_intersect_full", "ptdn_scene_intersect_full_tex",
+        "ptdn_light_visibility")}}
 
 
 def build_scene(header: str, force: bool = False):
     """Compile every per-scene source (csrc/scene/<stem>.cu: kernel B1,
-    kernels F and H, kernels A and J) for one scene, with `header`
+    kernels F and H, kernels A, J and I) for one scene, with `header`
     (ops/cuda/scene_intersect.py:path_scene_header) as its scene.h, each
     into build/scene-<hash>/lib<stem>.so, the hash taken over the header
     and every kernel source; one nvcc per source, all at once; again only
@@ -131,11 +158,8 @@ def scene_kernels(header: str, stem: str = "path_trace") -> ctypes.CDLL:
     `header`, on first use, loaded once."""
     if not torch.cuda.is_available():
         raise RuntimeError("the CUDA kernels need a CUDA device")
-    lib = ctypes.CDLL(str(build_scene(header)[0][stem]))
-    for name, n_args in SCENE_ENTRIES[stem].items():
-        getattr(lib, name).argtypes = [ctypes.c_void_p] * n_args
-        getattr(lib, name).restype = ctypes.c_int
-    return lib
+    return declare(ctypes.CDLL(str(build_scene(header)[0][stem])),
+                   SCENE_ENTRIES[stem])
 
 
 class SceneDev(ctypes.Structure):
@@ -158,29 +182,13 @@ def kernels() -> ctypes.CDLL:
 
 def load(path) -> ctypes.CDLL:
     """Open a built kernel library and declare its C entry points."""
-    lib = ctypes.CDLL(str(path))
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    for name, args in {
-        "ptdn_scene_intersect_full": [vp, vp, vp, vp],
-        "ptdn_scene_intersect_full_tex": [vp, vp, vp, vp],
-        "ptdn_light_visibility": [vp, vp, i32, vp, vp],
-        "ptdn_sparse_gather": [vp, vp],
-        "ptdn_bounce_fused": [vp, vp, vp],
-        "ptdn_deferred_radiance": [vp, vp, vp, i32, i32, vp, vp],
-        "ptdn_scene_intersect": [vp, vp, vp, i32, vp],
-        "ptdn_back_projection_stencil": [vp, vp],
-        "ptdn_back_projection_banded": [vp, vp],
-        "ptdn_back_projection_atrous1": [vp, vp],
-        "ptdn_atrous_level": [vp, i32, vp],
-        "ptdn_shade_bounce": [vp, vp],
-        "ptdn_trace_bounce": [vp, vp, vp],
-        "ptdn_inrow_permute": [vp, vp, i32, i32, vp, vp],
-        "ptdn_path_trace_table": [vp, vp, vp],
-        "ptdn_gather_u32": [vp, vp, i32, vp, vp],
-        "ptdn_take_chain": [vp, vp, i32, i32, i32, i32, vp, vp],
-        "ptdn_mesh_intersect_v1": [vp, vp, vp, vp, vp, i32, i32, i32, i32,
-                                   vp, vp, vp],
-    }.items():
+    return declare(ctypes.CDLL(str(path)), ENTRIES)
+
+
+def declare(lib: ctypes.CDLL, entries) -> ctypes.CDLL:
+    """Declare the C entry points `entries` (name -> argument types) of
+    lib, each returning an int; returns lib."""
+    for name, args in entries.items():
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = ctypes.c_int

@@ -8,10 +8,12 @@ They replace the TPU kernels ptdn_tpu/ops/pallas/scene_intersect.py:
 scene_intersect_full_pallas (A), scene_intersect_full_tex_pallas (J,
 without its per-row compaction of the texel indices: kernel K reads each
 lane's texel), light_visibility_pallas (I) and scene_intersect_pallas
-(M). A and J run a block of 128 rays on one chunk scan
-(csrc/closest_hit.cuh over csrc/chunk_scan.cuh), built per scene where
-the scene has a header (csrc/scene/scene_intersect.cu) and in the kernel
-library otherwise; I and M run one thread per ray. What bounds them and
+(M). A, J and I run a block of 128 rays on one chunk scan
+(csrc/chunk_scan.cuh: A and J the closest-hit query alone,
+csrc/closest_hit.cuh; I the any-hit query alone,
+csrc/light_visibility.cuh), built per scene where the scene has a header
+(csrc/scene/scene_intersect.cu) and in the kernel library otherwise; M
+runs one thread per ray. What bounds them and
 what their design does about that is in the source note of
 csrc/scene_intersect.cu. All versions visit the
 analytic geoms in scene order and the triangles chunk by chunk in
@@ -42,7 +44,7 @@ COLORDIVIDOR = 0.003921568627   # utilities.h:24
 class GeomInfo(NamedTuple):
     """Static geometry of a scene: per-geom types on the host, an int32
     (G, 2) table of (type, material) on the device, the triangle count,
-    the header kernels B1, F, H, A and J are built with for this scene
+    the header kernels B1, F, H, A, J and I are built with for this scene
     (path_scene_header), None where the scene exceeds its limits, and on
     the device the baked rows' forms (G * 15,) int32 and coefficients
     (G * 15, 4) float32 (baked_rows), which B1's table build reads."""
@@ -54,7 +56,7 @@ class GeomInfo(NamedTuple):
     row_coef: torch.Tensor
 
 
-# the limits of the per-scene builds (kernels B1, F, H, A and J): their
+# the limits of the per-scene builds (kernels B1, F, H, A, J and I): their
 # geom loops unroll over the geoms, and B1's material table lives in the
 # 64 KB constant bank. A scene past them takes B1's table build
 # (csrc/path_trace_table.cu) and the other kernels' builds in the kernel
@@ -457,10 +459,17 @@ def light_visibility(ds, gi: GeomInfo, o: torch.Tensor, d: torch.Tensor,
     return _light_visibility_kernel(ds, gi, o, d, light_geom)
 
 
+def _scene_lib(gi: GeomInfo):
+    """The library kernels A, J and I launch from: the scene's own build
+    (csrc/scene/scene_intersect.cu) where the scene has one
+    (gi.path_scene), else None, the kernel library's; both compute the
+    same bits."""
+    return (None if gi.path_scene is None
+            else _lib.scene_kernels(gi.path_scene, "scene_intersect"))
+
+
 def _isect_kernel(name, ds, gi, o, d, tex: bool):
-    """Kernel A or J (`name`, its C entry point): the scene's own build
-    where the scene has one (gi.path_scene), else the kernel library's;
-    both compute the same bits."""
+    """Kernel A or J (`name`, its C entry point), from _scene_lib."""
     ray = _ray_args(o, d)
     n = ray.n
     f32 = dict(dtype=torch.float32, device=o.device)
@@ -473,9 +482,8 @@ def _isect_kernel(name, ds, gi, o, d, tex: bool):
     args = IsectArgs(t=p(out["t"]), nrm=p(out["normal"]), uv=p(out["uv"]),
                      geom=p(out["geom_id"]), mat=p(out["mat_id"]),
                      tidx=p(tidx))
-    lib = (None if gi.path_scene is None
-           else _lib.scene_kernels(gi.path_scene, "scene_intersect"))
-    _lib.launch(name, scene_dev(ds, gi, o.device), ray, args, lib=lib)
+    _lib.launch(name, scene_dev(ds, gi, o.device), ray, args,
+                lib=_scene_lib(gi))
     out["hit"] = out["geom_id"] >= 0
     return out, tidx
 
@@ -514,7 +522,7 @@ def _light_visibility_kernel(ds, gi, o, d, light_geom):
     ray = _ray_args(o, d)
     lit = torch.empty(ray.n, dtype=torch.bool, device=o.device)
     _lib.launch("ptdn_light_visibility", scene_dev(ds, gi, o.device), ray,
-                ctypes.c_int(light_geom), _lib.ptr(lit))
+                ctypes.c_int(light_geom), _lib.ptr(lit), lib=_scene_lib(gi))
     light_visibility.launches += 1
     return lit
 

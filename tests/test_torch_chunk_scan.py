@@ -1,7 +1,8 @@
-"""The block-level chunk scan of kernels F, H, A and J
+"""The block-level chunk scan of kernels F, H, A, J and I
 (csrc/chunk_scan.cuh) as plain PyTorch, held to the per-lane scans it
-replaces: F's joint scan of next and shadow rays, and A's and J's
-closest-hit scan alone (the shadow query compiled out); the Moller
+replaces: F's joint scan of next and shadow rays, A's and J's
+closest-hit scan alone (the shadow query compiled out) and I's any-hit
+scan alone (the closest-hit query compiled out); the Moller
 predicate with its reciprocal deferred (the variant PERF.md measured)
 held to moller; and the scene constants of the per-scene builds of F, H,
 A and J (path_scene_header's matrices). The CUDA kernels themselves are
@@ -298,10 +299,10 @@ def test_block_scan_equals_the_lane_scans(scenes_dir, monkeypatch, name,
 @functools.cache
 def _split_calls(path, name):
     """The arguments of every call of the engine function `name` (A's
-    scene_intersect_full or J's scene_intersect_full_tex) in the first
-    frame of the scene at `path` through the split per-bounce engine
-    (64x64, depth 3): A's primary hit first, then one call per bounce
-    below the last."""
+    scene_intersect_full, J's scene_intersect_full_tex or I's
+    light_visibility) in the first frame of the scene at `path` through
+    the split per-bounce engine (64x64, depth 3): A's primary hit first,
+    then one call per bounce below the last; I's one call per bounce."""
     r = Renderer(_scene(path), RenderConfig(trace_depth=3, fuse_path=False,
                                             fuse_bounce=False), (64, 64),
                  device="cpu")
@@ -382,6 +383,49 @@ def test_hit_scan_equals_mesh_best(scenes_dir, monkeypatch, name, kernel,
     assert got.keys() == ref.keys()
     for k in ref:
         assert torch.equal(got[k].view(torch.int8), ref[k].view(torch.int8)), k
+
+
+def vis_scan(ds, gi, o, d, light_geom):
+    """The block scans of kernel I's shadow rays o, d (N, 3) as the kernel
+    sets them up: per ray the closest analytic hit, then per block of
+    BLOCK rays the any-hit query over every chunk (each ray behind its own
+    cull at the light's distance), on for the rays whose closest analytic
+    hit is the light, and no closest-hit query. Returns (the query, the
+    rays toward the light, the blocks' chunk visits)."""
+    ot = tuple(o[:, k] for k in range(3))
+    dt = tuple(d[:, k] for k in range(3))
+    ta, ga, _ = A.analytic_best(ds, gi.types, ot, dt)
+    to_light = ga == light_geom
+    n = ta.numel()
+    lo = torch.zeros(n, dtype=torch.int64)
+    hi = torch.full((n,), -(-gi.n_tris // BLOCK) - 1, dtype=torch.int64)
+    q = _query(ot, dt, ta, lo, hi, to_light & torch.tensor(gi.n_tris > 0))
+    off = _query(ot, dt, ta, lo, hi, torch.zeros(n, dtype=torch.bool))
+    visits = scan_blocks(ds, gi.n_tris, off, q)
+    assert torch.equal(off["best"], torch.full((n,), -1))
+    return q, to_light, visits
+
+
+@pytest.mark.parametrize("name", ["cornell", "bunny", "room"])
+def test_any_hit_scan_equals_light_visibility(scenes_dir, name):
+    """The any-hit scan alone (the closest-hit query off), emulated over
+    128-ray blocks of kernel I's real bounce-2 call in the split engine's
+    first 64x64 frame, marks occluded exactly the rays that
+    light_visibility_plain does not find lit: lit = toward the light and
+    no occluder, on every lane. Lit and unlit rays occur on every scene,
+    and rays toward the light that a triangle occludes on bunny and
+    room."""
+    ds, gi, o, d, light_geom = _split_calls(scenes_dir / f"{name}.txt",
+                                            "light_visibility")[1]
+    q, to_light, visits = vis_scan(ds, gi, o, d, light_geom)
+    lit = to_light & (q["best"] < 0)
+    ref = A.light_visibility_plain(ds, gi, o, d, light_geom)
+    assert torch.equal(lit, ref)
+    assert bool(lit.any()) and bool((~lit).any())
+    n_blocks = -(-o.shape[0] // BLOCK)
+    assert 0 <= visits <= n_blocks * -(-gi.n_tris // BLOCK)
+    if name != "cornell":
+        assert visits > 0 and bool((to_light & ~lit).any())
 
 
 # ---------------------------------------------------------------------------

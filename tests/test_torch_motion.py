@@ -27,6 +27,7 @@ from ptdn_tpu_torch.app.automate import CameraAutomation
 from ptdn_tpu_torch.denoise import reproject as trep
 from ptdn_tpu_torch.engine import Renderer
 from ptdn_tpu_torch.ops.camera import OrbitCamera
+from ptdn_tpu_torch.ops.cuda import atrous as D
 from ptdn_tpu_torch.ops.cuda import reproject as C
 from ptdn_tpu_torch.ops.cuda import reproject_atrous as L
 from ptdn_tpu_torch.ops.cuda import scene_intersect as A
@@ -202,12 +203,54 @@ def test_back_projection_atrous1_matches_pallas(blur):
     ref = back_projection_atrous1_pallas(
         *_jax(args), sigma_l=jnp.float32(SIG[0]), sigma_n=jnp.float32(SIG[1]),
         sigma_x=jnp.float32(SIG[2]), blur_variance=blur, interpret=True)
-    got = L.back_projection_atrous1(*_torch(args), *SIG, blur)
+    targs = _torch(args)
+    static = D.pack_static_planes(targs[2]["position"], targs[2]["normal"])
+    got = L.back_projection_atrous1(*targs, *SIG, blur, static)
     for i, (name, tol) in enumerate((("color", 2e-5), ("variance", 2e-5),
                                      ("moments", 2e-6))):
         np.testing.assert_allclose(got[i].numpy(), np.asarray(ref[i]),
                                    atol=tol, err_msg=name)
     assert np.array_equal(got[3].numpy(), np.asarray(ref[3]))
+
+
+@pytest.mark.parametrize("h,w,edges_only", [
+    (64, 64, False), (50, 70, False),        # every block, ragged edges
+    (800, 800, True), (600, 600, True)])     # cornell's and room's edges
+def test_reproject_atrous1_reads_lie_in_its_staged_tile(h, w, edges_only):
+    """Kernel L's blocks, as ops/cuda/reproject_atrous.py:l_block_pixels
+    mirrors its code: every pixel of the image is filtered by one block,
+    and each of its 25 level-1 taps and 9 pre-blur neighbours inside the
+    image is read, at the staged index the kernel computes (StagedTaps.at
+    at step 2, TileIn.blur_var), from a slot that holds that very pixel.
+    At 800x800 and 600x600 the blocks on the image's edges alone."""
+    nby, nbx = L.l_blocks(h, w)
+    n_slots = L.STAGED
+    filtered = np.zeros((h, w), np.int64)
+    blocks = [(by, bx) for by in range(nby) for bx in range(nbx)
+              if not edges_only or by in (0, nby - 1) or bx in (0, nbx - 1)]
+    for by, bx in blocks:
+        (y0, x0), (y, x), (slot, sy, sx) = L.l_block_pixels(h, w, by, bx)
+        holds = np.full(n_slots, -1)
+        holds[slot] = sy * w + sx
+        np.add.at(filtered, (y, x), 1)
+        c = (y - y0) * L.SIDE + (x - x0)
+        reads = [(2 * j, 2 * i, c + j * 2 * L.SIDE + i * 2)
+                 for j in range(-2, 3) for i in range(-2, 3)]
+        reads += [(dy, dx, (y + dy - y0) * L.SIDE + (x + dx - x0))
+                  for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
+        for dy, dx, k in reads:
+            qy, qx = y + dy, x + dx
+            inb = (qy >= 0) & (qy < h) & (qx >= 0) & (qx < w)
+            k = k[inb]
+            assert bool(((k >= 0) & (k < n_slots)).all())
+            assert np.array_equal(holds[k], (qy * w + qx)[inb])
+    if edges_only:
+        edge = np.zeros((h, w), bool)
+        edge[:L.TILE_H], edge[(nby - 1) * L.TILE_H:] = True, True
+        edge[:, :L.TILE_W], edge[:, (nbx - 1) * L.TILE_W:] = True, True
+        assert np.array_equal(filtered, edge.astype(np.int64))
+    else:
+        assert bool((filtered == 1).all())
 
 
 @pytest.fixture(scope="module")
@@ -373,8 +416,11 @@ def test_motion_kernels_match_plain_on_card(scenes_dir):
              "geom_id": st["prev_geom_id"]}, st["prev_view"],
             st["color_history"], st["moment_history"], st["history_length"],
             0.2, 0.2)
-    for a, b in zip(L._back_projection_atrous1_kernel(*args, *SIG, True),
-                    L.back_projection_atrous1_plain(*args, *SIG, True)):
+    static = D.pack_static_planes(gb["position"], gb["normal"])
+    for a, b in zip(L._back_projection_atrous1_kernel(*args, *SIG, True,
+                                                      static),
+                    L.back_projection_atrous1_plain(*args, *SIG, True,
+                                                    static)):
         assert torch.allclose(a.double(), b.double(), rtol=1e-6, atol=1e-6)
     moved = torch.eye(4, device="cuda")
     moved[0, 3] = 0.3
