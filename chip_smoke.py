@@ -24,7 +24,8 @@ scene at its own resolution):
   room_1080p_animated (room at 1920x1080 with a moving camera, the flag
   on: its gate keeps L off at that width);
 * the trace bench (ptdn_tpu_torch/trace_bench.py): A, M and I on 800x800
-  random rays in cornell;
+  random rays in cornell (M on the block scan, with the chunk cull on
+  and off);
 * a generated scene past kernel B1's per-scene build (cornell plus 55
   cubes, 65 geoms, at 800x800) through the whole-path engine: A, B1's
   table build (csrc/path_trace_table.cu), B2, C and D;
@@ -42,8 +43,8 @@ Phases, one line or more each, with their wall time:
 
 0. the card (name and power limit from nvidia-smi); TF32 off;
 1. build every kernel from ptdn_tpu_torch/csrc (one nvcc per source, all
-   at once, B1's table build and the library builds of F, H, A, J and I
-   among them), then kernels B1, F, H, A, J and I for each scene's
+   at once, B1's table build and the library builds of F, H, A, J, I and
+   M among them), then kernels B1, F, H, A, J, I and M for each scene's
    constants (csrc/scene/*.cu, every scene at once), with each kernel's
    registers, shared memory and spills;
 2. each kernel against its plain PyTorch version on the card, on its
@@ -58,10 +59,12 @@ Phases, one line or more each, with their wall time:
    cornell and room; A, J and I output by output the same way, A on
    cornell's camera rays and bunny's bounce 2, J and I on cornell's and
    room's bounce 2 (the split engine), with I's lanes off its plain
-   version counted; M and I on the trace bench's rays; B1's table
-   build equal bit for bit to the per-scene build and the plain version
-   on cornell; N, G at K = 29, O and P's rough (t, tri) equal bit for bit
-   on the probes' inputs (O also to the numpy chain);
+   version counted; M output by output through both builds, the chunk
+   cull on and off, on the trace bench's rays and on bunny's camera
+   rays, and I on the trace bench's rays; B1's table build equal bit for
+   bit to the per-scene build and the plain version on cornell, plane by
+   plane; N, G at K = 29, O and P's rough (t, tri) equal bit for bit on
+   the probes' inputs (O also to the numpy chain);
 3. 32 frames per scene and engine (16 of room at 1920x1080) through
    ptdn_tpu_torch's Renderer with every launch count checked, finite
    outputs, and, where the camera is still, the RMSE against the
@@ -69,8 +72,10 @@ Phases, one line or more each, with their wall time:
    1-spp RMSE on cornell and diamond, below the raw one elsewhere; the
    trace bench's three launches; 4 frames of the 65-geom scene, every
    one through B1's table build, finite, and the table build equal bit
-   for bit to its plain version on that scene's primary state (geom
-   indices up to 64); each probe script and
+   for bit to its plain version on that scene's primary state, plane by
+   plane (geom indices up to 64), and so on the first frame of cornell
+   with 1,025 materials and with a non-finite material constant (the
+   build's other two causes); each probe script and
    reproj_bench run once, with its launches and its times (reproj_bench's
    parity printouts 0);
 4. CUDA-event times: each kernel beside its plain version (G beside
@@ -86,9 +91,11 @@ Phases, one line or more each, with their wall time:
    cornell, bunny and room (ptdn_tpu_torch/bounce_bench.py), each build
    in turns, with bound and launches; L on cornell in turns beside C
    alone and D at level 1 alone, with its pixels off C's then D's
-   kernels; the trace bench's kernel times; B1's table build
-   on the 65-geom scene (its JSON line) and on cornell; the 65-geom
-   scene's ms/frame.
+   kernels; the trace bench's kernel times; B1's table build on the
+   65-geom scene (its JSON line) and on cornell beside the per-scene
+   build, and M on the trace bench's rays with the cull on and off and
+   on bunny's camera rays, each build in turns (bounce_bench's cases);
+   the 65-geom scene's ms/frame.
 
 The line before the last is a JSON object with every kernel's numbers;
 the last is {"ok": true, "device": {...}}. Any failed check raises, so
@@ -187,9 +194,10 @@ MOTION_RUNS = {
                             (1920, 1080)),
 }
 KERNELS = {  # name: (wrapper, source, TPU kernel it replaces)
-    # A and J run one closest-hit chunk scan per block (csrc/closest_hit.cuh
-    # over csrc/chunk_scan.cuh), their per-scene build (the kernel
-    # library's, csrc/scene_intersect.cu, past its limits)
+    # A, J and M run one closest-hit chunk scan per block
+    # (csrc/closest_hit.cuh over csrc/chunk_scan.cuh), their per-scene
+    # build (the kernel library's, csrc/scene_intersect.cu, past its
+    # limits)
     "scene_intersect_full": (A.scene_intersect_full,
                              "csrc/scene/scene_intersect.cu",
                              "ptdn_tpu/ops/pallas/scene_intersect.py:1478"),
@@ -232,10 +240,11 @@ KERNELS = {  # name: (wrapper, source, TPU kernel it replaces)
     "sparse_gather": (K.sparse_gather, "csrc/compact.cu",
                       "ptdn_tpu/ops/pallas/compact.py:181, "
                       "ptdn_tpu/ops/pallas/compact.py:207"),
-    "scene_intersect": (A.scene_intersect, "csrc/scene_intersect.cu",
+    "scene_intersect": (A.scene_intersect, "csrc/scene/scene_intersect.cu",
                         "ptdn_tpu/ops/pallas/scene_intersect.py:1526"),
-    # B1 built once into the library, its rows from a table: the scenes
-    # past the per-scene build's limits (counted in table_launches)
+    # B1 built once into the library, its rows from tables (a path per
+    # geom, a per-geom cull): the scenes past the per-scene build's
+    # limits (counted in table_launches)
     "path_trace_table": (B.path_trace, "csrc/path_trace_table.cu",
                          "ptdn_tpu/ops/pallas/path.py:258"),
     # the TPU probes of benchmarks/, whose scripts are the only callers
@@ -276,8 +285,12 @@ LAUNCH_RUN = {"scene_intersect_full": ("cornell", "whole_path"),
 LIBRARY = {"inrow_permute": "torch.gather", "sparse_gather": "torch.take",
            "gather_u32": "torch.take", "inrow_permute_k29": "torch.gather"}
 # the generated scene past B1's per-scene build: cornell plus 55 cubes
-# (65 geoms), rendered this many frames at cornell's resolution
+# (65 geoms), rendered this many frames at cornell's resolution; the
+# build's other causes, cornell's geoms with 1,025 materials or with a
+# material constant that is not finite (utils/assets.py)
 CUBES, CUBE_FRAMES = 55, 4
+CAUSES = {"1,025 materials": dict(materials=1016),
+          "a non-finite constant": dict(materials=1, refrior="inf")}
 # float operations of one plane-form lane-triangle test of kernel P: six
 # 4-term dots, a division, two FMAs, the compares (the other counts and
 # the card's peaks are utils/card.py's)
@@ -417,20 +430,6 @@ def b1_plain(args):
                               depth=depth, light=light, flags=flags)
 
 
-def b1_work(args, contrib, texidx, tri_tests: int):
-    """B1's bound on b1_args' arguments: its inputs and outputs once,
-    and per lane and bounce the shading, the analytic geoms' tests of the
-    bounce and shadow rays and the winner's refine, plus the lane-triangle
-    tests the plain version counted."""
-    _, gi, prim, _, _, depth, _, _ = args
-    b_in = [prim[k] for k in ("o", "d", "t", "normal", "albedo", "mat_id",
-                              "hit")]
-    n = prim["t"].shape[0]
-    return bound(nbytes(*b_in, contrib, texidx),
-                 n * depth * (SHADE_OPS + 2 * n_analytic(gi) * ANALYTIC_OPS
-                              + REFINE_OPS) + tri_tests * MOLLER_OPS)
-
-
 def expected_launches(r, motion):
     """The launches of every kernel over the frames that `motion` (a
     Motion) drove renderer r through: the primary hit on every frame
@@ -536,9 +535,10 @@ def main():
     log = _lib.build(force=True)
     _lib.kernels()
     regs = ptxas_summary(log)
-    check(len(regs) == 18, f"18 kernels in the library, got {regs}")
-    # kernels B1, F, H, A, J and I are built per scene, with the scene's
-    # constants (csrc/scene/*.cu), every scene's at once
+    check(len(regs) == 19, f"19 kernels in the library, got {regs}")
+    # kernels B1, F, H, A, J, I and M (with and without the cull) are
+    # built per scene, with the scene's constants (csrc/scene/*.cu), every
+    # scene's at once
     t1 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(SCENES)) as pool:
         scene_logs = dict(zip(SCENES, pool.map(
@@ -546,12 +546,13 @@ def main():
                 scene(name), DEVICE).path_scene, force=True)[1], SCENES)))
     t_scene = time.perf_counter() - t1
     scene_regs = {name: ptxas_summary(lg) for name, lg in scene_logs.items()}
-    check(all(len(r) == 6 for r in scene_regs.values()),
-          f"6 kernels per scene, got {scene_regs}")
+    check(all(len(r) == 8 for r in scene_regs.values()),
+          f"8 kernels per scene, got {scene_regs}")
     print(f"phase 1: built {len(list(_lib.CSRC.glob('*.cu')))} sources for "
-          f"sm_90a in {t1 - t0:.1f} s, then B1, F, H, A, J and I for each of "
-          f"{len(SCENES)} scenes (csrc/scene/path_trace.cu, bounce.cu, "
-          f"scene_intersect.cu) in {t_scene:.1f} s; ptxas, the library: "
+          f"sm_90a in {t1 - t0:.1f} s, then B1, F, H, A, J, I and M for "
+          f"each of {len(SCENES)} scenes (csrc/scene/path_trace.cu, "
+          f"bounce.cu, scene_intersect.cu) in {t_scene:.1f} s; ptxas, the "
+          f"library: "
           + "; ".join(regs))
     for name, r in scene_regs.items():
         print(f"phase 1: ptxas, {name}'s build: " + "; ".join(r))
@@ -605,7 +606,9 @@ def main():
     check(bfrac < 0.01 and brmse < 0.012, f"B1+B2: frac {bfrac} rmse {brmse}")
     check(same(kc, pc) and torch.equal(kt, pt),
           f"B1 equals its plain version: max |d| {stats['path_trace']}")
-    work["path_trace"] = b1_work(bargs, kc, kt, b_tests)
+    b_kw = dict(zip(("frame", "lane0", "depth", "light", "flags"),
+                    bargs[3:]))
+    work["path_trace"] = BB.b1_work(bargs[:3], b_kw, kc, kt, b_tests)
     textured = int((kt >= 0).sum())
     work["deferred_radiance"] = bound(nbytes(kc, kt, krad) + 4 * textured,
                                       n * DEPTH * 15)
@@ -721,30 +724,35 @@ def main():
           f"{stats['back_projection_banded']:.3g}, histories equal; "
           f"{rejected} pixels restart their history")
 
-    # M on the trace bench's rays, with and without the chunk cull
+    # M on the trace bench's rays and on bunny's camera rays, with and
+    # without the chunk cull, output by output through both builds
     tb_args = trace_bench.setup(DEVICE)
-    for cull in (True, False):
-        km = A._scene_intersect_kernel(*tb_args, cull)
-        A.mesh_best.tri_tests = 0
-        pm = A.scene_intersect_plain(*tb_args, cull)
-        m_tests = A.mesh_best.tri_tests
-        m_err = max(max_abs(km[k], pm[k]) for k in ("t_a", "normal_a",
+    cam_r = renderer("bunny")
+    cam_r.render_frame()
+    m_cases = {"the trace bench's rays": tb_args,
+               "bunny's camera rays": (cam_r.step.tracer.ds,
+                                       cam_r.step.tracer.gi,
+                                       *generate_camera_rays(
+                                           cam_r._cam[0], cam_r.resolution))}
+    for label, m_args in m_cases.items():
+        for cull in (True, False):
+            km = A._scene_intersect_kernel(*m_args, cull)
+            A.mesh_best.tri_tests = 0
+            pm = A.scene_intersect_plain(*m_args, cull)
+            m_tests = A.mesh_best.tri_tests
+            plane_check("scene_intersect", f"M on {label}, cull {cull}",
+                        m_args, {"cull": cull}, km, pm)
+            if cull and m_args is tb_args:
+                stats["scene_intersect"] = max(
+                    max_abs(km[k], pm[k]) for k in ("t_a", "normal_a",
                                                     "t_m"))
-        check(torch.equal(km["geom_a"], pm["geom_a"])
-              and torch.equal(km["tri_m"], pm["tri_m"])
-              and all(torch.allclose(km[k], pm[k], rtol=1e-5, atol=1e-5)
-                      for k in ("t_a", "normal_a", "t_m")),
-              f"M (cull {cull}) against its plain version: max |d| {m_err}")
-        if cull:
-            stats["scene_intersect"] = m_err
-            work["scene_intersect"] = bound(
-                nbytes(*tb_args[2:], *km.values()),
-                tb_args[2].shape[0] * n_analytic(tb_args[1]) * ANALYTIC_OPS
-                + m_tests * MOLLER_OPS)
-        print(f"phase 2: M on {tb_args[2].shape[0]} trace-bench rays, cull "
-              f"{cull}: indices equal, max |d| {m_err:.3g}, {m_tests} "
-              f"lane-triangle tests in the plain scan, "
-              f"{int((km['tri_m'] >= 0).sum())} mesh hits")
+                work["scene_intersect"] = bound(
+                    nbytes(*tb_args[2:], *km.values()),
+                    tb_args[2].shape[0] * n_analytic(tb_args[1])
+                    * ANALYTIC_OPS + m_tests * MOLLER_OPS)
+            print(f"phase 2: M on {m_args[2].shape[0]} of {label}, cull "
+                  f"{cull}: {m_tests} lane-triangle tests in the plain "
+                  f"scan, {int((km['tri_m'] >= 0).sum())} mesh hits")
     # I on the same rays (light geom 0), through both builds
     tb_i = tb_args + (trace_bench.LIGHT_GEOM,)
     A.light_visible.tri_tests = 0
@@ -934,12 +942,15 @@ def main():
     # phase 3 checks it on the 65-geom scene it serves
     gi_table = gi._replace(path_scene=None)
     tc, tt = B._path_trace_kernel(ds, gi_table, *bargs[2:])
-    check(same(tc, kc) and torch.equal(tt, kt) and same(tc, pc)
-          and torch.equal(tt, pt),
+    off = {ref: BB.plane_diffs(BB.out_planes("path_trace_table", (tc, tt)),
+                               BB.out_planes("path_trace_table", planes))
+           for ref, planes in (("per-scene", (kc, kt)), ("plain", (pc, pt)))}
+    check(all(max(d.values()) == 0 for d in off.values()),
           f"B1's table build equals the per-scene build and the plain "
-          f"version on cornell: max |d| {max_abs(tc, pc)}")
-    print("phase 2: B1's table build equals the per-scene build and the "
-          "plain version on cornell, bit for bit")
+          f"version on cornell on every plane: lanes off {off}")
+    print(f"phase 2: B1's table build equals the per-scene build and the "
+          f"plain version on cornell on each of {len(off['plain'])} planes, "
+          f"bit for bit")
 
     # N on the texgather probe's four tables and index orders
     n_cases = probe_n.cases(DEVICE)
@@ -1108,17 +1119,43 @@ def main():
     # to 64 in its row and geom tables: equal to its plain version
     targs = b1_args(cubes)
     tc, tt = B._path_trace_kernel(*targs)
-    A.mesh_best.tri_tests = A.light_visible.tri_tests = 0
-    pc65, pt65 = b1_plain(targs)
-    t_tests = A.mesh_best.tri_tests + A.light_visible.tri_tests
+    t_kw = dict(zip(("frame", "lane0", "depth", "light", "flags"),
+                    targs[3:]))
+    (pc65, pt65), t_tests, t_culls = BB.b1_plain_counted(targs[:3], t_kw)
     stats["path_trace_table"] = max_abs(tc, pc65)
-    check(same(tc, pc65) and torch.equal(tt, pt65),
+    off = BB.plane_diffs(BB.out_planes("path_trace_table", (tc, tt)),
+                         BB.out_planes("path_trace_table", (pc65, pt65)))
+    check(max(off.values()) == 0,
           f"B1's table build equals its plain version on the 65-geom "
-          f"scene: max |d| {stats['path_trace_table']}")
-    work["path_trace_table"] = b1_work(targs, tc, tt, t_tests)
+          f"scene on every plane: lanes off {off}")
+    # the table build's work: the analytic tests its cull skips taken out
+    work["path_trace_table"] = BB.b1_work(targs[:3], t_kw, tc, tt, t_tests,
+                                          t_culls)
     print(f"phase 3: B1's table build equals its plain version on the "
-          f"65-geom scene's primary state, bit for bit (contributions and "
-          f"texel indices, {int((tt >= 0).sum())} textured)")
+          f"65-geom scene's primary state on each of {len(off)} planes, "
+          f"bit for bit (contributions and texel indices, "
+          f"{int((tt >= 0).sum())} textured)")
+    # the table build's other two causes, cornell's geoms with more
+    # materials than the per-scene build takes or with a material
+    # constant that is not finite: equal to its plain version on the
+    # primary state of each variant's first frame
+    for cause, kw in CAUSES.items():
+        r = renderer_of(write_cornell_plus(_lib.BUILD / "scenes", **kw))
+        r.render_frame()
+        check(r.step.tracer.gi.path_scene is None,
+              f"{cause}: no per-scene B1")
+        cargs_b = b1_args(r, 0)
+        reset_counts()
+        got = B._path_trace_kernel(*cargs_b)
+        check(counts()["path_trace_table"] == 1, f"{cause}: table build")
+        off = BB.plane_diffs(BB.out_planes("path_trace_table", got),
+                             BB.out_planes("path_trace_table",
+                                           b1_plain(cargs_b)))
+        check(max(off.values()) == 0,
+              f"B1's table build equals its plain version with {cause}: "
+              f"lanes off {off}")
+        print(f"phase 3: B1's table build equals its plain version on "
+              f"each of {len(off)} planes with {cause}")
     # the probe scripts and reproj_bench, each run once as its script
     # runs it, with the launches it made
     probes = {}
@@ -1313,7 +1350,18 @@ def main():
             ("room", "1080p_animated")),
         **{f"I {name} bounce 2": ("light_visibility", i_cases[name],
                                   (name, "bounce_split"))
-           for name in ("cornell", "bunny", "room")}}
+           for name in ("cornell", "bunny", "room")},
+        # B1's table build on the 65-geom scene's primary state and on
+        # cornell's beside the per-scene build; M on the trace bench's
+        # rays (the cull on and off) and on bunny's camera rays
+        "B1 table cornell65": ("path_trace_table", (targs[:3], t_kw),
+                               ("cornell65", "whole_path")),
+        "B1 table cornell": ("path_trace_table", (bargs[:3], b_kw),
+                             ("cornell65", "whole_path")),
+        **{f"M {label}, cull {cull}": (
+            "scene_intersect", (list(m_args), {"cull": cull}),
+            ("cornell", "trace_bench"))
+           for label, m_args in m_cases.items() for cull in (True, False)}}
     for label, (kernel, (b_args, b_kw), run) in bounce_cases.items():
         m = BB.measure(kernel, b_args, b_kw, reps=10)
         check(all(max(b["diffs"].values()) <= LANES_OFF_ALLOWED
@@ -1326,7 +1374,10 @@ def main():
               + ", ".join(f"{k} build {v['ms']}" for k, v in
                           m["builds"].items())
               + f" ms, bound {m['bound_ms']:.4f} ms ({m['bound_by']}, "
-              f"{m['tri_tests']} lane-triangle tests), plain "
+              f"{m['tri_tests']} lane-triangle tests"
+              + (f"; without the cull {m['bound_full_ms']:.4f} ms"
+                 if "bound_full_ms" in m else "")
+              + "), plain "
               f"{m['plain_ms']:.1f} ms; {m['launches']} launches in the "
               f"{' '.join(run)} run of phase 3 [{card}]")
     # L beside what it fuses, C (stencil mode) alone then D at level 1
@@ -1356,14 +1407,6 @@ def main():
     print(f"phase 4: cornell {frame_ms['cornell']:.3f} ms/frame over 20 "
           f"steady-state frames (depth {DEPTH}, SVGF {NLEVEL} levels) "
           f"[{card}]")
-    # the table build on cornell, beside the per-scene build's line above
-    frame_ms["path_trace_table on cornell"] = cuda_ms(
-        lambda: B._path_trace_kernel(ds, gi_table, *bargs[2:]), reps=3,
-        hide_host=True)
-    print(f"phase 4: path_trace_table on cornell "
-          f"{frame_ms['path_trace_table on cornell']:.4f} ms (the per-scene "
-          f"build {next(k['ms'] for k in out if k['name'] == 'path_trace'):.4f} "
-          f"ms) [{card}]")
     frame_ms["cornell65"] = cuda_ms(cubes.render_frame, reps=10)
     print(f"phase 4: cornell plus {CUBES} cubes (B1's table build) "
           f"{frame_ms['cornell65']:.3f} ms/frame over 10 frames [{card}]")

@@ -1,14 +1,19 @@
-// The block-level chunk scan of kernels F and H (bounce.cuh), A and J
-// (closest_hit.cuh) and I (scene_intersect.cu): a block of kScanBlock
+// The block-level chunk scan of kernels F and H (bounce.cuh), A, J and M
+// (closest_hit.cuh) and I (light_visibility.cuh): a block of kScanBlock
 // lanes walks the scene's triangle chunks once, in ascending order, and
 // tests each chunk's 128 triangles, staged in shared memory, against
 // every ray of the block that crosses the chunk. Which queries a lane
 // carries is a compile-time choice: F and H scan the next rays (closest
 // hit, Next) and the shadow rays (any hit, Shadow) in one joint loop, the
 // TPU kernels' joint scan (ptdn_tpu/ops/pallas/scene_intersect.py:
-// joint_mesh_tiles) in the form this card wants; A and J the closest-hit
-// query alone; I the any-hit query alone. A scan without one of the two
-// pays for no second list slot, key, cull or ballot of it.
+// joint_mesh_tiles) in the form this card wants; A, J and M the
+// closest-hit query alone; I the any-hit query alone. A scan without one
+// of the two pays for no second list slot, key, cull or ballot of it.
+// Without Cull (M's cull=False) a lane wants every chunk of its range,
+// the AABB test skipped: the same answer, more work; every lane of the
+// block then tests every staged triangle, so each thread walks its own
+// ray over them (no list: a transposed test gains nothing where no lane
+// skips a chunk, and ran 20% slower than M's per-lane walk there).
 //
 // The block's chunk range is the union of its lanes' ranges (a block
 // reduction). The AABBs of its first kAabbStaged chunks are loaded into
@@ -131,14 +136,15 @@ __device__ __forceinline__ void cp_async_wait_one() {
   asm volatile("cp.async.wait_group 1;\n" ::);
 }
 
-// Does query q want chunk c: on, c in its range, and its ray crosses the
-// chunk's AABB below its limit (the AABB from shared memory within the
-// staged ones, else from device memory: the same values)
-template <bool Next, bool Shadow>
+// Does query q want chunk c: on, c in its range, and (with Cull) its ray
+// crosses the chunk's AABB below its limit (the AABB from shared memory
+// within the staged ones, else from device memory: the same values)
+template <bool Cull, bool Next, bool Shadow>
 __device__ __forceinline__ bool query_wants(const SceneDev& s,
                                             const ScanSmem<Next, Shadow>& sm,
                                             int c, const ScanQuery& q) {
   if (!q.on || c < q.lo || c > q.hi) return false;
+  if (!Cull) return true;
   const int k = c - sm.lo;
   if (k < kAabbStaged)
     return slab_crossed(sm.aabb[k], sm.aabb[k] + 3, q.r.ox, q.r.oy, q.r.oz,
@@ -149,14 +155,14 @@ __device__ __forceinline__ bool query_wants(const SceneDev& s,
 
 // The first chunk after c that some lane of the block wants, hi + 1 if
 // none (block-uniform; every thread of the block calls it)
-template <bool Next, bool Shadow>
+template <bool Cull, bool Next, bool Shadow>
 __device__ __forceinline__ int next_voted(const SceneDev& s,
                                           const ScanSmem<Next, Shadow>& sm,
                                           int c, int hi, const ScanQuery& nq,
                                           const ScanQuery& sq) {
   for (++c; c <= hi; ++c)
-    if (__syncthreads_or((Next && query_wants(s, sm, c, nq)) ||
-                         (Shadow && query_wants(s, sm, c, sq))))
+    if (__syncthreads_or((Next && query_wants<Cull>(s, sm, c, nq)) ||
+                         (Shadow && query_wants<Cull>(s, sm, c, sq))))
       return c;
   return c;
 }
@@ -187,7 +193,7 @@ __device__ __forceinline__ void put_ray(ScanSmem<Next, Shadow>& sm, int k,
 // best -1 and its limit on entry; a query the scan does not carry is not
 // read). Every thread of the block calls it, a thread without a lane
 // with its queries off.
-template <bool Next, bool Shadow>
+template <bool Next, bool Shadow, bool Cull = true>
 __device__ inline void chunk_scan(const SceneDev& s,
                                   ScanSmem<Next, Shadow>& sm, ScanQuery& nq,
                                   ScanQuery& sq) {
@@ -233,21 +239,48 @@ __device__ inline void chunk_scan(const SceneDev& s,
   __syncthreads();
 
   const unsigned below = (1u << wl) - 1u;   // the warp's lanes before
-  int c = next_voted(s, sm, lo - 1, hi, nq, sq);
+  int c = next_voted<Cull>(s, sm, lo - 1, hi, nq, sq);
   if (c <= hi) stage_chunk(s, sm, c, 0);
   cp_async_commit();
   for (int stage = 0; c <= hi; stage ^= 1) {
     // the vote for the chunk after c, before c's tests lower any best
-    const int c2 = next_voted(s, sm, c, hi, nq, sq);
+    const int c2 = next_voted<Cull>(s, sm, c, hi, nq, sq);
     if (c2 <= hi) stage_chunk(s, sm, c2, stage ^ 1);
     cp_async_commit();
     cp_async_wait_one();
     __syncthreads();   // chunk c staged; the last chunk's keys read
 
+    if constexpr (!Cull) {
+      // every lane wants every chunk of its range: each thread walks its
+      // own ray over the staged triangles in ascending order, strict <,
+      // as mesh_best does (a warp reads one triangle at a time, and no
+      // list, key or atomic is needed); the next vote's barrier guards
+      // the stage before it is refilled
+      static_assert(Next && !Shadow, "the cull is off for M alone");
+      if (query_wants<Cull>(s, sm, c, nq)) {
+        const int cnt = min(kChunk, s.n_tris - c * kChunk);
+        for (int j = 0; j < cnt; ++j) {
+          const float4 r0 = sm.tri[stage][3 * j];
+          const float4 r1 = sm.tri[stage][3 * j + 1];
+          const float4 r2 = sm.tri[stage][3 * j + 2];
+          const MollerTri mt{r0.x, r0.y, r0.z, r0.w, r1.x,
+                             r1.y, r1.z, r1.w, r2.x};
+          float t;
+          if (moller(mt, nq.r.ox, nq.r.oy, nq.r.oz, nq.r.dx, nq.r.dy,
+                     nq.r.dz, t) && t < nq.lim) {
+            nq.lim = t;
+            nq.best = c * kChunk + j;
+          }
+        }
+      }
+      c = c2;
+      continue;
+    }
+
     // the list of rays that want chunk c: each warp's next rays, then
     // its shadow rays, warp after warp
-    const bool wn = Next && query_wants(s, sm, c, nq);
-    const bool ws = Shadow && query_wants(s, sm, c, sq);
+    const bool wn = Next && query_wants<Cull>(s, sm, c, nq);
+    const bool ws = Shadow && query_wants<Cull>(s, sm, c, sq);
     const unsigned bn = Next ? __ballot_sync(0xffffffffu, wn) : 0u;
     const unsigned bs = Shadow ? __ballot_sync(0xffffffffu, ws) : 0u;
     if (wl == 0) sm.count[warp] = __popc(bn) + __popc(bs);
@@ -301,11 +334,12 @@ __device__ inline void chunk_scan(const SceneDev& s,
   }
 }
 
-// The closest-hit scan alone (kernels A and J): q as chunk_scan's nq
+// The closest-hit scan alone (kernels A, J and M): q as chunk_scan's nq
+template <bool Cull = true>
 __device__ inline void chunk_scan(const SceneDev& s,
                                   ScanSmem<true, false>& sm, ScanQuery& q) {
   ScanQuery none = no_query();
-  chunk_scan(s, sm, q, none);
+  chunk_scan<true, false, Cull>(s, sm, q, none);
 }
 
 // The any-hit scan alone (kernel I): q as chunk_scan's sq

@@ -1,8 +1,9 @@
-// Kernels A (scene_intersect_full) and J (scene_intersect_full_tex),
-// templated on the row policy of their analytic tests: built once into
-// the kernel library with MatRows (scene_intersect.cu), and once per
-// scene with the scene's matrices as constants (scene/scene_intersect.cu,
-// SceneMats). The design is in scene_intersect.cu's note.
+// Kernels A (scene_intersect_full), J (scene_intersect_full_tex) and M
+// (scene_intersect), templated on the row policy of their analytic
+// tests: built once into the kernel library with MatRows
+// (scene_intersect.cu), and once per scene with the scene's matrices as
+// constants (scene/scene_intersect.cu, SceneMats). The design is in
+// scene_intersect.cu's note.
 #pragma once
 
 #include "chunk_scan.cuh"
@@ -23,6 +24,14 @@ struct IsectArgs {
   int* geom;   // (N,)
   int* mat;    // (N,)
   int* tidx;   // (N,) texel index, written by J only
+};
+
+struct BestArgs {
+  float* t_a;    // (N,) closest analytic t, -1 where none
+  int* geom_a;   // (N,) its geom, -1 where none
+  float* nrm_a;  // (N, 3) its normal, 0 where none
+  float* t_m;    // (N,) closest triangle's t where it beats t_a, else -1
+  int* tri_m;    // (N,) that triangle's index, else -1
 };
 
 // The closest hit of the block's lanes, one ray each: the analytic
@@ -81,7 +90,55 @@ __global__ void __launch_bounds__(kScanBlock, kScanBlocksPerSM)
   closest_hit_block<true, Rows>(s, r, a, sm);
 }
 
+// Kernel M: per ray the closest analytic hit (analytic_best) and the
+// closest triangle that beats it, unmerged: the closest-hit scan seeded
+// with the analytic t, its key's t and index taken as they are (no
+// refine, no merge). Without Cull every ray scans every chunk.
+template <bool Cull, class Rows>
+__global__ void __launch_bounds__(kScanBlock, kScanBlocksPerSM)
+    scene_intersect_kernel(SceneDev s, RayArgs r, BestArgs a) {
+  __shared__ ScanSmem<true, false> sm;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool lane = i < r.n;
+  Analytic an{kFltMax, -1, 0.f, 0.f, 0.f};
+  ScanQuery q = no_query();
+  if (lane) {
+    const float* o = r.o + (size_t)i * r.o_rs;
+    const float* d = r.d + (size_t)i * r.d_rs;
+    const float ox = o[0], oy = o[r.o_cs], oz = o[2 * r.o_cs];
+    const float dx = d[0], dy = d[r.d_cs], dz = d[2 * r.d_cs];
+    an = analytic_best<Rows>(s, ox, oy, oz, dx, dy, dz, true);
+    q = ScanQuery{scan_ray(ox, oy, oz, dx, dy, dz),
+                  an.geom >= 0 ? an.t : kFltMax, -1, 0, s.n_chunks - 1,
+                  s.n_tris > 0};
+  }
+  chunk_scan<Cull>(s, sm, q);
+  if (!lane) return;
+  a.t_a[i] = an.geom >= 0 ? an.t : -1.f;
+  a.geom_a[i] = an.geom;
+  a.nrm_a[3 * i] = an.nx;
+  a.nrm_a[3 * i + 1] = an.ny;
+  a.nrm_a[3 * i + 2] = an.nz;
+  a.t_m[i] = q.best >= 0 ? q.lim : -1.f;
+  a.tri_m[i] = q.best;
+}
+
 // The launches, on `stream`: one thread per ray, kScanBlock rays a block
+template <class Rows>
+int launch_scene_intersect(const SceneDev* s, const RayArgs* r,
+                           const BestArgs* a, int cull, void* stream) {
+  const int blocks = (r->n + kScanBlock - 1) / kScanBlock;
+  if (r->n > 0) {
+    if (cull)
+      scene_intersect_kernel<true, Rows>
+          <<<blocks, kScanBlock, 0, (cudaStream_t)stream>>>(*s, *r, *a);
+    else
+      scene_intersect_kernel<false, Rows>
+          <<<blocks, kScanBlock, 0, (cudaStream_t)stream>>>(*s, *r, *a);
+  }
+  return (int)cudaGetLastError();
+}
+
 template <bool Tex, class Rows>
 int launch_closest_hit(const SceneDev* s, const RayArgs* r,
                        const IsectArgs* a, void* stream) {

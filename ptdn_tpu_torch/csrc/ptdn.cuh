@@ -2,8 +2,9 @@
 // TEA seed hash, the analytic cube/sphere tests, the
 // Moller-Trumbore triangle scan over 128-triangle chunks, the
 // attribute refine, the fully resolved closest hit and the NEE shadow-ray
-// visibility. The kernels use them (M whole, B1 its own bounce loop on
-// them, F, H, A, J and I their analytic tests, Moller test and refine
+// visibility. The kernels use them (B1 its own bounce loop on them, with
+// the per-lane walks mesh_best and light_visible, which serve B1 alone;
+// F, H, A, J, I and M their analytic tests, Moller test and refine
 // around chunk_scan.cuh's block-level scan), so the primary hit and
 // every bounce run the same code.
 //
@@ -47,8 +48,10 @@ struct SceneDev {
   const float* mat_attr;    // (M, 16) color, spec color, ex, refl, refr, ior, emit, texid
   const int* tex_wh;        // (K, 2) texture (w, h)
   const uint32_t* tex_flat; // (K*Hm*Wm,) r | g << 8 | b << 16
-  const int* row_code;      // (G*15,) baked row forms (B1's table build)
-  const float* row_coef;    // (G*15, 4) their coefficients
+  const int* row_code;      // (G, 16) B1's table build: per geom a head
+                            // word, then its 15 baked row forms
+  const float* row_coef;    // (G, 17, 4): per geom its world box's lo and
+                            // hi, then its 15 rows' coefficients
   int n_geoms;
   int n_tris;
   int n_chunks;
@@ -236,7 +239,9 @@ __device__ __forceinline__ void analytic_geom(const SceneDev& s, int gi,
 // knows the scene's geoms when the kernel is built (Rows::kGeoms > 0)
 // has the loop unrolled over them, so that each geom's type and each
 // row's form and coefficients fold into the code, as the TPU kernel's
-// baked matrices do.
+// baked matrices do. A policy with Rows::kGeoms < 0 walks the geoms
+// itself (Rows::walk, in scene order, B1's table build: a path per geom
+// and a per-geom cull, csrc/path_trace_table.cu).
 template <class Rows>
 __device__ inline Analytic analytic_best(const SceneDev& s, float ox, float oy,
                                   float oz, float dx, float dy, float dz,
@@ -246,6 +251,8 @@ __device__ inline Analytic analytic_best(const SceneDev& s, float ox, float oy,
 #pragma unroll
     for (int gi = 0; gi < Rows::kGeoms; ++gi)
       analytic_geom<Rows>(s, gi, ox, oy, oz, dx, dy, dz, want_normals, b);
+  } else if constexpr (Rows::kGeoms < 0) {
+    Rows::walk(s, ox, oy, oz, dx, dy, dz, want_normals, b);
   } else {
     for (int gi = 0; gi < s.n_geoms; ++gi)
       analytic_geom<Rows>(s, gi, ox, oy, oz, dx, dy, dz, want_normals, b);
@@ -320,15 +327,15 @@ __device__ __forceinline__ bool moller(const float* tri, float ox, float oy,
 // strict < against the running best seeded with the analytic winner's t
 // (so the lowest index wins a tie). A chunk whose AABB the ray does not
 // cross before its running best is skipped. Returns the triangle index,
-// -1 if none beats bt. With cull false every chunk is scanned (the same
-// answer, more work: the TPU kernels' cull switch).
+// -1 if none beats bt. One thread walks its own ray's chunks: B1's walk
+// (closest_hit); the other kernels scan a block's rays at once
+// (chunk_scan.cuh), to the same bits.
 __device__ inline int mesh_best(const SceneDev& s, float ox, float oy, float oz,
-                         float dx, float dy, float dz, float& bt,
-                         bool cull = true) {
+                         float dx, float dy, float dz, float& bt) {
   const float ix = 1.0f / dx, iy = 1.0f / dy, iz = 1.0f / dz;
   int bi = -1;
   for (int c = 0; c < s.n_chunks; ++c) {
-    if (cull && !chunk_crossed(s, c, ox, oy, oz, ix, iy, iz, bt)) continue;
+    if (!chunk_crossed(s, c, ox, oy, oz, ix, iy, iz, bt)) continue;
     const int end = min((c + 1) * kChunk, s.n_tris);
     for (int k = c * kChunk; k < end; ++k) {
       float t;
@@ -402,8 +409,9 @@ __device__ inline Hit resolve_hit(const SceneDev& s, const Analytic& a, int bi,
 }
 
 // Fully resolved closest hit (closest_hit_tiles): analytic + mesh, then
-// resolve_hit. A lane that is not `alive` takes no mesh hit (the TPU
-// kernel starts its window at -FLT_MAX); Rows as in analytic_best.
+// resolve_hit, B1's per lane. A lane that is not `alive` takes no mesh
+// hit (the TPU kernel starts its window at -FLT_MAX); Rows as in
+// analytic_best.
 template <class Rows>
 __device__ inline Hit closest_hit(const SceneDev& s, float ox, float oy, float oz,
                           float dx, float dy, float dz, bool alive) {
@@ -418,7 +426,7 @@ __device__ inline Hit closest_hit(const SceneDev& s, float ox, float oy, float o
 
 // NEE visibility (light_visibility_tiles): the closest analytic hit is
 // the light geom and no triangle occludes it (any hit with t < that
-// distance).
+// distance), B1's per lane.
 template <class Rows>
 __device__ inline bool light_visible(const SceneDev& s, int light_geom, float ox,
                               float oy, float oz, float dx, float dy,

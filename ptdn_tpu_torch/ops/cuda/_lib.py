@@ -5,12 +5,12 @@ source, all at once, and links the objects into one shared library with a
 plain C interface, which ctypes loads. The build runs at first use, into
 ``ptdn_tpu_torch/build/`` (ignored by git), and again only when a source
 is newer than the library. The per-scene builds (``csrc/scene/*.cu``:
-kernel B1, kernels F and H, and kernels A, J and I) are built once per
+kernel B1, kernels F and H, and kernels A, J, I and M) are built once per
 scene instead, with the scene's constants in a generated header
 (build_scene), into libraries of their own per scene; the builds that
 serve the scenes past their limits (B1's table build,
-``csrc/path_trace_table.cu``; F and H, ``csrc/bounce.cu``; A, J and I,
-``csrc/scene_intersect.cu``) are in the kernel library. No fast-math
+``csrc/path_trace_table.cu``; F and H, ``csrc/bounce.cu``; A, J, I and
+M, ``csrc/scene_intersect.cu``) are in the kernel library. No fast-math
 flag is passed and ``--fmad=false`` keeps every product rounded on its
 own, so the kernels round like their plain PyTorch versions, which run
 one operation at a time.
@@ -114,12 +114,12 @@ SCENE_ENTRIES = {
                                        "ptdn_bounce_fused")},
     "scene_intersect": {k: ENTRIES[k] for k in (
         "ptdn_scene_intersect_full", "ptdn_scene_intersect_full_tex",
-        "ptdn_light_visibility")}}
+        "ptdn_light_visibility", "ptdn_scene_intersect")}}
 
 
 def build_scene(header: str, force: bool = False):
     """Compile every per-scene source (csrc/scene/<stem>.cu: kernel B1,
-    kernels F and H, kernels A, J and I) for one scene, with `header`
+    kernels F and H, kernels A, J, I and M) for one scene, with `header`
     (ops/cuda/scene_intersect.py:path_scene_header) as its scene.h, each
     into build/scene-<hash>/lib<stem>.so, the hash taken over the header
     and every kernel source; one nvcc per source, all at once; again only

@@ -8,12 +8,12 @@ They replace the TPU kernels ptdn_tpu/ops/pallas/scene_intersect.py:
 scene_intersect_full_pallas (A), scene_intersect_full_tex_pallas (J,
 without its per-row compaction of the texel indices: kernel K reads each
 lane's texel), light_visibility_pallas (I) and scene_intersect_pallas
-(M). A, J and I run a block of 128 rays on one chunk scan
-(csrc/chunk_scan.cuh: A and J the closest-hit query alone,
-csrc/closest_hit.cuh; I the any-hit query alone,
-csrc/light_visibility.cuh), built per scene where the scene has a header
-(csrc/scene/scene_intersect.cu) and in the kernel library otherwise; M
-runs one thread per ray. What bounds them and
+(M). All four run a block of 128 rays on one chunk scan
+(csrc/chunk_scan.cuh: A, J and M the closest-hit query alone,
+csrc/closest_hit.cuh, M without the refine and the merge; I the any-hit
+query alone, csrc/light_visibility.cuh), built per scene where the scene
+has a header (csrc/scene/scene_intersect.cu) and in the kernel library
+otherwise. What bounds them and
 what their design does about that is in the source note of
 csrc/scene_intersect.cu. All versions visit the
 analytic geoms in scene order and the triangles chunk by chunk in
@@ -31,7 +31,9 @@ import numpy as np
 import torch
 
 from ptdn_tpu_torch.ops.cuda import _lib
-from ptdn_tpu_torch.ops.intersect import (FLT_MAX, aabb_slab, baked_row_form,
+from ptdn_tpu_torch.ops.intersect import (FLT_MAX, FMA_X, FMA_Y, MUL_X,
+                                          MUL_Y, MUL_Z, TWO, TWO_B,
+                                          aabb_slab, baked_row_form,
                                           box_intersect, interpolate_tri_hit,
                                           moller, ray_triangle,
                                           sphere_intersect)
@@ -44,10 +46,11 @@ COLORDIVIDOR = 0.003921568627   # utilities.h:24
 class GeomInfo(NamedTuple):
     """Static geometry of a scene: per-geom types on the host, an int32
     (G, 2) table of (type, material) on the device, the triangle count,
-    the header kernels B1, F, H, A, J and I are built with for this scene
-    (path_scene_header), None where the scene exceeds its limits, and on
-    the device the baked rows' forms (G * 15,) int32 and coefficients
-    (G * 15, 4) float32 (baked_rows), which B1's table build reads."""
+    the header kernels B1, F, H, A, J, I and M are built with for this
+    scene (path_scene_header), None where the scene exceeds its limits,
+    and on the device the tables B1's table build reads (table_rows): per
+    geom its head and its baked rows' forms, (G, 16) int32, and its world
+    box and row coefficients, (G, 17, 4) float32."""
     types: Tuple[int, ...]
     table: torch.Tensor
     n_tris: int
@@ -56,9 +59,9 @@ class GeomInfo(NamedTuple):
     row_coef: torch.Tensor
 
 
-# the limits of the per-scene builds (kernels B1, F, H, A, J and I): their
-# geom loops unroll over the geoms, and B1's material table lives in the
-# 64 KB constant bank. A scene past them takes B1's table build
+# the limits of the per-scene builds (kernels B1, F, H, A, J, I and M):
+# their geom loops unroll over the geoms, and B1's material table lives
+# in the 64 KB constant bank. A scene past them takes B1's table build
 # (csrc/path_trace_table.cu) and the other kernels' builds in the kernel
 # library (csrc/bounce.cu, csrc/scene_intersect.cu).
 B1_MAX_GEOMS = 64
@@ -130,6 +133,99 @@ def path_scene_header(scene, mat_attr: np.ndarray, codes: np.ndarray,
         "}  // namespace scene", ""])
 
 
+# B1's table build (csrc/path_trace_table.cu): the path in a geom's head
+# word (its low 2 bits) and the head's cull flag
+PATH_SKIP, PATH_GENERIC, PATH_DIAG, PATH_YROT = range(4)
+HEAD_CULL = 4
+# a geom whose box the table build may skip: a cube whose transform's
+# condition number is at most CULL_COND and whose box is at most
+# CULL_SIZE of the scene's extent on every axis (a large box is crossed
+# by some lane of nearly every warp, and its test costs the rest)
+CULL_COND = 16.0
+CULL_SIZE = 0.125
+
+
+def _row_path(gtype: int, codes) -> int:
+    """The path of a geom of type `gtype` whose 15 baked rows (kind-major,
+    baked_rows) have the forms `codes`: a cube whose row r of every kind
+    is a lone product or an fma of slot r alone (PATH_DIAG); a cube whose
+    rows 0 and 2 are two terms of x then z, with or without a bias, and
+    row 1 one of y (PATH_YROT); no test for a mesh (PATH_SKIP); form_row
+    for every other geom (PATH_GENERIC: spheres among them, which are
+    few, and a third fixed path of their own ran slower)."""
+    if gtype == MESH:
+        return PATH_SKIP
+    rows = [(int(c), k % 3) for k, c in enumerate(codes)]
+    if gtype == CUBE and all(c in (MUL_X + r, FMA_X + r) for c, r in rows):
+        return PATH_DIAG
+    xz = 0 | 2 << 2   # the slots s0 = x, s1 = z in the code's bits 4-9
+    if gtype == CUBE and all(
+            c in (MUL_Y, FMA_Y) if r == 1
+            else c & 15 in (TWO, TWO_B) and c >> 4 == xz for c, r in rows):
+        return PATH_YROT
+    return PATH_GENERIC
+
+
+def table_rows(scene, codes: np.ndarray, coefs: np.ndarray, tf: np.ndarray):
+    """The tables of B1's table build: (G, 16) int32, per geom its head
+    (the path, _row_path, and HEAD_CULL) and the forms `codes` of its 15
+    baked rows (baked_rows); (G, 17, 4) float32, per geom its padded world
+    box's lo and hi (x, y, z, 0), then the coefficients `coefs` of its 15
+    rows, with c3 = -0.0 on a lone product (c0 * v is fma(c0, v, -0.0)
+    bit for bit, and the kernel fuses o - row exactly where c3 is 0).
+
+    The box is that of the unit cube's corners through the float32
+    transform `tf` (G, 4, 4), in float64, padded by 1e-3 of the larger of
+    1 and its largest coordinate and rounded outward to float32; the head
+    lets the kernel skip a cube whose box a ray misses where the
+    transform's condition number is at most CULL_COND (the rounding of
+    the object-space test then stays far inside the padding) and the box
+    is small (CULL_SIZE) beside the union of the geoms' boxes."""
+    n_g = len(scene.geoms)
+    c15 = np.asarray(codes, np.int32).reshape(n_g, 15)
+    rows = np.asarray(coefs, np.float32).reshape(n_g, 15, 4).copy()
+    lone = (c15 >= MUL_X) & (c15 <= MUL_Z)
+    rows[..., 3][lone] = np.float32(-0.0)
+    head = np.zeros((n_g, 1), np.int32)
+    box = np.zeros((n_g, 2, 4), np.float32)
+    corners = np.array([[x, y, z, 1.0] for x in (-0.5, 0.5)
+                        for y in (-0.5, 0.5) for z in (-0.5, 0.5)])
+    wcs = [(corners @ np.asarray(tf[g], np.float64).T)[:, :3]
+           for g in range(n_g)]
+    extent = (np.max([w.max(axis=0) for w in wcs], axis=0)
+              - np.min([w.min(axis=0) for w in wcs], axis=0))
+    for g, (geom, wc) in enumerate(zip(scene.geoms, wcs)):
+        pad = 1e-3 * max(1.0, float(np.abs(wc).max()))
+        lo = np.float32(wc.min(axis=0) - pad)
+        hi = np.float32(wc.max(axis=0) + pad)
+        box[g, 0, :3] = np.nextafter(lo, np.float32(-np.inf))
+        box[g, 1, :3] = np.nextafter(hi, np.float32(np.inf))
+        head[g] = _row_path(geom.type, c15[g])
+        if (geom.type == CUBE and np.isfinite(box[g]).all()
+                and np.linalg.cond(np.asarray(tf[g], np.float64)[:3, :3])
+                <= CULL_COND
+                and (box[g, 1, :3] - box[g, 0, :3]
+                     <= CULL_SIZE * extent).all()):
+            head[g] |= HEAD_CULL
+    return (np.concatenate([head, c15], axis=1),
+            np.concatenate([box, rows], axis=1))
+
+
+def table_box_missed(box: torch.Tensor, o, d) -> torch.Tensor:
+    """B1's table-build cull (csrc/path_trace_table.cu:box_missed) in
+    plain PyTorch: where the rays o, d (tuples of (N,) tensors) miss the
+    box (2, 4) (lo, hi: table_rows' first two words) or leave it behind
+    their origin; False where the slab test meets a NaN."""
+    inv = tuple(1.0 / c for c in d)
+    t0 = [(box[0, k] - o[k]) * inv[k] for k in range(3)]
+    t1 = [(box[1, k] - o[k]) * inv[k] for k in range(3)]
+    lo = [torch.minimum(a, b) for a, b in zip(t0, t1)]
+    hi = [torch.maximum(a, b) for a, b in zip(t0, t1)]
+    tmin = torch.maximum(torch.maximum(lo[0], lo[1]), lo[2])
+    tmax = torch.minimum(torch.minimum(hi[0], hi[1]), hi[2])
+    return (tmax < 0.0) | (tmin > tmax)
+
+
 def geom_info(scene, device) -> GeomInfo:
     table = torch.tensor([[t, m] for t, m in zip(scene.geom_types,
                                                   scene.geom_material_ids)],
@@ -140,9 +236,11 @@ def geom_info(scene, device) -> GeomInfo:
         scene, ds.mat_attr.cpu().numpy(), codes, coefs,
         [m.cpu().numpy() for m in (ds.geom_inverse, ds.geom_transform,
                                    ds.geom_inv_transpose)])
+    row_code, row_coef = table_rows(scene, codes, coefs,
+                                    ds.geom_transform.cpu().numpy())
     return GeomInfo(scene.geom_types, table, scene.n_tris, header,
-                    torch.from_numpy(codes).to(device),
-                    torch.from_numpy(coefs).to(device))
+                    torch.from_numpy(row_code).to(device),
+                    torch.from_numpy(row_coef).to(device))
 
 
 def scene_dev(ds, gi: GeomInfo, device: torch.device) -> _lib.SceneDev:
@@ -386,7 +484,7 @@ class RayArgs(ctypes.Structure):
 
 
 class BestArgs(ctypes.Structure):
-    """Mirror of csrc/scene_intersect.cu:BestArgs."""
+    """Mirror of csrc/closest_hit.cuh:BestArgs."""
     _fields_ = [(k, ctypes.c_void_p) for k in ("t_a", "geom_a", "nrm_a",
                                                  "t_m", "tri_m")]
 
@@ -460,7 +558,7 @@ def light_visibility(ds, gi: GeomInfo, o: torch.Tensor, d: torch.Tensor,
 
 
 def _scene_lib(gi: GeomInfo):
-    """The library kernels A, J and I launch from: the scene's own build
+    """The library kernels A, J, I and M launch from: the scene's own build
     (csrc/scene/scene_intersect.cu) where the scene has one
     (gi.path_scene), else None, the kernel library's; both compute the
     same bits."""
@@ -513,7 +611,7 @@ def _scene_intersect_kernel(ds, gi, o, d, cull=True):
                     nrm_a=p(out["normal_a"]), t_m=p(out["t_m"]),
                     tri_m=p(out["tri_m"]))
     _lib.launch("ptdn_scene_intersect", scene_dev(ds, gi, o.device), ray,
-                args, ctypes.c_int(int(cull)))
+                args, ctypes.c_int(int(cull)), lib=_scene_lib(gi))
     scene_intersect.launches += 1
     return out
 

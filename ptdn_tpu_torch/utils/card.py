@@ -51,9 +51,11 @@ HBM_RATE = 3.35e12
 F32_RATE = 67e12
 # float operations per unit of work, counted from the kernels' code:
 # one Moller-Trumbore lane-triangle test, one analytic geom test of a
-# lane, the winning triangle's refine, one lane's shading
+# lane, the cull test of B1's table build, the winning triangle's
+# refine, one lane's shading
 MOLLER_OPS = 52
 ANALYTIC_OPS = 90
+BOX_OPS = 22   # B1's table build: one slab test of a geom's world box
 REFINE_OPS = 70
 SHADE_OPS = 250
 

@@ -1,8 +1,9 @@
-"""The block-level chunk scan of kernels F, H, A, J and I
+"""The block-level chunk scan of kernels F, H, A, J, I and M
 (csrc/chunk_scan.cuh) as plain PyTorch, held to the per-lane scans it
-replaces: F's joint scan of next and shadow rays, A's and J's
-closest-hit scan alone (the shadow query compiled out) and I's any-hit
-scan alone (the closest-hit query compiled out); the Moller
+replaces: F's joint scan of next and shadow rays, A's, J's and M's
+closest-hit scan alone (the shadow query compiled out; M's with the
+chunk cull on and off) and I's any-hit scan alone (the closest-hit query
+compiled out); the Moller
 predicate with its reciprocal deferred (the variant PERF.md measured)
 held to moller; and the scene constants of the per-scene builds of F, H,
 A and J (path_scene_header's matrices). The CUDA kernels themselves are
@@ -17,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from ptdn_tpu_torch import trace_bench
 from ptdn_tpu_torch.bounce_bench import capture_bounce
 from ptdn_tpu_torch.engine import Renderer
 from ptdn_tpu_torch.engine import wavefront as W
@@ -144,10 +146,11 @@ def test_deferred_reciprocal_predicate_is_moller():
 # ---------------------------------------------------------------------------
 # the block-level scan
 
-def _query(o, d, lim, lo, hi, on):
+def _query(o, d, lim, lo, hi, on, cull=True):
     return {"o": o, "d": d, "inv": tuple(1.0 / c for c in d),
             "lim": lim.clone(), "lo": lo, "hi": hi, "on": on.clone(),
-            "best": torch.full(lim.shape, -1, dtype=torch.int64)}
+            "best": torch.full(lim.shape, -1, dtype=torch.int64),
+            "cull": cull}
 
 
 def block_scan(ds, n_tris, nq, sq, visits):
@@ -156,8 +159,10 @@ def block_scan(ds, n_tris, nq, sq, visits):
     cast before the current one is tested; at a chunk's turn each lane's
     own cull, then every triangle of the chunk against the rays that want
     it, each ray's result the smallest key (t's bits, index) among the
-    hits below its limit at the chunk's start. nq, sq (_query) are
-    updated in place; `visits` counts the chunks the block tests."""
+    hits below its limit at the chunk's start (a query whose "cull" is
+    False wants every chunk of its range, the AABB test skipped). nq, sq
+    (_query) are updated in place; `visits` counts the chunks the block
+    tests."""
     n_chunks = -(-n_tris // BLOCK)
     for q in (nq, sq):
         q["lo"] = q["lo"].clamp(min=0)
@@ -169,8 +174,9 @@ def block_scan(ds, n_tris, nq, sq, visits):
     hi = int(torch.cat([q["hi"][m] for q, m in zip((nq, sq), live)]).max())
 
     def wants(q, c):
-        return (q["on"] & (q["lo"] <= c) & (q["hi"] >= c)
-                & A._crossed(ds, c, q["o"], q["inv"], q["lim"]))
+        w = q["on"] & (q["lo"] <= c) & (q["hi"] >= c)
+        return w & A._crossed(ds, c, q["o"], q["inv"], q["lim"]) \
+            if q["cull"] else w
 
     def next_voted(c):
         for c in range(c + 1, hi + 1):
@@ -216,7 +222,8 @@ def scan_blocks(ds, n_tris, nq, sq):
     for b in range(0, nq["lim"].numel(), BLOCK):
         sl = slice(b, b + BLOCK)
         part = [{k: (tuple(x[sl] for x in v) if isinstance(v, tuple)
-                     else v[sl]) for k, v in q.items()} for q in (nq, sq)]
+                     else v[sl] if torch.is_tensor(v) else v)
+                 for k, v in q.items()} for q in (nq, sq)]
         block_scan(ds, n_tris, *part, visits)
         for q, sub in zip((nq, sq), part):
             for k in ("lim", "best", "on"):
@@ -320,12 +327,12 @@ def _split_calls(path, name):
     return calls
 
 
-def hit_scan(ds, gi, o, d):
-    """The block scans of kernel A's or J's rays o, d (N, 3) as the kernel
-    sets them up: per ray the closest analytic hit, then per block of
-    BLOCK rays the closest-hit query over every chunk (each ray behind its
-    own cull) and no shadow query. Returns (the query, its starting
-    limit, the blocks' chunk visits)."""
+def hit_scan(ds, gi, o, d, cull=True):
+    """The block scans of kernel A's, J's or M's rays o, d (N, 3) as the
+    kernel sets them up: per ray the closest analytic hit, then per block
+    of BLOCK rays the closest-hit query over every chunk (each ray behind
+    its own cull, or with `cull` False none) and no shadow query. Returns
+    (the query, its starting limit, the blocks' chunk visits)."""
     ot = tuple(o[:, k] for k in range(3))
     dt = tuple(d[:, k] for k in range(3))
     ta, ga, _ = A.analytic_best(ds, gi.types, ot, dt)
@@ -334,7 +341,7 @@ def hit_scan(ds, gi, o, d):
     lo = torch.zeros(n, dtype=torch.int64)
     hi = torch.full((n,), -(-gi.n_tris // BLOCK) - 1, dtype=torch.int64)
     q = _query(ot, dt, lim0, lo, hi,
-               torch.full((n,), gi.n_tris > 0, dtype=torch.bool))
+               torch.full((n,), gi.n_tris > 0, dtype=torch.bool), cull)
     off = _query(ot, dt, lim0, lo, hi, torch.zeros(n, dtype=torch.bool))
     visits = scan_blocks(ds, gi.n_tris, q, off)
     assert torch.equal(off["best"], torch.full((n,), -1))
@@ -383,6 +390,63 @@ def test_hit_scan_equals_mesh_best(scenes_dir, monkeypatch, name, kernel,
     assert got.keys() == ref.keys()
     for k in ref:
         assert torch.equal(got[k].view(torch.int8), ref[k].view(torch.int8)), k
+
+
+def _m_rays(scenes_dir, rays):
+    """Kernel M's arguments (ds, gi, o, d) on CPU rays: "trace bench",
+    the first 64 x 64 of the trace bench's 800 x 800 random rays (numpy
+    seed 0) in cornell; "bunny camera", bunny's 64 x 64 camera rays (A's
+    primary-hit call in the split engine's first frame)."""
+    if rays == "bunny camera":
+        return _split_calls(scenes_dir / "bunny.txt",
+                            "scene_intersect_full")[0]
+    scene = _scene(scenes_dir / "cornell.txt")
+    o, d = trace_bench.random_rays(trace_bench.RES[0] * trace_bench.RES[1])
+    return (scene.device("cpu"), A.geom_info(scene, "cpu"),
+            torch.from_numpy(o[:64 * 64]), torch.from_numpy(d[:64 * 64]))
+
+
+@pytest.mark.parametrize("cull", [True, False])
+@pytest.mark.parametrize("rays", ["trace bench", "bunny camera"])
+def test_m_scan_equals_mesh_best(scenes_dir, monkeypatch, rays, cull):
+    """Kernel M's closest-hit scan, emulated over 128-ray blocks with the
+    chunk cull on or off (off: every block tests every chunk for every
+    ray), gives mesh_best's closest (t, index) with the same switch bit
+    for bit, and the same with the switch the other way; M's plain
+    version with mesh_best replaced by the scan's results gives every
+    output bit for bit (t_a, geom_a, normal_a, t_m, tri_m), on the trace
+    bench's random rays (one chunk, hit by some lanes of every direction)
+    and on bunny's camera rays (39 chunks). Without the cull the kernel
+    walks each ray over the staged triangles in mesh_best's order; the
+    emulation's list of every ray gives the same bits."""
+    ds, gi, o, d = _m_rays(scenes_dir, rays)
+    q, lim0, visits = hit_scan(ds, gi, o, d, cull)
+    n_blocks = -(-o.shape[0] // BLOCK)
+    n_chunks = -(-gi.n_tris // BLOCK)
+    if cull:
+        assert 0 < visits <= n_blocks * n_chunks
+    else:
+        assert visits == n_blocks * n_chunks
+    ot = tuple(o[:, k] for k in range(3))
+    dt = tuple(d[:, k] for k in range(3))
+    for c in (cull, not cull):
+        bt, bi = A.mesh_best(ds, gi.n_tris, ot, dt, lim0, c)
+        assert torch.equal(q["best"], bi)
+        assert torch.equal(_bits(q["lim"]), _bits(bt))
+    assert bool((bi >= 0).any()) and bool((bi < 0).any())
+
+    ref = A.scene_intersect_plain(ds, gi, o, d, cull)
+
+    def scanned_best(ds_, n_tris, o_, d_, bt0, cull_=True):
+        assert torch.equal(_bits(bt0), _bits(lim0)) and cull_ == cull
+        return q["lim"], q["best"]
+
+    monkeypatch.setattr(A, "mesh_best", scanned_best)
+    got = A.scene_intersect_plain(ds, gi, o, d, cull)
+    assert got.keys() == ref.keys()
+    for k in ref:
+        assert torch.equal(got[k].view(torch.int8), ref[k].view(torch.int8)), k
+    assert bool((ref["tri_m"] >= 0).any()) and bool((ref["geom_a"] >= 0).any())
 
 
 def vis_scan(ds, gi, o, d, light_geom):
