@@ -64,7 +64,10 @@ Phases, one line or more each, with their wall time:
    rays, and I on the trace bench's rays; B1's table build equal bit for
    bit to the per-scene build and the plain version on cornell, plane by
    plane; N, G at K = 29, O and P's rough (t, tri) equal bit for bit on
-   the probes' inputs (O also to the numpy chain);
+   the probes' inputs (O also to the numpy chain, through its staged
+   kernel and, on two arrays of lines too long to stage, its global-load
+   kernel; P with the cull on and off, its tests counted under the
+   kernel's warp cull and the TPU's 512-ray block cull);
 3. 32 frames per scene and engine (16 of room at 1920x1080) through
    ptdn_tpu_torch's Renderer with every launch count checked, finite
    outputs, and, where the camera is still, the RMSE against the
@@ -95,7 +98,9 @@ Phases, one line or more each, with their wall time:
    65-geom scene (its JSON line) and on cornell beside the per-scene
    build, and M on the trace bench's rays with the cull on and off and
    on bunny's camera rays, each build in turns (bounce_bench's cases);
-   the 65-geom scene's ms/frame.
+   the 65-geom scene's ms/frame; an empty launch (the floor beside O's
+   bound) and P's bound from the TPU's 512-ray block cull's tests beside
+   the JSON line's, from the warp cull's (the work the kernel does).
 
 The line before the last is a JSON object with every kernel's numbers;
 the last is {"ok": true, "device": {...}}. Any failed check raises, so
@@ -535,7 +540,8 @@ def main():
     log = _lib.build(force=True)
     _lib.kernels()
     regs = ptxas_summary(log)
-    check(len(regs) == 19, f"19 kernels in the library, got {regs}")
+    # O has two kernels: the staged one and the global-load one
+    check(len(regs) == 20, f"20 kernels in the library, got {regs}")
     # kernels B1, F, H, A, J, I and M (with and without the cull) are
     # built per scene, with the scene's constants (csrc/scene/*.cu), every
     # scene's at once
@@ -976,9 +982,14 @@ def main():
     work["inrow_permute_k29"] = bound(nbytes(g29_planes, g29_order, kg29), 0)
     print(f"phase 2: G equal on {tuple(g29_planes.shape)} planes")
 
-    # O on the dyngather probe's 16 cases and its 4 timed chains, against
-    # its plain version and the numpy chain
-    for case in probe_o.CASES + probe_o.TIMED:
+    # O on the dyngather probe's 16 cases and its 4 timed chains (the
+    # staged kernel), and on lines too long to stage (the global-load
+    # kernel), against its plain version and the numpy chain
+    for case in probe_o.LONG + probe_o.CASES + probe_o.TIMED:
+        long_line = case in probe_o.LONG
+        check((O.tile_plan(*case[:3])[0] == 0) == long_line,
+              f"O on {case} takes the "
+              f"{'global-load' if long_line else 'staged'} kernel")
         x_np, i_np = probe_o.inputs(*case[:3])
         o_x, o_idx = (torch.from_numpy(a).to(DEVICE) for a in (x_np, i_np))
         ko = O._take_chain_kernel(o_x, o_idx, *case[2:])
@@ -989,17 +1000,25 @@ def main():
     o_args = (o_x, o_idx, *probe_o.TIMED[-1][2:])
     stats["take_chain"] = 0.0
     work["take_chain"] = bound(nbytes(o_x, o_idx, ko), 0)
-    print(f"phase 2: O equal on {len(probe_o.CASES)} cases and "
-          f"{len(probe_o.TIMED)} chains of {probe_o.TIMED[0][3]}")
+    print(f"phase 2: O equal on {len(probe_o.CASES)} cases, "
+          f"{len(probe_o.TIMED)} chains of {probe_o.TIMED[0][3]} (staged "
+          f"kernel) and {len(probe_o.LONG)} arrays of lines too long to "
+          f"stage {[c[:3] for c in probe_o.LONG]} (global-load kernel)")
 
-    # P's rough (t, tri) on the intersect_v1 probe's rays, cull on and off
+    # P's rough (t, tri) on the intersect_v1 probe's rays, cull on and
+    # off; its bound from the tests of the kernel's warp cull (the JSON
+    # line's: the work this run's rays need), and beside it from those of
+    # the TPU's 512-ray block cull
     p_cases = probe_p.cases(DEVICE)
     for label, (_, ptab, _, p_o, p_d) in p_cases.items():
         for cull in (True, False):
             kt_p, ki_p = P._mesh_intersect_v1_kernel(ptab, p_o, p_d, cull)
             P.mesh_intersect_v1_plain.tri_tests = 0
-            pt_p, pi_p = P.mesh_intersect_v1_plain(ptab, p_o, p_d, cull)
+            p_counts = {}
+            pt_p, pi_p = P.mesh_intersect_v1_plain(ptab, p_o, p_d, cull,
+                                                   counts=p_counts)
             tests = P.mesh_intersect_v1_plain.tri_tests
+            tpu_tests = p_counts.get(P.RBLK, tests)
             check(same(kt_p, pt_p) and torch.equal(ki_p, pi_p),
                   f"P on {label} (cull {cull}) equals its plain version: "
                   f"max |d| {max_abs(kt_p, pt_p)}, "
@@ -1007,12 +1026,14 @@ def main():
             if label == "bunny camera" and cull:
                 stats["mesh_intersect_v1"] = max_abs(kt_p, pt_p)
                 p_args = (ptab, p_o, p_d)
-                work["mesh_intersect_v1"] = bound(
-                    nbytes(p_o, p_d, ptab.tri_mm, ptab.cmin, ptab.cmax,
-                           kt_p, ki_p), tests * PLANE_OPS)
+                p_io = nbytes(p_o, p_d, ptab.tri_mm, ptab.cmin, ptab.cmax,
+                              kt_p, ki_p)
+                work["mesh_intersect_v1"] = bound(p_io, tests * PLANE_OPS)
+                p_tpu_bound = bound(p_io, tpu_tests * PLANE_OPS)
             print(f"phase 2: P on {label}, cull {cull}: (t, tri) equal, "
                   f"{int((ki_p >= 0).sum())} mesh hits, {tests} "
-                  f"lane-triangle tests in the plain scan")
+                  f"lane-triangle tests in the plain scan ({tpu_tests} "
+                  f"under the TPU's 512-ray block cull)")
     torch.cuda.synchronize()
     print(f"phase 2: {time.perf_counter() - t0:.1f} s")
 
@@ -1410,6 +1431,15 @@ def main():
     frame_ms["cornell65"] = cuda_ms(cubes.render_frame, reps=10)
     print(f"phase 4: cornell plus {CUBES} cubes (B1's table build) "
           f"{frame_ms['cornell65']:.3f} ms/frame over 10 frames [{card}]")
+    # the floor no launch beats: an empty kernel behind the device spin
+    launch_ms = cuda_ms(lambda: torch.cuda._sleep(0), reps=20,
+                        hide_host=True)
+    frame_ms["empty launch"] = launch_ms
+    print(f"phase 4: an empty launch {launch_ms:.4f} ms (O's bound "
+          f"{work['take_chain'][0]:.4f} ms); P's bound on bunny's camera "
+          f"rays {work['mesh_intersect_v1'][0]:.4f} ms from the warp cull's "
+          f"tests, {p_tpu_bound[0]:.4f} ms ({p_tpu_bound[1]}) from the TPU's "
+          f"512-ray block cull's [{card}]")
     print(f"phase 4: {time.perf_counter() - t0:.1f} s; all phases "
           f"{time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": out, "frame_ms": frame_ms, "rmse": rmse}))

@@ -73,11 +73,9 @@ FILE where given. Needs one card.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import dataclasses
 import json
 import pathlib
-import subprocess
 
 import torch
 
@@ -97,7 +95,7 @@ from ptdn_tpu_torch.scene import Scene
 from ptdn_tpu_torch.utils.assets import scene_path, write_cornell_plus
 from ptdn_tpu_torch.utils.card import (ANALYTIC_OPS, BOX_OPS, MOLLER_OPS,
                                        REFINE_OPS, SHADE_OPS, bound,
-                                       card_name, cuda_ms, nbytes,
+                                       card_name, cuda_ms, in_turns, nbytes,
                                        ptxas_summary)
 from ptdn_tpu_torch.utils.config import RenderConfig
 
@@ -411,32 +409,11 @@ def build_variant(name: str, src_dir, kernels=tuple(SOURCE)) -> tuple:
     with the kernel library's flags into build/variant-<name>.so; returns
     (the library with their entry points declared, ptxas's report of
     it)."""
-    _lib.BUILD.mkdir(exist_ok=True)
-    so = _lib.BUILD / f"variant-{name}.so"
     sources = dict.fromkeys(SOURCE[k][0] for k in kernels)
-    res = subprocess.run([_lib._nvcc(), *_lib.NVCC_FLAGS, "-shared", "-o",
-                          str(so), *(str(pathlib.Path(src_dir) / src)
-                                     for src in sources)],
-                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                         text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed on variant {name}:\n{res.stdout}")
     entries = [SOURCE[k][1] for k in kernels]
-    return (_lib.declare(ctypes.CDLL(str(so)),
-                         {e: _lib.ENTRIES[e] for e in entries}), res.stdout)
-
-
-def _with_lib(lib, fn):
-    """fn() with the wrappers launching from `lib` (None: the kernel
-    library)."""
-    if lib is None:
-        return fn()
-    real = _lib.kernels
-    _lib.kernels = lambda: lib
-    try:
-        return fn()
-    finally:
-        _lib.kernels = real
+    return _lib.build_variant(
+        name, [pathlib.Path(src_dir) / src for src in sources],
+        {e: _lib.ENTRIES[e] for e in entries})
 
 
 def measure(kernel: str, args, kw, libs=None, reps: int = 20):
@@ -466,15 +443,16 @@ def measure(kernel: str, args, kw, libs=None, reps: int = 20):
     ref_planes = out_planes(kernel, ref)
     per, first = {}, None
     for name, (lib, a) in builds.items():
-        got = out_planes(kernel, _with_lib(lib, lambda: kfn(*a, **kw)))
+        got = out_planes(kernel, _lib.with_lib(lib, lambda: kfn(*a, **kw)))
         first = first or got
         per[name] = {"diffs": plane_diffs(got, ref_planes),
-                     "diffs_first": plane_diffs(got, first), "ms": []}
+                     "diffs_first": plane_diffs(got, first)}
     order = list(builds) + list(builds)[::-1]
-    for name in order:
-        lib, a = builds[name]
-        per[name]["ms"].append(_with_lib(lib, lambda: cuda_ms(
-            lambda: kfn(*a, **kw), reps=reps, hide_host=True)))
+    ms = in_turns({name: (lambda lib=lib, a=a: _lib.with_lib(
+        lib, lambda: kfn(*a, **kw))) for name, (lib, a) in builds.items()},
+        reps)
+    for name in per:
+        per[name]["ms"] = ms[name]
     plain_ms = cuda_ms(lambda: pfn(*args, **kw), reps=1, warmup=0,
                        hide_host=True)
     bound_ms, bound_by = work(kernel, args, kw, ref, tests, culls)
@@ -522,21 +500,17 @@ def measure_l(args, kw, libs=None, reps: int = 20):
             for name, lib in {"library": None, **(libs or {})}.items()}
     per, first = {}, None
     for name, (lib, fn) in runs.items():
-        got = out_planes(kernel, _with_lib(lib, fn))
+        got = out_planes(kernel, _lib.with_lib(lib, fn))
         first = first or got
         per[name] = {"diffs": plane_diffs(got, ref_planes),
                      "diffs_first": plane_diffs(got, first),
-                     "diffs_c_then_d": plane_diffs(got, c_then_d),
-                     "ms": []}
+                     "diffs_c_then_d": plane_diffs(got, c_then_d)}
     parts = {"C": (None, lambda: C._back_projection_stencil_kernel(*cargs)),
              "D level 1": (None, lambda: D._atrous_level_kernel(*d_args))}
     runs.update(parts)
-    times = {name: [] for name in runs}
     order = list(runs) + list(runs)[::-1]
-    for name in order:
-        lib, fn = runs[name]
-        times[name].append(_with_lib(lib, lambda: cuda_ms(
-            fn, reps=reps, hide_host=True)))
+    times = in_turns({name: (lambda lib=lib, fn=fn: _lib.with_lib(lib, fn))
+                      for name, (lib, fn) in runs.items()}, reps)
     for name in per:
         per[name]["ms"] = times[name]
     plain_ms = cuda_ms(lambda: L.back_projection_atrous1_plain(*args, **kw),

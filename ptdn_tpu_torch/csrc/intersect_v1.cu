@@ -1,6 +1,6 @@
 // Kernel P (mesh_intersect_v1): the rough closest triangle hit of each
-// ray in plane form, over 128-triangle chunks, with the chunk cull of a
-// 512-ray block.
+// ray in plane form, over 128-triangle chunks, with a chunk cull by the
+// warp.
 //
 // Replaces the TPU kernel benchmarks/pallas_intersect_v1.py:
 // mesh_intersect_pallas (_mesh_kernel), the superseded first mesh
@@ -19,24 +19,63 @@
 // o0 * m0)))); the TPU kernel took them as two MXU matmuls per chunk,
 // which are not used here (no tensor cores, no TF32).
 //
-// One CUDA block of 512 threads is one of the TPU kernel's 512-ray
-// blocks, a thread one ray: with the cull on, a chunk is skipped unless
-// some ray of the block crosses its box before its running best, which
-// __syncthreads_or decides exactly as the TPU block's jnp.any. Rays past
-// the last are the TPU's padding (o = 0, d = 1) and take part in that
-// vote. Each chunk's 6 KB of planes is staged in shared memory, a
-// triangle's 12 floats together; every thread reads the same triangle at
-// the same time, so the reads broadcast.
+// What bounds it: operations. The whole test is about 60 float32
+// operations a lane-triangle pair (the six dots' 24 products and sums,
+// a division, two FMAs, the compares); bunny's 640,000 camera rays make
+// 278 M such pairs under the TPU's 512-ray block cull. The design cuts
+// the work:
 //
-// What bounds it: operations, about 60 float32 operations per
-// lane-triangle test (the six dots' 24 products and sums, a division,
-// two FMAs, the compares): bunny's 640,000 camera rays against its 39
-// chunks make 3.19 G tests with the cull off, 2.9 ms at 67 TFLOP/s.
+// * The cull is a warp's, not the block's (a deviation from the TPU
+//   design, whose 512-ray block tested a chunk when any of its rays
+//   crossed the chunk's box): a warp tests a chunk only where one of its
+//   own 32 rays crosses the box before its running best (__any_sync),
+//   and rays past the last, the TPU's padding, do not vote. On bunny's
+//   camera rays that leaves 53.5 M pairs. A block of 128 threads stages
+//   a chunk's 6 KB of planes in shared memory, transposed to a
+//   triangle's 12 floats together (the reads broadcast), when any of its
+//   warps wants it; 5,000 blocks fill the 132 SMs. The vote's barrier
+//   also guards the staged chunk: a thread reaches it only after its
+//   warp's tests of the last one.
+// * The cheap rejects come first, each only where it cannot change a
+//   bit of the result: b_n alone drops a pair facing away (about half
+//   on a closed mesh); then a_n and t = -a_n / b_n (IEEE division) drop
+//   a pair with t <= 0 or t not below lim, the smaller of the chunk's
+//   running minimum and the ray's best (a pair at or beyond the ray's
+//   best never wins the chunk's strict update, and one at or beyond the
+//   chunk's minimum never replaces the first lane at it); only the rest
+//   compute the four u and v dots. A lane tests kGroup triangles at
+//   once, each check on all of them, so that their loads and divisions
+//   overlap. The w = 0 term of each direction dot stays an fmaf(0, m.w,
+//   ...): a degenerate or padding triangle has non-finite planes, and
+//   the NaN of 0 * inf is what rejects it.
+// * Each lane walks only the chunk's real triangles.
+//
+// Tried on an H100 and not kept (PERF.md): the transposed scan of
+// chunk_scan.cuh (a thread per triangle over the block's rays that want
+// the chunk, each culled on its own: faster on random rays, slower on
+// camera rays, whose lanes then diverge at the facing test); two to eight
+// threads per ray, each a share of the chunk's triangles (slower: the
+// facing test diverges the same way); groups of 1, 2 or 8 triangles;
+// blocks of 64 or 256; a division-free prefilter of the whole test with
+// a margin, the division only for the pairs left.
+//
+// The answer equals the plain version's at the same cull group (the
+// warp's; mesh_intersect_v1_plain's group): the sequential strict-< walk
+// from lim ends on the first lane at the chunk's minimum where it beats
+// the ray's best. That it also equals the TPU kernel's (its 512-ray
+// block cull), and the answer without the cull, is checked, not
+// guaranteed: the cull skips only chunks whose box a ray misses before
+// its best, but the boxes are not padded and the slab test rounds apart
+// from the plane test, so a ray that grazes a box face can be culled at
+// one group size and hit a triangle there at another. The checks: the
+// diamond and random meshes in the tests, and the probe's three sets of
+// 640,000 rays on the card (chip_smoke.py).
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kRblk = 512;
+constexpr int kBlock = 128;   // rays (threads) per block: 4 warps
+constexpr int kGroup = 4;     // triangles a lane tests at once
 constexpr int kChunk = 128;
 constexpr float kFltMax = 3.402823466e38f;
 constexpr float kFltEpsilon = 1.1920929e-07f;
@@ -54,7 +93,7 @@ __device__ __forceinline__ float dot4(float x, float y, float z, float w,
   return fmaf(w, m.w, fmaf(z, m.z, fmaf(y, m.y, x * m.x)));
 }
 
-__global__ void __launch_bounds__(kRblk)
+__global__ void __launch_bounds__(kBlock)
     mesh_intersect_v1_kernel(const float* __restrict__ o,
                              const float* __restrict__ d,
                              const float* __restrict__ planes,
@@ -65,7 +104,7 @@ __global__ void __launch_bounds__(kRblk)
                              int* __restrict__ i_out) {
   // per triangle j: n (4), g1 (4), g2 (4)
   __shared__ float4 tri[kChunk * 3];
-  const int i = blockIdx.x * kRblk + threadIdx.x;
+  const int i = blockIdx.x * kBlock + threadIdx.x;
   const bool real = i < n;
   const float ox = real ? o[3 * i] : 0.f, oy = real ? o[3 * i + 1] : 0.f,
               oz = real ? o[3 * i + 2] : 0.f;
@@ -75,6 +114,7 @@ __global__ void __launch_bounds__(kRblk)
   float best_t = kFltMax;
   int best_i = -1;
   for (int c = 0; c < n_chunks; ++c) {
+    bool want = true;
     if (cull) {
       const float* lo = cmin + 3 * c;
       const float* hi = cmax + 3 * c;
@@ -85,42 +125,77 @@ __global__ void __launch_bounds__(kRblk)
           jmax(jmax(jmin(t0x, t1x), jmin(t0y, t1y)), jmin(t0z, t1z));
       const float tmax =
           jmin(jmin(jmax(t0x, t1x), jmax(t0y, t1y)), jmax(t0z, t1z));
-      const bool box = (tmax >= 0.f) && (tmin <= tmax) && (tmin < best_t);
-      if (!__syncthreads_or(box)) continue;   // uniform over the block
+      want = real && (tmax >= 0.f) && (tmin <= tmax) && (tmin < best_t);
     }
-    __syncthreads();   // the previous chunk's reads are done
-    // stage the chunk's (3, 4, 128) planes as 128 x (n, g1, g2)
-    const float* src = planes + (size_t)c * 3 * 4 * kChunk;
+    const bool warp_wants = __any_sync(0xffffffffu, want);
+    // uniform over the block; every warp's tests of the last chunk done
+    if (!__syncthreads_or(warp_wants)) continue;
+    // stage the chunk's (3, 4, 128) planes as 128 x (n, g1, g2), four
+    // triangles of one plane row a thread at a time
+    const float4* src =
+        reinterpret_cast<const float4*>(planes + (size_t)c * 3 * 4 * kChunk);
     float* dst = reinterpret_cast<float*>(tri);
-    for (int e = threadIdx.x; e < 3 * 4 * kChunk; e += kRblk) {
-      const int p = e / (4 * kChunk), q = (e / kChunk) % 4, j = e % kChunk;
-      dst[(j * 3 + p) * 4 + q] = __ldg(src + e);
+    for (int e = threadIdx.x; e < 3 * kChunk; e += kBlock) {
+      const int pq = e / (kChunk / 4), j = 4 * (e % (kChunk / 4));
+      const int p = pq / 4, q = pq % 4;
+      const float4 v = __ldg(src + e);
+      dst[((j + 0) * 3 + p) * 4 + q] = v.x;
+      dst[((j + 1) * 3 + p) * 4 + q] = v.y;
+      dst[((j + 2) * 3 + p) * 4 + q] = v.z;
+      dst[((j + 3) * 3 + p) * 4 + q] = v.w;
     }
     __syncthreads();
+    if (!warp_wants) continue;   // uniform over the warp
     const int lanes = min(kChunk, n_tris - c * kChunk);
-    // the first lane at the chunk's minimum (lane 0 where none hits)
-    float ct = kFltMax;
-    int ci = 0;
-    for (int j = 0; j < kChunk; ++j) {
-      const float4 mn = tri[3 * j], mu = tri[3 * j + 1], mv = tri[3 * j + 2];
-      const float a_n = dot4(ox, oy, oz, 1.f, mn);
-      const float b_n = dot4(dx, dy, dz, 0.f, mn);
-      const float a_u = dot4(ox, oy, oz, 1.f, mu);
-      const float b_u = dot4(dx, dy, dz, 0.f, mu);
-      const float a_v = dot4(ox, oy, oz, 1.f, mv);
-      const float b_v = dot4(dx, dy, dz, 0.f, mv);
-      const float t = -a_n / b_n;
-      const float u = fmaf(t, b_u, a_u);
-      const float v = fmaf(t, b_v, a_v);
-      const bool ok = (-b_n >= kFltEpsilon) && (u >= 0.f) && (u <= 1.f) &&
-                      (v >= 0.f) && (u + v <= 1.f) && (t > 0.f) && (j < lanes);
-      if (ok && t < ct) {
-        ct = t;
-        ci = j;
+    // the sequential strict-< walk from the ray's best, kGroup triangles
+    // at a time: lim is the chunk's running minimum where it beats the
+    // best, ci its first lane
+    float lim = best_t;
+    int ci = -1;
+    for (int j0 = 0; j0 < lanes; j0 += kGroup) {
+      // a group's tests run against lim at the group's start (a superset
+      // of the pairs that can win), each check on all kGroup at once, so
+      // that their loads, dots and divisions overlap; the strict-<
+      // updates then go in lane order
+      float4 mn[kGroup];
+      float b_n[kGroup], t[kGroup];
+      bool ok[kGroup], any = false;
+#pragma unroll
+      for (int k = 0; k < kGroup; ++k) {
+        mn[k] = tri[3 * (j0 + k)];
+        b_n[k] = dot4(dx, dy, dz, 0.f, mn[k]);
+        ok[k] = (-b_n[k] >= kFltEpsilon) && (j0 + k < lanes);
+        any |= ok[k];
+      }
+      if (!any) continue;
+      any = false;
+#pragma unroll
+      for (int k = 0; k < kGroup; ++k) {
+        t[k] = -dot4(ox, oy, oz, 1.f, mn[k]) / b_n[k];
+        ok[k] = ok[k] && (t[k] > 0.f) && (t[k] < lim);
+        any |= ok[k];
+      }
+      if (!any) continue;
+#pragma unroll
+      for (int k = 0; k < kGroup; ++k) {
+        const float4 mu = tri[3 * (j0 + k) + 1], mv = tri[3 * (j0 + k) + 2];
+        const float u = fmaf(t[k], dot4(dx, dy, dz, 0.f, mu),
+                             dot4(ox, oy, oz, 1.f, mu));
+        const float v = fmaf(t[k], dot4(dx, dy, dz, 0.f, mv),
+                             dot4(ox, oy, oz, 1.f, mv));
+        ok[k] = ok[k] && (u >= 0.f) && (u <= 1.f) && (v >= 0.f) &&
+                (u + v <= 1.f);
+      }
+#pragma unroll
+      for (int k = 0; k < kGroup; ++k) {
+        if (ok[k] && t[k] < lim) {
+          lim = t[k];
+          ci = j0 + k;
+        }
       }
     }
-    if (ct < best_t) {
-      best_t = ct;
+    if (ci >= 0) {
+      best_t = lim;
       best_i = c * kChunk + ci;
     }
   }
@@ -138,7 +213,7 @@ extern "C" int ptdn_mesh_intersect_v1(const float* o, const float* d,
                                       int n_tris, int cull, float* t_out,
                                       int* i_out, void* stream) {
   if (n > 0) {
-    mesh_intersect_v1_kernel<<<(n + kRblk - 1) / kRblk, kRblk, 0,
+    mesh_intersect_v1_kernel<<<(n + kBlock - 1) / kBlock, kBlock, 0,
                                (cudaStream_t)stream>>>(
         o, d, planes, cmin, cmax, n, n_chunks, n_tris, cull, t_out, i_out);
   }

@@ -102,7 +102,8 @@ ENTRIES = {
     "ptdn_inrow_permute": [_VP, _VP, _I32, _I32, _VP, _VP],
     "ptdn_path_trace_table": [_VP, _VP, _VP],
     "ptdn_gather_u32": [_VP, _VP, _I32, _VP, _VP],
-    "ptdn_take_chain": [_VP, _VP, _I32, _I32, _I32, _I32, _VP, _VP],
+    "ptdn_take_chain": [_VP, _VP, _I32, _I32, _I32, _I32, _I32, _I32, _VP,
+                        _VP],
     "ptdn_mesh_intersect_v1": [_VP, _VP, _VP, _VP, _VP, _I32, _I32, _I32,
                                _I32, _VP, _VP, _VP],
 }
@@ -193,6 +194,35 @@ def declare(lib: ctypes.CDLL, entries) -> ctypes.CDLL:
         fn.argtypes = args
         fn.restype = ctypes.c_int
     return lib
+
+
+def build_variant(name: str, sources, entries) -> tuple:
+    """Compile `sources` (paths of .cu files: another tree's copy of a
+    kernel's source, or a changed one) with the kernel library's flags
+    into build/variant-<name>.so. Returns (the library with `entries`
+    (name -> argument types) declared, nvcc's output)."""
+    BUILD.mkdir(exist_ok=True)
+    so = BUILD / f"variant-{name}.so"
+    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(so),
+                          *map(str, sources)], stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed on variant {name}:\n{res.stdout}")
+    return declare(ctypes.CDLL(str(so)), entries), res.stdout
+
+
+def with_lib(lib, fn):
+    """fn() with the wrappers launching from `lib` (None: the kernel
+    library)."""
+    global kernels
+    if lib is None:
+        return fn()
+    real = kernels
+    kernels = lambda: lib  # noqa: E731
+    try:
+        return fn()
+    finally:
+        kernels = real
 
 
 def launch(name: str, *args, lib=None):

@@ -1,5 +1,5 @@
 """Kernel P (mesh_intersect_v1): the plane-form rough closest triangle
-hit over 128-triangle chunks with a 512-ray block cull
+hit over 128-triangle chunks with a chunk cull by the warp
 (csrc/intersect_v1.cu), its plain PyTorch version, the host builder of
 its plane table, and the refinement of its winner.
 
@@ -15,7 +15,10 @@ Neither package's DeviceScene carries the plane table or the (C, 3)
 chunk boxes any more, so plane_table builds them on the host, as
 ptdn_tpu/scene/scene.py built tri_mm before it was dropped. The TPU
 kernel's two MXU matmuls per chunk become six 4-term dots per lane in
-float32 FMAs, left to right (no tensor cores, no TF32).
+float32 FMAs, left to right (no tensor cores, no TF32), and its cull by
+512-ray blocks a cull by 32-ray warps, in which rays past the last do
+not vote (the same answer on every input checked: the cull changes the
+work alone, up to rays that graze a chunk's box).
 """
 
 from __future__ import annotations
@@ -30,7 +33,9 @@ from ptdn_tpu_torch.ops.cuda import _lib
 from ptdn_tpu_torch.ops.fp import fma
 from ptdn_tpu_torch.ops.intersect import FLT_EPSILON, FLT_MAX, ray_triangle
 
-RBLK = 512       # rays per block: the cull decides per block
+RBLK = 512       # the TPU kernel's rays per block, which shared its cull
+WARP = 32        # the kernel's cull group: a warp of 32 rays
+CULL_GROUPS = (1, WARP, 128, RBLK)   # the cull groups that counts= counts
 TCHUNK = 128     # triangles per chunk
 F = np.float32
 
@@ -66,9 +71,9 @@ def plane_arrays(tri_v: np.ndarray):
         g1 = g1 / np.sum(g1 * e1, axis=-1, keepdims=True)
         g2 = np.cross(e1, nrm)
         g2 = g2 / np.sum(g2 * e2, axis=-1, keepdims=True)
-    d0 = np.sum(nrm * v0, axis=-1)
-    c1 = -np.sum(g1 * v0, axis=-1)
-    c2 = -np.sum(g2 * v0, axis=-1)
+        d0 = np.sum(nrm * v0, axis=-1)
+        c1 = -np.sum(g1 * v0, axis=-1)
+        c2 = -np.sum(g2 * v0, axis=-1)
     planes = np.stack([
         np.concatenate([nrm, -d0[:, None]], axis=1),
         np.concatenate([g1, c1[:, None]], axis=1),
@@ -104,22 +109,33 @@ def _dot4(x, m):
 
 
 def mesh_intersect_v1_plain(pt: PlaneTable, o: torch.Tensor, d: torch.Tensor,
-                            cull: bool = True, block_batch: int = 128):
-    """Plain PyTorch version of kernel P (see mesh_intersect_v1), with
-    the 512-ray block cull: a chunk is tested on the rays of the blocks
-    that some ray of crosses its box before its running best.
-    block_batch blocks are taken at a time. The lane-triangle tests made
-    add up in mesh_intersect_v1_plain.tri_tests: the rays of the blocks
-    that test a chunk, padding rays included, times its 128 lanes."""
+                            cull: bool = True, group: int = WARP,
+                            block_batch: int = 128, counts=None):
+    """Plain PyTorch version of kernel P (see mesh_intersect_v1). With
+    the cull, a chunk is tested on the rays of each group of `group`
+    consecutive rays (the kernel's warp, WARP; the TPU kernel's block,
+    RBLK) of which some real ray crosses its box before its running
+    best; padding rays do not vote. That the answer is the same at every
+    group size, and without the cull, is checked on the tests' meshes
+    and the probe's rays, not guaranteed: a ray that grazes a box face
+    (the slab test and the plane test round apart) can be culled at one
+    size and hit there at another. block_batch blocks of RBLK rays are
+    taken at a time. The lane-triangle tests made add up in
+    mesh_intersect_v1_plain.tri_tests: the rays of the groups that test
+    a chunk, padding rays included, times its 128 lanes. counts, a dict,
+    gathers under each group size g of CULL_GROUPS the tests that a cull
+    by groups of g would make on the same rays (with the cull)."""
     n = o.shape[0]
     dev = o.device
     npad = -(-n // RBLK) * RBLK
     o = torch.cat([o, torch.zeros((npad - n, 3), device=dev)])
     d = torch.cat([d, torch.ones((npad - n, 3), device=dev)])
+    real_ray = torch.arange(npad, device=dev) < n
     lane = torch.arange(TCHUNK, device=dev)
     t_out, i_out = [], []
     for lo in range(0, npad, RBLK * block_batch):
-        ob, db = o[lo:lo + RBLK * block_batch], d[lo:lo + RBLK * block_batch]
+        hi = lo + RBLK * block_batch
+        ob, db, real = o[lo:hi], d[lo:hi], real_ray[lo:hi]
         r = ob.shape[0]
         inv = 1.0 / db
         best_t = torch.full((r,), FLT_MAX, device=dev)
@@ -133,9 +149,14 @@ def mesh_intersect_v1_plain(pt: PlaneTable, o: torch.Tensor, d: torch.Tensor,
                                      lo3[:, 2])
                 tmax = torch.minimum(torch.minimum(hi3[:, 0], hi3[:, 1]),
                                      hi3[:, 2])
-                box = (tmax >= 0.0) & (tmin <= tmax) & (tmin < best_t)
-                sel = box.view(-1, RBLK).any(dim=1).repeat_interleave(
-                    RBLK).nonzero().squeeze(1)
+                vote = ((tmax >= 0.0) & (tmin <= tmax) & (tmin < best_t)
+                        & real)
+                sel = vote.view(-1, group).any(dim=1).repeat_interleave(
+                    group).nonzero().squeeze(1)
+                if counts is not None:
+                    for g in CULL_GROUPS:
+                        counts[g] = counts.get(g, 0) + int(
+                            vote.view(-1, g).any(dim=1).sum()) * g * TCHUNK
             else:
                 sel = torch.arange(r, device=dev)
             if sel.numel() == 0:
@@ -171,9 +192,10 @@ def mesh_intersect_v1(pt: PlaneTable, o: torch.Tensor, d: torch.Tensor,
     """The rough closest triangle hit of rays o, d (N, 3) float32 over
     the mesh of `pt`, as the TPU kernel returns it: t (N,) float32, -1
     where no triangle is hit, and tri (N,) int32, -1 there. `cull` skips
-    a chunk unless some ray of the 512-ray block crosses its box before
-    its running best (the same answer, less work). CPU tensors take the
-    plain version; CUDA tensors launch kernel P."""
+    a chunk unless some ray of the 32-ray warp crosses its box before its
+    running best (less work; the same answer up to rays that graze a
+    box, see mesh_intersect_v1_plain). CPU tensors take the plain
+    version; CUDA tensors launch kernel P."""
     _lib.require(o.device, "mesh_intersect_v1")
     if o.device.type == "cpu":
         return mesh_intersect_v1_plain(pt, o, d, cull)
@@ -188,6 +210,8 @@ def _mesh_intersect_v1_kernel(pt, o, d, cull=True):
     _lib.check_tensor(pt.tri_mm, torch.float32, (c, 3, 4, TCHUNK), "tri_mm")
     _lib.check_tensor(pt.cmin, torch.float32, (c, 3), "cmin")
     _lib.check_tensor(pt.cmax, torch.float32, (c, 3), "cmax")
+    if pt.tri_mm.data_ptr() % 16:
+        raise ValueError("tri_mm: the kernel reads it in 16-byte pieces")
     t = torch.empty(n, dtype=torch.float32, device=o.device)
     tri = torch.empty(n, dtype=torch.int32, device=o.device)
     p, i32 = _lib.ptr, ctypes.c_int

@@ -27,6 +27,9 @@ SHAPES = [(8, 128), (32, 128), (256, 128), (1024, 128), (8, 256), (8, 1024),
 CASES = [(s, l, axis, 1) for axis in (0, 1) for s, l in SHAPES]
 TIMED = [(1024, 128, 0, 16), (1024, 128, 1, 16), (8, 16384, 1, 16),
          (256, 512, 0, 16)]
+# arrays whose lines are too long for a block's shared memory: kernel O's
+# global-load path (ops/cuda/dyngather.py:tile_plan), checked beside them
+LONG = [(2, 70000, 1, 16), (70000, 2, 0, 16)]
 
 
 def inputs(s: int, l: int, axis: int):

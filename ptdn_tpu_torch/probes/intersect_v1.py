@@ -2,22 +2,25 @@
 port of the superseded first mesh kernel's probe,
 benchmarks/pallas_intersect_v1.py (mesh_intersect_pallas).
 
-    python3 -m ptdn_tpu_torch.probes.intersect_v1 [--reps N]
+    python3 -m ptdn_tpu_torch.probes.intersect_v1 [--reps N] [--count]
 
 Three ray sets of 640,000 rays: bunny's camera rays at 800 x 800 (4,968
 triangles in 39 chunks), cornell's camera rays at 800 x 800 (its back
 wall's triangles in one chunk), and the trace bench's random rays in
 cornell (ptdn_tpu_torch/trace_bench.py:random_rays, numpy seed 0). Per
-set: kernel P's rough closest triangle hit with the 512-ray block cull
-on and off (checked equal: the cull changes the work, not the answer),
-and kernel A, the renderer's fully resolved closest hit of the whole
-scene, on the same rays. One line per set and kernel with the card's
-name and power limit.
+set: kernel P's rough closest triangle hit with its chunk cull (by the
+warp) on and off (checked equal: the cull changes the work, not the
+answer), and kernel A, the renderer's fully resolved closest hit of the
+whole scene, on the same rays. One line per set and kernel with the
+card's name and power limit. --count runs on the CPU instead: the
+lane-triangle tests a cull by groups of 1, 32, 128 and 512 rays leaves
+on each set (P's plain version's counts).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 
 import torch
 
@@ -25,6 +28,7 @@ from ptdn_tpu_torch import trace_bench
 from ptdn_tpu_torch.ops.camera import OrbitCamera, generate_camera_rays
 from ptdn_tpu_torch.ops.cuda import scene_intersect as A
 from ptdn_tpu_torch.ops.cuda.intersect_v1 import (mesh_intersect_v1,
+                                                  mesh_intersect_v1_plain,
                                                   plane_table)
 from ptdn_tpu_torch.scene import Scene
 from ptdn_tpu_torch.utils.assets import scene_path
@@ -77,10 +81,27 @@ def run(reps: int = 10, device="cuda", res=RES):
     return res_
 
 
+def count(res=RES):
+    """label -> the work of each cull design on the probe's rays, counted
+    by P's plain version on the CPU (mesh_intersect_v1_plain's counts=:
+    the tests of a cull by groups of 1, 32, 128 and 512 rays)."""
+    out = {}
+    for label, (_, pt, _, o, d) in cases("cpu", res).items():
+        out[label] = {}
+        mesh_intersect_v1_plain(pt, o, d, True, counts=out[label])
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--count", action="store_true",
+                    help="count each cull design's work on the CPU instead")
     args = ap.parse_args(argv)
+    if args.count:
+        for label, c in count().items():
+            print(f"{label}: {json.dumps(c)}")
+        return
     card = card_name()
     for label, r in run(args.reps).items():
         print(f"{label}: {r['n']} rays, {r['chunks']} chunks, {r['hits']} "

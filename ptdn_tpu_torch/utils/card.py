@@ -1,4 +1,5 @@
-"""The card a measurement runs on, CUDA-event timing, the card's peaks
+"""The card a measurement runs on, CUDA-event timing (of one call, and
+of several in turns), the card's peaks
 that bound a kernel, and nvcc's register report, for the measurement
 scripts (chip_smoke.py, trace_bench, reproj_bench, bounce_bench,
 probes/*)."""
@@ -44,6 +45,16 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2,
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
 
+
+
+def in_turns(fns, reps: int = 20):
+    """name -> [ms there, ms back] of each call of `fns` (name -> fn),
+    timed by cuda_ms with the host hidden, in turns: every fn in order,
+    then in reverse."""
+    ms = {k: [] for k in fns}
+    for k in list(fns) + list(fns)[::-1]:
+        ms[k].append(cuda_ms(fns[k], reps=reps, hide_host=True))
+    return ms
 
 # the card's peaks (NVIDIA H100 SXM data sheet): HBM bytes/s, float32
 # operations/s outside the tensor cores

@@ -114,6 +114,35 @@ def test_take_chain_matches_pallas(axis, reps):
         assert np.array_equal(got, probe_o.numpy_chain(x, idx, axis, reps))
 
 
+@pytest.mark.parametrize("case", probe_o.LONG)
+def test_take_chain_long_lines_match_numpy(case):
+    """Lines longer than a block's shared memory (70,000 int32, above
+    58,112): tile_plan sends them to the global-load kernel, and O's plain
+    version on them equals the probe's numpy chain."""
+    s, l, axis, reps = case
+    assert O.tile_plan(s, l, axis) == (0, 0)
+    x, idx = probe_o.inputs(s, l, axis)
+    got = O.take_chain(torch.from_numpy(x), torch.from_numpy(idx), axis,
+                       reps).numpy()
+    assert np.array_equal(got, probe_o.numpy_chain(x, idx, axis, reps))
+
+
+def test_take_chain_tile_plan():
+    """The staged kernel's tiles on every case of the probe: whole lines
+    that fit a block's shared memory, no more than the array holds,
+    STRIPE columns on axis 0 where they fit, the rows of PER elements on
+    axis 1; and fewer columns where STRIPE of them do not fit."""
+    for s, l, axis, _ in probe_o.CASES + probe_o.TIMED:
+        lines, per = O.tile_plan(s, l, axis)
+        m, n_lines = (s, l) if axis == 0 else (l, s)
+        assert per == O.PER and 1 <= lines <= n_lines
+        assert 4 * m * lines <= O.SMEM_MAX
+        want = O.STRIPE if axis == 0 else max(1, O.PER // m)
+        assert lines == min(want, n_lines)
+    # STRIPE columns of 20,000 do not fit: halved to 2 (160 KB)
+    assert O.tile_plan(20000, 4, 0) == (2, O.PER)
+
+
 # ---------------------------------------------------------------------------
 # kernel P
 
@@ -210,6 +239,76 @@ def test_mesh_intersect_v1_matches_pallas(scenes_dir, mesh, cull):
         np.testing.assert_allclose(got[k][hit], want[k][hit], atol=1e-5)
 
 
+@functools.cache
+def _mesh_case(scenes_dir, mesh):
+    """(the plane table as numpy arrays, n_tris, rays o, d, the TPU
+    kernel's rough (t, tri) in interpret mode with the cull) of a mesh."""
+    tri_v, o, d = (_diamond_mesh(scenes_dir) if mesh == "diamond"
+                   else _random_mesh())
+    arrays = P.plane_arrays(tri_v)
+    jds = types.SimpleNamespace(tri_mm=jnp.asarray(arrays[0]),
+                                tri_chunk_min=jnp.asarray(arrays[1]),
+                                tri_chunk_max=jnp.asarray(arrays[2]))
+    want = _rough_pallas(jds, jnp.asarray(o), jnp.asarray(d),
+                         tri_v.shape[0], True)
+    return arrays, tri_v.shape[0], o, d, want
+
+
+@pytest.mark.parametrize("group", P.CULL_GROUPS)
+@pytest.mark.parametrize("mesh", ["diamond", "random"])
+def test_mesh_intersect_v1_cull_groups_match_pallas(scenes_dir, mesh, group):
+    """P's plain version with the cull by groups of 1, 32 (the kernel's
+    warp), 128 and 512 rays (the TPU kernel's block) against _mesh_kernel
+    in interpret mode: the rough (t, tri) equal bit for bit at every
+    group size; the tests it makes are counts[group], and they fall as
+    the group shrinks."""
+    arrays, n_tris, o, d, (jt, ji) = _mesh_case(scenes_dir, mesh)
+    pt = P.PlaneTable(*map(torch.from_numpy, arrays), n_tris=n_tris)
+    counts = {}
+    P.mesh_intersect_v1_plain.tri_tests = 0
+    t, tri = P.mesh_intersect_v1_plain(pt, torch.from_numpy(o),
+                                       torch.from_numpy(d), True, group,
+                                       counts=counts)
+    assert (ji >= 0).sum() > 50
+    assert np.array_equal(tri.numpy(), ji)
+    assert np.array_equal(t.numpy().view(np.int32), jt.view(np.int32))
+    assert P.mesh_intersect_v1_plain.tri_tests == counts[group]
+    sizes = [counts[g] for g in P.CULL_GROUPS]
+    assert sizes == sorted(sizes) and sizes[0] < sizes[-1]
+
+
+def test_mesh_intersect_v1_rejects_degenerate_triangles():
+    """A mesh with zero-area triangles (a vertex repeated) and collinear
+    ones among real ones, and a padded last chunk (300 triangles: 44 real
+    lanes of its 128): plane_arrays leaves the planes of the zero-area and
+    padding triangles non-finite, and P's plain version with the warp
+    cull and with the 512-ray block cull equals _mesh_kernel in
+    interpret mode bit for bit; no ray's winner is a degenerate or
+    padding triangle (the NaN of their planes, 0 * inf in the w term of
+    the direction dots among it, rejects them)."""
+    tri_v, o, d = _random_mesh()
+    tri_v = tri_v.copy()
+    bad = np.arange(0, 300, 7)
+    zero, line = bad[::2], bad[1::2]
+    tri_v[zero, 1] = tri_v[zero, 0]
+    tri_v[line, 2] = 2 * tri_v[line, 1] - tri_v[line, 0]
+    arrays = P.plane_arrays(tri_v)
+    planes = arrays[0].transpose(0, 3, 1, 2).reshape(-1, 3, 4)
+    for rows in (zero, np.arange(300, 384)):
+        assert not np.isfinite(planes[rows]).all(axis=(1, 2)).any()
+    jds = types.SimpleNamespace(tri_mm=jnp.asarray(arrays[0]),
+                                tri_chunk_min=jnp.asarray(arrays[1]),
+                                tri_chunk_max=jnp.asarray(arrays[2]))
+    jt, ji = _rough_pallas(jds, jnp.asarray(o), jnp.asarray(d), 300, True)
+    pt = P.PlaneTable(*map(torch.from_numpy, arrays), n_tris=300)
+    for group in (P.WARP, P.RBLK):
+        t, tri = P.mesh_intersect_v1_plain(pt, torch.from_numpy(o),
+                                           torch.from_numpy(d), True, group)
+        assert np.array_equal(tri.numpy(), ji)
+        assert np.array_equal(t.numpy().view(np.int32), jt.view(np.int32))
+    assert (ji >= 0).sum() > 50 and not np.isin(ji, bad).any()
+
+
 # ---------------------------------------------------------------------------
 # reproj_bench's variants
 
@@ -278,9 +377,11 @@ def test_probe_kernels_launch_nothing_on_cpu(scenes_dir):
 
 @pytest.mark.cuda
 def test_probe_kernels_match_plain_on_card(scenes_dir):
-    """N, G at K = 29, O and P (cull on and off) against their plain
-    versions on the card, at the CPU tests' sizes (chip_smoke.py does so
-    at the probes' own): all equal bit for bit."""
+    """N, G at K = 29, O (its staged kernel, and its global-load kernel on
+    lines too long to stage) and P (cull on and off; the plain version
+    with the warp cull and with the TPU's 512-ray block cull) against
+    their plain versions on the card, at the CPU tests' sizes
+    (chip_smoke.py does so at the probes' own): all equal bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     rng = np.random.default_rng(0)
@@ -293,11 +394,11 @@ def test_probe_kernels_match_plain_on_card(scenes_dir):
     order = probe_g.argsort_rows(key2d)
     assert torch.equal(G._inrow_permute_kernel(planes, order),
                        G.inrow_permute_plain(planes, order))
-    for axis in (0, 1):
-        x, i = (torch.from_numpy(a).cuda()
-                for a in probe_o.inputs(256, 512, axis))
-        assert torch.equal(O._take_chain_kernel(x, i, axis, 16),
-                           O.take_chain_plain(x, i, axis, 16))
+    for s, l, axis, reps in [(256, 512, 0, 16), (256, 512, 1, 16)] \
+            + probe_o.LONG:    # the staged kernel, then the global-load one
+        x, i = (torch.from_numpy(a).cuda() for a in probe_o.inputs(s, l, axis))
+        assert torch.equal(O._take_chain_kernel(x, i, axis, reps),
+                           O.take_chain_plain(x, i, axis, reps))
     for tri_v, o, d in (_random_mesh(), _diamond_mesh(scenes_dir)):
         pt = P.PlaneTable(*(torch.from_numpy(a).cuda()
                             for a in P.plane_arrays(tri_v)),
@@ -305,5 +406,7 @@ def test_probe_kernels_match_plain_on_card(scenes_dir):
         ot, dt = torch.from_numpy(o).cuda(), torch.from_numpy(d).cuda()
         for cull in (True, False):
             kt, ki = P._mesh_intersect_v1_kernel(pt, ot, dt, cull)
-            pt_, pi_ = P.mesh_intersect_v1_plain(pt, ot, dt, cull)
-            assert torch.equal(ki, pi_) and torch.equal(kt, pt_)
+            # the warp cull's plain version, and the TPU's block cull's
+            for group in (P.WARP, P.RBLK):
+                pt_, pi_ = P.mesh_intersect_v1_plain(pt, ot, dt, cull, group)
+                assert torch.equal(ki, pi_) and torch.equal(kt, pt_)
