@@ -8,9 +8,9 @@ scene at its own resolution):
 
 * cornell (800x800) through the whole-path engine: kernels A, B1, B2, C
   and D;
-* the mesh scenes through the sorted wavefront: A, E, F, C and D, and G
-  on diamond (at most 8 chunks); diamond, bunny and terrain30k at
-  800x800, room at 600x600;
+* the mesh scenes through the sorted wavefront: A, E, Q (the range and
+  key glue), F, C and D, and G on diamond (at most 8 chunks); diamond,
+  bunny and terrain30k at 800x800, room at 600x600;
 * cornell, room and bunny through the unsorted fused per-bounce engine
   (fuse_path=False, sort_rays=False): A, H, K on the textured scenes, C,
   D;
@@ -67,7 +67,12 @@ Phases, one line or more each, with their wall time:
    the probes' inputs (O also to the numpy chain, through its staged
    kernel and, on two arrays of lines too long to stage, its global-load
    kernel; P with the cull on and off, its tests counted under the
-   kernel's warp cull and the TPU's 512-ray block cull);
+   kernel's warp cull and the TPU's 512-ray block cull); N also on an
+   odd length, a slice at a misaligned offset and no index; Q equal bit
+   for bit, range planes and key, on every lane of bounce 2 of diamond,
+   bunny, room, terrain30k (supergroups) and room at 1920x1080 with its
+   moving camera, and of the shared edge inputs
+   (ops/cuda/ranges.py:edge_inputs);
 3. 32 frames per scene and engine (16 of room at 1920x1080) through
    ptdn_tpu_torch's Renderer with every launch count checked, finite
    outputs, and, where the camera is still, the RMSE against the
@@ -85,11 +90,11 @@ Phases, one line or more each, with their wall time:
    torch.gather, K beside torch.take) and its bound, D at level 1 and
    at each level of the frame; ms/frame of cornell
    (still, with fuse_reproject_l1, and moving with the flag off and on)
-   and bunny through each of their engines, of diamond through the sort
-   and through B1 (sort_rays=False), of room 600x600 through the sort and
-   the fused and the split engines, and of room at 1920x1080 moving, in
-   turns; F at bounce 2 of bunny and of room at 1920x1080, H at bounce 2
-   of bunny and room, J at bounce 2 of cornell and room, A at bounce 2 of
+   through each of its engines, of diamond, bunny, room 600x600,
+   terrain30k and room at 1920x1080 moving through the sort, B1
+   (sort_rays=False) and the fused and the split engines, in turns; F
+   at bounce 2 of bunny and of room at 1920x1080, H at bounce 2 of
+   bunny and room, J at bounce 2 of cornell and room, A at bounce 2 of
    bunny and on room's primary hit at 1920x1080, I at bounce 2 of
    cornell, bunny and room (ptdn_tpu_torch/bounce_bench.py), each build
    in turns, with bound and launches; L on cornell in turns beside C
@@ -100,7 +105,11 @@ Phases, one line or more each, with their wall time:
    on bunny's camera rays, each build in turns (bounce_bench's cases);
    the 65-geom scene's ms/frame; an empty launch (the floor beside O's
    bound) and P's bound from the TPU's 512-ray block cull's tests beside
-   the JSON line's, from the warp cull's (the work the kernel does).
+   the JSON line's, from the warp cull's (the work the kernel does); Q
+   at bounce 2 of each mesh scene and of room at 1920x1080 moving
+   (diamond's in the JSON line) beside its plain version and bound, N
+   on the texgather probe's four cases beside its plain version and
+   torch.take.
 
 The line before the last is a JSON object with every kernel's numbers;
 the last is {"ok": true, "device": {...}}. Any failed check raises, so
@@ -140,6 +149,7 @@ from ptdn_tpu_torch.ops.cuda import dyngather as O  # noqa: E402
 from ptdn_tpu_torch.ops.cuda import inrow as G  # noqa: E402
 from ptdn_tpu_torch.ops.cuda import intersect_v1 as P  # noqa: E402
 from ptdn_tpu_torch.ops.cuda import path as B  # noqa: E402
+from ptdn_tpu_torch.ops.cuda import ranges as Q  # noqa: E402
 from ptdn_tpu_torch.ops.cuda import reproject as C  # noqa: E402
 from ptdn_tpu_torch.ops.cuda import reproject_atrous as L  # noqa: E402
 from ptdn_tpu_torch.ops.cuda import scene_intersect as A  # noqa: E402
@@ -153,8 +163,8 @@ from ptdn_tpu_torch.scene import Scene  # noqa: E402
 from ptdn_tpu_torch.utils.assets import (scene_path,  # noqa: E402
                                          write_cornell_plus)
 from ptdn_tpu_torch.utils.card import (ANALYTIC_OPS,  # noqa: E402
-                                       MOLLER_OPS, REFINE_OPS, SHADE_OPS,
-                                       bound, cuda_ms, nbytes,
+                                       MOLLER_OPS, RANGE_OPS, REFINE_OPS,
+                                       SHADE_OPS, bound, cuda_ms, nbytes,
                                        ptxas_summary)
 from ptdn_tpu_torch.utils.config import RenderConfig  # noqa: E402
 
@@ -232,6 +242,10 @@ KERNELS = {  # name: (wrapper, source, TPU kernel it replaces)
                      "ptdn_tpu/ops/pallas/path.py:239"),
     "inrow_permute": (G.inrow_permute, "csrc/inrow.cu",
                       "ptdn_tpu/ops/pallas/inrow.py:34"),
+    # Q: the sorted wavefront's range and key glue, XLA code in the JAX
+    # package (as C's band mode)
+    "ranges_and_key": (Q.ranges_and_key, "csrc/ranges.cu",
+                       "ptdn_tpu/engine/wavefront.py:617"),
     "bounce_fused": (F.bounce_fused, "csrc/scene/bounce.cu",
                      "ptdn_tpu/ops/pallas/bounce.py:161"),
     # I: the any-hit half of the chunk scan alone (csrc/chunk_scan.cuh,
@@ -276,6 +290,7 @@ LAUNCH_RUN = {"scene_intersect_full": ("cornell", "whole_path"),
               "shade_bounce": ("diamond", "sorted"),
               "trace_bounce": ("diamond", "sorted"),
               "inrow_permute": ("diamond", "sorted"),
+              "ranges_and_key": ("diamond", "sorted"),
               "bounce_fused": ("cornell", "bounce_fused"),
               "light_visibility": ("cornell", "bounce_split"),
               "scene_intersect_full_tex": ("cornell", "bounce_split"),
@@ -296,6 +311,9 @@ LIBRARY = {"inrow_permute": "torch.gather", "sparse_gather": "torch.take",
 CUBES, CUBE_FRAMES = 55, 4
 CAUSES = {"1,025 materials": dict(materials=1016),
           "a non-finite constant": dict(materials=1, refrior="inf")}
+# phase 4's engine A/B on the mesh scenes: the flags of each engine
+ENGINE_AB = {"sort": {}, "B1": dict(sort_rays=False), "fused": FUSED,
+             "split": SPLIT}
 # float operations of one plane-form lane-triangle test of kernel P: six
 # 4-term dots, a division, two FMAs, the compares (the other counts and
 # the card's peaks are utils/card.py's)
@@ -459,6 +477,7 @@ def expected_launches(r, motion):
         want[b1] = want["deferred_radiance"] = frames
     elif tr.engine == "sorted":
         want["shade_bounce"] = want["trace_bounce"] = bounces
+        want["ranges_and_key"] = bounces
         want["inrow_permute"] = bounces if tr.regroup > 1 else 0
     elif tr.engine == "bounce_fused":
         want["bounce_fused"] = bounces
@@ -509,6 +528,27 @@ def plane_check(kernel, label, args, kw, got, ref):
     return out
 
 
+def q_check(label, args, boxes):
+    """Kernel Q against its plain version on
+    ranges_and_key's arguments `args` (ds, sh, pix, n_chunks, do_vis,
+    light_pos, light_radius) with its box table `boxes`: no lane may
+    differ in any of the 26 planes (NaN where NaN) or in its key. Returns
+    the bound of the work (bytes: the 22 planes read, the 26 planes and
+    the key written; operations: a box test per box of each live lane's
+    next ray and shadow ray)."""
+    ref_p, ref_k = Q.ranges_and_key_plain(*args)
+    p, k = Q._ranges_and_key_kernel(boxes, *args[1:])
+    planes_eq = ((p == ref_p) | (p.isnan() & ref_p.isnan())).all(dim=0)
+    off = int(((k != ref_k) | ~planes_eq.reshape(-1)).sum())
+    check(off <= LANES_OFF_ALLOWED,
+          f"Q on {label}: {off} lanes off its plain version")
+    tests = Q.box_tests(args[1], boxes.shape[0])
+    print(f"phase 2: Q on {label}: {k.numel()} lanes, {tests} box tests, "
+          f"{boxes.shape[0]} boxes: range planes and key equal to the plain "
+          f"version on every lane")
+    return bound(nbytes(args[1], args[2], p, k), tests * RANGE_OPS)
+
+
 def f_agreement(kf, pf):
     """Lanes where F and its plain version hit the same material with the
     same liveness; the max |d| of t, normal and uv there; and the share
@@ -540,8 +580,8 @@ def main():
     log = _lib.build(force=True)
     _lib.kernels()
     regs = ptxas_summary(log)
-    # O has two kernels: the staged one and the global-load one
-    check(len(regs) == 20, f"20 kernels in the library, got {regs}")
+    # O has two kernels (the staged one and the global-load one)
+    check(len(regs) == 21, f"21 kernels in the library, got {regs}")
     # kernels B1, F, H, A, J, I and M (with and without the cull) are
     # built per scene, with the scene's constants (csrc/scene/*.cu), every
     # scene's at once
@@ -776,7 +816,8 @@ def main():
         for _ in range(3):
             r.render_frame()
         mesh[name] = (r, BB.capture_bounce(
-            r, 2, ("shade_bounce", "trace_bounce", "inrow_permute")))
+            r, 2, ("shade_bounce", "trace_bounce", "inrow_permute",
+                   "ranges_and_key")))
     dr, cap = mesh["diamond"]
     (e_planes, e_mats), e_kw = cap["shade_bounce"]
     ke = E._shade_bounce_kernel(e_planes, e_mats, **e_kw)
@@ -821,6 +862,34 @@ def main():
               f"tests in the plain scan")
         plane_check("trace_bounce", f"F on {name} bounce 2",
                     (fds, fgi, f_planes), f_kw, (kf, kalb), (pf, palb))
+
+    # Q on the same bounce-2 states, on terrain30k's (233 chunks: the
+    # supergroups) and on room's at 1920x1080 with bench.py's moving
+    # camera (a moved frame's), and on the shared edge inputs
+    q_cases = {name: cap["ranges_and_key"] for name, (_, cap) in mesh.items()}
+    r = renderer("terrain30k")
+    for _ in range(3):
+        r.render_frame()
+    q_cases["terrain30k"] = BB.capture_bounce(
+        r, 2, ("ranges_and_key",))["ranges_and_key"]
+    r = renderer("room", (1920, 1080), **MOTION_RUNS["1080p_animated"][1])
+    mov = Motion(r)
+    for _ in range(3):
+        mov.frame()
+    check(mov.auto.step(r.camera), "room 1920x1080: the camera moves")
+    r.cam_changed = True
+    q_cases["room 1920x1080 moving"] = BB.capture_bounce(
+        r, 2, ("ranges_and_key",))["ranges_and_key"]
+    del r, mov
+    q_work = {}
+    for name, (q_args, q_kw) in q_cases.items():
+        q_work[name] = q_check(f"{name} bounce 2", q_args, q_kw["boxes"])
+    for label, case in Q.edge_inputs(0).items():
+        e_args = Q.edge_call(case, DEVICE)
+        q_check(f"edge inputs, {label}", e_args,
+                Q.range_boxes(e_args[0], case["n_chunks"]))
+    stats["ranges_and_key"] = 0.0
+    work["ranges_and_key"] = q_work["diamond"]
 
     # the per-bounce engines, mid-sequence: bounce 2 of frame 4. H on
     # cornell (the textured wall), bunny (39 chunks, every lane scans
@@ -965,12 +1034,22 @@ def main():
         check(torch.equal(kn.view(torch.int32), N.gather_u32_plain(
             table, idx).view(torch.int32)), f"N on {label} equals its "
               f"plain version")
+    # an odd length, a slice at a misaligned offset (its head), no index
+    n_table, n_idx = n_cases["room random"]
+    for label, ix in (("an odd length", n_idx[:probe_n.N - 7]),
+                      ("a misaligned slice", n_idx[1:probe_n.N - 2]),
+                      ("no index", n_idx[1:1])):
+        kn_ = N._gather_u32_kernel(n_table, ix)
+        check(kn_.shape == ix.shape and torch.equal(
+            kn_.view(torch.int32), N.gather_u32_plain(n_table, ix).view(
+                torch.int32)), f"N on {label} equals its plain version")
     stats["gather_u32"] = 0.0
     n_args = n_cases["room random"]
     work["gather_u32"] = bound(
         nbytes(n_args[1], kn) + 4 * torch.unique(n_args[1]).numel(), 0)
     print(f"phase 2: N equal on {', '.join(n_cases)} "
-          f"({probe_n.N} indices)")
+          f"({probe_n.N} indices), and on room's with an odd length, a "
+          f"misaligned slice and no index")
 
     # G at the regroup probe's K = 29 planes of 5,120 rows
     g29_planes, g29_key, _, _ = probe_g.inputs(DEVICE)
@@ -1213,15 +1292,13 @@ def main():
               "split": SPLIT}),
             ("cornell moving", "cornell", None, 10,
              {"B1": ANIM_SLOW, "fuse_l1": dict(ANIM_SLOW, **FUSE_L1)}),
-            ("diamond", "diamond", None, 10,
-             {"sort": {}, "B1": dict(sort_rays=False)}),
-            ("bunny", "bunny", None, 10,
-             {"sort": {}, "B1": dict(sort_rays=False), "fused": FUSED,
-              "split": SPLIT}),
-            ("room", "room", None, 10,
-             {"sort": {}, "fused": FUSED, "split": SPLIT}),
+            # the engine A/B of the mesh scenes: the sort (each scene's
+            # default), B1, the fused and the split per-bounce engines
+            *((name, name, None, 10, ENGINE_AB)
+              for name in ("diamond", "bunny", "room", "terrain30k")),
             ("room 1920x1080 moving", "room", (1920, 1080), 4,
-             {"sort": MOTION_RUNS["1080p_animated"][1]})):
+             {k: dict(MOTION_RUNS["1080p_animated"][1], **kw)
+              for k, kw in ENGINE_AB.items()})):
         eng = {k: Motion(renderer(name, res, **kw)).frame
                for k, kw in engines.items()}
         for frame in eng.values():
@@ -1241,6 +1318,7 @@ def main():
           + ", ".join(f"{k} {v:.4f} ms" for k, v in bench_ms.items())
           + f" [{card}]")
     (f_planes_d, f_kw_d) = mesh["diamond"][1]["trace_bounce"]
+    q_args, q_boxes = q_cases["diamond"][0], q_cases["diamond"][1]["boxes"]
     i_args, j_args, k_args = ijk_args      # cornell's
     fds, fgi, f_planes = f_planes_d
     times = {
@@ -1272,6 +1350,9 @@ def main():
             lambda: F._trace_bounce_kernel(fds, fgi, f_planes, **f_kw_d),
             lambda: F.trace_bounce_plain(fds, fgi, f_planes, **f_kw_d),
             None),
+        "ranges_and_key": (
+            lambda: Q._ranges_and_key_kernel(q_boxes, *q_args[1:]),
+            lambda: Q.ranges_and_key_plain(*q_args), None),
         "inrow_permute": (
             lambda: G._inrow_permute_kernel(g_planes, g_order),
             lambda: G.inrow_permute_plain(g_planes, g_order),
@@ -1343,6 +1424,36 @@ def main():
               f"bound {bound_ms:.4f} ms ({bound_by})"
               + (f", {LIBRARY[name]} {lib_ms:.4f} ms" if lib_ms else "")
               + f" [{card}]")
+    # Q at bounce 2 of each scene, room at 1920x1080 moving its largest,
+    # beside its plain version and its bound
+    for name, (qa, qkw) in q_cases.items():
+        ms = cuda_ms(lambda: Q._ranges_and_key_kernel(qkw["boxes"], *qa[1:]),
+                     reps=10, hide_host=True)
+        plain_ms = cuda_ms(lambda: Q.ranges_and_key_plain(*qa), reps=3,
+                           warmup=1, hide_host=True)
+        b_ms, b_by = q_work[name]
+        frame_ms[f"Q {name} bounce 2"] = {"ms": ms, "plain_ms": plain_ms,
+                                         "bound_ms": b_ms, "bound_by": b_by}
+        print(f"phase 4: Q on {name} bounce 2 ({qa[1][0].numel()} lanes, "
+              f"{qkw['boxes'].shape[0]} boxes): {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) [{card}]")
+    # N on the texgather probe's four cases beside its plain version and
+    # torch.take
+    for label, (table, idx) in n_cases.items():
+        t32, i64 = table.view(torch.int32), idx.to(torch.int64)
+        ms = cuda_ms(lambda: N._gather_u32_kernel(table, idx), reps=20,
+                     hide_host=True)
+        take_ms = cuda_ms(lambda: torch.take(t32, i64), reps=20,
+                          hide_host=True)
+        plain_ms = cuda_ms(lambda: N.gather_u32_plain(table, idx), reps=20,
+                           hide_host=True)
+        b_ms, b_by = bound(nbytes(idx, idx) + 4 * torch.unique(idx).numel(),
+                           0)
+        frame_ms[f"N {label}"] = {"ms": ms, "take_ms": take_ms,
+                                  "plain_ms": plain_ms, "bound_ms": b_ms}
+        print(f"phase 4: N on {label}: {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, torch.take {take_ms:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}) [{card}]")
     # F, H, J, A and I where their users feel them most: F at bounce 2 of
     # bunny and of room at 1920x1080 (a still camera), H at bounce 2 of
     # bunny and room 600x600, J at bounce 2 of cornell and room, A at

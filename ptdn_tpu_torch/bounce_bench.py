@@ -1,8 +1,8 @@
 """Kernels F (trace_bounce), H (bounce_fused), A (scene_intersect_full),
 J (scene_intersect_full_tex), I (light_visibility), L
-(back_projection_atrous1), M (scene_intersect) and B1's table build
-(path_trace_table) on the card, on the calls of the scenes whose users
-feel them.
+(back_projection_atrous1), M (scene_intersect), Q (ranges_and_key) and
+B1's table build (path_trace_table) on the card, on the calls of the
+scenes whose users feel them.
 
     python3 -m ptdn_tpu_torch.bounce_bench [--reps N] [--cases LIST]
                                            [--variant NAME=DIR]...
@@ -11,7 +11,8 @@ feel them.
 Each case renders three frames of a scene through its engine (depth 8,
 RenderConfig's defaults otherwise) and captures the arguments of one
 call of the kernel on the fourth frame: the bounce-2 call of F (the
-sorted wavefront), of H (the fused per-bounce engine) or of A, J or I
+sorted wavefront), of Q (the same), of H (the fused per-bounce
+engine) or of A, J or I
 (the split per-bounce engine), or A's primary hit, the camera rays of a
 frame whose camera moved, or B1's call (the whole-path engine, its only
 one in a frame). M takes the trace bench's rays (trace_bench.setup, the
@@ -25,8 +26,9 @@ library's)
   its plain version's in any bit (two NaNs count as equal): the 21 B_*
   planes, and F's three next-albedo planes; A's t, normal, uv, material
   and geom, and J's texel index besides; I's lit flag; M's five
-  outputs; B1's 6 x depth contribution planes and depth - 1 texel-index
-  planes; and the same against the first build's output;
+  outputs; Q's 26 planes and its key; B1's 6 x depth contribution
+  planes and depth - 1 texel-index planes; and the same against the
+  first build's output;
 * times the kernel with CUDA events over N launches (default 20), the
   host hidden behind a device spin (utils/card.py:cuda_ms), the builds
   in turns there and back, and the plain version once;
@@ -34,7 +36,8 @@ library's)
   rate, or its operations over the float32 rate, counting the analytic
   tests of every ray (both rays in F and H, and in B1 at every depth),
   the refine and, in H and B1, the shading of every lane, and the
-  lane-triangle tests that the plain version's scan made.
+  lane-triangle tests that the plain version's scan made; Q's box tests
+  (ops/cuda/ranges.py:box_tests).
 
 The L case takes L's call on the fourth frame of cornell at 800x800
 with fuse_reproject_l1 (a still camera: L on every frame after the
@@ -44,7 +47,8 @@ the packed G-buffer planes, as the frame without the flag runs them;
 per output (color, variance, moments, history) it counts the pixels off
 L's plain version and off C's then D's kernels.
 
-Cases (CASES): F on diamond and bunny at 800x800 and room at 1920x1080;
+Cases (CASES): F and Q on diamond at 800x800 and room at 1920x1080, F
+also on bunny at 800x800;
 H on cornell and bunny at 800x800 and room at 600x600; J on cornell at
 800x800 and room at 600x600; A on bunny at 800x800, and on the primary
 hits of room at 1920x1080 and of cornell at 800x800; I on cornell and
@@ -55,10 +59,10 @@ camera rays; B1's table build on cornell and on cornell plus 55 cubes
 
 --variant NAME=DIR (repeatable) builds DIR's copy of each timed kernel's
 source (SOURCE: DIR/bounce.cu for F and H, DIR/scene_intersect.cu for A,
-J, I and M, DIR/reproject_atrous.cu for L, DIR/path_trace_table.cu for
-B1's table build), a copy of csrc/ with that source or its headers
-changed (an older tree's csrc, or a source with one part of the work
-taken out), into a library of its own with the same C interface, and
+J, I and M, DIR/reproject_atrous.cu for L, DIR/ranges.cu for Q,
+DIR/path_trace_table.cu for B1's table build), a copy of csrc/ with
+that source or its headers changed (an older tree's csrc, or a source
+with one part of the work taken out), into a library of its own with the same C interface, and
 runs every case's kernel from it too, on the same captured inputs, as
 the wrappers run the kernel library's build, so that two designs are
 compared in one process on one card. A variant of B1's table build reads
@@ -88,26 +92,27 @@ from ptdn_tpu_torch.ops.cuda import _lib
 from ptdn_tpu_torch.ops.cuda import atrous as D
 from ptdn_tpu_torch.ops.cuda import bounce as F
 from ptdn_tpu_torch.ops.cuda import path as B
+from ptdn_tpu_torch.ops.cuda import ranges as Q
 from ptdn_tpu_torch.ops.cuda import reproject as C
 from ptdn_tpu_torch.ops.cuda import reproject_atrous as L
 from ptdn_tpu_torch.ops.cuda import scene_intersect as A
 from ptdn_tpu_torch.scene import Scene
 from ptdn_tpu_torch.utils.assets import scene_path, write_cornell_plus
 from ptdn_tpu_torch.utils.card import (ANALYTIC_OPS, BOX_OPS, MOLLER_OPS,
-                                       REFINE_OPS, SHADE_OPS, bound,
-                                       card_name, cuda_ms, in_turns, nbytes,
-                                       ptxas_summary)
+                                       RANGE_OPS, REFINE_OPS, SHADE_OPS,
+                                       bound, card_name, cuda_ms, in_turns,
+                                       nbytes, ptxas_summary)
 from ptdn_tpu_torch.utils.config import RenderConfig
 
 CFG = RenderConfig(trace_depth=8)
 # the flags of each kernel's engine: the sort (the mesh scenes' default)
-# for F, the unsorted fused per-bounce engine for H, the split one for A,
+# for F and Q, the unsorted fused per-bounce engine for H, the split one for A,
 # J and I; for L the headline frame's temporal SVGF with its 5-level
 # filter and fuse_reproject_l1
 SPLIT = dict(fuse_path=False, fuse_bounce=False)
 FUSE_L1 = dict(denoise_enable=True, temporal_enable=True,
                spatial_enable=True, atrous_nlevel=5, fuse_reproject_l1=True)
-ENGINE = {"trace_bounce": {},
+ENGINE = {"trace_bounce": {}, "ranges_and_key": {},
           "bounce_fused": dict(fuse_path=False, sort_rays=False),
           "scene_intersect_full": SPLIT, "scene_intersect_full_tex": SPLIT,
           "light_visibility": SPLIT, "back_projection_atrous1": FUSE_L1,
@@ -124,6 +129,7 @@ SOURCE = {"trace_bounce": ("bounce.cu", "ptdn_trace_bounce"),
           "back_projection_atrous1": ("reproject_atrous.cu",
                                       "ptdn_back_projection_atrous1"),
           "scene_intersect": ("scene_intersect.cu", "ptdn_scene_intersect"),
+          "ranges_and_key": ("ranges.cu", "ptdn_ranges_and_key"),
           "path_trace_table": ("path_trace_table.cu",
                                "ptdn_path_trace_table")}
 # the kernels with a per-scene build (csrc/scene/*.cu; B1's table build
@@ -143,6 +149,8 @@ RAY_KERNELS = HIT_KERNELS + ("light_visibility", "scene_intersect")
 CASES = {"F diamond": ("trace_bounce", "diamond", (800, 800), 2),
          "F bunny": ("trace_bounce", "bunny", (800, 800), 2),
          "F room 1920x1080": ("trace_bounce", "room", (1920, 1080), 2),
+         "Q diamond": ("ranges_and_key", "diamond", (800, 800), 2),
+         "Q room 1920x1080": ("ranges_and_key", "room", (1920, 1080), 2),
          "H cornell": ("bounce_fused", "cornell", (800, 800), 2),
          "H bunny": ("bounce_fused", "bunny", (800, 800), 2),
          "H room": ("bounce_fused", "room", (600, 600), 2),
@@ -241,8 +249,18 @@ def capture(kernel: str, scene: str, res, call=2, device="cuda"):
     return capture_bounce(r, call, (name,), CALLER.get(kernel, W))[name]
 
 
+def _ranges_and_key_kernel(ds, *args, boxes):
+    """Kernel Q on ranges_and_key's captured call."""
+    return Q._ranges_and_key_kernel(boxes, *args)
+
+
+def _ranges_and_key_plain(*args, boxes):
+    return Q.ranges_and_key_plain(*args)
+
+
 def kernel_fn(kernel: str):
     return {"trace_bounce": F._trace_bounce_kernel,
+            "ranges_and_key": _ranges_and_key_kernel,
             "bounce_fused": F._bounce_fused_kernel,
             "scene_intersect_full": A._scene_intersect_full_kernel,
             "scene_intersect_full_tex":
@@ -256,6 +274,7 @@ def kernel_fn(kernel: str):
 
 def plain_fn(kernel: str):
     return {"trace_bounce": F.trace_bounce_plain,
+            "ranges_and_key": _ranges_and_key_plain,
             "bounce_fused": F.bounce_fused_plain,
             "scene_intersect_full": A.scene_intersect_full_plain,
             "scene_intersect_full_tex":
@@ -282,7 +301,10 @@ def out_planes(kernel: str, out):
     """The output planes by name: F's B_* planes and next albedo, H's
     B_* planes, A's outputs, J's and its texel index, I's lit flag, L's
     color, variance, moments and history, M's outputs, B1's
-    contribution and texel-index planes."""
+    contribution and texel-index planes, Q's 26 planes and its key."""
+    if kernel == "ranges_and_key":
+        allp, key = out
+        return {**{f"plane{k}": p for k, p in enumerate(allp)}, "key": key}
     if kernel == "path_trace_table":
         contrib, texidx = out
         return {**{f"c{k}": c for k, c in enumerate(contrib)},
@@ -326,6 +348,8 @@ def n_lanes(kernel: str, args) -> int:
     """The lanes (rays, or B1's pixels) of a call's arguments."""
     if kernel == "path_trace_table":
         return args[2]["t"].shape[0]
+    if kernel == "ranges_and_key":
+        return args[1][0].numel()
     return args[2].shape[0] if kernel in RAY_KERNELS else args[2][0].numel()
 
 
@@ -382,6 +406,9 @@ def work(kernel: str, args, kw, out, tri_tests: int, culls=(0, 0)):
     table build's with `culls` (b1_plain_counted)."""
     if kernel == "path_trace_table":
         return b1_work(args, kw, *out, tri_tests, culls)
+    if kernel == "ranges_and_key":
+        return bound(nbytes(*args[1:3], *out),
+                     Q.box_tests(args[1], kw["boxes"].shape[0]) * RANGE_OPS)
     gi = args[1]
     n_an = sum(1 for t in gi.types if t != 2)
     if kernel == "scene_intersect":
@@ -426,9 +453,11 @@ def measure(kernel: str, args, kw, libs=None, reps: int = 20):
     library, built by build_variant), which the wrappers take as they
     take the kernel library's."""
     ds, gi, *rest = args
-    lib_args = (ds, gi._replace(path_scene=None), *rest)
+    # Q takes no geom info and has the library's build alone
+    lib_args = (args if kernel == "ranges_and_key"
+                else (ds, gi._replace(path_scene=None), *rest))
     builds = {"library": (None, lib_args)}
-    if gi.path_scene is not None and kernel in PER_SCENE:
+    if kernel in PER_SCENE and gi.path_scene is not None:
         builds = {"scene": (None, args), **builds}
     builds.update({name: (lib, lib_args)
                    for name, lib in (libs or {}).items()})

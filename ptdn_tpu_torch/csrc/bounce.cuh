@@ -15,7 +15,7 @@
 // uncompact_tiles_pallas, which routes the gathered texels back to their
 // lanes). A lane reads E's 21 output planes plus the crossed-chunk ranges
 // [nlo, nhi] of the next ray and [slo, shi] of the shadow ray
-// (engine/wavefront.py:ranges_and_key), and writes the 21 planes of the
+// (kernel Q, csrc/ranges.cu), and writes the 21 planes of the
 // B_* layout:
 //   1. on an NEE lane, the shadow ray's visibility: its closest analytic
 //      hit is the light and no triangle of the chunks [slo, shi] occludes
@@ -27,7 +27,7 @@
 //      planes of the next albedo: the hit material's color, or on a live
 //      lane of a textured material (show_tex) the nearest texel, read and
 //      unpacked here; on the last depth the constant planes.
-// Why a lane's own range is exact: the range test (ranges_and_key) and
+// Why a lane's own range is exact: the range test (kernel Q) and
 // the cull (ptdn.cuh:chunk_crossed) are the same subtract-then-multiply
 // slab with no multiply-add to contract, so they agree bit for bit: a
 // chunk outside a lane's range is one its ray does not cross, which the

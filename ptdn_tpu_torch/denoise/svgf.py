@@ -69,7 +69,7 @@ class SVGFDenoiser(nn.Module):
         super().__init__()
         if not cfg.compat:
             raise NotImplementedError("native mode (compat=False) is not "
-                                      "ported")
+                                      "ported (ROADMAP Queue 1 item 3)")
         self.cfg = cfg
         self.resolution = tuple(resolution)
         # the JAX package's gate of the fused reprojection + level 1

@@ -18,8 +18,8 @@ the G-buffer position.
 * Sorted wavefront (`sorted`, bounce_sorted :1088-1187): the lanes
   carry 22 state planes and a pixel-id plane. Per bounce kernel E shades
   every lane; each lane's crossed-chunk ranges of its next and shadow ray
-  give it a coherence key (ranges_and_key); a stable sort of the key
-  reorders every plane (permute_planes, with kernel G's in-row permute
+  give it a coherence key (ranges_and_key, kernel Q); a stable sort of
+  the key reorders every plane (permute_planes, with kernel G's in-row permute
   first on scenes of at most 8 chunks); kernel F traces NEE visibility
   and the next closest hit over each lane's ranges and reads the next
   bounce's albedo (the texel where textured). The RNG follows the
@@ -62,21 +62,22 @@ from ptdn_tpu_torch.ops.cuda.bounce import (B_MAT, B_UU, B_VV, bounce_fused,
 from ptdn_tpu_torch.ops.cuda.compact import sparse_gather
 from ptdn_tpu_torch.ops.cuda.inrow import inrow_permute
 from ptdn_tpu_torch.ops.cuda.path import deferred_radiance, path_trace
+# the sorted wavefront's range and key glue, kernel Q: profile_frame.py
+# times it, and the tests call it, under these names
+from ptdn_tpu_torch.ops.cuda.ranges import (  # noqa: F401
+    SENTINEL, chunk_range_planes, range_boxes, ranges_and_key)
 from ptdn_tpu_torch.ops.cuda.scene_intersect import (
     TCHUNK, geom_info, light_visibility, scene_intersect_full,
     scene_intersect_full_tex, tex_index, texel_rgb)
 from ptdn_tpu_torch.ops.cuda.shade import (I_AB, I_AR, I_RB, I_RR, O_ACT,
-                                           O_CB, O_CR, O_DIF, O_DX, O_DY,
-                                           O_DZ, O_NEE, O_RB, O_RR, O_SDX,
-                                           O_SDY, O_SDZ, O_SPX, O_SPY, O_SPZ,
-                                           O_TB, O_TR, shade_bounce)
-from ptdn_tpu_torch.ops.fp import dot3, fma, sqrt
+                                           O_CB, O_CR, O_DIF, O_DX, O_DZ,
+                                           O_NEE, O_RB, O_RR, O_SDX, O_SPX,
+                                           O_SPZ, O_TB, O_TR, shade_bounce)
+from ptdn_tpu_torch.ops.fp import fma
 from ptdn_tpu_torch.scene.parser import MESH
 from ptdn_tpu_torch.scene.scene import DeviceScene
 
 PCACHE_KEYS = ("t", "normal", "uv", "mat_id", "geom_id", "hit", "albedo")
-SENTINEL = 1 << 30      # the sort key of a dead lane, past every live one
-MAX_RANGE_SLABS = 64    # chunk AABB tests per ray before supergroups
 
 
 def albedo_from(ds, mat_id: torch.Tensor, uv: torch.Tensor,
@@ -103,117 +104,6 @@ def init_primary_cache(n: int, device) -> Dict[str, torch.Tensor]:
         "pcache_hit": torch.zeros(n, dtype=torch.bool, device=device),
         "pcache_albedo": torch.zeros((n, 3), **f),
     }
-
-
-# ---------------------------------------------------------------------------
-# the sorted wavefront's glue (plain PyTorch, as it was XLA glue in JAX)
-
-def chunk_range_planes(ds, o, d, n_chunks: int, t_limit=None):
-    """Per lane the [lo, hi] chunk ids bounding every chunk AABB the ray
-    o + t d crosses (t >= 0, and tmin <= t_limit where given), (n_chunks,
-    -1) where it crosses none (wavefront.py:522-598). The slab is the
-    kernels' own (subtract, then multiply by 1/d), so a chunk outside the
-    range is one the kernels' per-lane cull skips. Past 64 chunks the test
-    runs on supergroups of G = ceil(n / 64) consecutive chunks (their
-    union AABBs) and the range rounds out to whole groups, still a
-    superset. All chunks are tested at once as an (..., C) batch."""
-    shape = torch.broadcast_shapes(o[0].shape, d[0].shape)
-    dev = o[0].device
-    inv = tuple(1.0 / c for c in d)
-
-    def slab_ranges(bmin, bmax, count):
-        if count == 0:
-            return (torch.zeros(shape, dtype=torch.int32, device=dev),
-                    torch.full(shape, -1, dtype=torch.int32, device=dev))
-        t0 = [(bmin[:, k] - o[k][..., None]) * inv[k][..., None]
-              for k in range(3)]
-        t1 = [(bmax[:, k] - o[k][..., None]) * inv[k][..., None]
-              for k in range(3)]
-        tmin = torch.maximum(torch.maximum(torch.minimum(t0[0], t1[0]),
-                                           torch.minimum(t0[1], t1[1])),
-                             torch.minimum(t0[2], t1[2]))
-        tmax = torch.minimum(torch.minimum(torch.maximum(t0[0], t1[0]),
-                                           torch.maximum(t0[1], t1[1])),
-                             torch.maximum(t0[2], t1[2]))
-        crossed = (tmax >= 0.0) & (tmin <= tmax)
-        if t_limit is not None:
-            # a box entered beyond t_limit cannot occlude (shadow rays)
-            crossed = crossed & (tmin <= t_limit[..., None])
-        iota = torch.arange(count, dtype=torch.int32, device=dev)
-        lo = torch.where(crossed, iota, count).amin(dim=-1)
-        hi = torch.where(crossed, iota, -1).amax(dim=-1)
-        return lo.to(torch.int32), hi.to(torch.int32)
-
-    cmin = ds.tri_chunk_min[:n_chunks]
-    cmax = ds.tri_chunk_max[:n_chunks]
-    if n_chunks <= MAX_RANGE_SLABS:
-        return slab_ranges(cmin, cmax, n_chunks)
-    g = max(2, -(-n_chunks // MAX_RANGE_SLABS))
-    n_super = -(-n_chunks // g)
-    pad = n_super * g - n_chunks
-    inf = torch.full((pad, 3), float("inf"), device=dev)
-    smin = torch.cat([cmin, inf]).reshape(n_super, g, 3).amin(dim=1)
-    smax = torch.cat([cmax, -inf]).reshape(n_super, g, 3).amax(dim=1)
-    slo, shi = slab_ranges(smin, smax, n_super)
-    lo = torch.clamp_max(slo * g, n_chunks)
-    hi = torch.where(shi < 0, -1, torch.clamp_max(shi * g + (g - 1),
-                                                  n_chunks - 1))
-    return lo.to(torch.int32), hi.to(torch.int32)
-
-
-def _interleave7(a, b, n_chunks: int):
-    """Morton interleave of two chunk ids squeezed into 7 bits each (a
-    monotone squeeze past 127 chunks, so the top of a large scene does
-    not fold into one bucket): a's bits odd, b's even."""
-    def to7(x):
-        if n_chunks > 127:
-            x = x * 127 // n_chunks
-        return torch.clamp(x, 0, 127)[..., None]
-    bit = torch.arange(7, dtype=torch.int32, device=a.device)
-    # the bits never overlap, so their sum is their OR
-    return ((((to7(a) >> bit) & 1) << (2 * bit + 1))
-            + (((to7(b) >> bit) & 1) << (2 * bit))).sum(-1, dtype=torch.int32)
-
-
-def ranges_and_key(ds, sh: torch.Tensor, pix: torch.Tensor, n_chunks: int,
-                   do_vis: bool, light_pos=None, light_radius=None):
-    """Crossed-chunk ranges and the coherence sort key of the shaded
-    wavefront (wavefront.py:617-704). sh: E's (21, NB, 128) planes; pix:
-    the (NB, 128) pixel plane. Returns (allp, key): allp (26, NB, 128) =
-    sh, nlo, nhi, slo, shi (as float32), pix — F's input plus the pixel
-    plane — and key (N,) int32. The shadow range is bounded by the
-    distance to the light center plus `light_radius` (the light AABB's
-    half diagonal); lanes without a shadow ray and dead lanes get empty
-    ranges, and dead lanes the key SENTINEL so whole tiles go idle. With
-    do_vis the key interleaves (nlo, slo) over (nhi, shi) (the morton
-    key), else it is nlo * (C + 1) + nhi. The next and the shadow ray of
-    a lane share their origin, so one batched pass finds both ranges (no
-    limit is an infinite one)."""
-    sp = (sh[O_SPX], sh[O_SPY], sh[O_SPZ])
-    no_limit = torch.full_like(sp[0], float("inf"))
-    s_limit = no_limit
-    if light_pos is not None:
-        e = tuple(light_pos[k] - sp[k] for k in range(3))
-        s_limit = sqrt(dot3(e, e)) + light_radius
-    d = tuple(sh[[a, b]] for a, b in ((O_DX, O_SDX), (O_DY, O_SDY),
-                                      (O_DZ, O_SDZ)))
-    lo, hi = chunk_range_planes(ds, sp, d, n_chunks,
-                                t_limit=torch.stack([no_limit, s_limit]))
-    # dead lanes and lanes without a shadow ray: empty ranges
-    alive = sh[O_ACT] > 0.5
-    keep = torch.stack([alive, alive & (sh[O_NEE] > 0.5)])
-    lo = torch.where(keep, lo, n_chunks)
-    hi = torch.where(keep, hi, -1)
-    (nlo, slo), (nhi, shi) = lo, hi
-    if do_vis:
-        key = (_interleave7(nlo, slo, n_chunks) * 16384
-               + _interleave7(torch.clamp_min(nhi, 0),
-                              torch.clamp_min(shi, 0), n_chunks))
-    else:
-        key = nlo * (n_chunks + 1) + torch.clamp_min(nhi, 0)
-    key = torch.where(keep[0], key, SENTINEL).to(torch.int32)
-    ranges = torch.stack([nlo, nhi, slo, shi]).to(torch.float32)
-    return torch.cat([sh, ranges, pix[None]]), key.reshape(-1)
 
 
 def permute_planes(allp: torch.Tensor, key: torch.Tensor,
@@ -258,7 +148,7 @@ class PathTracer(nn.Module):
         light_analytic = scene.geom_types[0] != MESH
         if not cfg.compat:
             raise NotImplementedError("native mode (compat=False) is not "
-                                      "ported (ROADMAP Queue 1 item 9)")
+                                      "ported (ROADMAP Queue 1 item 3)")
         if cfg.shadow_ray and not light_analytic:
             raise NotImplementedError("NEE toward a mesh light is not ported")
         # the JAX package's engine choice (wavefront.py:936-965, 1392-1476)
@@ -267,7 +157,8 @@ class PathTracer(nn.Module):
         if use_sort and (cfg.sort_group not in (None, 1)
                          or cfg.sort_every not in (None, 1)):
             raise NotImplementedError("sort_group and sort_every are not "
-                                      "ported (ROADMAP Queue 1 item 12)")
+                                      "ported (ROADMAP Queue 1 item 6: do "
+                                      "not port)")
         self.engine = ("sorted" if use_sort else "whole_path" if cfg.fuse_path
                        else "bounce_fused" if cfg.fuse_bounce
                        else "bounce_split")
@@ -283,6 +174,11 @@ class PathTracer(nn.Module):
         ds = scene.device(device)
         for f in dataclasses.fields(DeviceScene):
             self.register_buffer(f.name, getattr(ds, f.name),
+                                 persistent=False)
+        if self.engine == "sorted":
+            # kernel Q's chunk boxes (the supergroups' past 64 chunks),
+            # made once per scene
+            self.register_buffer("range_boxes", range_boxes(ds, n_chunks),
                                  persistent=False)
         for k, v in init_primary_cache(self.w * self.h, device).items():
             self.register_buffer(k, v)
@@ -505,7 +401,8 @@ class PathTracer(nn.Module):
                 shadow_ray=fl["shadow_ray"], reduce_var=fl["reduce_var"])
             allp, key = ranges_and_key(ds, sh, pix, self.n_chunks,
                                        fl["do_vis"], light["pos"],
-                                       light["half_diag"])
+                                       light["half_diag"],
+                                       boxes=self.range_boxes)
             allp = permute_planes(allp, key, self.regroup)
             pix = allp[-1]
             do_next = depth < self.depth

@@ -102,6 +102,7 @@ ENTRIES = {
     "ptdn_inrow_permute": [_VP, _VP, _I32, _I32, _VP, _VP],
     "ptdn_path_trace_table": [_VP, _VP, _VP],
     "ptdn_gather_u32": [_VP, _VP, _I32, _VP, _VP],
+    "ptdn_ranges_and_key": [_VP, _VP],
     "ptdn_take_chain": [_VP, _VP, _I32, _I32, _I32, _I32, _I32, _I32, _VP,
                         _VP],
     "ptdn_mesh_intersect_v1": [_VP, _VP, _VP, _VP, _VP, _I32, _I32, _I32,

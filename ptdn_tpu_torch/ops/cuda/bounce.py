@@ -13,8 +13,8 @@ and the albedo fetch after it (engine/wavefront.py:fetch_alb), whose
 texel route back to the lanes is the TPU kernel
 ptdn_tpu/ops/pallas/path.py:uncompact_tiles_pallas. Input: kernel E's 21
 O_* planes followed by the crossed-chunk range planes nlo, nhi, slo, shi
-(engine/wavefront.py:ranges_and_key); output: the 21 planes of the B_*
-layout and, when do_next, the (3, NB, 128) albedo of the next bounce.
+(kernel Q, ops/cuda/ranges.py:ranges_and_key); output: the 21 planes of
+the B_* layout and, when do_next, the (3, NB, 128) albedo of the next bounce.
 The kernel scans each block of 128 lanes' chunks once, from triangles
 staged in shared memory, each lane within its own ranges
 (csrc/chunk_scan.cuh); the plain version scans every chunk with the

@@ -4,7 +4,9 @@
 Replaces the TPU kernel benchmarks/pallas_texgather.py:gather_u32_pallas
 (:83; its body gather_table_groups, :42, and _kernel, :78), a probe of
 texel-table gather throughput that no renderer path calls; its script is
-ptdn_tpu_torch/probes/texgather.py. One CUDA thread reads one word.
+ptdn_tpu_torch/probes/texgather.py. One CUDA thread reads 4
+consecutive indices with 16-byte loads and stores, a scalar head and
+tail around them (csrc/texgather.cu).
 
 Dropped from the TPU design: the table's (G, 8, 128) group padding, the
 per-1024-index-tile scan of the group range [gmin, gmax] with its 8-way
@@ -42,7 +44,13 @@ def _gather_u32_kernel(table, idx):
     n = idx.shape[0]
     _lib.check_tensor(table, torch.uint32, (table.shape[0],), "table")
     _lib.check_tensor(idx, torch.int32, (n,), "idx")
-    out = torch.empty(n, dtype=torch.uint32, device=idx.device)
+    # the output at idx's offset modulo 16 bytes, so that the kernel's
+    # 16-byte loads and stores start at one boundary
+    lead = (idx.data_ptr() // 4) % 4
+    out = torch.empty(n + 3, dtype=torch.uint32, device=idx.device)[
+        lead:lead + n]
+    if n == 0:
+        return out
     p = _lib.ptr
     _lib.launch("ptdn_gather_u32", p(table), p(idx), ctypes.c_int(n), p(out))
     gather_u32.launches += 1

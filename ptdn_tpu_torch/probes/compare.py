@@ -1,13 +1,13 @@
-"""Kernels P and O beside other builds of their sources, on the card.
+"""Kernels P, O and N beside other builds of their sources, on the card.
 
     python3 -m ptdn_tpu_torch.probes.compare [--variant NAME=DIR]...
         [--reps N] [--ptx DIR] [--frames] [--out FILE]
 
 Builds: this tree's kernel library, and for each --variant DIR's copy of
-csrc/intersect_v1.cu and csrc/dyngather.cu (another tree's csrc, or a
-changed source, with this tree's entry points) compiled with the
-library's flags into a library of its own. On the same inputs, for
-every build:
+csrc/intersect_v1.cu, csrc/dyngather.cu and csrc/texgather.cu (another
+tree's csrc, or a changed source, with this tree's entry points)
+compiled with the library's flags into a library of its own. On the
+same inputs, for every build:
 
 * P on the intersect_v1 probe's three ray sets of 640,000 rays (bunny's
   and cornell's camera rays at 800 x 800, the trace bench's random rays
@@ -15,9 +15,13 @@ every build:
   for bit to the plain version's (the cull by warps) and to the first
   build's; with the bound of the TPU's 512-ray block cull's tests and of
   the warp cull's, both at 60 operations a test (the plain version
-  counts both);
+  counts both), and the plain version's time;
 * O on the dyngather probe's four timed chains: checked equal to the
-  plain version, the numpy chain and the first build;
+  plain version, the numpy chain and the first build, and the plain
+  version's time;
+* N on the texgather probe's four cases (cornell's and room's tables,
+  random and sorted indices): checked equal to the plain version and
+  the first build, with its byte bound and torch.take's time;
 
 and times each build with CUDA events, the host hidden behind a device
 spin, in turns there and back (utils/card.py:in_turns), and an empty
@@ -27,12 +31,14 @@ launch beats, beside O's bound.
 --ptx DIR compiles every other source of this tree's csrc/ (the kernel
 library's, and csrc/scene/*.cu with cornell's scene header) and DIR's
 copy of it to PTX, and compares them entry by entry, up to the hash of
-the file's path that nvcc puts in internal names. --frames times still
+the file's path that nvcc puts in internal names (a source DIR lacks is
+counted as new). --frames times still
 cornell (the whole path) and bunny and room through the fused
 per-bounce engine, ms/frame over 20 frames after 3, through this tree's
 renderer. Prints one line per case and build with the card's name and
-power limit, then each build's ptxas report of P's and O's kernels, and
-writes every number as JSON to FILE where given. Needs one card.
+power limit, then each build's ptxas report of P's, O's and N's
+kernels, and writes every number as JSON to FILE where given. Needs one
+card.
 """
 
 from __future__ import annotations
@@ -52,8 +58,10 @@ from ptdn_tpu_torch.ops.cuda import _lib
 from ptdn_tpu_torch.ops.cuda import dyngather as O
 from ptdn_tpu_torch.ops.cuda import intersect_v1 as P
 from ptdn_tpu_torch.ops.cuda import scene_intersect as A
+from ptdn_tpu_torch.ops.cuda import texgather as N
 from ptdn_tpu_torch.probes import dyngather as probe_o
 from ptdn_tpu_torch.probes import intersect_v1 as probe_p
+from ptdn_tpu_torch.probes import texgather as probe_n
 from ptdn_tpu_torch.scene import Scene
 from ptdn_tpu_torch.utils.assets import scene_path
 from ptdn_tpu_torch.utils.card import (bound, card_name, cuda_ms, in_turns,
@@ -61,18 +69,18 @@ from ptdn_tpu_torch.utils.card import (bound, card_name, cuda_ms, in_turns,
 
 # float operations of one plane-form lane-triangle test (chip_smoke.py's)
 PLANE_OPS = 60
-SOURCES = ("intersect_v1.cu", "dyngather.cu")
+SOURCES = ("intersect_v1.cu", "dyngather.cu", "texgather.cu")
 MINE = ("mesh_intersect_v1_kernel", "take_chain_kernel",
-        "take_chain_staged_kernel")
+        "take_chain_staged_kernel", "gather_u32_kernel")
 
 
 def variant(name: str, src_dir):
-    """(DIR's P and O built into a library, its ptxas report)."""
+    """(DIR's P, O and N built into a library, its ptxas report)."""
     src = pathlib.Path(src_dir)
     return _lib.build_variant(
         name, [src / s for s in SOURCES],
         {k: _lib.ENTRIES[k] for k in ("ptdn_mesh_intersect_v1",
-                                      "ptdn_take_chain")})
+                                      "ptdn_take_chain", "ptdn_gather_u32")})
 
 
 def run_p(builds, reps):
@@ -101,6 +109,8 @@ def run_p(builds, reps):
             tpu = counts.get(P.RBLK, tests) if cull else tests
             out[f"{label}, cull {cull}"] = {
                 "ms": in_turns(fns, reps), "hits": int((ref[1] >= 0).sum()),
+                "plain_ms": cuda_ms(lambda: P.mesh_intersect_v1_plain(
+                    pt, o, d, cull), reps=1, warmup=0, hide_host=True),
                 "tests_512": tpu, "tests_warp": tests,
                 "bound_512": bound(io, tpu * PLANE_OPS),
                 "bound_warp": bound(io, tests * PLANE_OPS),
@@ -127,7 +137,36 @@ def run_o(builds, reps):
                                    f"differs from the plain version")
         out[f"({s}, {l}) axis {axis}, chain {chain}"] = {
             "plan": O.tile_plan(s, l, axis), "ms": in_turns(fns, reps),
+            "plain_ms": cuda_ms(lambda: O.take_chain_plain(
+                x, idx, axis, chain), reps=3, warmup=1, hide_host=True),
             "bound": bound(nbytes(x, idx, plain), 0)}
+    return out
+
+
+def run_n(builds, reps):
+    """case -> N's numbers on each texgather probe case, the builds in
+    turns."""
+    out = {}
+    for label, (table, idx) in probe_n.cases("cuda").items():
+        t32, i64 = table.view(torch.int32), idx.to(torch.int64)
+        want = N.gather_u32_plain(table, idx).view(torch.int32)
+        fns = {name: (lambda lib=lib: _lib.with_lib(
+            lib, lambda: N._gather_u32_kernel(table, idx)))
+            for name, lib in builds.items()}
+        first = None
+        for name, fn in fns.items():
+            got = fn().view(torch.int32)
+            first = got if first is None else first
+            for what, ref in (("plain version", want), ("first build", first)):
+                if not torch.equal(got, ref):
+                    raise RuntimeError(f"N {label}, {name}: differs from "
+                                       f"the {what}")
+        out[label] = {
+            "ms": in_turns(fns, reps),
+            "take_ms": cuda_ms(lambda: torch.take(t32, i64), reps,
+                               hide_host=True),
+            "bound": bound(nbytes(idx, idx)
+                           + 4 * torch.unique(idx).numel(), 0)}
     return out
 
 
@@ -139,13 +178,16 @@ def entries(ptx: str):
 
 
 def ptx_diff(other):
-    """Every source of csrc/ but P's and O's, here and in `other` (a
-    csrc copy), to PTX: (entries compared, the names that differ)."""
+    """Every source of csrc/ but P's, O's and N's, here and in `other` (a
+    csrc copy), to PTX: (entries compared, the names that differ, the
+    sources `other` lacks)."""
     here = _lib.CSRC
     header = A.geom_info(Scene(scene_path("cornell")), "cuda").path_scene
     srcs = [p.relative_to(here) for p in sorted(here.glob("*.cu"))
             if p.name not in SOURCES] + sorted(
         p.relative_to(here) for p in (here / "scene").glob("*.cu"))
+    new = [s for s in srcs if not (pathlib.Path(other) / s).exists()]
+    srcs = [s for s in srcs if s not in new]
     with tempfile.TemporaryDirectory() as tmp:
         (pathlib.Path(tmp) / "scene.h").write_text(header)
 
@@ -169,7 +211,7 @@ def ptx_diff(other):
             n += 1
             if a.get(name) != b.get(name):
                 differ.append(f"{src}:{name}")
-    return n, differ
+    return n, differ, [str(s) for s in new]
 
 
 def frames(reps=20):
@@ -217,8 +259,8 @@ def main(argv=None):
     res = {"card": card, "ptxas": regs,
            "empty_launch_ms": cuda_ms(lambda: torch.cuda._sleep(0),
                                       reps=args.reps, hide_host=True)}
-    res["P"] = run_p(builds, args.reps)
-    res["O"] = run_o(builds, args.reps)
+    for k, run in (("P", run_p), ("O", run_o), ("N", run_n)):
+        res[k] = run(builds, args.reps)
     res["empty_launch_ms_after"] = cuda_ms(lambda: torch.cuda._sleep(0),
                                            reps=args.reps, hide_host=True)
     for label, m in res["P"].items():
@@ -228,20 +270,27 @@ def main(argv=None):
               + f" ms; bound {m['bound_512'][0]:.4f} ms ({m['bound_512'][1]}"
               f", {m['tests_512']} tests of the 512-ray block cull), "
               f"{m['bound_warp'][0]:.4f} ms ({m['tests_warp']} of the warp "
-              f"cull) [{card}]")
+              f"cull); plain {m['plain_ms']:.4f} ms [{card}]")
     for label, m in res["O"].items():
         print(f"O {label}, tiles {m['plan']}: " + "; ".join(
             f"{k} {', '.join(f'{t:.4f}' for t in v)}"
             for k, v in m["ms"].items())
-              + f" ms; bound {m['bound'][0]:.4f} ms ({m['bound'][1]}) "
-              f"[{card}]")
+              + f" ms; bound {m['bound'][0]:.4f} ms ({m['bound'][1]}); "
+              f"plain {m['plain_ms']:.4f} ms [{card}]")
+    for label, m in res["N"].items():
+        print(f"N {label}: " + "; ".join(
+            f"{k} {', '.join(f'{t:.4f}' for t in v)}"
+            for k, v in m["ms"].items())
+              + f" ms; bound {m['bound'][0]:.4f} ms ({m['bound'][1]}); "
+              f"torch.take {m['take_ms']:.4f} ms [{card}]")
     print(f"empty launch {res['empty_launch_ms']:.4f}, "
           f"{res['empty_launch_ms_after']:.4f} ms [{card}]")
     if args.ptx:
-        n, differ = ptx_diff(args.ptx)
-        res["ptx"] = {"entries": n, "differ": differ}
+        n, differ, new = ptx_diff(args.ptx)
+        res["ptx"] = {"entries": n, "differ": differ, "new": new}
         print(f"PTX of every other kernel against {args.ptx}: {n} entries, "
-              f"{len(differ)} differ" + "".join(f"; {d}" for d in differ))
+              f"{len(differ)} differ" + "".join(f"; {d}" for d in differ)
+              + f"; sources new here: {new}")
     if args.frames:
         res["frames"] = frames()
         print("frames " + ", ".join(f"{k} {v:.3f} ms/frame"

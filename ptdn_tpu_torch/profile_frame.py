@@ -2,11 +2,13 @@
 share, the kernels by device time, the per-bounce engines' stages, and
 the per-frame glue's correctly rounded multiply-adds.
 
-    python3 -m ptdn_tpu_torch.profile_frame [scene] [--frames N]
-        [--engine sorted|whole_path|bounce_fused|bounce_split]
-        [--res WxH] [--moving anim_slow|room_1080p] [--fma-sites]
+    python3 -m ptdn_tpu_torch.profile_frame [scene[,scene...]]
+        [--frames N] [--engine sorted|whole_path|bounce_fused|bounce_split
+        [,...]|all] [--res WxH] [--moving anim_slow|room_1080p]
+        [--fma-sites]
 
-Renders `scene` (default diamond) at its own resolution (or WxH) with
+Renders `scene` (default diamond; several joined by commas, each in
+turn, through each engine named) at its own resolution (or WxH) with
 the headline settings of bench.py (1 spp, depth 8, static camera,
 temporal SVGF with 5 à-trous levels) through the engine the scene takes
 by default or the one named, with `--moving` a camera that
@@ -183,30 +185,17 @@ def fma_sites(r, frames: int):
                 launches[k] / frames) for k in calls}
 
 
-def main():
-    ap = argparse.ArgumentParser()
-    ap.add_argument("scene", nargs="?", default="diamond")
-    ap.add_argument("--frames", type=int, default=10)
-    ap.add_argument("--engine", choices=sorted(ENGINES),
-                    help="the tracer engine (default: the scene's)")
-    ap.add_argument("--res", help="WxH (default: the scene's)")
-    ap.add_argument("--moving", choices=sorted(MOVING),
-                    help="move the camera every frame at these speeds")
-    ap.add_argument("--fma-sites", action="store_true",
-                    help="split the glue's fp.fma calls by call site")
-    a = ap.parse_args()
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    sc = Scene(scene_path(a.scene))
+def profile_one(scene: str, engine, a, card: str):
+    """Print the stages, the profile and, with --fma-sites, the fma call
+    sites of `scene` through `engine` (None: the scene's own)."""
+    sc = Scene(scene_path(scene))
     res = (tuple(int(x) for x in a.res.split("x")) if a.res
            else sc.resolution)
     cfg = RenderConfig(trace_depth=8, denoise_enable=True,
                        temporal_enable=True, spatial_enable=True,
                        atrous_nlevel=5, automate_camera=bool(a.moving),
                        **MOVING.get(a.moving, {}),
-                       **ENGINES.get(a.engine, {}))
+                       **ENGINES.get(engine, {}))
     r = Renderer(sc, cfg, resolution=res, device="cuda")
     if a.moving:
         auto, still_frame = CameraAutomation(cfg), r.render_frame
@@ -218,7 +207,7 @@ def main():
         r.render_frame = moving_frame
     for _ in range(5):
         r.render_frame()
-    tag = (f"{a.scene} {res[0]}x{res[1]}, {r.step.tracer.engine}"
+    tag = (f"{scene} {res[0]}x{res[1]}, {r.step.tracer.engine}"
            f"{', moving ' + a.moving if a.moving else ''}, [{card}]")
     stages = timed_stages(r, a.frames)
     for k, ms in stages.items():
@@ -240,6 +229,35 @@ def main():
         for k, (n, ms, la) in sorted(sites.items(), key=lambda kv: -kv[1][1]):
             print(f"fma site {k}: {n:.1f} calls, {ms:.3f} host ms, "
                   f"{la:.1f} launches per frame")
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("scene", nargs="?", default="diamond",
+                    help="a scene, or several joined by commas")
+    ap.add_argument("--frames", type=int, default=10)
+    ap.add_argument("--engine",
+                    help="the tracer engine (default: the scene's), "
+                    "several joined by commas, or all: "
+                    + ", ".join(sorted(ENGINES)))
+    ap.add_argument("--res", help="WxH (default: the scene's)")
+    ap.add_argument("--moving", choices=sorted(MOVING),
+                    help="move the camera every frame at these speeds")
+    ap.add_argument("--fma-sites", action="store_true",
+                    help="split the glue's fp.fma calls by call site")
+    a = ap.parse_args()
+    engines = ([None] if not a.engine else sorted(ENGINES)
+               if a.engine == "all" else a.engine.split(","))
+    for e in engines:
+        if e is not None and e not in ENGINES:
+            ap.error(f"unknown engine {e}")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    for scene in a.scene.split(","):
+        for engine in engines:
+            profile_one(scene, engine, a, card)
 
 
 if __name__ == "__main__":

@@ -63,12 +63,14 @@ F32_RATE = 67e12
 # float operations per unit of work, counted from the kernels' code:
 # one Moller-Trumbore lane-triangle test, one analytic geom test of a
 # lane, the cull test of B1's table build, the winning triangle's
-# refine, one lane's shading
+# refine, one lane's shading, one ray's test of a box in kernel Q (six
+# subtractions and products, ten min/max, three compares)
 MOLLER_OPS = 52
 ANALYTIC_OPS = 90
 BOX_OPS = 22   # B1's table build: one slab test of a geom's world box
 REFINE_OPS = 70
 SHADE_OPS = 250
+RANGE_OPS = 25
 
 
 def bound(n_bytes: float, ops: float):

@@ -176,12 +176,13 @@ def _shaded(r, n):
     return sh.reshape(E.N_OUT, n // 128, 128)
 
 
-@pytest.mark.parametrize("name", ["diamond", "bunny", "terrain30k"])
+@pytest.mark.parametrize("name", ["diamond", "bunny", "room", "terrain30k"])
 def test_ranges_and_key_match_jax(scenes_dir, name):
     """chunk_range_planes and ranges_and_key against the JAX engine's
     (jitted, as the engine runs them) on 4096 seeded lanes: the range
-    planes and the morton key equal. Diamond and bunny test every chunk;
-    terrain30k's 233 chunks take the supergroup branch (G = 4). The
+    planes and the morton key equal. Diamond, bunny and room (textured)
+    test every chunk; terrain30k's 233 chunks take the supergroup branch
+    (G = 4). The
     shadow-range margin, the light AABB's half diagonal, equals the
     engine's jitted float32 value."""
     js, jds, ds = _scenes(scenes_dir, name)
