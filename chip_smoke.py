@@ -109,10 +109,21 @@ Phases, one line or more each, with their wall time:
    at bounce 2 of each mesh scene and of room at 1920x1080 moving
    (diamond's in the JSON line) beside its plain version and bound, N
    on the texgather probe's four cases beside its plain version and
-   torch.take.
+   torch.take;
+5. the entry points a user runs: `python3 -m ptdn_tpu_torch.bench --all
+   --quality --stages` (one JSON line naming the card; each still
+   scene's denoised RMSE equal to phase 3's within 2e-5; cornell's
+   ms_pipelined within 5% of phase 4's cornell ms/frame), `app.cli` (8
+   frames of cornell with SVGF: 8 stats lines, every output file, a
+   denoised PNG that is not uniform), `app.eval` (500 accumulated frames
+   against 32 SVGF ones: denoised below raw), the viewer's watch loop in
+   process (16 frames of cornell with an orbit, sigma_l 0.7 and the
+   denoise toggle: renderer.step kept until the toggle, the launches of
+   A, B1, B2, C and D counted), a checkpoint's resume (bit for bit), and
+   benchmarks/gt/*.npz and bench_results.json hashed before and after.
 
-The line before the last is a JSON object with every kernel's numbers;
-the last is {"ok": true, "device": {...}}. Any failed check raises, so
+The last three lines are a JSON object with every kernel's numbers, the
+card, and {"ok": true, "device": {...}}. Any failed check raises, so
 the exit code is not 0 and no result line is printed. Needs one card.
 """
 
@@ -121,10 +132,13 @@ from __future__ import annotations
 import concurrent.futures
 import dataclasses
 import functools
+import hashlib
 import json
 import os
+import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -134,9 +148,11 @@ sys.path.insert(0, ROOT)
 
 import torch  # noqa: E402
 
+from ptdn_tpu_torch import bench  # noqa: E402
 from ptdn_tpu_torch import bounce_bench as BB  # noqa: E402
 from ptdn_tpu_torch import reproj_bench, trace_bench  # noqa: E402
 from ptdn_tpu_torch.app.automate import CameraAutomation  # noqa: E402
+from ptdn_tpu_torch.app.viewer import Viewer  # noqa: E402
 from ptdn_tpu_torch.denoise import reproject, svgf  # noqa: E402
 from ptdn_tpu_torch.engine import Renderer  # noqa: E402
 from ptdn_tpu_torch.engine import wavefront as W  # noqa: E402
@@ -166,7 +182,10 @@ from ptdn_tpu_torch.utils.card import (ANALYTIC_OPS,  # noqa: E402
                                        MOLLER_OPS, RANGE_OPS, REFINE_OPS,
                                        SHADE_OPS, bound, cuda_ms, nbytes,
                                        ptxas_summary)
+from ptdn_tpu_torch.utils.checkpoint import (restore_renderer,  # noqa: E402
+                                             save_state)
 from ptdn_tpu_torch.utils.config import RenderConfig  # noqa: E402
+from ptdn_tpu_torch.utils.image_io import load_image_rgb  # noqa: E402
 
 DEVICE = "cuda"
 DEPTH = 8
@@ -325,6 +344,8 @@ PLANE_OPS = 60
 # camera rays of cornell and room (A) (bounce_bench, PERF.md), the most
 # the per-output checks allow
 LANES_OFF_ALLOWED = 0
+# phase 5's limits on the entry points run as subprocesses (seconds)
+BENCH_TIMEOUT, CLI_TIMEOUT = 600, 180
 
 
 def check(ok: bool, what: str):
@@ -559,6 +580,150 @@ def f_agreement(kf, pf):
     lit = ((kf[F.B_RR:F.B_RB + 1] == pf[F.B_RR:F.B_RB + 1])
            | torch.isnan(pf[F.B_RR:F.B_RB + 1])).all(dim=0)
     return float(agree.float().mean()), err, float(lit.float().mean())
+
+
+def run_module(module, *args, timeout):
+    """python3 -m <module> <args> from the repo's root: its stdout's
+    lines; raises unless it exits 0 within `timeout` seconds."""
+    proc = subprocess.run([sys.executable, "-m", module, *map(str, args)],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=timeout)
+    check(proc.returncode == 0, f"{module} exited {proc.returncode}:\n"
+          f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    return proc.stdout.splitlines()
+
+
+def file_hashes(paths):
+    return {str(p): hashlib.sha256(pathlib.Path(p).read_bytes()).hexdigest()
+            for p in paths}
+
+
+def entry_points(card, rmse, frame_ms):
+    """Phase 5: the entry points a user runs (ptdn_tpu_torch.bench,
+    app.cli, app.eval, app.viewer) and a checkpoint's resume, on the card,
+    held against phases 3 and 4 of this run."""
+    t0 = time.perf_counter()
+    guarded = sorted(pathlib.Path(ROOT, "benchmarks", "gt").glob("*.npz"))
+    guarded.append(pathlib.Path(ROOT, "bench_results.json"))
+    before = file_hashes(guarded)
+    # the bench, every configuration with its quality and stages
+    bench.EXTRAS.unlink(missing_ok=True)
+    lines = run_module("ptdn_tpu_torch.bench", "--all", "--quality",
+                          "--stages", timeout=BENCH_TIMEOUT)
+    check(len(lines) == 1, f"the bench prints one line: {lines}")
+    head = json.loads(lines[0])
+    # vs_baseline is rounded from the unrounded ms: within 1e-4 of value's
+    check(head["device"] == card and head["unit"] == "ms"
+          and abs(head["vs_baseline"] - head["value"] / bench.TARGET_MS)
+          <= 1e-4, f"the bench's line: {head}")
+    res = json.loads(bench.EXTRAS.read_text())
+    check(res["device"] == card and res["headline"] == head,
+          f"the extras file names the card and the headline: {res}")
+    print(f"phase 5: bench {json.dumps(head)}")
+    for name, ms_pipe in res["ms_pipelined"].items():
+        ms = head["value"] if name == "cornell" else res["extra_ms"][name]
+        print(f"phase 5: bench {name}: {ms} ms/frame synced, {ms_pipe} "
+              f"ms/frame pipelined, {res['rays_per_sec_M'][name]} M rays/s; "
+              f"stages {json.dumps(res['stages_ms'][name])} [{card}]")
+    # each still scene's quality: phase 3's 32 frames of the same
+    # configuration (its first run of the scene, the default engine)
+    for name in SCENES:
+        label = next(k for k in rmse if k.split(" ")[0] == name)
+        got = res["quality_rmse"][name]["rmse_denoised"]
+        check(abs(got - rmse[label]["denoised"]) <= 2e-5,
+              f"bench {name} RMSE {got} = phase 3's {rmse[label]}")
+    print(f"phase 5: bench quality_rmse {json.dumps(res['quality_rmse'])} "
+          f"equal to phase 3's within 2e-5")
+    ratio = res["ms_pipelined"]["cornell"] / frame_ms["cornell"]
+    check(abs(ratio - 1) <= 0.05,
+          f"bench cornell ms_pipelined {res['ms_pipelined']['cornell']} "
+          f"within 5% of phase 4's {frame_ms['cornell']}")
+    print(f"phase 5: bench cornell ms_pipelined "
+          f"{res['ms_pipelined']['cornell']} / phase 4's "
+          f"{frame_ms['cornell']:.3f} = {ratio:.4f}")
+    with tempfile.TemporaryDirectory() as tmp:
+        # the CLI: 8 frames of cornell with SVGF, every output written
+        out = {k: os.path.join(tmp, k) for k in (
+            "dn.png", "raw.png", "side.png", "dn.hdr")}
+        lines = run_module(
+            "ptdn_tpu_torch.app.cli", "scenes/cornell.txt", "--frames", 8,
+            "--depth", DEPTH, "--denoise", "--temporal", "--spatial",
+            "--out", out["dn.png"], "--out-raw", out["raw.png"],
+            "--side-by-side", out["side.png"], "--hdr", out["dn.hdr"],
+            "--stats", timeout=CLI_TIMEOUT)
+        frames = [json.loads(ln) for ln in lines]
+        check([f["frame"] for f in frames] == list(range(8)),
+              f"the CLI prints 8 stats lines: {lines}")
+        check(all(os.path.getsize(p) > 0 for p in out.values()),
+              "the CLI writes every file")
+        dn = load_image_rgb(out["dn.png"])
+        w, h = scene("cornell").resolution      # its RES: the CLI's size
+        check(dn.shape == (h, w, 3) and np.ptp(dn) > 0,
+              f"the denoised PNG, {dn.shape}, is not uniform")
+        print(f"phase 5: cli 8 frames of cornell {w}x{h}, ms "
+              f"{[f['ms'] for f in frames]}, files "
+              f"{ {k: os.path.getsize(p) for k, p in out.items()} } [{card}]")
+        # the evaluator: 32 SVGF frames against 500 accumulated ones
+        lines = run_module("ptdn_tpu_torch.app.eval", "scenes/cornell.txt",
+                              "--gt-frames", 500, "--frames", 32,
+                              timeout=CLI_TIMEOUT)
+        ev = json.loads(lines[-1])
+        check(ev["rmse_denoised_vs_gt"] < ev["rmse_raw_1spp_vs_gt"],
+              f"eval: denoised below raw: {ev}")
+        print(f"phase 5: eval {json.dumps(ev)}")
+        # the viewer in process: an orbit, a continuous change and the
+        # denoise toggle in its watch loop, the launches counted
+        r = renderer("cornell")
+        step0, kept = r.step, []
+        script = ([None, None, "."] + [None] * 3 + ["sigma_l 0.7"]
+                  + [None] * 3 + ["D"] + [None] * 5)
+
+        def poll():
+            kept.append(r.step is step0)
+            return script[len(kept) - 1]
+        v = Viewer(r, out_path=os.path.join(tmp, "viewer.png"),
+                   display="png")
+        reset_counts()
+        n = v.watch(max_frames=16, input_poll=poll, report=False)
+        torch.cuda.synchronize()
+        c = counts()
+        svgf_frames = script.index("D")
+        check(n == 16 and kept == [True] * (svgf_frames + 1)
+              + [False] * (15 - svgf_frames)
+              and r.cfg.sigma_l == 0.7
+              and not r.cfg.denoise_enable,
+              f"viewer: 16 frames, renderer.step kept until 'D': {kept}")
+        check(c["scene_intersect_full"] == 3
+              and c["path_trace"] == c["deferred_radiance"] == 16
+              and c["back_projection_banded"] >= 2
+              and c["back_projection_stencil"]
+              + c["back_projection_banded"] == svgf_frames
+              and c["atrous_level"] == NLEVEL * svgf_frames,
+              f"viewer launches {nonzero(c)}: A on frame 0, the orbit and "
+              f"the rebuild, B1 and B2 on each frame, C and D on the "
+              f"{svgf_frames} SVGF frames")
+        print(f"phase 5: viewer 16 frames of cornell (orbit, sigma_l 0.7, "
+              f"D), renderer.step kept across the continuous changes, "
+              f"launches {json.dumps(nonzero(c))}")
+        # a checkpoint: 3 frames, saved, 2 more; a fresh renderer restored
+        # from the file renders the same 2 frames bit for bit
+        r = renderer("cornell")
+        r.render(3)
+        path = save_state(os.path.join(tmp, "state"), r.step.frame_state(),
+                          r.frame, r.camera)
+        want = [[t.clone() for t in r.render_frame()] for _ in range(2)]
+        r2 = renderer("cornell")
+        restore_renderer(r2, path)
+        got = [r2.render_frame() for _ in range(2)]
+        check(all(torch.equal(a, b) for x, y in zip(want, got)
+                  for a, b in zip(x, y)),
+              "the restored renderer renders the same 2 frames")
+        print("phase 5: checkpoint of cornell at frame 3 resumed: the next "
+              "2 frames equal bit for bit (raw and denoised)")
+    check(file_hashes(guarded) == before,
+          "benchmarks/gt/*.npz and bench_results.json untouched")
+    print(f"phase 5: {len(guarded)} ground-truth and TPU result files "
+          f"unchanged; {time.perf_counter() - t0:.1f} s")
 
 
 def main():
@@ -1553,6 +1718,10 @@ def main():
           f"512-ray block cull's [{card}]")
     print(f"phase 4: {time.perf_counter() - t0:.1f} s; all phases "
           f"{time.perf_counter() - t_all:.1f} s")
+
+    # ---- phase 5: the entry points ----
+    entry_points(card, rmse, frame_ms)
+    print(f"phase 5: all phases {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": out, "frame_ms": frame_ms, "rmse": rmse}))
     print(card)
     print(json.dumps({"ok": True, "device": {

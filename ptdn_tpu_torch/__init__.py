@@ -13,8 +13,9 @@ layout mirrors ``ptdn_tpu``:
   csrc/      the CUDA C++ kernels
   engine/    path tracer, frame step, Renderer
   denoise/   SVGF: reprojection, à-trous, orchestration
-  utils/     config, assets, image loading
-  app/       camera automation
+  utils/     config, assets, image IO, checkpoints, stats, terminal view
+  app/       camera automation, the CLI, the evaluator, the viewer
+  bench.py   the benchmark entry (python3 -m ptdn_tpu_torch.bench)
 
 Every tensor lives on the device the caller names. A wrapper in
 ``ops/cuda`` runs its plain version on CPU tensors and launches its

@@ -1,1 +1,2 @@
-"""The app layer of the port: camera automation."""
+"""The app layer of the port: camera automation, the headless CLI, the
+quality evaluator and the interactive viewer."""

@@ -51,6 +51,7 @@ class FrameStep(nn.Module):
             owner = next(m for m in (self, self.tracer, self.denoiser)
                          if k in m._buffers)
             setattr(owner, k, v)
+        self.tracer.rays_stale = True
         self.denoiser.forget_motion()
 
     def reset(self):

@@ -184,11 +184,13 @@ class PathTracer(nn.Module):
             self.register_buffer(k, v)
         # the camera rays and the G-buffer position, functions of the
         # camera alone like the primary hit: made when the camera changed,
-        # reused while it is still
+        # reused while it is still; not frame state, so remade from the
+        # camera after a restored state (rays_stale)
         for k in ("ray_o", "ray_d", "position"):
             self.register_buffer(k, torch.zeros((self.w * self.h, 3),
                                                 device=device),
                                  persistent=False)
+        self.rays_stale = True
         self.gi = geom_info(scene, device)
         # the reference samples geoms[0] for NEE (pathtrace.cu:360-361)
         light_mat = scene.materials[scene.geom_material_ids[0]]
@@ -218,18 +220,22 @@ class PathTracer(nn.Module):
     def forward(self, cam: Dict[str, torch.Tensor], params, frame: int,
                 cam_changed: bool):
         ds = self.ds
-        if cam_changed:
-            # primary visibility is a function of the camera alone: a
-            # static camera reuses last frame's rays, hit, albedo and
-            # G-buffer position
+        # primary visibility is a function of the camera alone: a static
+        # camera reuses last frame's rays, hit, albedo and G-buffer
+        # position; a restored state brings the hit without the rays
+        if cam_changed or self.rays_stale:
             self.ray_o, self.ray_d = generate_camera_rays(cam,
                                                           (self.w, self.h))
-            isect = scene_intersect_full(ds, self.gi, self.ray_o, self.ray_d)
-            isect["albedo"] = albedo_from(ds, isect["mat_id"], isect["uv"],
-                                          self.show_texture)
-            for k in PCACHE_KEYS:
-                setattr(self, "pcache_" + k, isect[k])
-            self.position = fma(isect["t"][:, None], self.ray_d, self.ray_o)
+            if cam_changed:
+                isect = scene_intersect_full(ds, self.gi, self.ray_o,
+                                             self.ray_d)
+                isect["albedo"] = albedo_from(ds, isect["mat_id"],
+                                              isect["uv"], self.show_texture)
+                for k in PCACHE_KEYS:
+                    setattr(self, "pcache_" + k, isect[k])
+            self.position = fma(self.pcache_t[:, None], self.ray_d,
+                                self.ray_o)
+            self.rays_stale = False
         prim = {k: getattr(self, "pcache_" + k) for k in PCACHE_KEYS}
         light = dict(self.light, radius=float(params["light_radius"]),
                      intensity=float(params["shadow_intensity"]))

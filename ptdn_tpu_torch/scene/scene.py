@@ -113,6 +113,7 @@ class Scene:
         parsed = P.parse_scene(path)
         self.camera = parsed.camera
         self.resolution: Tuple[int, int] = parsed.camera.resolution
+        self.image_name: str = parsed.camera.image_name or "render"
 
         # ---- materials + textures ----
         self.materials = parsed.materials

@@ -23,7 +23,9 @@ class RenderConfig:
     reduce_var: bool = True         # ui_reducevar: skip emissive hit after diffuse
     shadow_intensity: float = 2.7   # ui_sintensity
     light_radius: float = 1.4       # ui_lightradius
-    use_bvh: bool = True            # ui_usekdtree / USE_KDTREE
+    # ui_usekdtree / USE_KDTREE; the kernels scan the triangle chunks
+    # whatever it says, as the JAX pallas backend does
+    use_bvh: bool = True
     show_texture: bool = True       # SHOW_TEXTURE compile flag (sceneStructs.h:16)
 
     # -------- denoiser (main.cpp:50-62) --------
@@ -54,7 +56,7 @@ class RenderConfig:
     right_view_option: int = 0
 
     # -------- engine knobs of the JAX package, kept field for field --------
-    mesh_mode: str = "auto"
+    mesh_mode: str = "auto"         # ignored, as by the JAX pallas backend
     # replicate reference quirks (stale-albedo on miss, no tan(fov/2) in
     # reprojection, inverted moment alpha, ...)
     compat: bool = True
@@ -94,3 +96,6 @@ class RenderConfig:
             self.sort_group, self.sort_regroup, self.sort_every,
             self.fuse_reproject_l1,
         )
+
+    def replace(self, **kw) -> "RenderConfig":
+        return dataclasses.replace(self, **kw)
