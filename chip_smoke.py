@@ -29,6 +29,14 @@ scene at its own resolution):
 * a generated scene past kernel B1's per-scene build (cornell plus 55
   cubes, 65 geoms, at 800x800) through the whole-path engine: A, B1's
   table build (csrc/path_trace_table.cu), B2, C and D;
+* native mode (compat=False: true barycentric mesh normals, the
+  spatial variance of kernel R) and NEE toward a mesh light: cornell
+  through the whole path (A, B1, B2, C, R, D), bunny through the sort
+  (A, E, Q, F, C, R, D), cornell with temporal accumulation off (R on
+  every frame, D), cornell with a mesh panel for its light in compat
+  mode (the split engine: E, A as the shadow test, J and K, C, D) and
+  the two-light scene in native mode (the split engine: E with its light
+  table, A, C, R, D), each at 800x800;
 * the ports of the benchmarks/ probes (ptdn_tpu_torch/probes): N
   (texgather), G at the in-row regroup's K = 29 (regroup), P with A beside
   it (intersect_v1) and O (dyngather), and reproj_bench (C's two modes
@@ -72,7 +80,12 @@ Phases, one line or more each, with their wall time:
    for bit, range planes and key, on every lane of bounce 2 of diamond,
    bunny, room, terrain30k (supergroups) and room at 1920x1080 with its
    moving camera, and of the shared edge inputs
-   (ops/cuda/ranges.py:edge_inputs);
+   (ops/cuda/ranges.py:edge_inputs); R against its plain version on
+   native cornell's spatial-only frame and its fallback frame (pixels
+   off counted, within 1e-6), E's light table on the two-light scene's
+   bounce 2 (bit for bit), and the native builds of A, J, B1 (per-scene
+   and table), F and H on bunny's state, output by output through the
+   scene's build and the library's, no lane off;
 3. 32 frames per scene and engine (16 of room at 1920x1080) through
    ptdn_tpu_torch's Renderer with every launch count checked, finite
    outputs, and, where the camera is still, the RMSE against the
@@ -85,7 +98,9 @@ Phases, one line or more each, with their wall time:
    with 1,025 materials and with a non-finite material constant (the
    build's other two causes); each probe script and
    reproj_bench run once, with its launches and its times (reproj_bench's
-   parity printouts 0);
+   parity printouts 0); 32 frames of each native and mesh-light run,
+   launches checked, finite, native cornell's denoised RMSE below half
+   its raw one, bunny's native raw frame off its compat one;
 4. CUDA-event times: each kernel beside its plain version (G beside
    torch.gather, K beside torch.take) and its bound, D at level 1 and
    at each level of the frame; ms/frame of cornell
@@ -109,7 +124,11 @@ Phases, one line or more each, with their wall time:
    at bounce 2 of each mesh scene and of room at 1920x1080 moving
    (diamond's in the JSON line) beside its plain version and bound, N
    on the texgather probe's four cases beside its plain version and
-   torch.take;
+   torch.take; R beside its plain version and bound, E's light table,
+   the native builds of F, H and A at bounce 2 of bunny, J on bunny's
+   camera rays beside its compat build, B1 on bunny (per-scene and
+   table builds, native and compat in turns), and the ms/frame of each
+   native and mesh-light run;
 5. the entry points a user runs: `python3 -m ptdn_tpu_torch.bench --all
    --quality --stages` (one JSON line naming the card; each still
    scene's denoised RMSE equal to phase 3's within 2e-5; cornell's
@@ -170,6 +189,7 @@ from ptdn_tpu_torch.ops.cuda import reproject as C  # noqa: E402
 from ptdn_tpu_torch.ops.cuda import reproject_atrous as L  # noqa: E402
 from ptdn_tpu_torch.ops.cuda import scene_intersect as A  # noqa: E402
 from ptdn_tpu_torch.ops.cuda import shade as E  # noqa: E402
+from ptdn_tpu_torch.ops.cuda import spatial_variance as R  # noqa: E402
 from ptdn_tpu_torch.ops.cuda import texgather as N  # noqa: E402
 from ptdn_tpu_torch.probes import dyngather as probe_o  # noqa: E402
 from ptdn_tpu_torch.probes import intersect_v1 as probe_p  # noqa: E402
@@ -177,10 +197,12 @@ from ptdn_tpu_torch.probes import regroup as probe_g  # noqa: E402
 from ptdn_tpu_torch.probes import texgather as probe_n  # noqa: E402
 from ptdn_tpu_torch.scene import Scene  # noqa: E402
 from ptdn_tpu_torch.utils.assets import (scene_path,  # noqa: E402
-                                         write_cornell_plus)
+                                         write_cornell_plus,
+                                         write_mesh_light, write_two_light)
 from ptdn_tpu_torch.utils.card import (ANALYTIC_OPS,  # noqa: E402
                                        MOLLER_OPS, RANGE_OPS, REFINE_OPS,
-                                       SHADE_OPS, bound, cuda_ms, nbytes,
+                                       SHADE_OPS, SPATIAL_TAP_OPS, bound,
+                                       cuda_ms, in_turns, nbytes,
                                        ptxas_summary)
 from ptdn_tpu_torch.utils.checkpoint import (restore_renderer,  # noqa: E402
                                              save_state)
@@ -227,6 +249,27 @@ MOTION_RUNS = {
     "1080p_animated": ("room", dict(ROOM_1080, **FUSE_L1), 16,
                             (1920, 1080)),
 }
+# native mode (compat=False) and NEE toward a mesh light, 32 frames each
+# at 800x800: label -> (scene: a scene of SCENES, "mesh_light" or
+# "twolight", native_scene's; flags; the engine the JAX choice gives)
+NATIVE = dict(compat=False)
+NATIVE_RUNS = {
+    "cornell native": ("cornell", NATIVE, "whole_path"),
+    "bunny native": ("bunny", NATIVE, "sorted"),
+    "cornell spatial_native": ("cornell", dict(NATIVE,
+                                               temporal_enable=False),
+                               "whole_path"),
+    "mesh_light bounce_split": ("mesh_light", {}, "bounce_split"),
+    "twolight native": ("twolight", NATIVE, "bounce_split"),
+}
+# R against its plain version: the largest |d| allowed (torch.exp and
+# expf may differ in the last bit; tests/test_torch_native.py's bound)
+SV_ATOL = 1e-6
+# the per-scene builds of phase 1: each scene of SCENES in compat mode,
+# and the headers these runs add
+SCENE_BUILDS = ([(name, True) for name in SCENES]
+                + [("cornell", False), ("bunny", False),
+                   ("mesh_light", True), ("twolight", False)])
 KERNELS = {  # name: (wrapper, source, TPU kernel it replaces)
     # A, J and M run one closest-hit chunk scan per block
     # (csrc/closest_hit.cuh over csrc/chunk_scan.cuh), their per-scene
@@ -295,9 +338,19 @@ KERNELS = {  # name: (wrapper, source, TPU kernel it replaces)
                           "benchmarks/pallas_intersect_v1.py:109"),
     "take_chain": (O.take_chain, "csrc/dyngather.cu",
                    "benchmarks/micro_dyngather.py:19"),
+    # R: native mode's spatial variance and its fallback, XLA code in the
+    # JAX package (as C's band mode and Q)
+    "spatial_variance": (R.spatial_variance_fallback,
+                         "csrc/spatial_variance.cu",
+                         "ptdn_tpu/denoise/variance.py:40"),
+    # E's light-table entry: native multi-light NEE, the JAX oracle
+    # bounce's XLA code (the Pallas E bakes one light)
+    "shade_bounce_lights": (E.shade_bounce, "csrc/shade.cu",
+                            "ptdn_tpu/engine/wavefront.py:1321"),
 }
 # the counter of a kernel whose wrapper counts it apart from .launches
-COUNTER = {"path_trace_table": "table_launches"}
+COUNTER = {"path_trace_table": "table_launches",
+           "shade_bounce_lights": "table_launches"}
 # the run whose launch counts the kernels' JSON line reports
 LAUNCH_RUN = {"scene_intersect_full": ("cornell", "whole_path"),
               "path_trace": ("cornell", "whole_path"),
@@ -319,7 +372,9 @@ LAUNCH_RUN = {"scene_intersect_full": ("cornell", "whole_path"),
               "gather_u32": ("probe", "texgather"),
               "inrow_permute_k29": ("probe", "regroup"),
               "mesh_intersect_v1": ("probe", "intersect_v1"),
-              "take_chain": ("probe", "dyngather")}
+              "take_chain": ("probe", "dyngather"),
+              "spatial_variance": ("cornell", "native"),
+              "shade_bounce_lights": ("twolight", "native")}
 # the one PyTorch call timed beside a kernel, where one computes its gather
 LIBRARY = {"inrow_permute": "torch.gather", "sparse_gather": "torch.take",
            "gather_u32": "torch.take", "inrow_permute_k29": "torch.gather"}
@@ -406,6 +461,24 @@ def renderer_of(path, **kw):
                     resolution=SCENES["cornell"][0], device=DEVICE)
 
 
+@functools.cache
+def native_scene(name):
+    """A scene of SCENES, or the generated mesh-light cornell or
+    two-light scene (utils/assets.py, written into the build
+    directory)."""
+    if name == "mesh_light":
+        return Scene(write_mesh_light(_lib.BUILD / "scenes"))
+    if name == "twolight":
+        return Scene(write_two_light(_lib.BUILD / "scenes"))
+    return scene(name)
+
+
+def native_renderer(name, **kw):
+    """A renderer of native_scene(name) at 800x800 with CFG and `kw`."""
+    return Renderer(native_scene(name), dataclasses.replace(CFG, **kw),
+                    resolution=(800, 800), device=DEVICE)
+
+
 class Motion:
     """Drives a renderer's frames, moving its camera by CameraAutomation
     where its config says so, and records each frame's reprojection
@@ -479,16 +552,21 @@ def expected_launches(r, motion):
     Motion) drove renderer r through: the primary hit on every frame
     whose camera moved (frame 0 among them), the engine's bounces, C's
     stencil mode (or L, with fuse_reproject_l1 through its gate) on the
-    near frames and C's band mode on the others, and D at every level
-    but the first that L takes."""
+    near frames and C's band mode on the others (none with temporal
+    accumulation off), R on every frame in native mode but with L's
+    gate (the JAX branch has no fallback), and D at every level but the
+    first that L takes."""
     tr, frames = r.step.tracer, len(motion.moved)
-    near = sum(motion.near_frames())
+    temporal = r.cfg.temporal_enable
+    near = sum(motion.near_frames()) if temporal else 0
     fused = r.step.denoiser.fuse_l1
     want = dict.fromkeys(KERNELS, 0)
     want["scene_intersect_full"] = sum(motion.moved)
-    want["back_projection_banded"] = frames - near
-    want["back_projection_atrous1" if fused
-         else "back_projection_stencil"] = near
+    if temporal:
+        want["back_projection_banded"] = frames - near
+        want["back_projection_atrous1" if fused
+             else "back_projection_stencil"] = near
+    want["spatial_variance"] = 0 if r.cfg.compat or fused else frames
     want["atrous_level"] = frames * NLEVEL - (near if fused else 0)
     bounces, below_last = frames * DEPTH, frames * (DEPTH - 1)
     tex = tr.flags["show_tex"]
@@ -504,7 +582,14 @@ def expected_launches(r, motion):
         want["bounce_fused"] = bounces
         want["sparse_gather"] = below_last if tex else 0
     else:
-        want["shade_bounce"] = want["light_visibility"] = bounces
+        # E with its light table in native multi-light mode; A as the
+        # shadow test where the light is a mesh or drawn per lane, I else
+        want["shade_bounce_lights" if tr.multi_light
+             else "shade_bounce"] = bounces
+        if tr.shadow_closest:
+            want["scene_intersect_full"] += bounces
+        else:
+            want["light_visibility"] = bounces
         if tex:
             want["scene_intersect_full_tex"] = below_last
             want["sparse_gather"] = below_last
@@ -745,23 +830,29 @@ def main():
     log = _lib.build(force=True)
     _lib.kernels()
     regs = ptxas_summary(log)
-    # O has two kernels (the staged one and the global-load one)
-    check(len(regs) == 21, f"21 kernels in the library, got {regs}")
+    # O has two kernels (the staged one and the global-load one); B1's
+    # table build, F, H, A and J have a native build each (compat=False),
+    # E its light-table entry, and R one kernel
+    check(len(regs) == 28, f"28 kernels in the library, got {regs}")
     # kernels B1, F, H, A, J, I and M (with and without the cull) are
     # built per scene, with the scene's constants (csrc/scene/*.cu), every
-    # scene's at once
+    # scene's at once, and the native runs' scenes in native mode
     t1 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(SCENES)) as pool:
-        scene_logs = dict(zip(SCENES, pool.map(
-            lambda name: _lib.build_scene(A.geom_info(
-                scene(name), DEVICE).path_scene, force=True)[1], SCENES)))
+    with concurrent.futures.ThreadPoolExecutor(len(SCENE_BUILDS)) as pool:
+        scene_logs = dict(zip(
+            (name + ("" if compat else " native")
+             for name, compat in SCENE_BUILDS),
+            pool.map(lambda b: _lib.build_scene(A.geom_info(
+                native_scene(b[0]), DEVICE, b[1]).path_scene,
+                force=True)[1], SCENE_BUILDS)))
     t_scene = time.perf_counter() - t1
     scene_regs = {name: ptxas_summary(lg) for name, lg in scene_logs.items()}
     check(all(len(r) == 8 for r in scene_regs.values()),
           f"8 kernels per scene, got {scene_regs}")
     print(f"phase 1: built {len(list(_lib.CSRC.glob('*.cu')))} sources for "
           f"sm_90a in {t1 - t0:.1f} s, then B1, F, H, A, J, I and M for "
-          f"each of {len(SCENES)} scenes (csrc/scene/path_trace.cu, "
+          f"each of {len(SCENE_BUILDS)} scene headers "
+          f"(csrc/scene/path_trace.cu, "
           f"bounce.cu, scene_intersect.cu) in {t_scene:.1f} s; ptxas, the "
           f"library: "
           + "; ".join(regs))
@@ -1192,6 +1283,89 @@ def main():
           f"plain version on cornell on each of {len(off['plain'])} planes, "
           f"bit for bit")
 
+    # native mode. R on native cornell's spatial-only frame (every pixel
+    # runs the 49 taps: the JSON line's) and on the fourth frame of its
+    # temporal run (the fallback: a pixel whose history has reached 4
+    # frames passes its temporal variance through, the others, those the
+    # back-projection keeps rejecting among them, run the taps); E's light
+    # table on the two-light scene's bounce 2;
+    # the native builds of F, H, A (bounce 2), J (the camera rays) and
+    # B1 (per-scene and table builds) on bunny, output by output
+    r_cases = {}
+    for label, flags in (("spatial-only", dict(temporal_enable=False)),
+                         ("temporal", {})):
+        r = native_renderer("cornell", **NATIVE, **flags)
+        for _ in range(3):
+            r.render_frame()
+        r_cases[label] = BB.capture_bounce(
+            r, 1, ("spatial_variance_fallback",),
+            svgf)["spatial_variance_fallback"][0]
+    for label, r_args in r_cases.items():
+        kr = R._spatial_variance_kernel(*r_args)
+        pr = R.spatial_variance_plain(*r_args)
+        err = max_abs(kr, pr)
+        off = int((kr != pr).sum())
+        rel = float(((kr - pr).abs() / pr.abs().clamp_min(1e-30)).max())
+        taps = (kr.numel() if len(r_args) == 4
+                else int((r_args[4] < 4).sum()))
+        check(err <= SV_ATOL, f"R on cornell's {label} frame: max |d| "
+              f"{err} > {SV_ATOL}, {off} pixels off its plain version")
+        if label == "spatial-only":
+            sv_args = r_args
+            stats["spatial_variance"] = err
+            work["spatial_variance"] = bound(
+                nbytes(r_args[0], r_args[1]["position"],
+                       r_args[1]["normal"], kr),
+                taps * 49 * SPATIAL_TAP_OPS)
+        else:
+            sv_pass_args, sv_pass_taps = r_args, taps
+        print(f"phase 2: R on native cornell's {label} frame: {taps} of "
+              f"{kr.numel()} pixels run the taps; {off} pixels off its "
+              f"plain version (max |d| {err:.3g}, largest relative "
+              f"difference {rel:.3g})")
+    tl = native_renderer("twolight", **NATIVE)
+    for _ in range(3):
+        tl.render_frame()
+    (lt_planes, lt_mats), lt_kw = BB.capture_bounce(
+        tl, 2, ("shade_bounce",))["shade_bounce"]
+    check(lt_kw["lights"] is not None and tl.step.tracer.multi_light,
+          "the two-light scene takes E's light table in native mode")
+    klt = E._shade_bounce_kernel(lt_planes, lt_mats, **lt_kw)
+    plt = E.shade_bounce_plain(lt_planes, lt_mats, **lt_kw)
+    stats["shade_bounce_lights"] = max_abs(klt, plt)
+    check(klt.shape[0] == E.N_OUT + 1 and same(klt, plt),
+          f"E's light table equals its plain version: max |d| "
+          f"{stats['shade_bounce_lights']}")
+    work["shade_bounce_lights"] = bound(
+        nbytes(lt_planes, klt, lt_kw["lights"]), klt[0].numel() * SHADE_OPS)
+    drawn = klt[E.O_LI][klt[E.O_NEE] > 0.5]
+    print(f"phase 2: E's light table on the two-light scene's bounce 2 "
+          f"equal on {tuple(klt.shape)} planes; NEE lanes drawing light "
+          f"0 / 1: {int((drawn == 0).sum())} / {int((drawn == 1).sum())}")
+    nb_cases = {}
+    for kernel, flags in (("trace_bounce", {}), ("bounce_fused", FUSED),
+                          ("scene_intersect_full", SPLIT)):
+        r = renderer("bunny", **NATIVE, **flags)
+        for _ in range(3):
+            r.render_frame()
+        nb_cases[kernel] = BB.capture_bounce(r, 2, (kernel,))[kernel]
+    nb1 = renderer("bunny", **NATIVE, sort_rays=False)
+    for _ in range(3):
+        nb1.render_frame()
+    nb1_args = b1_args(nb1)
+    o_nb, d_nb = generate_camera_rays(nb1._cam[0], nb1.resolution)
+    nb_cases["scene_intersect_full_tex"] = (
+        [nb1_args[0], nb1_args[1], o_nb, d_nb], {})
+    nb_cases["path_trace_table"] = (list(nb1_args[:3]), dict(zip(
+        ("frame", "lane0", "depth", "light", "flags"), nb1_args[3:])))
+    for kernel, (n_args, n_kw) in nb_cases.items():
+        check(not n_args[1].compat and n_args[1].path_scene is not None
+              and "kCompat = false" in n_args[1].path_scene,
+              f"{kernel} on native bunny: a native per-scene build")
+        plane_check(kernel, f"{kernel} native on bunny", n_args, n_kw,
+                    BB.kernel_fn(kernel)(*n_args, **n_kw),
+                    BB.plain_fn(kernel)(*n_args, **n_kw))
+
     # N on the texgather probe's four tables and index orders
     n_cases = probe_n.cases(DEVICE)
     for label, (table, idx) in n_cases.items():
@@ -1283,7 +1457,7 @@ def main():
 
     # ---- phase 3: the main paths, every launch counted ----
     t0 = time.perf_counter()
-    rmse, runs, motion = {}, {}, {}
+    rmse, runs, motion, lefts = {}, {}, {}, {}
     plan = ([(f"{name} {{engine}}", name, flags, FRAMES, None)
              for name, flags in RUNS]
             + [(f"{name} {label}", name, flags, frames, res)
@@ -1331,6 +1505,7 @@ def main():
         print(line)
         if label == "cornell whole_path":
             cornell_r = r
+        lefts[label] = left
     # the motion checks the task sets: L on every frame of the flagged
     # still cornell after the first, C's band mode on every frame of the
     # moving cornell, and the gate keeping L off at 1920 wide
@@ -1443,6 +1618,43 @@ def main():
     check(all(d == 0.0 for _, diffs in probes["reproj_bench"][1]
               for d in diffs), "reproj_bench: window equals C's band mode "
           "on the local motion and C's stencil mode on the still one")
+    # native mode and NEE toward a mesh light: 32 frames each, launches
+    # checked, finite; native cornell against the ground truth, and
+    # bunny's native raw frame off its compat one (the normals' mode
+    # reaches the kernels)
+    native_r = {}
+    for label, (name, flags, engine) in NATIVE_RUNS.items():
+        r = native_renderer(name, **flags)
+        check(r.step.tracer.engine == engine,
+              f"{label}: engine {r.step.tracer.engine}, expected {engine}")
+        mov = Motion(r)
+        reset_counts()
+        for _ in range(FRAMES):
+            left, right = mov.frame()
+        torch.cuda.synchronize()
+        c = counts()
+        runs[tuple(label.split(" ", 1))] = c
+        want = expected_launches(r, mov)
+        check({k: c[k] for k in want} == want,
+              f"{label}: launches {c}, expected {want}")
+        check(len(mov.calls) == (2 if r.cfg.temporal_enable else 0),
+              f"{label}: motion_bounds read on frames 0 and 1 only")
+        check(bool(torch.isfinite(left).all())
+              and bool(torch.isfinite(right).all()), f"{label}: finite")
+        line = (f"phase 3: {label} 800x800 ({engine}): {FRAMES} frames, "
+                f"launches {json.dumps(nonzero(c))}")
+        if label == "cornell native":
+            e_dn, e_raw = rmse_vs_gt("cornell", left, right)
+            rmse[label] = {"denoised": e_dn, "raw": e_raw}
+            check(e_dn < 0.5 * e_raw, f"{label}: denoised RMSE {e_dn} < "
+                  f"0.5 x raw {e_raw}")
+            line += f"; RMSE vs GT denoised {e_dn:.5f} raw {e_raw:.5f}"
+        if label == "bunny native":
+            diff = float((left - lefts["bunny sorted"]).abs().max())
+            check(diff > 1e-3, f"{label}: raw frame off compat's by {diff}")
+            line += f"; raw frame off compat mode's by up to {diff:.4g}"
+        native_r[label] = r
+        print(line)
     launches = {k: runs[LAUNCH_RUN[k]][k] for k in KERNELS}
     print(f"phase 3: {time.perf_counter() - t0:.1f} s")
 
@@ -1556,6 +1768,12 @@ def main():
         "take_chain": (
             lambda: O._take_chain_kernel(*o_args),
             lambda: O.take_chain_plain(*o_args), None),
+        "spatial_variance": (
+            lambda: R._spatial_variance_kernel(*sv_args),
+            lambda: R.spatial_variance_plain(*sv_args), None),
+        "shade_bounce_lights": (
+            lambda: E._shade_bounce_kernel(lt_planes, lt_mats, **lt_kw),
+            lambda: E.shade_bounce_plain(lt_planes, lt_mats, **lt_kw), None),
     }
     n_table32, n_idx64 = n_args[0].view(torch.int32), n_args[1].to(
         torch.int64)
@@ -1658,7 +1876,23 @@ def main():
         **{f"M {label}, cull {cull}": (
             "scene_intersect", (list(m_args), {"cull": cull}),
             ("cornell", "trace_bench"))
-           for label, m_args in m_cases.items() for cull in (True, False)}}
+           for label, m_args in m_cases.items() for cull in (True, False)},
+        # the native builds (compat=False) on bunny beside the compat
+        # rows above: F, H and A at bounce 2, J on the camera rays (and
+        # its compat build there)
+        "F bunny bounce 2 native": ("trace_bounce", nb_cases["trace_bounce"],
+                                    ("bunny", "native")),
+        "H bunny bounce 2 native": ("bounce_fused", nb_cases["bounce_fused"],
+                                    ("bunny", "native")),
+        "A bunny bounce 2 native": ("scene_intersect_full",
+                                    nb_cases["scene_intersect_full"],
+                                    ("bunny", "native")),
+        "J bunny camera native": ("scene_intersect_full_tex",
+                                  nb_cases["scene_intersect_full_tex"],
+                                  ("bunny", "native")),
+        "J bunny camera": ("scene_intersect_full_tex",
+                           (list(m_cases["bunny's camera rays"]), {}),
+                           ("bunny", "native"))}
     for label, (kernel, (b_args, b_kw), run) in bounce_cases.items():
         m = BB.measure(kernel, b_args, b_kw, reps=10)
         check(all(max(b["diffs"].values()) <= LANES_OFF_ALLOWED
@@ -1701,6 +1935,36 @@ def main():
     print("phase 4: atrous_level by level "
           + ", ".join(f"{a[4]} {t:.4f} ms" for a, t in zip(d_args, d_ms))
           + f", mean {sum(d_ms) / len(d_ms):.4f} ms [{card}]")
+    # B1 on bunny's primary state, native and compat, each through its
+    # per-scene build and its table build, in turns
+    cb1 = renderer("bunny", sort_rays=False)
+    for _ in range(3):
+        cb1.render_frame()
+    cb1_args = b1_args(cb1)
+    b1_fns = {}
+    for mode, a in (("compat", cb1_args), ("native", nb1_args)):
+        b1_fns[mode + " per-scene"] = lambda a=a: B._path_trace_kernel(*a)
+        b1_fns[mode + " table"] = lambda a=a: B._path_trace_kernel(
+            a[0], a[1]._replace(path_scene=None), *a[2:])
+    frame_ms["B1 bunny native and compat"] = b1_ms = in_turns(b1_fns,
+                                                              reps=3)
+    print("phase 4: B1 on bunny's primary state, builds in turns: "
+          + ", ".join(f"{k} {v}" for k, v in b1_ms.items())
+          + f" ms [{card}]")
+    # R on a still camera's steady frame (the fourth: the fallback)
+    sv_pass_ms = cuda_ms(lambda: R._spatial_variance_kernel(*sv_pass_args),
+                         reps=20, hide_host=True)
+    frame_ms["R fallback"] = sv_pass_ms
+    print(f"phase 4: R on native cornell's fourth temporal frame "
+          f"({sv_pass_taps} of {sv_pass_args[0][..., 0].numel()} pixels "
+          f"run the taps) {sv_pass_ms:.4f} ms; on its spatial-only frame "
+          f"see its JSON row [{card}]")
+    # the native and mesh-light runs' frames, two turns each
+    for label, r in native_r.items():
+        ms = [cuda_ms(r.render_frame, reps=10) for _ in range(2)]
+        frame_ms[label] = ms
+        print(f"phase 4: {label} 800x800 ({r.step.tracer.engine}) {ms} "
+              f"ms/frame [{card}]")
     print(f"phase 4: cornell {frame_ms['cornell']:.3f} ms/frame over 20 "
           f"steady-state frames (depth {DEPTH}, SVGF {NLEVEL} levels) "
           f"[{card}]")

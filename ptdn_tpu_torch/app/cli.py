@@ -71,8 +71,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "cpu: their plain PyTorch versions")
     p.add_argument("--native", action="store_true",
                    help="compat=False: fix replicated reference quirks "
-                        "where a fix exists (PARITY.md section 2); not "
-                        "ported yet, so the renderer raises")
+                        "where a fix exists (PARITY.md section 2)")
     # output
     p.add_argument("--out", default="", help="save final denoised PNG here")
     p.add_argument("--out-raw", default="", help="save final raw/accum PNG")

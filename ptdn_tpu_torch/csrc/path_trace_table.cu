@@ -123,6 +123,7 @@ struct CubeRows {
 // the material table.
 struct TableRows {
   static constexpr int kGeoms = -1;   // walks the geoms itself (walk)
+  static constexpr bool kCompat = true;
   __device__ static __forceinline__ int type(const ptdn::SceneDev& s,
                                              int g) {
     return __ldg(s.geom + 2 * g);
@@ -181,19 +182,44 @@ struct TableRows {
   }
 };
 
+// TableRows in native mode (compat=False): true barycentric normals
+struct TableRowsNative : TableRows {
+  static constexpr bool kCompat = false;
+};
+
 __global__ void __launch_bounds__(128, 8)
     path_trace_table_kernel(ptdn::SceneDev s, ptdn::PathArgs a) {
   path_trace_lane<TableRows>(s, a, blockIdx.x * blockDim.x + threadIdx.x);
 }
 
-}  // namespace
+__global__ void __launch_bounds__(128, 8)
+    path_trace_table_native_kernel(ptdn::SceneDev s, ptdn::PathArgs a) {
+  path_trace_lane<TableRowsNative>(s, a,
+                                   blockIdx.x * blockDim.x + threadIdx.x);
+}
 
-extern "C" int ptdn_path_trace_table(const ptdn::SceneDev* s,
-                                     const ptdn::PathArgs* a, void* stream) {
+int launch_table(void (*kernel)(ptdn::SceneDev, ptdn::PathArgs),
+                 const ptdn::SceneDev* s, const ptdn::PathArgs* a,
+                 void* stream) {
   if (a->n > 0) {
     const int block = 128;
-    path_trace_table_kernel<<<(a->n + block - 1) / block, block, 0,
-                              (cudaStream_t)stream>>>(*s, *a);
+    kernel<<<(a->n + block - 1) / block, block, 0, (cudaStream_t)stream>>>(
+        *s, *a);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// compat mode and native mode, picked at launch (the per-scene build,
+// scene/path_trace.cu, takes the mode as a constant of its header)
+extern "C" int ptdn_path_trace_table(const ptdn::SceneDev* s,
+                                     const ptdn::PathArgs* a, void* stream) {
+  return launch_table(path_trace_table_kernel, s, a, stream);
+}
+
+extern "C" int ptdn_path_trace_table_native(const ptdn::SceneDev* s,
+                                            const ptdn::PathArgs* a,
+                                            void* stream) {
+  return launch_table(path_trace_table_native_kernel, s, a, stream);
 }

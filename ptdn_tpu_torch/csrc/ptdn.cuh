@@ -100,11 +100,15 @@ enum { kInvBias, kInv, kTfBias, kTf, kInvT, kKinds };
 // A policy has
 //   kGeoms: the scene's geom count if the kernel is built for one scene,
 //     else 0;
+//   kCompat: compat mode's mesh normals (resolve_hit): a build's
+//     constant, so that a compat build compiles to the code it had before
+//     native mode existed;
 //   type(s, g), mat(s, g): geom g's type and material;
 //   row(s, g, kind, r, x, y, z): row r of `kind` at (x, y, z);
 //   sub_row(s, g, kind, r, o, x, y, z): o - that row (a biased kind).
 struct MatRows {
   static constexpr int kGeoms = 0;   // the scene's count, s.n_geoms
+  static constexpr bool kCompat = true;
   __device__ static __forceinline__ int type(const SceneDev& s, int g) {
     return s.geom[2 * g];
   }
@@ -125,6 +129,11 @@ struct MatRows {
                                                   float z) {
     return o - row(s, g, kind, r, x, y, z);
   }
+};
+
+// MatRows in native mode (compat=False): true barycentric normals
+struct MatRowsNative : MatRows {
+  static constexpr bool kCompat = false;
 };
 
 // The full dot product of a 4x4 matrix row with (x, y, z, 1), outside the
@@ -360,7 +369,8 @@ struct Hit {
 // The closest hit from the analytic winner `a` and the mesh scan's
 // winning triangle bi (-1 for none): the exact glm-parity refine of that
 // triangle (_mesh_attr_refine) and the merge (mesh wins only strictly
-// closer).
+// closer). The normal's weights are the policy's: compat mode's swapped
+// ones (Rows::kCompat) or the true barycentric ones.
 template <class Rows>
 __device__ inline Hit resolve_hit(const SceneDev& s, const Analytic& a, int bi,
                                   float ox, float oy, float oz, float dx,
@@ -387,13 +397,21 @@ __device__ inline Hit resolve_hit(const SceneDev& s, const Analytic& a, int bi,
     const bool mh = front && (u >= 0.f) && (u <= 1.f) && (v >= 0.f) &&
                     (u + v <= 1.f) && (t >= 0.f) && (t > 0.f);
     if (mh && (!a_valid || t < a.t)) {
-      // Triangle::Intersect interpolation (sceneStructs.h:160-172) in
-      // compat mode, the only one the port runs: the reference's
-      // swapped normal weights n0*u + n1*v + n2*w
+      // Triangle::Intersect interpolation (sceneStructs.h:160-172): in
+      // compat mode the reference's swapped normal weights n0*u + n1*v +
+      // n2*w, in native mode n0*w + n1*u + n2*v
+      // (ptdn_tpu/ops/pallas/scene_intersect.py:1274-1287)
       const float w = 1.0f - u - v;
-      const float nx = dot3(r[9], r[12], r[15], u, v, w);
-      const float ny = dot3(r[10], r[13], r[16], u, v, w);
-      const float nz = dot3(r[11], r[14], r[17], u, v, w);
+      float nx, ny, nz;
+      if constexpr (Rows::kCompat) {
+        nx = dot3(r[9], r[12], r[15], u, v, w);
+        ny = dot3(r[10], r[13], r[16], u, v, w);
+        nz = dot3(r[11], r[14], r[17], u, v, w);
+      } else {
+        nx = dot3(r[9], r[12], r[15], w, u, v);
+        ny = dot3(r[10], r[13], r[16], w, u, v);
+        nz = dot3(r[11], r[14], r[17], w, u, v);
+      }
       const float nn = sqrtf(dot3(nx, ny, nz, nx, ny, nz));
       h.t = t;
       h.geom = (int)r[24];

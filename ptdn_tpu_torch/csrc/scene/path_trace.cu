@@ -27,6 +27,7 @@ namespace {
 // and materials from scene.h.
 struct SceneRows {
   static constexpr int kGeoms = scene::kGeoms;
+  static constexpr bool kCompat = scene::kCompat;
   __device__ static __forceinline__ int type(const ptdn::SceneDev&, int g) {
     return scene::kType[g];
   }

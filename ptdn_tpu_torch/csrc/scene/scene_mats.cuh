@@ -19,6 +19,7 @@ namespace {
 // geoms and matrices from scene.h
 struct SceneMats {
   static constexpr int kGeoms = scene::kGeoms;
+  static constexpr bool kCompat = scene::kCompat;
   __device__ static __forceinline__ int type(const ptdn::SceneDev&, int g) {
     return scene::kType[g];
   }

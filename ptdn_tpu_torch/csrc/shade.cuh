@@ -168,14 +168,35 @@ struct ShadeParams {
   float sint;
 };
 
+// Native mode's lights (compat=False, more than one emissive geom): per
+// light its translation, its color x emittance and its geom, a row of
+// kLightRow floats (x, y, z, r, g, b, geom, 0), k rows in light order
+// (ops/cuda/shade.py:light_table)
+constexpr int kLightRow = 8;
+struct LightTable {
+  const float* rows;
+  int k;
+};
+
 // One lane's shading of a bounce (shade.py:shade_tiles): `in` points at
 // the lane's value of input plane 0, plane k lies at in[k * n]; `seed` is
 // the lane's TEA seed. Emissive termination, albedo modulation, the NEE
 // disk sample and scatterRay; every output is computed, dead lanes
 // included, as the plain version (ops/bsdf.py:shade) computes it.
-__device__ inline void shade_lane(const float* in, size_t n, uint32_t seed,
-                                  const ShadeParams& a,
-                                  float (&out)[kShadeOut]) {
+//
+// With Table (kernel E's light-table entry, native mode's uniform light
+// selection, ptdn_tpu/engine/wavefront.py:1321-1345) the NEE lane first
+// draws the light, li = min(int(r * k), k - 1), samples the disk about
+// light li's translation, and weights its contribution by li's color x
+// emittance and by k in the JAX oracle's order, (t * e) * ((k * I) *
+// lambert); li goes to *li_out. Without it the code is the single
+// light's (shade_lane).
+template <bool Table>
+__device__ inline void shade_lane_of(const float* in, size_t n,
+                                     uint32_t seed, const ShadeParams& a,
+                                     float (&out)[kShadeOut],
+                                     const LightTable& lights,
+                                     float* li_out) {
   const float ox = in[I_OX * n], oy = in[I_OY * n], oz = in[I_OZ * n];
   const float dx = in[I_DX * n], dy = in[I_DY * n], dz = in[I_DZ * n];
   const float t = in[I_T * n];
@@ -213,17 +234,36 @@ __device__ inline void shade_lane(const float* in, size_t n, uint32_t seed,
   bool nee = false;
   if (a.shadow_ray) {
     nee = active && (m_refl < 1e-6f) && (m_refr < 1e-6f);
-    const ShadowSample ss = shadow_sample(seed, nee, a.light_x, a.light_y,
-                                          a.light_z, a.lrad, spx, spy, spz);
-    const float lambert = jmax(0.f, ss.dx * nx + ss.dy * ny + ss.dz * nz);
-    const float scale = a.sint / ss.dist2 * lambert;
-    const float neef = nee ? 1.f : 0.f;
-    sdx = ss.dx;
-    sdy = ss.dy;
-    sdz = ss.dz;
-    cr = tr * scale * neef;
-    cg = tg * scale * neef;
-    cb = tb * scale * neef;
+    if constexpr (Table) {
+      const float r_sel = lcg_masked(seed, nee);
+      const int li = min((int)(r_sel * (float)lights.k), lights.k - 1);
+      const float* l = lights.rows + kLightRow * li;
+      const ShadowSample ss = shadow_sample(seed, nee, l[0], l[1], l[2],
+                                            a.lrad, spx, spy, spz);
+      const float lambert = jmax(0.f, ss.dx * nx + ss.dy * ny + ss.dz * nz);
+      const float scale = (float)lights.k * (a.sint / ss.dist2) * lambert;
+      const float neef = nee ? 1.f : 0.f;
+      sdx = ss.dx;
+      sdy = ss.dy;
+      sdz = ss.dz;
+      cr = tr * l[3] * scale * neef;
+      cg = tg * l[4] * scale * neef;
+      cb = tb * l[5] * scale * neef;
+      *li_out = (float)li;
+    } else {
+      const ShadowSample ss = shadow_sample(seed, nee, a.light_x, a.light_y,
+                                            a.light_z, a.lrad, spx, spy,
+                                            spz);
+      const float lambert = jmax(0.f, ss.dx * nx + ss.dy * ny + ss.dz * nz);
+      const float scale = a.sint / ss.dist2 * lambert;
+      const float neef = nee ? 1.f : 0.f;
+      sdx = ss.dx;
+      sdy = ss.dy;
+      sdz = ss.dz;
+      cr = tr * scale * neef;
+      cg = tg * scale * neef;
+      cb = tb * scale * neef;
+    }
   }
 
   // scatterRay (interactions.h:94-136)
@@ -252,6 +292,15 @@ __device__ inline void shade_lane(const float* in, size_t n, uint32_t seed,
   out[O_CG] = cg;
   out[O_CB] = cb;
   out[O_NEE] = nee ? 1.f : 0.f;
+}
+
+// The single light's lane, kernels E (shade.cu) and H (bounce.cuh): a
+// function of its own with its own signature, so that the table entry
+// leaves their code as it was
+__device__ inline void shade_lane(const float* in, size_t n, uint32_t seed,
+                                  const ShadeParams& a,
+                                  float (&out)[kShadeOut]) {
+  shade_lane_of<false>(in, n, seed, a, out, LightTable{}, nullptr);
 }
 
 }  // namespace ptdn

@@ -14,6 +14,13 @@ as a module whose registered buffers hold the temporal history.
   color history;
 * temporal off -> EstimateVariance STUB writing 10.0 (denoise.cu:320-329,
   replicated) and color history <- raw input;
+* native mode (compat=False, ptdn_tpu/denoise/svgf.py:136-182): with
+  temporal on, the pixels whose history is shorter than 4 frames take
+  the spatial variance estimate (kernel R, ops/cuda/spatial_variance.py)
+  in place of the back-projection's; with temporal off that estimate
+  replaces the 10.0 stub on every frame. The fuse_reproject_l1 frame
+  applies no such fallback, in native mode too, as in the JAX package
+  (its branch, svgf.py:79-135, returns before the native code);
 * debug views (history/100, variance/0.1) bypass filtering;
 * else à-trous levels 1..nlevel (kernel D), feeding level
   `history_level`'s output back into the color history (SVGF's
@@ -37,6 +44,7 @@ from ptdn_tpu_torch.denoise.reproject import (back_projection_auto,
                                               motion_bounds)
 from ptdn_tpu_torch.ops.cuda.atrous import atrous_level, pack_static_planes
 from ptdn_tpu_torch.ops.cuda.reproject_atrous import back_projection_atrous1
+from ptdn_tpu_torch.ops.cuda.spatial_variance import spatial_variance_fallback
 
 STATE_KEYS = ("color_history", "moment_history", "history_length",
               "prev_position", "prev_normal", "prev_geom_id", "prev_view")
@@ -67,9 +75,6 @@ class SVGFDenoiser(nn.Module):
 
     def __init__(self, cfg, resolution: Tuple[int, int], device):
         super().__init__()
-        if not cfg.compat:
-            raise NotImplementedError("native mode (compat=False) is not "
-                                      "ported (ROADMAP Queue 1 item 3)")
         self.cfg = cfg
         self.resolution = tuple(resolution)
         # the JAX package's gate of the fused reprojection + level 1
@@ -128,7 +133,8 @@ class SVGFDenoiser(nn.Module):
         if self.fuse_l1:
             # the fuse_reproject_l1 frame (ptdn_tpu/denoise/svgf.py:80-135):
             # kernel L where the motion is near, else C's band mode then D
-            # at level 1; level 1's output is the color history
+            # at level 1; level 1's output is the color history. No
+            # spatial fallback in native mode: the JAX branch has none
             self._motion(gbuffer, cam_changed)
             if self.near:
                 color_history, variance, moment_acc, hist_up = (
@@ -145,12 +151,24 @@ class SVGFDenoiser(nn.Module):
             variance, color_acc, moment_acc, hist_up = back_projection_auto(
                 *bp_args, near=self.near, starts=self.starts)
             color_history = color_acc
+            if not cfg.compat:
+                # native mode: a history under 4 frames takes the spatial
+                # estimate (kernel R; svgf.py:156-168)
+                variance = spatial_variance_fallback(
+                    color_acc, gbuffer, params["sigma_n"],
+                    params["sigma_x"], hist_up, variance)
         else:
             color_history = raw
             moment_acc = self.moment_history
             hist_up = self.history_length
-            # EstimateVariance stub = 10.0 (denoise.cu:320-329)
-            variance = torch.full((h, w), 10.0, device=raw.device)
+            if cfg.compat:
+                # EstimateVariance stub = 10.0 (denoise.cu:320-329)
+                variance = torch.full((h, w), 10.0, device=raw.device)
+            else:
+                # native mode: the stub replaced by the spatial estimate
+                # on every pixel (kernel R; svgf.py:176-182)
+                variance = spatial_variance_fallback(
+                    raw, gbuffer, params["sigma_n"], params["sigma_x"])
 
         if cfg.right_view_option == 1:
             output = (hist_up.to(torch.float32) / 100.0)[..., None].expand(

@@ -36,15 +36,25 @@ the G-buffer position.
   last depth kernel J (textured scenes, with K for the texels) or kernel
   A finds the next hit.
 
+With `shadow_ray` on, two cases take the split engine whatever
+fuse_path, fuse_bounce and sort_rays say, as in the JAX package
+(:935-971): a mesh light at geom 0, and native mode (`compat=False`)
+with more than one emissive geom. Their shadow test is the full closest
+hit, kernel A, compared with the target geom (make_light_visibility,
+:457-478): geom 0, or in native mode the light each NEE lane drew from
+kernel E's light table (the JAX oracle bounce, :1321-1345: the selection
+draw before the disk sample, the contribution weighted by the light's
+color and the light count). Native mode's true barycentric mesh normals
+are a constant of the kernels' builds (GeomInfo.compat).
+
 Left out of the sorted engine, as workarounds of the TPU: the
 active-prefix ladder and the sub-batching past the gather cliff
 (:777-864), which only reproduce the same stable order more cheaply
 there; and the knobs PTDN_REGROUP, PTDN_SORT_EVERY, PTDN_SORT_KEY,
 PTDN_JOINT and PTDN_GATHER_CLIFF, whose defaults the port takes: regroup
 4 on at most 8 chunks and none above, a sort every bounce, the morton
-key, and F's two chunk scans in place of the joint one. Not ported:
-native mode (`compat=False`), NEE toward a mesh light, and the sorted
-engine's `sort_group` and `sort_every`; each raises.
+key, and F's two chunk scans in place of the joint one. Not ported: the
+sorted engine's `sort_group` and `sort_every`, which raise.
 """
 
 from __future__ import annotations
@@ -71,8 +81,9 @@ from ptdn_tpu_torch.ops.cuda.scene_intersect import (
     scene_intersect_full_tex, tex_index, texel_rgb)
 from ptdn_tpu_torch.ops.cuda.shade import (I_AB, I_AR, I_RB, I_RR, O_ACT,
                                            O_CB, O_CR, O_DIF, O_DX, O_DZ,
-                                           O_NEE, O_RB, O_RR, O_SDX, O_SPX,
-                                           O_SPZ, O_TB, O_TR, shade_bounce)
+                                           O_LI, O_NEE, O_RB, O_RR, O_SDX,
+                                           O_SPX, O_SPZ, O_TB, O_TR,
+                                           light_table, shade_bounce)
 from ptdn_tpu_torch.ops.fp import fma
 from ptdn_tpu_torch.scene.parser import MESH
 from ptdn_tpu_torch.scene.scene import DeviceScene
@@ -146,20 +157,28 @@ class PathTracer(nn.Module):
         super().__init__()
         n_chunks = -(-scene.n_tris // TCHUNK)
         light_analytic = scene.geom_types[0] != MESH
-        if not cfg.compat:
-            raise NotImplementedError("native mode (compat=False) is not "
-                                      "ported (ROADMAP Queue 1 item 3)")
-        if cfg.shadow_ray and not light_analytic:
-            raise NotImplementedError("NEE toward a mesh light is not ported")
-        # the JAX package's engine choice (wavefront.py:936-965, 1392-1476)
+        # native mode's uniform selection among the scene's lights
+        # (wavefront.py:956-970)
+        self.multi_light = ((not cfg.compat) and cfg.shadow_ray
+                            and len(scene.lights) > 1)
+        # the shadow test is the full closest hit (kernel A) where the
+        # light is a mesh or drawn per lane (make_light_visibility)
+        self.shadow_closest = cfg.shadow_ray and (self.multi_light
+                                                  or not light_analytic)
+        # the JAX package's engine choice (wavefront.py:936-971, 1392-1476):
+        # the fused engines and the whole path need an analytic light and
+        # one light, else the split engine
         use_sort = (bool(cfg.sort_rays if cfg.sort_rays is not None
-                         else n_chunks > 4) and cfg.fuse_bounce)
+                         else n_chunks > 4) and cfg.fuse_bounce
+                    and not self.shadow_closest)
         if use_sort and (cfg.sort_group not in (None, 1)
                          or cfg.sort_every not in (None, 1)):
             raise NotImplementedError("sort_group and sort_every are not "
                                       "ported (ROADMAP Queue 1 item 6: do "
                                       "not port)")
-        self.engine = ("sorted" if use_sort else "whole_path" if cfg.fuse_path
+        self.engine = ("bounce_split" if self.shadow_closest
+                       else "sorted" if use_sort
+                       else "whole_path" if cfg.fuse_path
                        else "bounce_fused" if cfg.fuse_bounce
                        else "bounce_split")
         self.n_chunks = n_chunks
@@ -191,7 +210,7 @@ class PathTracer(nn.Module):
                                                 device=device),
                                  persistent=False)
         self.rays_stale = True
-        self.gi = geom_info(scene, device)
+        self.gi = geom_info(scene, device, cfg.compat)
         # the reference samples geoms[0] for NEE (pathtrace.cu:360-361)
         light_mat = scene.materials[scene.geom_material_ids[0]]
         emit = (np.asarray(light_mat.color, np.float32)
@@ -204,11 +223,19 @@ class PathTracer(nn.Module):
         self.register_buffer("emit_planes",
                              torch.from_numpy(emit).reshape(3, 1, 1).to(
                                  device), persistent=False)
+        self.light_emissive = float(light_mat.emittance) > 0.0
+        if self.multi_light:
+            # kernel E's light table and each light's geom, the target of
+            # its lanes' shadow test
+            table = light_table(scene, device)
+            self.register_buffer("light_rows", table, persistent=False)
+            self.register_buffer("light_geoms", table[:, 6].to(torch.int32),
+                                 persistent=False)
         self.show_texture = cfg.show_texture and len(scene.textures) > 0
         self.flags = {
             "shadow_ray": cfg.shadow_ray, "reduce_var": cfg.reduce_var,
             "do_vis": (cfg.shadow_ray and light_analytic
-                       and float(light_mat.emittance) > 0.0),
+                       and self.light_emissive),
             "alb_skip1": cfg.sep_color and cfg.denoise_enable,
             "show_tex": self.show_texture}
 
@@ -340,8 +367,13 @@ class PathTracer(nn.Module):
         shadow rays with the lit add `radiance + where(nee & lit, c *
         emit, 0)`, and below the last depth the next hit: kernels J and K
         (texel indices, then the albedo of every lane) on textured
-        scenes, else kernel A and the material color. Returns the
-        radiance (N, 3)."""
+        scenes, else kernel A and the material color. A mesh light's
+        shadow test is kernel A's closest hit on geom 0 (make_light_
+        visibility); native multi-light NEE draws each lane's light from
+        E's light table, tests A's closest hit against that light's geom
+        and adds E's weighted contribution as it is (the oracle bounce,
+        :1321-1345). The lit add is gated by the light's emittance.
+        Returns the radiance (N, 3)."""
         planes = self._lane_planes(prim)
         nb = self.n_pad // 128
         pix = torch.arange(self.n_pad, dtype=torch.float32,
@@ -350,21 +382,33 @@ class PathTracer(nn.Module):
 
         def rays(sh, k):
             return sh[k:k + 3].reshape(3, -1).T
+        lights = self.light_rows if self.multi_light else None
         for depth in range(1, self.depth + 1):
             sh = shade_bounce(
                 torch.cat([planes, pix]), ds.mat_attr, fd=frame + depth,
                 lane0=0, light_pos=light["pos"], lrad=light["radius"],
                 sint=light["intensity"],
                 alb_skip=depth == 1 and fl["alb_skip1"],
-                shadow_ray=fl["shadow_ray"], reduce_var=fl["reduce_var"])
+                shadow_ray=fl["shadow_ray"], reduce_var=fl["reduce_var"],
+                lights=lights)
             rad = sh[O_RR:O_RB + 1]
             if fl["shadow_ray"]:
-                vis = light_visibility(ds, self.gi, rays(sh, O_SPX),
-                                       rays(sh, O_SDX), light["geom"])
-                if fl["do_vis"]:
-                    lit = (sh[O_NEE] > 0.5) & vis.reshape(nb, 128)
-                    rad = rad + torch.where(
-                        lit, sh[O_CR:O_CB + 1] * self.emit_planes, 0.0)
+                c = sh[O_CR:O_CB + 1]
+                if self.shadow_closest:
+                    hit = scene_intersect_full(ds, self.gi, rays(sh, O_SPX),
+                                               rays(sh, O_SDX))["geom_id"]
+                    target = (self.light_geoms[sh[O_LI].to(torch.int64)]
+                              if self.multi_light else light["geom"])
+                    vis = hit.reshape(nb, 128) == target
+                else:
+                    vis = light_visibility(ds, self.gi, rays(sh, O_SPX),
+                                           rays(sh, O_SDX),
+                                           light["geom"]).reshape(nb, 128)
+                if not self.multi_light:
+                    c = c * self.emit_planes
+                if self.multi_light or self.light_emissive:
+                    lit = (sh[O_NEE] > 0.5) & vis
+                    rad = rad + torch.where(lit, c, 0.0)
             if depth == self.depth:
                 break
             if fl["show_tex"]:

@@ -18,7 +18,7 @@ refl 7, refr 8, ior 9, emittance 10, texid 11).
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -37,14 +37,23 @@ def _pow5(x):
 
 def shade(s: Dict[str, torch.Tensor], seed: torch.Tensor, mat_attr,
           light_pos, lrad, sint, alb_skip: bool, shadow_ray: bool,
-          reduce_var: bool) -> Dict[str, torch.Tensor]:
+          reduce_var: bool,
+          lights: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """Shade every lane of the state `s` (keys o, d: xyz tuples; t;
     n: xyz tuple; alb: rgb tuple; tr: rgb throughput tuple; mat: int64
     material id; act, dif: bool) with TEA seed `seed` (int64).
 
     Returns a dict: er (emissive contribution, rgb tuple), sp (spawn
     origin), d (new direction), tr (new throughput), sd (unit shadow
-    direction), c (unlit NEE contribution), nee, act, dif (bool)."""
+    direction), c (unlit NEE contribution), nee, act, dif (bool).
+
+    `lights` (K, 8) float32, rows (x, y, z, r, g, b, geom, 0): native
+    mode's uniform light selection (the JAX oracle bounce,
+    engine/wavefront.py:1321-1345) in place of the one light at
+    `light_pos`: each lane draws a light first (masked by nee), li =
+    min(int(r * K), K - 1), samples the disk about its translation, and
+    c is the lit contribution throughput x color x emittance x K x
+    intensity x lambert in the oracle's order; li joins the dict."""
     (ox, oy, oz), (dx, dy, dz) = s["o"], s["d"]
     t = s["t"]
     nx, ny, nz = s["n"]
@@ -79,7 +88,15 @@ def shade(s: Dict[str, torch.Tensor], seed: torch.Tensor, mat_attr,
     zero = torch.zeros_like(t)
     if shadow_ray:
         nee = active & mat_is_diffuse
-        ltx, lty, ltz = light_pos
+        if lights is not None:
+            k = lights.shape[0]
+            seed, r_sel = next_rand_masked(seed, nee)
+            li = torch.clamp_max((r_sel * float(k)).to(torch.int64), k - 1)
+            row = lights[li]
+            ltx, lty, ltz = row[:, 0], row[:, 1], row[:, 2]
+            out["li"] = li
+        else:
+            ltx, lty, ltz = light_pos
         tcx, tcy, tcz = ltx - spx, lty - spy, ltz - spz
         tcn = recip_sqrt(tcx * tcx + tcy * tcy + tcz * tcz)
         tcx, tcy, tcz = tcx * tcn, tcy * tcn, tcz * tcn
@@ -107,10 +124,17 @@ def shade(s: Dict[str, torch.Tensor], seed: torch.Tensor, mat_attr,
         sdx, sdy, sdz = dxs * sdn, dys * sdn, dzs * sdn
         lambert = torch.clamp_min(sdx * nx + sdy * ny + sdz * nz, 0.0)
         # a true division: `float / tensor` is reciprocal-times in torch
-        scale = torch.full_like(sdist2, sint).div(sdist2) * lambert
+        intensity = torch.full_like(sdist2, sint).div(sdist2)
         neef = torch.where(nee, 1.0, 0.0)
         out["sd"] = (sdx, sdy, sdz)
-        out["c"] = (tr * scale * neef, tg * scale * neef, tb * scale * neef)
+        if lights is not None:
+            scale = (float(k) * intensity) * lambert
+            out["c"] = tuple(th * row[:, 3 + c] * scale * neef
+                             for c, th in enumerate((tr, tg, tb)))
+        else:
+            scale = intensity * lambert
+            out["c"] = (tr * scale * neef, tg * scale * neef,
+                        tb * scale * neef)
         out["nee"] = nee
     else:
         out["sd"] = (zero, zero, zero)

@@ -103,11 +103,20 @@ ENTRIES = {
     "ptdn_path_trace_table": [_VP, _VP, _VP],
     "ptdn_gather_u32": [_VP, _VP, _I32, _VP, _VP],
     "ptdn_ranges_and_key": [_VP, _VP],
+    "ptdn_spatial_variance": [_VP, _VP],
     "ptdn_take_chain": [_VP, _VP, _I32, _I32, _I32, _I32, _I32, _I32, _VP,
                         _VP],
     "ptdn_mesh_intersect_v1": [_VP, _VP, _VP, _VP, _VP, _I32, _I32, _I32,
                                _I32, _VP, _VP, _VP],
+    "ptdn_shade_bounce_lights": [_VP, _VP, _VP],
 }
+# the kernels that resolve mesh normals have a native-mode build
+# (compat=False) in the kernel library too, `<name>_native` with the same
+# arguments; the per-scene builds take the mode from their header
+# instead (ops/cuda/scene_intersect.py:path_scene_header)
+NATIVE = ("ptdn_scene_intersect_full", "ptdn_scene_intersect_full_tex",
+          "ptdn_trace_bounce", "ptdn_bounce_fused", "ptdn_path_trace_table")
+ENTRIES.update({k + "_native": ENTRIES[k] for k in NATIVE})
 # the C entry points of each per-scene source, csrc/scene/<stem>.cu,
 # with their argument types (each one of the library's but B1's)
 SCENE_ENTRIES = {

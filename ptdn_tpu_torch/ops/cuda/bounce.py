@@ -43,8 +43,9 @@ import torch
 
 from ptdn_tpu_torch.ops.cuda import _lib
 from ptdn_tpu_torch.ops.cuda.scene_intersect import (GeomInfo, closest_hit,
-                                                     light_visible, scene_dev,
-                                                     tex_index, texel_rgb)
+                                                     entry, light_visible,
+                                                     scene_dev, tex_index,
+                                                     texel_rgb)
 from ptdn_tpu_torch.ops.cuda.shade import (I_MAT, I_NX, I_NY, I_NZ, I_T,
                                            N_IN, N_OUT, O_ACT, O_CB, O_CG,
                                            O_CR, O_DIF, O_DX, O_DY, O_DZ,
@@ -186,7 +187,7 @@ def _trace_bounce_kernel(ds, gi, planes, *, light_geom, do_vis, do_next,
                      light_geom=light_geom, do_vis=int(do_vis),
                      do_next=int(do_next), show_tex=int(show_tex),
                      emit_r=emit[0], emit_g=emit[1], emit_b=emit[2])
-    _lib.launch("ptdn_trace_bounce", scene_dev(ds, gi, dev), args,
+    _lib.launch(entry(gi, "ptdn_trace_bounce"), scene_dev(ds, gi, dev), args,
                 lib=_scene_build(gi))
     trace_bounce.launches += 1
     return out, alb
@@ -260,8 +261,8 @@ def _bounce_fused_kernel(ds, gi, planes, *, fd, lane0, light_pos, lrad, sint,
                        reduce_var=reduce_var),
         light_geom=light_geom, do_vis=int(do_vis), do_next=int(do_next),
         emit_r=emit[0], emit_g=emit[1], emit_b=emit[2])
-    _lib.launch("ptdn_bounce_fused", scene_dev(ds, gi, planes.device), args,
-                lib=_scene_build(gi))
+    _lib.launch(entry(gi, "ptdn_bounce_fused"),
+                scene_dev(ds, gi, planes.device), args, lib=_scene_build(gi))
     bounce_fused.launches += 1
     return out
 

@@ -38,8 +38,9 @@ import torch
 from ptdn_tpu_torch.ops.bsdf import shade
 from ptdn_tpu_torch.ops.cuda import _lib
 from ptdn_tpu_torch.ops.cuda.scene_intersect import (GeomInfo, closest_hit,
-                                                     light_visible, scene_dev,
-                                                     tex_index, texel_rgb)
+                                                     entry, light_visible,
+                                                     scene_dev, tex_index,
+                                                     texel_rgb)
 from ptdn_tpu_torch.ops.rng import init_rand
 
 
@@ -154,7 +155,8 @@ def _path_trace_kernel(ds, gi, prim, frame, lane0, depth, light, flags):
         sint=light["intensity"], emit_r=light["emit"][0],
         emit_g=light["emit"][1], emit_b=light["emit"][2])
     if gi.path_scene is None:
-        _lib.launch("ptdn_path_trace_table", scene_dev(ds, gi, dev), args)
+        _lib.launch(entry(gi, "ptdn_path_trace_table"),
+                    scene_dev(ds, gi, dev), args)
         path_trace.table_launches += 1
     else:
         _lib.launch("ptdn_path_trace", scene_dev(ds, gi, dev), args,

@@ -50,13 +50,17 @@ class GeomInfo(NamedTuple):
     scene (path_scene_header), None where the scene exceeds its limits,
     and on the device the tables B1's table build reads (table_rows): per
     geom its head and its baked rows' forms, (G, 16) int32, and its world
-    box and row coefficients, (G, 17, 4) float32."""
+    box and row coefficients, (G, 17, 4) float32; and the mode of the
+    mesh normals, compat mode's swapped weights or native mode's true
+    barycentric ones (compat=False), which the header carries and the
+    library builds take by entry point (entry)."""
     types: Tuple[int, ...]
     table: torch.Tensor
     n_tris: int
     path_scene: Optional[str]
     row_code: torch.Tensor
     row_coef: torch.Tensor
+    compat: bool = True
 
 
 # the limits of the per-scene builds (kernels B1, F, H, A, J, I and M):
@@ -94,9 +98,11 @@ def baked_rows(scene):
 
 
 def path_scene_header(scene, mat_attr: np.ndarray, codes: np.ndarray,
-                      coefs: np.ndarray, mats) -> Optional[str]:
+                      coefs: np.ndarray, mats,
+                      compat: bool = True) -> Optional[str]:
     """scene.h of the kernels built for this scene (csrc/scene/*.cu: B1,
-    F, H, A and J): the geom count, each geom's type and material, the
+    F, H, A and J): the mode of the mesh normals (`compat`, kCompat), the
+    geom count, each geom's type and material, the
     forms of its baked rows as codes and coefficients (baked_rows), for
     B1, the (M, 16) material table `mat_attr`, and `mats`, the scene's
     float32 (G, 4, 4) inverse, transform and inverse-transpose matrices,
@@ -115,6 +121,7 @@ def path_scene_header(scene, mat_attr: np.ndarray, codes: np.ndarray,
         "// ptdn_tpu_torch/ops/cuda/scene_intersect.py:path_scene_header",
         "#pragma once",
         "namespace scene {",
+        f"constexpr bool kCompat = {'true' if compat else 'false'};",
         f"constexpr int kGeoms = {n_g};",
         "__device__ constexpr int kType[] = {"
         + ", ".join(str(g.type) for g in scene.geoms) + "};",
@@ -226,7 +233,9 @@ def table_box_missed(box: torch.Tensor, o, d) -> torch.Tensor:
     return (tmax < 0.0) | (tmin > tmax)
 
 
-def geom_info(scene, device) -> GeomInfo:
+def geom_info(scene, device, compat: bool = True) -> GeomInfo:
+    """The scene's GeomInfo on `device`, its mesh normals in compat mode
+    or (compat=False) native mode."""
     table = torch.tensor([[t, m] for t, m in zip(scene.geom_types,
                                                   scene.geom_material_ids)],
                          dtype=torch.int32, device=device)
@@ -235,12 +244,20 @@ def geom_info(scene, device) -> GeomInfo:
     header = path_scene_header(
         scene, ds.mat_attr.cpu().numpy(), codes, coefs,
         [m.cpu().numpy() for m in (ds.geom_inverse, ds.geom_transform,
-                                   ds.geom_inv_transpose)])
+                                   ds.geom_inv_transpose)], compat)
     row_code, row_coef = table_rows(scene, codes, coefs,
                                     ds.geom_transform.cpu().numpy())
     return GeomInfo(scene.geom_types, table, scene.n_tris, header,
                     torch.from_numpy(row_code).to(device),
-                    torch.from_numpy(row_coef).to(device))
+                    torch.from_numpy(row_coef).to(device), bool(compat))
+
+
+def entry(gi: GeomInfo, name: str) -> str:
+    """The C entry point of kernel `name` for the scene of `gi`: the
+    scene's own build carries its mode in its header; the library's
+    build of native mode is `name` + "_native" (_lib.NATIVE)."""
+    return (name if gi.compat or gi.path_scene is not None
+            else name + "_native")
 
 
 def scene_dev(ds, gi: GeomInfo, device: torch.device) -> _lib.SceneDev:
@@ -346,9 +363,9 @@ mesh_best.tri_tests = 0
 def closest_hit(ds, gi: GeomInfo, o, d, alive=None, static: bool = False):
     """The fully resolved closest hit: (t, geom, normal, uv, mat) with
     t = -1 and geom = -1 on a miss. Lanes with alive False take no mesh
-    hit (their result is unused). The normal is interpolated in compat
-    mode, the only one the port runs. Every chunk is scanned with the
-    per-lane cull; `static` as in analytic_best."""
+    hit (their result is unused). The normal is interpolated in the mode
+    of gi.compat. Every chunk is scanned with the per-lane cull; `static`
+    as in analytic_best."""
     ta, ga, an = analytic_best(ds, gi.types, o, d, static)
     a_valid = ga >= 0
     t = torch.where(a_valid, ta, -1.0)
@@ -368,7 +385,7 @@ def closest_hit(ds, gi: GeomInfo, o, d, alive=None, static: bool = False):
         mn, muv = interpolate_tri_hit(u, v, tuple(col[9:12]),
                                       tuple(col[12:15]), tuple(col[15:18]),
                                       tuple(col[18:20]), tuple(col[20:22]),
-                                      tuple(col[22:24]), compat=True)
+                                      tuple(col[22:24]), compat=gi.compat)
         wins = mh & (~a_valid | (tm < ta))
         t = torch.where(wins, tm, t)
         geom = torch.where(wins, col[24].to(torch.int64), geom)
@@ -580,7 +597,7 @@ def _isect_kernel(name, ds, gi, o, d, tex: bool):
     args = IsectArgs(t=p(out["t"]), nrm=p(out["normal"]), uv=p(out["uv"]),
                      geom=p(out["geom_id"]), mat=p(out["mat_id"]),
                      tidx=p(tidx))
-    _lib.launch(name, scene_dev(ds, gi, o.device), ray, args,
+    _lib.launch(entry(gi, name), scene_dev(ds, gi, o.device), ray, args,
                 lib=_scene_lib(gi))
     out["hit"] = out["geom_id"] >= 0
     return out, tidx

@@ -8,13 +8,22 @@ coherence sort moves lanes. The plane layouts are the JAX package's: 22
 planes in (I_*) plus the pixel plane, 21 out (O_*), each (NB, 128)
 float32, masks as 0.0 / 1.0. The plain version is ops/bsdf.py:shade on
 those planes; the kernel runs the same body per thread (csrc/shade.cuh).
+
+With a light table (light_table: native mode with more than one
+emissive geom) each NEE lane draws its light uniformly before the disk
+sample, its contribution carries the light's color and the light count,
+and the drawn index is a 22nd output plane (O_LI): native multi-light
+NEE, which the JAX package runs on its XLA oracle bounce
+(engine/wavefront.py:1321-1345); the kernel's light-table entry is a
+second instantiation of the single light's lane.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from ptdn_tpu_torch.ops.bsdf import shade
@@ -32,6 +41,10 @@ I_PIX = N_IN
  O_RR, O_RG, O_RB, O_DIF, O_ACT, O_SDX, O_SDY, O_SDZ,
  O_CR, O_CG, O_CB, O_NEE) = range(21)
 N_OUT = 21
+# with a light table: the index of the light each lane drew
+O_LI = N_OUT
+# a light table's row: translation, color x emittance, geom, 0
+LIGHT_ROW = 8
 
 
 class ShadeParams(ctypes.Structure):
@@ -41,6 +54,27 @@ class ShadeParams(ctypes.Structure):
                                                "alb_skip")]
                 + [(k, ctypes.c_float) for k in ("light_x", "light_y",
                                                  "light_z", "lrad", "sint")])
+
+
+class LightTable(ctypes.Structure):
+    """Mirror of csrc/shade.cuh:LightTable."""
+    _fields_ = [("rows", ctypes.c_void_p), ("k", ctypes.c_int)]
+
+
+def light_table(scene, device) -> torch.Tensor:
+    """The (K, LIGHT_ROW) float32 light table of the scene's lights
+    (Scene.lights, every emissive geom in geom order): per light its
+    translation, its material's color x emittance (as the JAX engine's
+    light_emits, float32) and its geom index."""
+    rows = []
+    for light in scene.lights:
+        mat = scene.materials[scene.geom_material_ids[light.geom_idx]]
+        emit = (np.asarray(mat.color, np.float32)
+                * np.float32(mat.emittance))
+        rows.append(np.concatenate([
+            np.asarray(scene.geoms[light.geom_idx].translation, np.float32),
+            emit, np.float32([light.geom_idx, 0])]))
+    return torch.from_numpy(np.stack(rows).astype(np.float32)).to(device)
 
 
 class ShadeArgs(ctypes.Structure):
@@ -68,7 +102,9 @@ def _mask(b: torch.Tensor) -> torch.Tensor:
 def shade_bounce_plain(planes: torch.Tensor, mat_attr: torch.Tensor, *,
                        fd: int, lane0: int, light_pos: Sequence[float],
                        lrad: float, sint: float, alb_skip: bool,
-                       shadow_ray: bool, reduce_var: bool) -> torch.Tensor:
+                       shadow_ray: bool, reduce_var: bool,
+                       lights: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
     """Plain PyTorch version of kernel E (see shade_bounce)."""
     p = planes.reshape(N_IN + 1, -1)
     s = {"o": (p[I_OX], p[I_OY], p[I_OZ]), "d": (p[I_DX], p[I_DY], p[I_DZ]),
@@ -80,50 +116,68 @@ def shade_bounce_plain(planes: torch.Tensor, mat_attr: torch.Tensor, *,
     pix = p[I_PIX].to(torch.int32).to(torch.int64)
     seed = init_rand(pix + lane0, torch.full_like(pix, fd))
     r = shade(s, seed, mat_attr, light_pos, lrad, sint, alb_skip,
-              shadow_ray, reduce_var)
+              shadow_ray, reduce_var, lights)
     rad = tuple(p[k] + e for k, e in zip((I_RR, I_RG, I_RB), r["er"]))
     out = (*r["d"], *r["sp"], *r["tr"], *rad, _mask(r["dif"]),
            _mask(r["act"]), *r["sd"], *r["c"], _mask(r["nee"]))
-    return torch.stack(out).reshape((N_OUT,) + tuple(planes.shape[1:]))
+    if lights is not None:
+        out += (r["li"].to(torch.float32),)
+    return torch.stack(out).reshape((len(out),) + tuple(planes.shape[1:]))
 
 
 def shade_bounce(planes: torch.Tensor, mat_attr: torch.Tensor, *, fd: int,
                  lane0: int, light_pos: Sequence[float], lrad: float,
                  sint: float, alb_skip: bool, shadow_ray: bool,
-                 reduce_var: bool) -> torch.Tensor:
+                 reduce_var: bool,
+                 lights: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Shade every lane: planes (23, NB, 128) float32 — the I_* planes
     then the pixel plane; mat_attr the (M, 16) material table. fd is
     frame + depth, lane0 the first pixel's global index; light_pos, lrad
     and sint the light center, disk radius and intensity; alb_skip skips
     the albedo multiply (first bounce under sep_color). Returns the
-    (21, NB, 128) O_* planes. CPU tensors take the plain version; CUDA
-    tensors launch kernel E."""
+    (21, NB, 128) O_* planes. With `lights` (light_table; shadow_ray on)
+    each NEE lane draws its light from the table in place of light_pos,
+    O_C* is its lit contribution (color x emittance and the light count
+    in), and a 22nd plane, O_LI, holds the index drawn. CPU tensors take
+    the plain version; CUDA tensors launch kernel E."""
     _lib.require(planes.device, "shade_bounce")
+    if lights is not None and not shadow_ray:
+        raise ValueError("a light table needs shadow_ray")
     kw = dict(fd=fd, lane0=lane0, light_pos=light_pos, lrad=lrad,
               sint=sint, alb_skip=alb_skip, shadow_ray=shadow_ray,
-              reduce_var=reduce_var)
+              reduce_var=reduce_var, lights=lights)
     if planes.device.type == "cpu":
         return shade_bounce_plain(planes, mat_attr, **kw)
     return _shade_bounce_kernel(planes, mat_attr, **kw)
 
 
 def _shade_bounce_kernel(planes, mat_attr, *, fd, lane0, light_pos, lrad,
-                         sint, alb_skip, shadow_ray, reduce_var):
+                         sint, alb_skip, shadow_ray, reduce_var,
+                         lights=None):
     shape = tuple(planes.shape[1:])
     _lib.check_tensor(planes, torch.float32, (N_IN + 1,) + shape, "planes")
     _lib.check_tensor(mat_attr, torch.float32, (mat_attr.shape[0], 16),
                       "mat_attr")
-    out = torch.empty((N_OUT,) + shape, dtype=torch.float32,
-                      device=planes.device)
+    if lights is not None:
+        _lib.check_tensor(lights, torch.float32,
+                          (lights.shape[0], LIGHT_ROW), "lights")
+    out = torch.empty((N_OUT + (lights is not None),) + shape,
+                      dtype=torch.float32, device=planes.device)
     args = ShadeArgs(
         inp=_lib.ptr(planes), out=_lib.ptr(out), n=out[0].numel(),
         fd=fd & 0xFFFFFFFF, lane0=lane0 & 0xFFFFFFFF,
         p=shade_params(mat_attr, light_pos=light_pos, lrad=lrad, sint=sint,
                        alb_skip=alb_skip, shadow_ray=shadow_ray,
                        reduce_var=reduce_var))
-    _lib.launch("ptdn_shade_bounce", args)
-    shade_bounce.launches += 1
+    if lights is None:
+        _lib.launch("ptdn_shade_bounce", args)
+        shade_bounce.launches += 1
+    else:
+        _lib.launch("ptdn_shade_bounce_lights", args,
+                    LightTable(rows=lights.data_ptr(), k=lights.shape[0]))
+        shade_bounce.table_launches += 1
     return out
 
 
-shade_bounce.launches = 0
+shade_bounce.launches = 0         # the single light's
+shade_bounce.table_launches = 0   # the light table's

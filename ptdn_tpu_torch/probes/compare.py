@@ -31,11 +31,11 @@ launch beats, beside O's bound.
 --ptx DIR compiles every other source of this tree's csrc/ (the kernel
 library's, and csrc/scene/*.cu with cornell's scene header) and DIR's
 copy of it to PTX, and compares them entry by entry, up to the hash of
-the file's path that nvcc puts in internal names (a source DIR lacks is
-counted as new). --frames times still
-cornell (the whole path) and bunny and room through the fused
-per-bounce engine, ms/frame over 20 frames after 3, through this tree's
-renderer. Prints one line per case and build with the card's name and
+the file's path that nvcc puts in internal names (a source DIR lacks,
+and an entry of a shared source that DIR's lacks, are listed as new).
+--frames times still cornell (the whole path) and bunny and room
+through the fused per-bounce engine, ms/frame over 20 frames after 3,
+through this tree's renderer. Prints one line per case and build with the card's name and
 power limit, then each build's ptxas report of P's, O's and N's
 kernels, and writes every number as JSON to FILE where given. Needs one
 card.
@@ -180,7 +180,8 @@ def entries(ptx: str):
 def ptx_diff(other):
     """Every source of csrc/ but P's, O's and N's, here and in `other` (a
     csrc copy), to PTX: (entries compared, the names that differ, the
-    sources `other` lacks)."""
+    sources `other` lacks, the entries of the shared sources that only
+    this tree has)."""
     here = _lib.CSRC
     header = A.geom_info(Scene(scene_path("cornell")), "cuda").path_scene
     srcs = [p.relative_to(here) for p in sorted(here.glob("*.cu"))
@@ -205,13 +206,14 @@ def ptx_diff(other):
             mine = list(pool.map(ptx, [here / s for s in srcs]))
             theirs = list(pool.map(ptx, [pathlib.Path(other) / s
                                          for s in srcs]))
-    n, differ = 0, []
+    n, differ, added = 0, [], []
     for src, a, b in zip(srcs, mine, theirs):
-        for name in sorted(set(a) | set(b)):
+        added += [f"{src}:{name}" for name in sorted(set(a) - set(b))]
+        for name in sorted(set(b)):
             n += 1
-            if a.get(name) != b.get(name):
+            if a.get(name) != b[name]:
                 differ.append(f"{src}:{name}")
-    return n, differ, [str(s) for s in new]
+    return n, differ, [str(s) for s in new], added
 
 
 def frames(reps=20):
@@ -286,11 +288,12 @@ def main(argv=None):
     print(f"empty launch {res['empty_launch_ms']:.4f}, "
           f"{res['empty_launch_ms_after']:.4f} ms [{card}]")
     if args.ptx:
-        n, differ, new = ptx_diff(args.ptx)
-        res["ptx"] = {"entries": n, "differ": differ, "new": new}
+        n, differ, new, added = ptx_diff(args.ptx)
+        res["ptx"] = {"entries": n, "differ": differ, "new": new,
+                      "added": added}
         print(f"PTX of every other kernel against {args.ptx}: {n} entries, "
               f"{len(differ)} differ" + "".join(f"; {d}" for d in differ)
-              + f"; sources new here: {new}")
+              + f"; sources new here: {new}; entries new here: {added}")
     if args.frames:
         res["frames"] = frames()
         print("frames " + ", ".join(f"{k} {v:.3f} ms/frame"

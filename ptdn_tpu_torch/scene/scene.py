@@ -106,6 +106,14 @@ class HostGeom:
     inv_transpose: np.ndarray
 
 
+@dataclasses.dataclass
+class Light:
+    """Emissive-geom light entry (Scene::loadLight, scene.cpp:313-324)."""
+    type: str
+    geom_idx: int
+    mat_idx: int
+
+
 class Scene:
     """Host-side scene: parsing, mesh/texture load, BVH build, upload."""
 
@@ -173,6 +181,13 @@ class Scene:
             self.tri_mat = self.tri_mat[order]
         else:
             self.bvh = build_bvh(np.zeros((0, 3), F), np.zeros((0, 3), F))[0]
+
+        # ---- lights (every emissive geom, in geom order; AREALIGHT only) ----
+        self.lights: List[Light] = [
+            Light(type="AREALIGHT", geom_idx=i, mat_idx=hg.material_id)
+            for i, hg in enumerate(self.geoms)
+            if self.materials[hg.material_id].emittance > 0
+        ]
 
         self._device: Dict[str, DeviceScene] = {}
 

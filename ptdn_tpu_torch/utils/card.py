@@ -71,6 +71,9 @@ BOX_OPS = 22   # B1's table build: one slab test of a geom's world box
 REFINE_OPS = 70
 SHADE_OPS = 250
 RANGE_OPS = 25
+# kernel R: one tap of the 7x7 window (a luminance, two distances with
+# their square roots, divisions and exps, the weight, three sums)
+SPATIAL_TAP_OPS = 40
 
 
 def bound(n_bytes: float, ops: float):

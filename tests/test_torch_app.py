@@ -122,11 +122,38 @@ def test_cli_default_device_needs_a_card(scenes_dir, monkeypatch):
         cli.main([str(scenes_dir / "cornell.txt"), "--frames", "1"])
 
 
-def test_cli_native_is_not_ported(scenes_dir):
-    with pytest.raises(NotImplementedError, match="native mode"):
-        cli.main([str(scenes_dir / "cornell.txt"), "--frames", "1",
-                  "--width", "8", "--height", "8", "--device", "cpu",
-                  "--native"])
+def test_cli_native_is_not_ported(scenes_dir, monkeypatch):
+    """--native runs native mode (compat=False) on the CPU: one 8x8
+    frame, exit 0, through a renderer whose config has compat off."""
+    import ptdn_tpu_torch.engine as engine
+    made = []
+
+    def spy(*args, **kw):
+        made.append(Renderer(*args, **kw))
+        return made[-1]
+    monkeypatch.setattr(engine, "Renderer", spy)
+    assert cli.main([str(scenes_dir / "cornell.txt"), "--frames", "1",
+                     "--width", "8", "--height", "8", "--device", "cpu",
+                     "--native"]) == 0
+    assert not made[0].cfg.compat and not made[0].step.tracer.gi.compat
+
+
+def test_cli_native_writes_every_output(scenes_dir, tmp_path, capsys):
+    """app.cli --native with SVGF: 2 frames of cornell 32x32 on the CPU
+    (the spatial variance fallback on both), every output file written,
+    a stats line per frame."""
+    out = {k: str(tmp_path / f"{k}.{ext}") for k, ext in (
+        ("out", "png"), ("raw", "png"), ("side", "png"), ("hdr", "hdr"))}
+    assert cli.main([str(scenes_dir / "cornell.txt"), "--width", "32",
+                     "--height", "32", "--depth", "2", "--frames", "2",
+                     "--device", "cpu", "--native", "--denoise",
+                     "--temporal", "--spatial", "--out", out["out"],
+                     "--out-raw", out["raw"], "--side-by-side", out["side"],
+                     "--hdr", out["hdr"], "--stats"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert [json.loads(ln)["frame"] for ln in lines] == [0, 1]
+    assert all(os.path.getsize(p) > 0 for p in out.values())
+    assert image_io.load_image_rgb(out["side"]).shape == (32, 64, 3)
 
 
 # ---- the writers ----

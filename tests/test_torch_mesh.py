@@ -349,8 +349,9 @@ def test_sorted_matches_whole_path(scenes_dir):
 def test_mesh_engine_choice(scenes_dir):
     """The JAX package's engine choice: the sort for more than four
     chunks, B1 at any chunk count with sort_rays=False, regroup 4 on at
-    most 8 chunks; the options that are not ported raise (the per-bounce
-    engines render: tests/test_torch_bounce.py)."""
+    most 8 chunks, native mode (compat=False) with one light on the same
+    engines as compat mode; the options that are not ported raise (the
+    per-bounce engines render: tests/test_torch_bounce.py)."""
     bunny = Scene(str(scenes_dir / "bunny.txt"))
     diamond = Scene(str(scenes_dir / "diamond.txt"))
 
@@ -361,9 +362,12 @@ def test_mesh_engine_choice(scenes_dir):
     assert tracer(diamond).engine == "sorted"
     assert tracer(diamond).regroup == 4
     assert tracer(bunny, sort_rays=False).engine == "whole_path"
-    for kw in (dict(sort_group=2), dict(sort_every=2), dict(compat=False)):
+    for kw in (dict(sort_group=2), dict(sort_every=2)):
         with pytest.raises(NotImplementedError):
             tracer(bunny, **kw)
+    native = tracer(bunny, compat=False)
+    assert native.engine == "sorted" and not native.gi.compat
+    assert tracer(bunny, compat=False, sort_rays=False).engine == "whole_path"
 
 
 def test_renderer_defaults_to_the_card(scenes_dir):
