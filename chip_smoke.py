@@ -82,10 +82,11 @@ Phases, one line or more each, with their wall time:
    moving camera, and of the shared edge inputs
    (ops/cuda/ranges.py:edge_inputs); R against its plain version on
    native cornell's spatial-only frame and its fallback frame (pixels
-   off counted, within 1e-6), E's light table on the two-light scene's
-   bounce 2 (bit for bit), and the native builds of A, J, B1 (per-scene
-   and table), F and H on bunny's state, output by output through the
-   scene's build and the library's, no lane off;
+   off counted, within 1e-6), and where no pixel needs the taps (the
+   temporal variance, bit for bit), E's light table on the two-light
+   scene's bounce 2 (bit for bit), and the native builds of A, J, B1
+   (per-scene and table), F and H on bunny's state, output by output
+   through the scene's build and the library's, no lane off;
 3. 32 frames per scene and engine (16 of room at 1920x1080) through
    ptdn_tpu_torch's Renderer with every launch count checked, finite
    outputs, and, where the camera is still, the RMSE against the
@@ -124,10 +125,12 @@ Phases, one line or more each, with their wall time:
    at bounce 2 of each mesh scene and of room at 1920x1080 moving
    (diamond's in the JSON line) beside its plain version and bound, N
    on the texgather probe's four cases beside its plain version and
-   torch.take; R beside its plain version and bound, E's light table,
+   torch.take; R beside its plain version and bound, and on the
+   fallback frame and where no pixel needs the taps, E's light table,
    the native builds of F, H and A at bounce 2 of bunny, J on bunny's
    camera rays beside its compat build, B1 on bunny (per-scene and
-   table builds, native and compat in turns), and the ms/frame of each
+   table builds, native and compat in turns; the native build's bound
+   and plain version), and the ms/frame of each
    native and mesh-light run;
 5. the entry points a user runs: `python3 -m ptdn_tpu_torch.bench --all
    --quality --stages` (one JSON line naming the card; each still
@@ -201,7 +204,7 @@ from ptdn_tpu_torch.utils.assets import (scene_path,  # noqa: E402
                                          write_mesh_light, write_two_light)
 from ptdn_tpu_torch.utils.card import (ANALYTIC_OPS,  # noqa: E402
                                        MOLLER_OPS, RANGE_OPS, REFINE_OPS,
-                                       SHADE_OPS, SPATIAL_TAP_OPS, bound,
+                                       SHADE_OPS, bound,
                                        cuda_ms, in_turns, nbytes,
                                        ptxas_summary)
 from ptdn_tpu_torch.utils.checkpoint import (restore_renderer,  # noqa: E402
@@ -1306,23 +1309,25 @@ def main():
         err = max_abs(kr, pr)
         off = int((kr != pr).sum())
         rel = float(((kr - pr).abs() / pr.abs().clamp_min(1e-30)).max())
-        taps = (kr.numel() if len(r_args) == 4
-                else int((r_args[4] < 4).sum()))
+        taps = int(BB.r_need(r_args).sum())
         check(err <= SV_ATOL, f"R on cornell's {label} frame: max |d| "
               f"{err} > {SV_ATOL}, {off} pixels off its plain version")
         if label == "spatial-only":
             sv_args = r_args
             stats["spatial_variance"] = err
-            work["spatial_variance"] = bound(
-                nbytes(r_args[0], r_args[1]["position"],
-                       r_args[1]["normal"], kr),
-                taps * 49 * SPATIAL_TAP_OPS)
+            work["spatial_variance"] = BB.r_work(r_args, kr,
+                                                 BB.r_need(r_args))
         else:
             sv_pass_args, sv_pass_taps = r_args, taps
+            sv_none_args = BB.r_none_needed(r_args)
+            kn = R._spatial_variance_kernel(*sv_none_args)
+            check(same(kn, r_args[5]), "R where no pixel needs the taps "
+                  "gives the temporal variance bit for bit")
         print(f"phase 2: R on native cornell's {label} frame: {taps} of "
-              f"{kr.numel()} pixels run the taps; {off} pixels off its "
-              f"plain version (max |d| {err:.3g}, largest relative "
-              f"difference {rel:.3g})")
+              f"{kr.numel()} pixels run the taps "
+              f"({BB.r_blocks(BB.r_need(r_args).cpu().numpy())}); {off} "
+              f"pixels off its plain version (max |d| {err:.3g}, largest "
+              f"relative difference {rel:.3g})")
     tl = native_renderer("twolight", **NATIVE)
     for _ in range(3):
         tl.render_frame()
@@ -1951,14 +1956,36 @@ def main():
     print("phase 4: B1 on bunny's primary state, builds in turns: "
           + ", ".join(f"{k} {v}" for k, v in b1_ms.items())
           + f" ms [{card}]")
-    # R on a still camera's steady frame (the fourth: the fallback)
-    sv_pass_ms = cuda_ms(lambda: R._spatial_variance_kernel(*sv_pass_args),
-                         reps=20, hide_host=True)
+    # the native build's bound (the plain version's lane-triangle tests)
+    # and its plain version's time on the same state
+    nb_args, nb_kw = nb_cases["path_trace_table"]
+    (nbc, nbt), nb_tests, _ = BB.b1_plain_counted(nb_args, nb_kw)
+    nb_bound = BB.b1_work(nb_args, nb_kw, nbc, nbt, nb_tests)
+    nb_plain_ms = cuda_ms(lambda: B.path_trace_plain(*nb_args, **nb_kw),
+                          reps=1, warmup=0, hide_host=True)
+    frame_ms["B1 bunny native bound and plain"] = [nb_bound[0], nb_plain_ms]
+    print(f"phase 4: B1 native on bunny's primary state: bound "
+          f"{nb_bound[0]:.4f} ms ({nb_bound[1]}, {nb_tests} lane-triangle "
+          f"tests), plain {nb_plain_ms:.1f} ms [{card}]")
+    # R on a still camera's steady frame (the fourth: the fallback), and
+    # on it where no pixel needs the taps
+    sv_pass_ms = cuda_ms(lambda: R._spatial_variance_kernel(
+        *sv_pass_args), reps=20, hide_host=True)
+    sv_none_ms = cuda_ms(lambda: R._spatial_variance_kernel(
+        *sv_none_args), reps=20, hide_host=True)
     frame_ms["R fallback"] = sv_pass_ms
+    frame_ms["R none needed"] = sv_none_ms
+    sv_pass_bound = BB.r_work(sv_pass_args, sv_pass_args[5],
+                              BB.r_need(sv_pass_args))
+    sv_none_bound = BB.r_work(sv_none_args, sv_pass_args[5],
+                              BB.r_need(sv_none_args))
     print(f"phase 4: R on native cornell's fourth temporal frame "
           f"({sv_pass_taps} of {sv_pass_args[0][..., 0].numel()} pixels "
-          f"run the taps) {sv_pass_ms:.4f} ms; on its spatial-only frame "
-          f"see its JSON row [{card}]")
+          f"run the taps) {sv_pass_ms:.4f} ms (bound {sv_pass_bound[0]:.4f}"
+          f" ms, {sv_pass_bound[1]}); where no pixel needs the taps "
+          f"{sv_none_ms:.4f} ms (bound {sv_none_bound[0]:.4f} ms, "
+          f"{sv_none_bound[1]}); on its spatial-only frame see its JSON "
+          f"row [{card}]")
     # the native and mesh-light runs' frames, two turns each
     for label, r in native_r.items():
         ms = [cuda_ms(r.render_frame, reps=10) for _ in range(2)]

@@ -1,8 +1,8 @@
 """Kernels F (trace_bounce), H (bounce_fused), A (scene_intersect_full),
 J (scene_intersect_full_tex), I (light_visibility), L
-(back_projection_atrous1), M (scene_intersect), Q (ranges_and_key) and
-B1's table build (path_trace_table) on the card, on the calls of the
-scenes whose users feel them.
+(back_projection_atrous1), M (scene_intersect), Q (ranges_and_key), R
+(spatial_variance) and B1's table build (path_trace_table) on the card,
+on the calls of the scenes whose users feel them.
 
     python3 -m ptdn_tpu_torch.bounce_bench [--reps N] [--cases LIST]
                                            [--variant NAME=DIR]...
@@ -47,6 +47,18 @@ the packed G-buffer planes, as the frame without the flag runs them;
 per output (color, variance, moments, history) it counts the pixels off
 L's plain version and off C's then D's kernels.
 
+The R cases take R's call on native cornell at 800x800 (temporal SVGF
+with its 5-level filter, compat=False): "spatial-only" the fourth frame
+with temporal accumulation off (every pixel runs the 49 taps),
+"temporal" the fourth temporal frame (the pixels whose history is under
+4 frames run them). Each build of R is timed on the frame's call, and
+on the temporal frame also where no pixel needs the taps (the history
+raised to 4 frames): 12 B a pixel. It counts the pixels off R's plain version and
+off the first build, the pixels that run the taps, and the blocks with
+none (ops/cuda/spatial_variance.py:sv_block_need) for the shipped
+tile and each of R_TILES, and the (pixel, tap) pairs whose normal or
+position distance is 0 (r_zero_pairs).
+
 Cases (CASES): F and Q on diamond at 800x800 and room at 1920x1080, F
 also on bunny at 800x800;
 H on cornell and bunny at 800x800 and room at 600x600; J on cornell at
@@ -55,12 +67,14 @@ hits of room at 1920x1080 and of cornell at 800x800; I on cornell and
 bunny at 800x800 and room at 600x600; L on cornell at 800x800; M on the
 trace bench's 640,000 rays, cull on and off, and on bunny's 800x800
 camera rays; B1's table build on cornell and on cornell plus 55 cubes
-(utils/assets.py:write_cornell_plus, 65 geoms) at 800x800.
+(utils/assets.py:write_cornell_plus, 65 geoms) at 800x800; R on native
+cornell at 800x800, spatial-only and temporal.
 
 --variant NAME=DIR (repeatable) builds DIR's copy of each timed kernel's
 source (SOURCE: DIR/bounce.cu for F and H, DIR/scene_intersect.cu for A,
 J, I and M, DIR/reproject_atrous.cu for L, DIR/ranges.cu for Q,
-DIR/path_trace_table.cu for B1's table build), a copy of csrc/ with
+DIR/spatial_variance.cu for R, DIR/path_trace_table.cu for B1's table
+build), a copy of csrc/ with
 that source or its headers changed (an older tree's csrc, or a source
 with one part of the work taken out), into a library of its own with the same C interface, and
 runs every case's kernel from it too, on the same captured inputs, as
@@ -81,10 +95,12 @@ import dataclasses
 import json
 import pathlib
 
+import numpy as np
 import torch
 
 from ptdn_tpu_torch import trace_bench
 from ptdn_tpu_torch.denoise import svgf
+from ptdn_tpu_torch.denoise.variance import HIST_THRESHOLD
 from ptdn_tpu_torch.engine import Renderer
 from ptdn_tpu_torch.engine import wavefront as W
 from ptdn_tpu_torch.ops.camera import generate_camera_rays
@@ -96,27 +112,32 @@ from ptdn_tpu_torch.ops.cuda import ranges as Q
 from ptdn_tpu_torch.ops.cuda import reproject as C
 from ptdn_tpu_torch.ops.cuda import reproject_atrous as L
 from ptdn_tpu_torch.ops.cuda import scene_intersect as A
+from ptdn_tpu_torch.ops.cuda import spatial_variance as R
 from ptdn_tpu_torch.scene import Scene
 from ptdn_tpu_torch.utils.assets import scene_path, write_cornell_plus
 from ptdn_tpu_torch.utils.card import (ANALYTIC_OPS, BOX_OPS, MOLLER_OPS,
                                        RANGE_OPS, REFINE_OPS, SHADE_OPS,
-                                       bound, card_name, cuda_ms, in_turns,
-                                       nbytes, ptxas_summary)
+                                       SPATIAL_TAP_OPS, bound, card_name,
+                                       cuda_ms, in_turns, nbytes,
+                                       ptxas_summary, sass, sass_loops)
 from ptdn_tpu_torch.utils.config import RenderConfig
 
 CFG = RenderConfig(trace_depth=8)
 # the flags of each kernel's engine: the sort (the mesh scenes' default)
 # for F and Q, the unsorted fused per-bounce engine for H, the split one for A,
 # J and I; for L the headline frame's temporal SVGF with its 5-level
-# filter and fuse_reproject_l1
+# filter and fuse_reproject_l1; for R the same filter in native mode
+# (temporal accumulation on or off by case)
 SPLIT = dict(fuse_path=False, fuse_bounce=False)
-FUSE_L1 = dict(denoise_enable=True, temporal_enable=True,
-               spatial_enable=True, atrous_nlevel=5, fuse_reproject_l1=True)
+SVGF5 = dict(denoise_enable=True, temporal_enable=True, spatial_enable=True,
+             atrous_nlevel=5)
+FUSE_L1 = dict(SVGF5, fuse_reproject_l1=True)
 ENGINE = {"trace_bounce": {}, "ranges_and_key": {},
           "bounce_fused": dict(fuse_path=False, sort_rays=False),
           "scene_intersect_full": SPLIT, "scene_intersect_full_tex": SPLIT,
           "light_visibility": SPLIT, "back_projection_atrous1": FUSE_L1,
-          "path_trace_table": {}, "scene_intersect": {}}
+          "path_trace_table": {}, "scene_intersect": {},
+          "spatial_variance": dict(SVGF5, compat=False)}
 # each kernel's source in csrc/, which a variant rebuilds, and its C
 # entry point
 SOURCE = {"trace_bounce": ("bounce.cu", "ptdn_trace_bounce"),
@@ -130,6 +151,8 @@ SOURCE = {"trace_bounce": ("bounce.cu", "ptdn_trace_bounce"),
                                       "ptdn_back_projection_atrous1"),
           "scene_intersect": ("scene_intersect.cu", "ptdn_scene_intersect"),
           "ranges_and_key": ("ranges.cu", "ptdn_ranges_and_key"),
+          "spatial_variance": ("spatial_variance.cu",
+                               "ptdn_spatial_variance"),
           "path_trace_table": ("path_trace_table.cu",
                                "ptdn_path_trace_table")}
 # the kernels with a per-scene build (csrc/scene/*.cu; B1's table build
@@ -145,7 +168,8 @@ RAY_KERNELS = HIT_KERNELS + ("light_visibility", "scene_intersect")
 # still frame, or "primary", the primary hit of a frame whose camera
 # moved (A, every engine), or L's or B1's call (its only one in a
 # frame); M's: "cull" or "no cull" on the trace bench's rays (scene
-# "trace bench"), "camera" on a scene's camera rays
+# "trace bench"), "camera" on a scene's camera rays; R's: "spatial-only"
+# or "temporal", its call on a frame with temporal accumulation off or on
 CASES = {"F diamond": ("trace_bounce", "diamond", (800, 800), 2),
          "F bunny": ("trace_bounce", "bunny", (800, 800), 2),
          "F room 1920x1080": ("trace_bounce", "room", (1920, 1080), 2),
@@ -173,7 +197,11 @@ CASES = {"F diamond": ("trace_bounce", "diamond", (800, 800), 2),
                             "camera"),
          "B1 table cornell": ("path_trace_table", "cornell", (800, 800), 1),
          "B1 table cornell65": ("path_trace_table", "cornell65", (800, 800),
-                                1)}
+                                1),
+         "R cornell spatial-only": ("spatial_variance", "cornell",
+                                    (800, 800), "spatial-only"),
+         "R cornell temporal": ("spatial_variance", "cornell", (800, 800),
+                                "temporal")}
 B_PLANES = ("spx", "spy", "spz", "dx", "dy", "dz", "t", "nx", "ny", "nz",
             "tr", "tg", "tb", "rr", "rg", "rb", "mat", "act", "dif", "uu",
             "vv")
@@ -181,8 +209,9 @@ ALB_PLANES = ("alb_r", "alb_g", "alb_b")
 # the module whose attribute each kernel's caller calls, where it is not
 # engine/wavefront.py, and that attribute's name, where it is not the
 # kernel's
-CALLER = {"back_projection_atrous1": svgf}
-CALLED = {"path_trace_table": "path_trace"}
+CALLER = {"back_projection_atrous1": svgf, "spatial_variance": svgf}
+CALLED = {"path_trace_table": "path_trace",
+          "spatial_variance": "spatial_variance_fallback"}
 # the generated scene past B1's per-scene build: cornell plus this many
 # cubes (65 geoms)
 CUBES = 55
@@ -231,11 +260,16 @@ def capture(kernel: str, scene: str, res, call=2, device="cuda"):
     camera still), or with call "primary" its first call after the
     camera moved, or with "camera" kernel M on the fourth frame's camera
     rays; or with scene "trace bench" M on the trace bench's rays, call
-    "cull" or "no cull"."""
+    "cull" or "no cull"; R's call, "spatial-only" or "temporal", on the
+    fourth frame with temporal accumulation off or on."""
     if scene == "trace bench":
         return list(trace_bench.setup(device)), {"cull": call == "cull"}
-    r = Renderer(Scene(scene_file(scene)),
-                 dataclasses.replace(CFG, **ENGINE[kernel]), res, device)
+    flags = ENGINE[kernel]
+    if kernel == "spatial_variance":
+        flags = dict(flags, temporal_enable=call == "temporal")
+        call = 1
+    r = Renderer(Scene(scene_file(scene)), dataclasses.replace(CFG, **flags),
+                 res, device)
     for _ in range(3):
         r.render_frame()
     if call == "camera":
@@ -551,6 +585,197 @@ def measure_l(args, kw, libs=None, reps: int = 20):
             "parts": {k: times[k] for k in parts}}
 
 
+def r_read(need):
+    """The (H, W) pixels whose color, position and normal the taps of
+    the pixels `need` (H, W) bool read: those within RADIUS of one."""
+    k = 2 * R.RADIUS + 1
+    return torch.nn.functional.max_pool2d(
+        need[None, None].float(), k, 1, R.RADIUS)[0, 0] > 0
+
+
+def r_work(args, out, need):
+    """Kernel R's bound on its arguments `args` (color, G-buffer, sigmas
+    and, with a history, the history and the temporal variance) and
+    output `out`, the pixels `need` (H, W) bool running the 49 taps: the
+    output, the history and the temporal variance once a pixel (12 B),
+    color, position and normal (as (H, W, 3) planes, 36 B) once a pixel
+    that a tap reads (r_read), SPATIAL_TAP_OPS a tap."""
+    color, gb = args[:2]
+    planes = nbytes(color, gb["position"], gb["normal"]) // need.numel()
+    return bound(nbytes(*args[4:6], out) + planes * int(r_read(need).sum()),
+                 int(need.sum()) * 49 * SPATIAL_TAP_OPS)
+
+
+def r_need(args):
+    """The (H, W) pixels of R's call that run the taps."""
+    if len(args) <= 4:
+        return torch.ones(args[0].shape[:2], dtype=torch.bool,
+                          device=args[0].device)
+    return args[4] < HIST_THRESHOLD
+
+
+def r_none_needed(args):
+    """R's call with a history with the history raised to HIST_THRESHOLD
+    frames: no pixel runs the taps, each keeps its temporal variance."""
+    return [*args[:4], args[4].clamp_min(HIST_THRESHOLD), *args[5:]]
+
+
+def r_blocks(need: np.ndarray, tile=(R.TILE_W, R.TILE_H)) -> dict:
+    """The blocks of kernel R's grid, with tiles of `tile` (width,
+    height), on the pixels `need` (H, W) that run the taps: how many, how
+    many have none, and the warps that run them."""
+    n = R.sv_block_need(need, tile)
+    return {"blocks": int(n.size), "idle_blocks": int((n == 0).sum()),
+            "tap_warps": int(np.ceil(n / 32).sum())}
+
+
+def r_zero_pairs(gb) -> dict:
+    """The in-image (pixel, tap) pairs of R's 7x7 window over the
+    G-buffer `gb`, and those whose squared normal distance, position
+    distance or both are 0 (then the kernel takes no factor's division
+    and exp)."""
+    h, w = gb["normal"].shape[:2]
+    out = dict.fromkeys(("pairs", "normal_zero", "position_zero",
+                         "both_zero"), 0)
+    rad = R.RADIUS
+    for dy in range(-rad, rad + 1):
+        for dx in range(-rad, rad + 1):
+            p = (slice(max(0, -dy), h - max(0, dy)),
+                 slice(max(0, -dx), w - max(0, dx)))
+            q = (slice(max(0, dy), h - max(0, -dy)),
+                 slice(max(0, dx), w - max(0, -dx)))
+
+            def zero(t):   # 0 iff every square is: fused or not
+                d = t[p] - t[q]
+                return (d * d).sum(-1) == 0
+            n0, p0 = zero(gb["normal"]), zero(gb["position"])
+            out["pairs"] += n0.numel()
+            out["normal_zero"] += int(n0.sum())
+            out["position_zero"] += int(p0.sum())
+            out["both_zero"] += int((n0 & p0).sum())
+    return out
+
+
+# tile shapes (width, height) whose blocks measure_r counts: the
+# candidates, and (32, 1), the warps of one thread a pixel at a width
+# that is a multiple of 32
+R_TILES = ((32, 8), (32, 16), (16, 16), (32, 1))
+
+
+def measure_r(args, kw, libs=None, reps: int = 20):
+    """The numbers of an R case, as measure()'s: per build of R (the
+    kernel library's and each of `libs`) the pixels off its plain version
+    and off the first build and its ms on the frame's call; in "parts",
+    on a call with a history, every build where no pixel needs the taps
+    (the history raised to 4 frames; then each equals the temporal
+    variance); all timed in turns there and back. With the pixels that
+    run the taps, r_blocks' counts for the shipped tile and in "tiles"
+    for each of R_TILES, and r_zero_pairs' counts."""
+    ref = R.spatial_variance_plain(*args, **kw)
+    need = r_need(args)
+    taps = int(need.sum())
+    passing = r_none_needed(args) if len(args) > 4 else None
+    runs = {name: (lib, args, kw)
+            for name, lib in {"library": None, **(libs or {})}.items()}
+    per, first = {}, None
+    for name, (lib, a, k) in runs.items():
+        got = _lib.with_lib(lib, lambda: R._spatial_variance_kernel(*a, **k))
+        first = first if first is not None else got
+        per[name] = {"diffs": plane_diffs({"var": got}, {"var": ref}),
+                     "diffs_first": plane_diffs({"var": got},
+                                                {"var": first})}
+    parts = {}
+    if passing is not None:
+        parts = {f"{name} none needed": (lib, passing, kw)
+                 for name, (lib, _, _) in runs.items()}
+    checks = {}
+    for name, (lib, a, k) in parts.items():
+        got = _lib.with_lib(lib, lambda: R._spatial_variance_kernel(*a, **k))
+        checks[name] = plane_diffs({"var": got}, {"var": passing[5]})["var"]
+    runs.update(parts)
+    order = list(runs) + list(runs)[::-1]
+    times = in_turns({name: (lambda lib=lib, a=a, k=k: _lib.with_lib(
+        lib, lambda: R._spatial_variance_kernel(*a, **k)))
+        for name, (lib, a, k) in runs.items()}, reps)
+    for name in per:
+        per[name]["ms"] = times[name]
+    plain_ms = cuda_ms(lambda: R.spatial_variance_plain(*args, **kw),
+                       reps=1, warmup=0, hide_host=True)
+    bound_ms, bound_by = r_work(args, ref, need)
+    need_np = need.cpu().numpy()
+    out = {"lanes": need.numel(), "tri_tests": 0, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "turns": order,
+           "builds": per, "parts": {k: times[k] for k in parts},
+           "parts_off": checks, "taps": taps,
+           "read": int(r_read(need).sum()), **r_blocks(need_np),
+           "tiles": {f"{tw}x{th}": r_blocks(need_np, (tw, th))
+                     for tw, th in R_TILES},
+           "zero_pairs": r_zero_pairs(args[1])}
+    if passing is not None:
+        out["none_needed_bound_ms"] = r_work(passing, ref,
+                                             r_need(passing))[0]
+    return out
+
+
+# kernel R's history patterns at odd sizes (r_pattern_args)
+R_SIZES = ((37, 23), (129, 65))
+R_PATTERNS = ("no history", "all short", "none short", "clustered 17%",
+              "random 17%", "one pixel")
+
+
+def r_pattern_args(h: int, w: int, pattern: str, device="cuda"):
+    """Seeded arguments of kernel R at h x w (numpy's generator): color,
+    a G-buffer with a flat quarter (equal normals and positions: zero
+    distances), a geometric edge and random normals elsewhere, the sigmas
+    and, but for "no history", a history of `pattern` (R_PATTERNS) and a
+    temporal variance."""
+    rng = np.random.default_rng(h * 1000 + w)
+    color = rng.random((h, w, 3), np.float32)
+    pos = rng.random((h, w, 3), np.float32) * np.float32(0.5)
+    pos[:, w // 2:, 2] += np.float32(100)
+    nrm = rng.normal(size=(h, w, 3)).astype(np.float32)
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    nrm[:, :w // 2] = np.float32([0, 0, 1])
+    pos[:h // 3, :w // 3] = np.float32(1)
+    hist = np.full((h, w), 9, np.int32)
+    if pattern == "all short":
+        hist[:] = rng.integers(0, 4, (h, w))
+    elif pattern == "clustered 17%":
+        hist[:max(1, h * 4 // 10), :max(1, w * 4 // 10)] = 1
+    elif pattern == "random 17%":
+        hist[rng.random((h, w)) < 0.17] = 2
+    elif pattern == "one pixel":
+        hist[:] = 4
+        hist[h // 2, w // 2] = 3
+    t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    gb = {"position": t(pos), "normal": t(nrm)}
+    args = [t(color), gb, np.float32(0.2), np.float32(0.35)]
+    if pattern != "no history":
+        args += [t(hist), t(rng.random((h, w), np.float32) * 3)]
+    return args
+
+
+def r_patterns(libs=None) -> dict:
+    """Kernel R on every pattern and size of r_pattern_args, for each
+    build (the kernel library's and each of `libs`): per case and build
+    the pixels off the first build in any bit, and the largest |d| from
+    the plain version."""
+    out = {}
+    for h, w in R_SIZES:
+        for pattern in R_PATTERNS:
+            args = r_pattern_args(h, w, pattern)
+            ref = R.spatial_variance_plain(*args)
+            first, res = None, {}
+            for name, lib in {"library": None, **(libs or {})}.items():
+                got = _lib.with_lib(
+                    lib, lambda: R._spatial_variance_kernel(*args))
+                first = first if first is not None else got
+                res[name] = (plane_diffs({"v": got}, {"v": first})["v"],
+                             float((got - ref).abs().max()))
+            out[f"{h}x{w} {pattern}"] = res
+    return out
+
+
 def run(cases=None, libs=None, reps: int = 20):
     """label -> measure()'s numbers for each case of `cases` (all by
     default)."""
@@ -558,8 +783,9 @@ def run(cases=None, libs=None, reps: int = 20):
     for label in cases or CASES:
         kernel, scene, res, call = CASES[label]
         args, kw = capture(kernel, scene, res, call)
-        out[label] = (measure_l(args, kw, libs, reps)
-                      if kernel == "back_projection_atrous1"
+        fn = {"back_projection_atrous1": measure_l,
+              "spatial_variance": measure_r}.get(kernel)
+        out[label] = (fn(args, kw, libs, reps) if fn
                       else measure(kernel, args, kw, libs, reps))
     return out
 
@@ -591,6 +817,11 @@ def main(argv=None):
         libs[name], log = build_variant(name, src, kernels)
         regs[name] = [r for r in ptxas_summary(log) if r.split()[0] in mine]
     res = run(cases, libs, args.reps)
+    pats = r_patterns(libs) if "spatial_variance" in kernels else {}
+    for case, v in pats.items():
+        print(f"R {case}: pixels off the first build, largest |d| from "
+              f"the plain version: " + ", ".join(
+                  f"{k} {n} ({d:.3g})" for k, (n, d) in v.items()))
     for scene in dict.fromkeys(CASES[c][1] for c in res
                                if CASES[c][0] in PER_SCENE):
         if scene == "trace bench":
@@ -621,14 +852,34 @@ def main(argv=None):
                   f"from the plain version by plane: {bad or 'none'}, from "
                   f"the {first} build: {off or 'none'}{cd} [{card}]")
         for name, ms in m.get("parts", {}).items():
+            off = m.get("parts_off", {}).get(name)
             print(f"{label} [{name}]: " + ", ".join(f"{t:.4f}" for t in ms)
-                  + f" ms [{card}]")
+                  + " ms" + (f", {off} pixels off" if off is not None
+                             else "") + f" [{card}]")
+        if "taps" in m:
+            print(f"{label}: {m['taps']} of {m['lanes']} pixels run the "
+                  f"taps, their taps read {m['read']}; "
+                  f"{m['idle_blocks']} of {m['blocks']} blocks none, "
+                  f"{m['tap_warps']} warps run taps; by tile "
+                  f"{m['tiles']}; zero distances {m['zero_pairs']}"
+                  + (f"; bound where none does "
+                     f"{m['none_needed_bound_ms']:.4f} ms (bytes)"
+                     if "none_needed_bound_ms" in m else "") + f" [{card}]")
     for name, r in regs.items():
         print(f"ptxas [{name}]: " + "; ".join(r))
+    if "spatial_variance" in kernels:   # R's tap loop: 7 taps a trip
+        for name in ("library", *libs):
+            so = _lib.LIB if name == "library" else (
+                _lib.BUILD / f"variant-{name}.so")
+            listing = sass(so, "spatial_variance_kernel")
+            (_lib.BUILD / f"sass-r-{name}.txt").write_text(listing)
+            print(f"SASS [{name}]: spatial_variance_kernel "
+                  f"{len(listing.splitlines())} instructions; loops "
+                  f"(body, by opcode): {sass_loops(listing)}")
     if args.out:
         with open(args.out, "w") as f:
-            json.dump({"card": card, "ptxas": regs, "cases": res}, f,
-                      indent=1)
+            json.dump({"card": card, "ptxas": regs, "cases": res,
+                       "r_patterns": pats}, f, indent=1)
 
 
 if __name__ == "__main__":

@@ -5,11 +5,13 @@ fallback (csrc/spatial_variance.cu), with its plain PyTorch version
 Replaces XLA code of the JAX package, outside any Pallas kernel:
 ptdn_tpu/denoise/variance.py:spatial_variance and
 variance_with_spatial_fallback (as C's band mode and Q replace XLA code).
-One thread a pixel runs the 7x7 bilateral moment estimate where the
-pixel's history is shorter than 4 frames (every pixel without a
-history) and keeps the temporal variance elsewhere, in one pass, with
-the select made per pixel on the card instead of the JAX package's
-lax.cond on any pixel needing it: the same values, no host read.
+A block takes a TILE_W x TILE_H tile of pixels: the pixels whose history
+is shorter than 4 frames (every pixel without a history) run the 7x7
+bilateral moment estimate, from the tile and its RADIUS-pixel ring
+staged in shared memory, and the others keep the temporal variance, in
+one pass, with the select made per pixel on the card instead of the JAX
+package's lax.cond on any pixel needing it: the same values, no host
+read.
 """
 
 from __future__ import annotations
@@ -17,11 +19,17 @@ from __future__ import annotations
 import ctypes
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
-from ptdn_tpu_torch.denoise.variance import (spatial_variance,
+from ptdn_tpu_torch.denoise.variance import (RADIUS, spatial_variance,
                                              variance_with_spatial_fallback)
 from ptdn_tpu_torch.ops.cuda import _lib
+
+# csrc/spatial_variance.cu: a block of TILE_W x TILE_H threads owns a
+# tile of as many pixels and stages it with a RADIUS-pixel ring
+TILE_W = 16
+TILE_H = 16
 
 
 class SpatialVarianceArgs(ctypes.Structure):
@@ -30,6 +38,46 @@ class SpatialVarianceArgs(ctypes.Structure):
                                                  "hist", "var", "out")]
                 + [(k, ctypes.c_int) for k in ("w", "h")]
                 + [(k, ctypes.c_float) for k in ("sigma_n", "sigma_x")])
+
+
+def sv_tiling(h: int, w: int, tile=(TILE_W, TILE_H)):
+    """Kernel R's grid: (tiles_y, tiles_x) tiles of `tile` (width,
+    height) pixels."""
+    return -(-h // tile[1]), -(-w // tile[0])
+
+
+def sv_tile_pixels(h: int, w: int):
+    """The pixels kernel R's blocks filter and stage, as its code maps
+    them (csrc/spatial_variance.cu:spatial_variance_kernel): (block, y,
+    x) of every thread whose pixel lies in the image, and (block, y, x)
+    of every staged pixel that does, each an int64 array over all
+    blocks."""
+    tiles_y, tiles_x = sv_tiling(h, w)
+    b = np.arange(tiles_y * tiles_x)[:, None]
+    ty, tx = (b // tiles_x) * TILE_H, (b % tiles_x) * TILE_W
+    t = np.arange(TILE_W * TILE_H)[None, :]
+    side = TILE_W + 2 * RADIUS
+    s = np.arange(side * (TILE_H + 2 * RADIUS))[None, :]
+
+    def inside(yy, xx):
+        yy, xx = np.broadcast_arrays(yy, xx)
+        bb = np.broadcast_to(b, yy.shape)
+        m = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+        return bb[m], yy[m], xx[m]
+    return (inside(ty + t // TILE_W, tx + t % TILE_W),
+            inside(ty - RADIUS + s // side, tx - RADIUS + s % side))
+
+
+def sv_block_need(need: np.ndarray, tile=(TILE_W, TILE_H)) -> np.ndarray:
+    """The number of pixels that run the taps in each block of kernel R's
+    grid (block-major), for `need` (H, W) bool, with tiles of `tile`
+    (width, height) pixels."""
+    h, w = need.shape
+    tiles_y, tiles_x = sv_tiling(h, w, tile)
+    pad = np.zeros((tiles_y * tile[1], tiles_x * tile[0]), bool)
+    pad[:h, :w] = need
+    return pad.reshape(tiles_y, tile[1], tiles_x, tile[0]).sum(
+        axis=(1, 3)).reshape(-1)
 
 
 def spatial_variance_plain(color, gbuffer, sigma_n, sigma_x,

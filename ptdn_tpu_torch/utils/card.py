@@ -117,3 +117,44 @@ def ptxas_summary(log: str):
                        f"{smem.group(1) if smem else 0} B smem, "
                        f"{spill} B spilled")
     return out
+
+
+def sass(lib_path, kernel: str):
+    """The SASS of `kernel` (its own name, utils/card.py:kernel_name) in
+    the shared library at lib_path, as cuobjdump lists it: one
+    instruction a line, '' where the toolkit has no cuobjdump."""
+    try:
+        dump = subprocess.run(["cuobjdump", "-sass", str(lib_path)],
+                              capture_output=True, text=True).stdout
+    except FileNotFoundError:
+        return ""
+    out, mine = [], False
+    for ln in dump.splitlines():
+        m = re.search(r"Function : (\w+)", ln)
+        if m:
+            mine = kernel_name(m.group(1)) == kernel
+            continue
+        if mine and re.search(r"/\*[0-9a-f]{4,}\*/", ln):
+            out.append(ln.strip())
+    return "\n".join(out)
+
+
+def sass_loops(listing: str):
+    """Each loop of a SASS listing (a branch back to an earlier address):
+    (instructions in its body, a count of them by opcode)."""
+    ins = []
+    for ln in listing.splitlines():
+        m = re.match(r"/\*([0-9a-f]+)\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)"
+                     r"(.*?);", ln)
+        if m:
+            ins.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    loops = []
+    for k, (addr, op, rest) in enumerate(ins):
+        t = re.search(r"0x([0-9a-f]+)\s*$", rest.strip())
+        if op.startswith("BRA") and t and int(t.group(1), 16) < addr:
+            body = [o for a, o, _ in ins if int(t.group(1), 16) <= a <= addr]
+            ops = {}
+            for o in body:
+                ops[o.split(".")[0]] = ops.get(o.split(".")[0], 0) + 1
+            loops.append((len(body), ops))
+    return loops

@@ -26,7 +26,10 @@ from ptdn_tpu.denoise.svgf import init_denoise_state, make_denoise_fn
 from ptdn_tpu.engine import Renderer as JRenderer
 from ptdn_tpu.scene import Scene as JScene
 from ptdn_tpu.utils.config import RenderConfig as JConfig
+from ptdn_tpu_torch import bounce_bench as BB
 from ptdn_tpu_torch.denoise import variance as V
+from ptdn_tpu_torch.denoise.reproject import _norm3 as _norm3_of
+from ptdn_tpu_torch.denoise.reproject import luminance as reproject_luminance
 from ptdn_tpu_torch.denoise.svgf import SVGFDenoiser
 from ptdn_tpu_torch.engine import Renderer
 from ptdn_tpu_torch.engine import wavefront as W
@@ -171,6 +174,148 @@ def test_spatial_variance_assertions_of_the_jax_tests():
         np.float32(0.2), np.float32(5.0)).numpy()
     np.testing.assert_allclose(fb[:4], 0.0, atol=1e-5)
     np.testing.assert_allclose(fb[4:], 7.0)
+
+
+@pytest.mark.parametrize("size", [(1, 1), (37, 23), (64, 64), (800, 800)])
+def test_spatial_variance_tile_geometry(size):
+    """Kernel R's blocks (ops/cuda/spatial_variance.py:sv_tile_pixels,
+    the kernel's mapping) filter every pixel of the image once, and stage
+    every in-image tap of the 7x7 window of each pixel in the pixel's own
+    block, each staged pixel once (800x800: the shapes only)."""
+    h, w = size
+    (fb, fy, fx), (sb, sy, sx) = R.sv_tile_pixels(h, w)
+    assert fy.size == h * w
+    assert np.unique(fy * w + fx).size == h * w
+    # a staged pixel once per block, and the block's staged pixels the
+    # in-image part of the rectangle its filtered pixels' windows span
+    assert np.unique((sb * h + sy) * w + sx).size == sb.size
+    n = int(fb.max()) + 1
+    lo_y, hi_y = np.full(n, h), np.full(n, -1)
+    lo_x, hi_x = np.full(n, w), np.full(n, -1)
+    np.minimum.at(lo_y, sb, sy)
+    np.maximum.at(hi_y, sb, sy)
+    np.minimum.at(lo_x, sb, sx)
+    np.maximum.at(hi_x, sb, sx)
+    area = (hi_y - lo_y + 1) * (hi_x - lo_x + 1)
+    assert (np.bincount(sb, minlength=n) == area).all()
+    r = V.RADIUS
+    assert (lo_y[fb] <= np.maximum(fy - r, 0)).all()
+    assert (hi_y[fb] >= np.minimum(fy + r, h - 1)).all()
+    assert (lo_x[fb] <= np.maximum(fx - r, 0)).all()
+    assert (hi_x[fb] >= np.minimum(fx + r, w - 1)).all()
+    assert R.sv_block_need(np.ones((h, w), bool)).sum() == h * w
+
+
+def test_spatial_variance_blocks_needing_taps():
+    """sv_block_need counts, per block of kernel R's grid, the pixels
+    that run the taps, as sv_tile_pixels maps pixels to blocks."""
+    h, w = 37, 23
+    need = np.random.default_rng(5).random((h, w)) < 0.17
+    (fb, fy, fx), _ = R.sv_tile_pixels(h, w)
+    want = np.bincount(fb, weights=need[fy, fx], minlength=fb.max() + 1)
+    assert np.array_equal(R.sv_block_need(need), want.astype(int))
+    assert R.sv_block_need(np.zeros((h, w), bool)).sum() == 0
+
+
+@pytest.mark.parametrize("sigma", [0.2, 0.35, 1.0, 0.0])
+def test_zero_distance_factor_is_one(sigma):
+    """Kernel R's shortcut rests on the plain version's bits: a zero
+    distance gives the factor min(1, exp(-0 / (sigma + 1e-6))) = 1.0
+    exactly (-0 / den is -0, exp(-0) is 1, the clamp keeps 1), the value
+    the kernel gives such a tap without the division and the exp."""
+    den = V._sigma(sigma, "cpu")
+    zero = torch.zeros(4, 3)
+    d = _norm3_of(zero)
+    assert torch.equal(d, torch.zeros(4)) and not torch.signbit(d).any()
+    q = -d / den
+    assert torch.signbit(q).all() and (q == 0).all()
+    assert torch.equal(torch.exp(torch.tensor(-0.0)), torch.tensor(1.0))
+    assert torch.equal(torch.clamp_max(torch.exp(q), 1.0), torch.ones(4))
+    # the same on a flat patch through the plain version: equal normals
+    # and positions give the weights 1 and the window's plain mean
+    color = torch.rand(5, 5, 3, generator=torch.Generator().manual_seed(1))
+    flat = {"position": torch.ones(5, 5, 3), "normal": torch.ones(5, 5, 3)}
+    lum = reproject_luminance(color)
+    mu1, mu2 = lum.mean(), (lum * lum).mean()
+    got = V.spatial_variance(color, flat, sigma, sigma)[2, 2]
+    assert abs(float(got) - float(torch.clamp_min(mu2 - mu1 * mu1, 0))
+               ) < 1e-6
+
+
+@pytest.mark.parametrize("pattern", BB.R_PATTERNS)
+def test_spatial_variance_patterns_match_jax(pattern):
+    """Kernel R's wrapper on the CPU (its plain version) on every history
+    pattern of bounce_bench.r_pattern_args at 37x23 (the card test's
+    inputs: a flat quarter of zero distances, a geometric edge) against
+    the JAX functions; pixels with a history of 4 frames or more keep
+    the temporal variance."""
+    args = BB.r_pattern_args(37, 23, pattern, device="cpu")
+    got = R.spatial_variance_fallback(*args)
+    jc = jnp.asarray(args[0].numpy())
+    jgb = {k: jnp.asarray(v.numpy()) for k, v in args[1].items()}
+    sig = tuple(map(jnp.float32, args[2:4]))
+    if len(args) == 4:
+        ref = JV.spatial_variance(jc, jgb, *sig)
+    else:
+        ref = JV.variance_with_spatial_fallback(
+            jnp.asarray(args[5].numpy()), jnp.asarray(args[4].numpy()), jc,
+            jgb, *sig)
+        keep = args[4] >= V.HIST_THRESHOLD
+        assert torch.equal(got[keep], args[5][keep])
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
+                               atol=VAR_ATOL)
+
+
+def _windows(need, r=V.RADIUS):
+    """The pixels inside the 7x7 windows of the pixels `need` (numpy)."""
+    h, w = need.shape
+    read = np.zeros((h, w), bool)
+    for y, x in zip(*np.nonzero(need)):
+        read[max(0, y - r):y + r + 1, max(0, x - r):x + r + 1] = True
+    return read
+
+
+@pytest.mark.parametrize("pattern", BB.R_PATTERNS)
+def test_spatial_variance_bound_counts_what_the_taps_read(pattern):
+    """bounce_bench.r_work, kernel R's bound: the output, the history
+    and the temporal variance once a pixel, color, position and normal
+    once for each pixel inside a tapping pixel's window (r_read), 40
+    operations a tap, on every history pattern at 37x23."""
+    args = BB.r_pattern_args(37, 23, pattern, device="cpu")
+    need = BB.r_need(args)
+    read = _windows(need.numpy())
+    assert np.array_equal(BB.r_read(need).numpy(), read)
+    hw = 37 * 23
+    per_pixel = 4 + (8 if len(args) > 4 else 0)
+    want = BB.bound(per_pixel * hw + 36 * int(read.sum()),
+                    int(need.sum()) * 49 * BB.SPATIAL_TAP_OPS)
+    assert BB.r_work(args, torch.zeros(37, 23), need) == want
+
+
+@pytest.mark.parametrize("size", [(9, 7), (16, 5)])
+def test_spatial_variance_zero_pairs(size):
+    """bounce_bench.r_zero_pairs counts the in-image (pixel, tap) pairs
+    of kernel R's window and those whose normal, position or both
+    distances are 0, as a loop over every pixel and tap does."""
+    h, w = size
+    args = BB.r_pattern_args(h, w, "no history", device="cpu")
+    pos, nrm = (args[1][k].numpy() for k in ("position", "normal"))
+    want = dict.fromkeys(("pairs", "normal_zero", "position_zero",
+                          "both_zero"), 0)
+    r = V.RADIUS
+    for y in range(h):
+        for x in range(w):
+            for qy in range(max(0, y - r), min(h, y + r + 1)):
+                for qx in range(max(0, x - r), min(w, x + r + 1)):
+                    zn = (nrm[y, x] == nrm[qy, qx]).all()
+                    zp = (pos[y, x] == pos[qy, qx]).all()
+                    want["pairs"] += 1
+                    want["normal_zero"] += int(zn)
+                    want["position_zero"] += int(zp)
+                    want["both_zero"] += int(zn and zp)
+    got = BB.r_zero_pairs(args[1])
+    assert got == want
+    assert want["position_zero"] > h * w and want["normal_zero"] > h * w
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """Native mode (compat=False) on the card: kernel R, E's light table
 and the native builds of A, J, B1, F and H against their plain versions
-at 128x96 (chip_smoke.py does this at the main path's shapes). The file
+at 128x96, and R on history patterns at odd sizes (chip_smoke.py does
+this at the main path's shapes). The file
 imports no JAX, so that it runs where the card is:
 
     python3 -m pytest --noconftest tests/test_torch_native_card.py
@@ -29,6 +30,33 @@ SPLIT = dict(fuse_path=False, fuse_bounce=False)
 # R against its plain version: torch.exp and expf may differ in the last
 # bit (tests/test_torch_native.py's bound against the JAX package)
 VAR_ATOL = 1e-6
+
+
+@pytest.fixture
+def card():
+    """Skip where there is no card (decided here, not at import)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", BB.R_SIZES)
+def test_spatial_variance_patterns_on_card(card, size):
+    """Kernel R against its plain version at odd sizes on every history
+    pattern of bounce_bench.r_pattern_args (none, all short, none short,
+    a clustered 17% block, 17% random, one pixel): within 1e-6, and
+    every pixel with a history of 4 frames or more keeps its temporal
+    variance bit for bit."""
+    h, w = size
+    for pattern in BB.R_PATTERNS:
+        args = BB.r_pattern_args(h, w, pattern)
+        ref = R.spatial_variance_plain(*args)
+        got = R._spatial_variance_kernel(*args)
+        assert got.shape == (h, w)
+        torch.testing.assert_close(got, ref, rtol=0, atol=VAR_ATOL)
+        if len(args) > 4:
+            keep = args[4] >= 4
+            assert torch.equal(got[keep], args[5][keep]), pattern
 
 
 def _bits_equal(a, b):
@@ -60,15 +88,13 @@ def _equal_planes(kernel, args, kw):
 
 
 @pytest.mark.cuda
-def test_native_kernels_match_plain_on_card(tmp_path):
+def test_native_kernels_match_plain_on_card(card, tmp_path):
     """R against its plain version on native cornell's spatial-only frame
     and its fourth temporal frame (the fallback), within 1e-6 (bit
     for bit where expf and torch.exp agree); E's light table on the
     two-light scene's bounce 2, bit for bit; the native builds of A, J,
     B1 (per-scene and table), F and H on bunny's state, no lane off in
     any output."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card")
     cornell = scene_path("cornell")
     for flags in (dict(temporal_enable=False), {}):
         _, cap = _native_capture(cornell, flags,
