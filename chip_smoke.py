@@ -40,7 +40,12 @@ scene at its own resolution):
 * the ports of the benchmarks/ probes (ptdn_tpu_torch/probes): N
   (texgather), G at the in-row regroup's K = 29 (regroup), P with A beside
   it (intersect_v1) and O (dyngather), and reproj_bench (C's two modes
-  beside the PyTorch window, packed and packed2 variants).
+  beside the PyTorch window, packed and packed2 variants);
+* the row-sharded frame step (ptdn_tpu_torch/parallel/): cornell split
+  into 8 and 16 row shards in one process (kernel D's shard mode at
+  every level of every shard, C's row offset), room (sorted), diamond
+  (G) and native cornell (R) in 8, and cornell in two torch.distributed
+  ranks over gloo on the one card.
 
 Every frame's reprojection branch (C's stencil mode or L where the
 motion is within a pixel, else C's band mode) is read from motion_bounds,
@@ -142,7 +147,24 @@ Phases, one line or more each, with their wall time:
    process (16 frames of cornell with an orbit, sigma_l 0.7 and the
    denoise toggle: renderer.step kept until the toggle, the launches of
    A, B1, B2, C and D counted), a checkpoint's resume (bit for bit), and
-   benchmarks/gt/*.npz and bench_results.json hashed before and after.
+   benchmarks/gt/*.npz and bench_results.json hashed before and after;
+6. the row-sharded frame step at cornell 800x800 with the same config:
+   D's shard mode against its plain version and the unsharded kernel at
+   every level on 8 shards (100 rows) and 16 (50 rows: level 5's
+   64-row halo two hops), bit for bit, and with row0 0 and no halo the
+   unsharded D; C's row offset in both modes on 8 shards, bit for bit,
+   no pixel off its plain version; the in-process group of 8 and of 16
+   shards through 8 still then 8 anim_slow frames, every stitched left
+   and right equal to the whole image's bit for bit, with each frame's
+   launches (D in shard mode shards x 5 times) and halo exchanges
+   counted; 4 frames each of room 600x600 (sorted, 75-row shards),
+   diamond (G) and native cornell (R) in 8 shards, equal bit for bit; 2
+   gloo ranks on the one card (a subprocess each, with a time limit),
+   4 frames, the stitched frame equal; D's shard mode by level beside
+   the unsharded level and the 8 and 16 shards' sum, the sharded still
+   frame's ms beside the unsharded one, in turns, and the shard modes'
+   entries of the JSON line (one shard's call, its bound from its rows
+   and halo rows).
 
 The last three lines are a JSON object with every kernel's numbers, the
 card, and {"ok": true, "device": {...}}. Any failed check raises, so
@@ -194,6 +216,9 @@ from ptdn_tpu_torch.ops.cuda import scene_intersect as A  # noqa: E402
 from ptdn_tpu_torch.ops.cuda import shade as E  # noqa: E402
 from ptdn_tpu_torch.ops.cuda import spatial_variance as R  # noqa: E402
 from ptdn_tpu_torch.ops.cuda import texgather as N  # noqa: E402
+from ptdn_tpu_torch.parallel.dryrun import run_ranks  # noqa: E402
+from ptdn_tpu_torch.parallel.mesh import InProcessGroup  # noqa: E402
+from ptdn_tpu_torch.parallel.sharded import ShardedRenderer  # noqa: E402
 from ptdn_tpu_torch.probes import dyngather as probe_o  # noqa: E402
 from ptdn_tpu_torch.probes import intersect_v1 as probe_p  # noqa: E402
 from ptdn_tpu_torch.probes import regroup as probe_g  # noqa: E402
@@ -404,6 +429,31 @@ PLANE_OPS = 60
 LANES_OFF_ALLOWED = 0
 # phase 5's limits on the entry points run as subprocesses (seconds)
 BENCH_TIMEOUT, CLI_TIMEOUT = 600, 180
+# phase 6, the row-sharded frame step: the in-process groups' shard counts
+# (cornell 800x800: 100 and 50 rows, level 5's 64-row halo two hops at
+# 50), the still then moving frames of each, the other scenes' runs at 8
+# shards (label -> scene, flags, resolution) and their frames, and the
+# two gloo ranks' frames and time limit (seconds)
+SHARDS = (8, 16)
+SHARD_STILL = SHARD_MOVING = 8
+SHARD_RUNS = {"room": ("room", {}, (600, 600)),
+              "diamond": ("diamond", {}, (800, 800)),
+              "cornell native": ("cornell", NATIVE, (800, 800))}
+SHARD_RUN_FRAMES = 4
+RANKS, RANKS_FRAMES, RANKS_TIMEOUT = 2, 4, 300
+# the kernels' shard modes: name -> (wrapper, its counter of them, source,
+# the TPU kernel (or XLA code) it replaces)
+SHARD_KERNELS = {
+    "atrous_level_shard": (D.atrous_level, "shard_launches",
+                           "csrc/atrous.cu",
+                           "ptdn_tpu/ops/pallas/atrous.py:275"),
+    "back_projection_stencil_rows": (C.back_projection_stencil,
+                                     "row_launches", "csrc/reproject.cu",
+                                     "ptdn_tpu/ops/pallas/reproject.py:194"),
+    "back_projection_banded_rows": (C.back_projection_banded,
+                                    "row_launches", "csrc/reproject.cu",
+                                    "ptdn_tpu/denoise/reproject.py:406"),
+}
 
 
 def check(ok: bool, what: str):
@@ -814,6 +864,318 @@ def entry_points(card, rmse, frame_ms):
           f"unchanged; {time.perf_counter() - t0:.1f} s")
 
 
+def padded(x, halo: int):
+    """x with `halo` zero rows above and below: the rows a shard's halo
+    brings past the image."""
+    pad = x.new_zeros((halo,) + tuple(x.shape[1:]))
+    return torch.cat([pad, x, pad])
+
+
+def shard_counts():
+    """The launches of every kernel, and of the shard modes."""
+    c = counts()
+    c.update({name: getattr(k[0], k[1]) for name, k in SHARD_KERNELS.items()})
+    return c
+
+
+def reset_shard_counts():
+    reset_counts()
+    for wrapper, counter, _, _ in SHARD_KERNELS.values():
+        setattr(wrapper, counter, 0)
+
+
+def sharded_frames(label, one, many, frames, moving_from=None):
+    """Drive the whole image's renderer `one` and the sharded `many`
+    through `frames` frames (the camera moving by cornell_svgf_anim_slow's
+    automation from frame `moving_from` on), each sharded frame with the
+    launch and exchange counts set to 0 just before it and read just
+    after: the stitched left and right equal the whole image's bit for
+    bit on every frame. Returns the summed counts, the exchanges, and per
+    frame whether the back-projection took the near branch."""
+    n = many.group.n
+    autos = [CameraAutomation(dataclasses.replace(one.cfg, **ANIM_SLOW))
+             for _ in range(2)]
+    total, exchanges, near = {}, {}, []
+    for f in range(frames):
+        if moving_from is not None and f >= moving_from:
+            for r, auto in zip((one, many), autos):
+                auto.step(r.camera)
+                r.cam_changed = True
+        want = one.render_frame()
+        reset_shard_counts()
+        many.group.exchanges.clear()
+        got = many.render_frame()
+        torch.cuda.synchronize()
+        c = shard_counts()
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"{label}: frame {f} of {n} shards equals the whole image's "
+              f"bit for bit")
+        check(bool(torch.isfinite(got[1]).all()), f"{label}: finite")
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+        for k, v in many.group.exchanges.items():
+            exchanges[k] = exchanges.get(k, 0) + v
+        dn = [s.denoiser for s in many.step.steps]
+        if one.cfg.temporal_enable:
+            check(len({d.near for d in dn}) == 1,
+                  f"{label}: the shards chose one branch")
+            near.append(dn[0].near)
+        if one.cfg.denoise_enable and one.cfg.spatial_enable:
+            check(c["atrous_level_shard"] == c["atrous_level"]
+                  == n * one.cfg.atrous_nlevel,
+                  f"{label}: frame {f}: D in shard mode {n} x "
+                  f"{one.cfg.atrous_nlevel} times, got {c['atrous_level']}, "
+                  f"{c['atrous_level_shard']}")
+    return total, exchanges, near
+
+
+def sharded_phase(card, out, frame_ms):
+    """Phase 6: the row-sharded frame step (ptdn_tpu_torch/parallel/) at
+    the headline's width, cornell 800x800 with CFG: D's shard mode and
+    C's row offset against their plain versions and the unsharded
+    kernels; the in-process group at 8 and 16 shards through still and
+    moving frames, room, diamond and native cornell at 8, and two gloo
+    ranks, each frame equal to the whole image's bit for bit; times.
+    Appends the shard modes' entries to `out`."""
+    t0 = time.perf_counter()
+    stats, work, times = {}, {}, {}
+    warm = renderer("cornell")
+    for _ in range(3):
+        warm.render_frame()
+    cam = warm._cam[0]
+    w, h = warm.resolution
+    st = warm.step.frame_state()
+    rad, gb = warm.step.tracer(cam, warm._params, 3, False)
+    gb = {k: v.reshape((h, w) + tuple(v.shape[1:])).contiguous()
+          for k, v in gb.items()}
+    raw = rad.reshape(h, w, 3)
+    alphas = (float(CFG.color_alpha), float(CFG.moment_alpha))
+    prev = [st["prev_normal"], st["prev_geom_id"], st["color_history"],
+            st["moment_history"], st["history_length"]]
+    moved = torch.eye(4, device=DEVICE)
+    moved[0, 3] = 0.3
+
+    # C's row offset: both modes on 8 shards of 100 rows against their
+    # plain versions and the unsharded kernels' rows, bit for bit
+    hl = h // SHARDS[0]
+    for name, view in (("back_projection_stencil_rows", st["prev_view"]),
+                       ("back_projection_banded_rows",
+                        st["prev_view"] @ moved)):
+        banded = name == "back_projection_banded_rows"
+        bounds = reproject.motion_bounds((w, h), gb, view)
+        check(bool(bounds[0]) != banded, f"{name}: the branch")
+        args = ((w, h), raw, gb, {"normal": prev[0], "geom_id": prev[1]},
+                view, *prev[2:], *alphas)
+        band = (bounds[1:], reproject.BAND_ROWS, reproject.BAND_MARGIN)
+        want = (C._back_projection_banded_kernel(*args, *band) if banded
+                else C._back_projection_stencil_kernel(*args))
+        got, off, err = [], 0, 0.0
+        for r0 in range(0, h, hl):
+            cur = slice(r0, r0 + hl)
+            win, p0 = ((prev, 0) if banded else
+                       ([padded(t, 2)[r0:r0 + hl + 4] for t in prev],
+                        r0 - 2))
+            sargs = ((w, hl), raw[cur], {k: v[cur].contiguous()
+                                         for k, v in gb.items()},
+                     {"normal": win[0], "geom_id": win[1]}, view, *win[2:],
+                     *alphas) + (band if banded else ())
+            kfn = (C._back_projection_banded_kernel if banded
+                   else C._back_projection_stencil_kernel)
+            pfn = (C.back_projection_banded_plain if banded
+                   else C.back_projection_stencil_plain)
+            k = kfn(*sargs, rows=(r0, h, p0))
+            p = pfn(*sargs, rows=(r0, h, p0))
+            off += sum(int((~((a == b) | (torch.isnan(a) & torch.isnan(b))))
+                           .reshape(hl * w, -1).any(-1).sum())
+                       for a, b in zip(k, p))
+            err = max([err] + [max_abs(a, b) for a, b in zip(k, p)])
+            got.append(k)
+            if r0 == hl:       # the second shard: timed below
+                times[name] = (
+                    functools.partial(kfn, *sargs, rows=(r0, h, p0)),
+                    functools.partial(pfn, *sargs, rows=(r0, h, p0)))
+                # its rows of the current frame in, the previous frame's
+                # rows its taps reach (two past the shard's) in, its rows
+                # out; ~200 operations a pixel
+                reach = [t[r0 - 2 - p0:r0 + hl + 2 - p0] for t in win]
+                work[name] = bound(
+                    nbytes(raw[cur], *(gb[k_][cur] for k_ in (
+                        "position", "normal", "geom_id")), *reach, *k),
+                    hl * w * 200)
+        check(off <= LANES_OFF_ALLOWED,
+              f"{name}: {off} pixels off the plain version")
+        check(all(torch.equal(torch.cat([g[i] for g in got]), want[i])
+                  for i in range(4)),
+              f"{name}: the shards' rows equal the unsharded kernel's")
+        stats[name] = err
+        print(f"phase 6: {name.replace('_rows', '')} with a row offset on "
+              f"{SHARDS[0]} shards of {hl} rows: equal to its plain version "
+              f"({off} pixels off) and to the unsharded kernel, bit for bit")
+        if not banded:
+            src, var = want[1], want[0]
+
+    # D's shard mode at every level, 8 and 16 shards, against its plain
+    # version and the unsharded kernel (the level before's output in);
+    # with row0 = 0 and no halo, the unsharded call
+    sig = (float(CFG.sigma_l), float(CFG.sigma_n), float(CFG.sigma_x))
+    static = D.pack_static_planes(gb["position"], gb["normal"])
+    albedo = (gb["albedo"] * gb["ialbedo"]).contiguous()
+    sh = D.atrous_halo(NLEVEL)
+    sext = padded(static, sh)
+    d_ms = {}
+    for level in range(1, NLEVEL + 1):
+        last = level == NLEVEL
+        alb = albedo if last else None
+        want = D._atrous_level_kernel(src, var, static, alb, level, *sig,
+                                      CFG.blur_variance)
+        whole = D._atrous_level_kernel(src, var, static, alb, level, *sig,
+                                       CFG.blur_variance, False, 0, h, 0, 0)
+        check(torch.equal(whole[0], want[0])
+              and torch.equal(whole[1], want[1]),
+              f"D level {level} with row0 0 and no halo is the unsharded D")
+        halo = D.atrous_halo(level)
+        ext = padded(torch.cat([src, var[..., None]], -1), halo)
+        calls = {}
+        for n in SHARDS:
+            hl = h // n
+            outs, calls[n] = [], []
+            for r0 in range(0, h, hl):
+                e = ext[r0:r0 + hl + 2 * halo]
+                dargs = (e[..., :3], e[..., 3], sext[r0:r0 + hl + 2 * sh],
+                         None if alb is None else alb[r0:r0 + hl], level,
+                         *sig, CFG.blur_variance, False, r0, h, halo, sh)
+                k = D._atrous_level_kernel(*dargs)
+                p = D.atrous_level_plain(*dargs)
+                check(torch.equal(k[0], p[0]) and torch.equal(k[1], p[1]),
+                      f"D's shard mode, level {level}, {n} shards, row "
+                      f"{r0}: equal to its plain version")
+                outs.append(k)
+                calls[n].append(dargs)
+            check(torch.equal(torch.cat([o[0] for o in outs]), want[0])
+                  and torch.equal(torch.cat([o[1] for o in outs]), want[1]),
+                  f"D's shard mode, level {level}, {n} shards: the "
+                  f"unsharded level's rows")
+        one8 = calls[SHARDS[0]][1]
+        d_ms[level] = {
+            "unsharded": cuda_ms(lambda: D._atrous_level_kernel(
+                src, var, static, alb, level, *sig, CFG.blur_variance),
+                reps=10, hide_host=True),
+            "one shard of 8": cuda_ms(lambda: D._atrous_level_kernel(*one8),
+                                      reps=10, hide_host=True),
+            **{f"{n} shards": cuda_ms(
+                lambda: [D._atrous_level_kernel(*a) for a in calls[n]],
+                reps=10, hide_host=True) for n in SHARDS}}
+        if level == 1:
+            hl = h // SHARDS[0]
+            rows = hl + 2 * halo
+            times["atrous_level_shard"] = (
+                functools.partial(D._atrous_level_kernel, *one8),
+                functools.partial(D.atrous_level_plain, *one8))
+            # the shard's rows and halo rows of color, variance, position
+            # and normal read, its rows written; 25 taps of ~40 operations
+            work["atrous_level_shard"] = bound(
+                rows * w * (16 + 24) + hl * w * 16, hl * w * 25 * 40)
+        src, var = want
+    stats["atrous_level_shard"] = 0.0
+    frame_ms["D shard mode by level"] = d_ms
+    print("phase 6: D's shard mode equals its plain version and the "
+          f"unsharded level at every level on {SHARDS} shards, and with "
+          "row0 0 and no halo the unsharded D; ms by level: "
+          + "; ".join(f"{lv}: " + ", ".join(f"{k} {v:.4f}"
+                                            for k, v in m.items())
+                      for lv, m in d_ms.items()) + f" [{card}]")
+
+    # the main path: the in-process group, still then moving frames
+    launches = {}
+    for n in SHARDS:
+        one = renderer("cornell")
+        many = ShardedRenderer(scene("cornell"), CFG, (w, h),
+                               InProcessGroup(n), device=DEVICE)
+        frames = SHARD_STILL + SHARD_MOVING
+        total, exch, near = sharded_frames(f"cornell {n} shards", one, many,
+                                           frames, moving_from=SHARD_STILL)
+        far = near.count(False)
+        check(near[:SHARD_STILL] == [False] + [True] * (SHARD_STILL - 1),
+              f"{n} shards: far on frame 0 only while still: {near}")
+        # a frame's halos: one a level, the previous frame's rows when
+        # near (else a gather), the G-buffer's when the camera moved
+        halos = sum(NLEVEL + nr + (f == 0 or f >= SHARD_STILL)
+                    for f, nr in enumerate(near))
+        check(exch.get("Halo", 0) == halos
+              and exch.get("Gather", 0) == far
+              and exch.get("Reduce", 0) == 2 * (2 + SHARD_MOVING),
+              f"{n} shards: exchanges {exch}")
+        check(total["back_projection_banded_rows"] == n * far
+              and total["back_projection_stencil_rows"]
+              == n * (frames - far)
+              and total["path_trace"] == total["deferred_radiance"]
+              == n * frames
+              and total["scene_intersect_full"] == n * (1 + SHARD_MOVING),
+              f"{n} shards: launches {nonzero(total)}")
+        if n == SHARDS[0]:
+            launches = total
+        print(f"phase 6: cornell {w}x{h} in {n} shards of {h // n} rows, "
+              f"{SHARD_STILL} still then {SHARD_MOVING} moving frames "
+              f"({far} far), every frame equal to the whole image's bit "
+              f"for bit; launches {json.dumps(nonzero(total))}; exchanges "
+              f"{json.dumps(exch)} (D {n} x {NLEVEL} a frame)")
+        if n == SHARDS[0]:
+            one, many = renderer("cornell"), ShardedRenderer(
+                scene("cornell"), CFG, (w, h), InProcessGroup(n),
+                device=DEVICE)
+            for r in (one, many):
+                for _ in range(3):
+                    r.render_frame()
+            ms = in_turns({"unsharded": one.render_frame,
+                           f"{n} shards": many.render_frame}, reps=10)
+            frame_ms["cornell sharded turns"] = ms
+            print(f"phase 6: cornell {w}x{h} still, ms/frame in turns: "
+                  + ", ".join(f"{k} {v}" for k, v in ms.items())
+                  + f" (the shards one after another on one card) [{card}]")
+    for label, (name, flags, res) in SHARD_RUNS.items():
+        one = renderer(name, res, **flags)
+        many = ShardedRenderer(scene(name), one.cfg, res,
+                               InProcessGroup(SHARDS[0]), device=DEVICE)
+        total, exch, near = sharded_frames(f"{label} {SHARDS[0]} shards",
+                                           one, many, SHARD_RUN_FRAMES)
+        print(f"phase 6: {label} {res[0]}x{res[1]} "
+              f"({many.step.steps[0].tracer.engine}) in {SHARDS[0]} shards "
+              f"of {res[1] // SHARDS[0]} rows, {SHARD_RUN_FRAMES} frames "
+              f"equal to the whole image's bit for bit; launches "
+              f"{json.dumps(nonzero(total))}; exchanges {json.dumps(exch)}")
+
+    # two torch.distributed ranks over gloo on the one card
+    t1 = time.perf_counter()
+    got = run_ranks(RANKS, "cornell", dataclasses.asdict(CFG), (w, h),
+                    RANKS_FRAMES, DEVICE, RANKS_TIMEOUT)
+    one = renderer("cornell")
+    for _ in range(RANKS_FRAMES):
+        want = one.render_frame()
+    check(all(np.array_equal(g, x.cpu().numpy()) for g, x in zip(got, want)),
+          f"{RANKS} gloo ranks: the stitched frame equals the whole image's")
+    print(f"phase 6: {RANKS} gloo ranks on the one card, {h // RANKS} rows "
+          f"each, {RANKS_FRAMES} frames: the stitched frame equals the "
+          f"whole image's bit for bit ({time.perf_counter() - t1:.1f} s)")
+
+    for name, (wrapper, counter, source, replaces) in SHARD_KERNELS.items():
+        kfn, pfn = times[name]
+        ms = cuda_ms(kfn, reps=10, hide_host=True)
+        plain_ms = cuda_ms(pfn, reps=3, warmup=1, hide_host=True)
+        bound_ms, bound_by = work[name]
+        check(launches[name] > 0, f"{name} launched on the main path")
+        out.append({"name": name, "route": "cuda",
+                    "source": "ptdn_tpu_torch/" + source,
+                    "replaces": replaces, "launches": launches[name],
+                    "max_abs_err": stats.get(name, 0.0), "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": None})
+        print(f"phase 6: {name} (one shard of {h // SHARDS[0]} rows) "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} "
+              f"ms ({bound_by}); {launches[name]} launches in the "
+              f"{SHARDS[0]}-shard run [{card}]")
+    print(f"phase 6: {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     t_all = time.perf_counter()
     # ---- phase 0: the card ----
@@ -1002,9 +1364,9 @@ def main():
     mov = Motion(renderer("cornell", **ANIM_SLOW))
     real_banded, got = reproject.back_projection_banded, []
     reproject.back_projection_banded = (
-        lambda *a, starts: got.append(a + (starts, reproject.BAND_ROWS,
-                                           reproject.BAND_MARGIN))
-        or real_banded(*a, starts=starts))
+        lambda *a, starts, rows=None: got.append(
+            a + (starts, reproject.BAND_ROWS, reproject.BAND_MARGIN))
+        or real_banded(*a, starts=starts, rows=rows))
     try:
         for _ in range(4):
             mov.frame()
@@ -2013,6 +2375,10 @@ def main():
     # ---- phase 5: the entry points ----
     entry_points(card, rmse, frame_ms)
     print(f"phase 5: all phases {time.perf_counter() - t_all:.1f} s")
+
+    # ---- phase 6: the row-sharded frame step ----
+    sharded_phase(card, out, frame_ms)
+    print(f"phase 6: all phases {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": out, "frame_ms": frame_ms, "rmse": rmse}))
     print(card)
     print(json.dumps({"ok": True, "device": {

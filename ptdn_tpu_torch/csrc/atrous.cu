@@ -37,6 +37,16 @@
 // through L1. The TPU kernel's row strips, halo DMAs and whole-plane
 // shifts do not carry over.
 //
+// Shard mode (the TPU kernel's row0, full_h and halo rows,
+// ptdn_tpu/ops/pallas/atrous.py:275-283): the launch filters the h rows
+// of a shard whose first row is image row row0 of a full_h-row image.
+// The level's input carries `halo` real neighbour rows above and below
+// (parallel/halo.py, zeros past the image), the G-buffer `static_halo`;
+// tap rows are read through those offsets and masked by their global
+// row, so every pixel is the unsharded level's bit for bit. The lattice
+// phases stay on the shard's own rows (atrous_tiling of h). Unsharded:
+// row0 = 0, full_h = h, no halo rows.
+//
 // What bounds it: the compulsory traffic is ~56 B a pixel (0.011 ms at
 // 800x800), but the arithmetic weighs more: 25 taps of two IEEE square
 // roots, an exp and ~30 flops, some 3,000 instructions of unrolled code
@@ -66,6 +76,10 @@ struct AtrousArgs {
   float sigma_l;
   float sigma_n;
   float sigma_x;
+  int row0;              // image row of the launch's row 0
+  int full_h;            // image rows
+  int halo;              // rows of cv and var above row 0 (and below h)
+  int static_halo;       // rows of stat above row 0 (and below h)
 };
 
 }  // namespace ptdn
@@ -91,8 +105,9 @@ struct TileIn : ptdn::StagedTaps {
   const float* cv_in;   // the level's input in device memory (AtrousArgs)
   const float* var_in;
   int w;
+  int off;              // buffer row of image row 0: halo - row0
   __device__ __forceinline__ float blur_var(int qy, int qx) const {
-    const int q = qy * w + qx;
+    const int q = (qy + off) * w + qx;
     return var_in == nullptr ? cv_in[4 * q + 3] : var_in[q];
   }
 };
@@ -122,9 +137,12 @@ __global__ void __launch_bounds__(kRows * 32, 5)
        k += kRows * 32) {
     const int r = k / srow, c = (k - r * srow) / np, p = k % np;
     const int y = oy + r * step, x = ox + c * step + p;
-    if (y < 0 || y >= a.h || x < 0 || x >= a.w) continue;
-    const int i = y * a.w + x;
-    s_cv[k] = load_cv(a, i);
+    const int gy = a.row0 + y;
+    if (y < -a.halo || y >= a.h + a.halo || gy < 0 || gy >= a.full_h ||
+        x < 0 || x >= a.w)
+      continue;
+    s_cv[k] = load_cv(a, (y + a.halo) * a.w + x);
+    const int i = (y + a.static_halo) * a.w + x;
     s_pos[k] = stat[2 * i];
     s_nrm[k] = stat[2 * i + 1];
   }
@@ -136,9 +154,10 @@ __global__ void __launch_bounds__(kRows * 32, 5)
   if (y >= a.h || x >= a.w) return;
   const TileIn in{{s_cv, s_pos, s_nrm, srow, np,
                    (r + kHalo) * srow + (l + kHalo) * np + p},
-                  a.cv, a.var, a.w};
+                  a.cv, a.var, a.w, a.halo - a.row0};
   float out[4];
-  ptdn::atrous_pixel(in, a.w, a.h, y, x, level, a.blur_variance != 0,
+  ptdn::atrous_pixel(in, a.w, a.full_h, a.row0 + y, x, level,
+                     a.blur_variance != 0,
                      ptdn::AtrousSigmas{a.sigma_l, a.sigma_n, a.sigma_x},
                      out);
   const int i = y * a.w + x;

@@ -17,16 +17,23 @@
 // 40 B that neighbouring threads share through L1/L2 (a smooth camera
 // motion keeps a warp's taps neighbours), ~28 B out; at 800x800 that is
 // ~56 MB of compulsory traffic, about 17 us at the H100's 3.35 TB/s.
+//
+// Row offset (a shard of a taller image, parallel/sharded.py): `rows`
+// (reproject.cuh:ReprojRows) places the launch's rows in the image and
+// the previous frame's window, the rows that a still frame's stencil
+// reaches (two past the shard) or the whole previous frame for the band
+// mode. Unsharded: {0, h, 0}.
 #include "reproject.cuh"
 
 namespace {
 
 template <bool Banded>
-__device__ __forceinline__ void back_projection_thread(ptdn::ReprojArgs a) {
+__device__ __forceinline__ void back_projection_thread(
+    ptdn::ReprojArgs a, ptdn::ReprojRows rows) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.w * a.h) return;
   const int iy = i / a.w, ix = i - iy * a.w;
-  const ptdn::Accum r = ptdn::reproject_pixel<Banded>(a, iy, ix);
+  const ptdn::Accum r = ptdn::reproject_pixel<Banded, true>(a, iy, ix, rows);
   a.acc[3 * i] = r.acc[0];
   a.acc[3 * i + 1] = r.acc[1];
   a.acc[3 * i + 2] = r.acc[2];
@@ -36,12 +43,14 @@ __device__ __forceinline__ void back_projection_thread(ptdn::ReprojArgs a) {
   a.hist[i] = r.hist;
 }
 
-__global__ void back_projection_stencil_kernel(ptdn::ReprojArgs a) {
-  back_projection_thread<false>(a);
+__global__ void back_projection_stencil_kernel(ptdn::ReprojArgs a,
+                                               ptdn::ReprojRows rows) {
+  back_projection_thread<false>(a, rows);
 }
 
-__global__ void back_projection_banded_kernel(ptdn::ReprojArgs a) {
-  back_projection_thread<true>(a);
+__global__ void back_projection_banded_kernel(ptdn::ReprojArgs a,
+                                              ptdn::ReprojRows rows) {
+  back_projection_thread<true>(a, rows);
 }
 
 constexpr int kBlock = 256;
@@ -49,19 +58,21 @@ constexpr int kBlock = 256;
 }  // namespace
 
 extern "C" int ptdn_back_projection_stencil(const ptdn::ReprojArgs* a,
+                                            const ptdn::ReprojRows* rows,
                                             void* stream) {
   const int n = a->w * a->h;
   if (n > 0)
     back_projection_stencil_kernel<<<(n + kBlock - 1) / kBlock, kBlock, 0,
-                                     (cudaStream_t)stream>>>(*a);
+                                     (cudaStream_t)stream>>>(*a, *rows);
   return (int)cudaGetLastError();
 }
 
 extern "C" int ptdn_back_projection_banded(const ptdn::ReprojArgs* a,
+                                           const ptdn::ReprojRows* rows,
                                            void* stream) {
   const int n = a->w * a->h;
   if (n > 0)
     back_projection_banded_kernel<<<(n + kBlock - 1) / kBlock, kBlock, 0,
-                                    (cudaStream_t)stream>>>(*a);
+                                    (cudaStream_t)stream>>>(*a, *rows);
   return (int)cudaGetLastError();
 }

@@ -42,6 +42,17 @@ struct ReprojArgs {
   int slab_h;           // band mode: rows per slab of the padded grid
 };
 
+// A shard's rows (parallel/sharded.py): the launch's h pixel rows are
+// image rows row0.. of a full_h-row image, and the previous frame's
+// planes (ch, mh, hl, pn, pg) hold image rows from prev_row0, every row
+// a tap reaches (the caller's window). The projection, the image-edge
+// tests, the band and the slab take global rows. Unsharded: {0, h, 0}.
+struct ReprojRows {
+  int row0;
+  int full_h;
+  int prev_row0;
+};
+
 struct Accum {
   float var;
   float acc[3];
@@ -63,14 +74,23 @@ __device__ __forceinline__ int base_index(float f) {
 // base, and a pixel whose clipped padded base row gi = clip(fy + 1, 0,
 // h + 1) lies outside its band's slab [start, start + slab_h) is
 // rejected (ptdn_tpu/denoise/reproject.py:back_projection_banded).
-template <bool Banded>
-__device__ inline Accum reproject_pixel(const ReprojArgs& a, int iy, int ix) {
+// Rows (kernel C) places the launch's rows by `rows`; without it (kernel
+// L) they are the image, and the code is the unplaced one, each value
+// read where that code read it.
+template <bool Banded, bool Rows>
+__device__ inline Accum reproject_pixel(const ReprojArgs& a, int iy, int ix,
+                                        const ReprojRows& rows) {
   const int i = iy * a.w + ix;
+  // the image's rows, and the pixel's image row
+  const auto full_h = [&] { return Rows ? rows.full_h : a.h; };
+  const auto gy = [&] { return Rows ? rows.row0 + iy : iy; };
   const float cr = a.color[3 * i], cg = a.color[3 * i + 1],
               cb = a.color[3 * i + 2];
   const float lum = dot3(0.2126f, 0.7152f, 0.0722f, cr, cg, cb);
   const int geo = a.geom[i];
-  const float n_hist = (float)a.hl[i];
+  // the pixel's own history, in the previous frame's window
+  const float n_hist =
+      (float)a.hl[Rows ? (gy() - rows.prev_row0) * a.w + ix : i];
 
   bool valid = false;
   float pc[3] = {0.f, 0.f, 0.f}, pm[2] = {0.f, 0.f}, ph = 0.f;
@@ -81,11 +101,13 @@ __device__ inline Accum reproject_pixel(const ReprojArgs& a, int iy, int ix) {
     const float vsy = row4(v, 1, px, py, pz);
     const float vsz = row4(v, 2, px, py, pz);
     const float prevx = fmaf(-(vsx / vsz) * 0.5f + 0.5f, (float)a.w, -0.5f);
-    const float prevy = fmaf(-(vsy / vsz) * 0.5f + 0.5f, (float)a.h, -0.5f);
+    const float prevy =
+        fmaf(-(vsy / vsz) * 0.5f + 0.5f, (float)full_h(), -0.5f);
     const float floorx = floorf(prevx), floory = floorf(prevy);
     const float fracx = prevx - floorx, fracy = prevy - floory;
     bool base_valid =
-        (floorx >= 0.f) && (floory >= 0.f) && (floorx < a.w) && (floory < a.h);
+        (floorx >= 0.f) && (floory >= 0.f) && (floorx < a.w) &&
+        (floory < full_h());
     int fx, fy, by, bx;
     bool slab_ok = true;
     if (Banded) {
@@ -93,15 +115,15 @@ __device__ inline Accum reproject_pixel(const ReprojArgs& a, int iy, int ix) {
       fy = base_index(floory);
       by = fy;
       bx = fx;
-      const int gi = min(max(fy + 1, 0), a.h + 1);
-      const int li = gi - a.starts[iy / a.band_rows];
+      const int gi = min(max(fy + 1, 0), full_h() + 1);
+      const int li = gi - a.starts[gy() / a.band_rows];
       slab_ok = (li >= 0) && (li < a.slab_h);
       base_valid = base_valid && slab_ok;
     } else {
       fx = __float2int_rz(floorx);
       fy = __float2int_rz(floory);
       // under the caller's gate (|f - pixel| <= 1) this is f
-      by = iy + min(max(fy - iy, -1), 1);
+      by = gy() + min(max(fy - gy(), -1), 1);
       bx = ix + min(max(fx - ix, -1), 1);
     }
     const float cnx = a.nrm[3 * i], cny = a.nrm[3 * i + 1],
@@ -114,10 +136,12 @@ __device__ inline Accum reproject_pixel(const ReprojArgs& a, int iy, int ix) {
       const int qy = by + dy, qx = bx + dx;
       tv[k] = false;
       if (!slab_ok) continue;
-      if (fx + dx < 0 || fx + dx >= a.w || fy + dy < 0 || fy + dy >= a.h)
+      if (fx + dx < 0 || fx + dx >= a.w || fy + dy < 0 ||
+          fy + dy >= full_h())
         continue;
-      if (qx < 0 || qx >= a.w || qy < 0 || qy >= a.h) continue;
-      const int q = qy * a.w + qx;
+      if (qx < 0 || qx >= a.w || qy < 0 || qy >= full_h()) continue;
+      // the caller's window holds every row a tap reaches
+      const int q = (Rows ? qy - rows.prev_row0 : qy) * a.w + qx;
       const int pg = a.pg[q];
       if (pg == -1 || pg != geo) continue;
       const float dnx = a.pn[3 * q] - cnx, dny = a.pn[3 * q + 1] - cny,
@@ -126,7 +150,7 @@ __device__ inline Accum reproject_pixel(const ReprojArgs& a, int iy, int ix) {
     }
     auto tap = [&](int k, float* out6) {
       const int qy = by + k / 3 - 1, qx = bx + k % 3 - 1;
-      const int q = qy * a.w + qx;
+      const int q = (Rows ? qy - rows.prev_row0 : qy) * a.w + qx;
       out6[0] = a.ch[3 * q];
       out6[1] = a.ch[3 * q + 1];
       out6[2] = a.ch[3 * q + 2];
@@ -210,6 +234,12 @@ __device__ inline Accum reproject_pixel(const ReprojArgs& a, int iy, int ix) {
     r.hist = 1;
   }
   return r;
+}
+
+// The whole image's rows (kernel L)
+template <bool Banded>
+__device__ inline Accum reproject_pixel(const ReprojArgs& a, int iy, int ix) {
+  return reproject_pixel<Banded, false>(a, iy, ix, ReprojRows{});
 }
 
 }  // namespace ptdn

@@ -53,8 +53,13 @@ def shift_mask(shape, dy: int, dx: int, device) -> torch.Tensor:
     return shift(torch.ones(shape[:2], device=device), dy, dx)
 
 
-def gaussian3x3(variance: torch.Tensor) -> torch.Tensor:
-    """Border-renormalized 3x3 blur of variance (denoise.cu:101-115)."""
+def gaussian3x3(variance: torch.Tensor, in_image=None) -> torch.Tensor:
+    """Border-renormalized 3x3 blur of variance (denoise.cu:101-115).
+    `in_image` (H, W) float32, 1 inside the image and 0 outside, marks
+    the image's border where the rows extend past it (a shard's halo);
+    by default the tensor is the image."""
+    if in_image is None:
+        in_image = torch.ones(variance.shape, device=variance.device)
     s = torch.zeros_like(variance)
     sw = torch.zeros_like(variance)
     k = 0
@@ -63,7 +68,7 @@ def gaussian3x3(variance: torch.Tensor) -> torch.Tensor:
             g = G3[k]
             k += 1
             s = s + g * shift(variance, dy, dx)
-            sw = sw + g * shift_mask(variance.shape, dy, dx, variance.device)
+            sw = sw + g * shift(in_image, dy, dx)
     return torch.clamp_min(s / sw, 0.0)
 
 

@@ -47,12 +47,14 @@ def _norm3(v: torch.Tensor) -> torch.Tensor:
     return sqrt(fma(z, z, fma(x, x, y * y)))
 
 
-def _reproj_base(res, pos, prev_viewmat):
+def _reproj_base(res, pos, prev_viewmat, full_h=None):
     """Reproject world position through the previous view matrix to
     prev-frame pixel coords (denoise.cu:195-217, incl. the reference's
     omitted tan(fov/2) quirk). Returns (fx, fy, fracx, fracy,
-    base_valid), fx/fy as int64."""
+    base_valid), fx/fy as int64. A shard's rows (pos holds some rows of
+    the image) project onto the `full_h`-row image."""
     w, h = res
+    h = h if full_h is None else full_h
     v = prev_viewmat
     px, py, pz = pos[..., 0], pos[..., 1], pos[..., 2]
     vs = [fma(v[r, 2], pz, fma(v[r, 0], px, v[r, 1] * py)) + v[r, 3]
@@ -168,23 +170,29 @@ def tap_valid(vals, inb, curr_geom, curr_normal):
 
 def gather_back_projection(res, current_color, curr_gb, prev_gb, base,
                            color_history, moment_history, history_length,
-                           color_alpha_min, moment_alpha_min, in_slab=None):
+                           color_alpha_min, moment_alpha_min, in_slab=None,
+                           rows=None):
     """The 3x3 taps of `base` (_reproj_base's output) gathered with
     clamped indices, then _accumulate_from_taps. `in_slab` (H, W) bool,
     where given, rejects the base and every tap of the pixels where it is
-    False (the banded path's rule)."""
+    False (the banded path's rule). `rows` (row0, full_h, prev_row0)
+    places a shard: the previous frame's planes hold image rows from
+    prev_row0 (Rows)."""
     w, h = res
+    row0, full_h, prev_row0 = Rows.of(rows, h)
     fx, fy, fracx, fracy, base_valid = base
     pack = prev_pack(color_history, moment_history, history_length,
                      prev_gb["normal"], prev_gb["geom_id"])
+    hp = pack.shape[0]
     taps = {}
     for dy in (-1, 0, 1):
         for dx in (-1, 0, 1):
             qx, qy = fx + dx, fy + dy
-            inb = (qx >= 0) & (qx < w) & (qy >= 0) & (qy < h)
+            inb = (qx >= 0) & (qx < w) & (qy >= 0) & (qy < full_h)
             if in_slab is not None:
                 inb = inb & in_slab
-            vals = pack[qy.clamp(0, h - 1), qx.clamp(0, w - 1)]
+            vals = pack[(qy - prev_row0).clamp(0, hp - 1),
+                        qx.clamp(0, w - 1)]
             taps[(dy, dx)] = (vals[..., 0:6],
                               tap_valid(vals, inb, curr_gb["geom_id"],
                                         curr_gb["normal"]))
@@ -192,7 +200,8 @@ def gather_back_projection(res, current_color, curr_gb, prev_gb, base,
         base_valid = base_valid & in_slab
     return _accumulate_from_taps(taps, base_valid, fracx, fracy,
                                  current_color, curr_gb["geom_id"],
-                                 history_length, luminance(current_color),
+                                 Rows.own(history_length, rows, h),
+                                 luminance(current_color),
                                  color_alpha_min, moment_alpha_min)
 
 
@@ -340,9 +349,72 @@ BAND_ROWS = 64
 BAND_MARGIN = 16
 
 
+class Rows:
+    """A shard's place in the image for the back-projection: its pixels
+    are image rows row0 .. row0 + h - 1 of a full_h-row image, and the
+    previous frame's planes it is given hold image rows from prev_row0
+    (csrc/reproject.cuh:ReprojRows). None is the whole image."""
+
+    @staticmethod
+    def of(rows, h: int):
+        return (0, h, 0) if rows is None else tuple(int(r) for r in rows)
+
+    @staticmethod
+    def check(rows, h: int, prev_h: int, banded: bool):
+        """Refuse a window of the previous frame that misses a row the
+        taps may read: the whole image for the band mode, else the rows
+        within 2 of the shard's (the stencil's reach) inside the image."""
+        row0, full_h, prev_row0 = Rows.of(rows, h)
+        lo, hi = ((0, full_h) if banded
+                  else (max(row0 - 2, 0), min(row0 + h + 2, full_h)))
+        if prev_row0 > lo or prev_row0 + prev_h < hi:
+            raise ValueError(f"previous rows [{prev_row0}, "
+                             f"{prev_row0 + prev_h}) miss [{lo}, {hi})")
+
+    @staticmethod
+    def own(prev, rows, h: int):
+        """The shard's own rows of a previous-frame window `prev`."""
+        row0, _, prev_row0 = Rows.of(rows, h)
+        return prev[row0 - prev_row0:row0 - prev_row0 + h]
+
+
 def slab_rows(h: int, band_rows: int, margin: int) -> int:
     """Rows of a band's slab in the padded grid of h + 2 rows."""
     return min(band_rows + 2 * margin + 1, h + 2)
+
+
+def band_sums(res, fy, geom_id, band_rows: int = BAND_ROWS, row0: int = 0,
+              full_h=None):
+    """Each band's sum of vertical displacements fy - y over the pixels
+    with geometry, and their count, int64 (n_bands,) each, over the
+    bands of the `full_h`-row image: a shard's rows (from image row
+    row0) add into the bands they lie in, and the shards' sums add up to
+    the image's exactly."""
+    w, h = res
+    full_h = h if full_h is None else full_h
+    n_bands = -(-full_h // band_rows)
+    dev = fy.device
+    iy = torch.arange(h, device=dev)[:, None] + row0
+    valid = geom_id >= 0
+    dyv = torch.where(valid, fy - iy, 0)
+    band = iy[:, 0] // band_rows
+    total = torch.zeros(n_bands, dtype=torch.int64, device=dev).index_add_(
+        0, band, dyv.sum(dim=1))
+    cnt = torch.zeros(n_bands, dtype=torch.int64, device=dev).index_add_(
+        0, band, valid.to(torch.int64).sum(dim=1))
+    return total, cnt
+
+
+def starts_from_sums(total, cnt, full_h: int, band_rows: int = BAND_ROWS,
+                     margin: int = BAND_MARGIN) -> torch.Tensor:
+    """band_starts from band_sums' sums and counts of the whole image."""
+    n_bands = total.shape[0]
+    s_b = torch.floor(total.to(torch.float32)
+                      / cnt.clamp_min(1).to(torch.float32)
+                      + 0.5).to(torch.int64)
+    r0 = torch.arange(n_bands, device=total.device) * band_rows
+    return (r0 + s_b - margin).clamp(0, full_h + 2 - slab_rows(
+        full_h, band_rows, margin))
 
 
 def band_starts(res, fy, geom_id, band_rows: int = BAND_ROWS,
@@ -359,33 +431,23 @@ def band_starts(res, fy, geom_id, band_rows: int = BAND_ROWS,
     does: the two agree wherever the float32 sum is exact, and may differ
     by a row of s_b beyond it."""
     w, h = res
-    n_bands = -(-h // band_rows)
-    pad = n_bands * band_rows - h
-    dev = fy.device
-    iy = torch.arange(h, device=dev)[:, None]
-    valid = geom_id >= 0
-    dyv = torch.where(valid, fy - iy, 0)
-    rows = torch.nn.functional.pad(dyv, (0, 0, 0, pad))
-    vrows = torch.nn.functional.pad(valid.to(torch.int64), (0, 0, 0, pad))
-    total = rows.reshape(n_bands, -1).sum(dim=1)
-    cnt = vrows.reshape(n_bands, -1).sum(dim=1).clamp_min(1)
-    s_b = torch.floor(total.to(torch.float32) / cnt.to(torch.float32)
-                      + 0.5).to(torch.int64)
-    r0 = torch.arange(n_bands, device=dev) * band_rows
-    return (r0 + s_b - margin).clamp(0, h + 2 - slab_rows(h, band_rows,
-                                                          margin))
+    return starts_from_sums(*band_sums(res, fy, geom_id, band_rows), h,
+                            band_rows, margin)
 
 
 def in_slab(res, fy, starts, band_rows: int = BAND_ROWS,
-            margin: int = BAND_MARGIN) -> torch.Tensor:
+            margin: int = BAND_MARGIN, row0: int = 0,
+            full_h=None) -> torch.Tensor:
     """(H, W) bool: the pixel's clipped padded base row gi = clip(fy + 1,
     0, h + 1) lies in its band's slab [start, start + slab_h)
-    (ptdn_tpu/denoise/reproject.py:486-491)."""
+    (ptdn_tpu/denoise/reproject.py:486-491). A shard's pixels are image
+    rows row0.. of a `full_h`-row image."""
     w, h = res
-    gi = (fy + 1).clamp(0, h + 1)
-    band = torch.arange(h, device=fy.device) // band_rows
+    full_h = h if full_h is None else full_h
+    gi = (fy + 1).clamp(0, full_h + 1)
+    band = (torch.arange(h, device=fy.device) + row0) // band_rows
     li = gi - starts.to(torch.int64)[band][:, None]
-    return (li >= 0) & (li < slab_rows(h, band_rows, margin))
+    return (li >= 0) & (li < slab_rows(full_h, band_rows, margin))
 
 
 def motion_bounds(res, curr_gb, prev_viewmat, band_rows: int = BAND_ROWS,
@@ -396,23 +458,47 @@ def motion_bounds(res, curr_gb, prev_viewmat, band_rows: int = BAND_ROWS,
     reprojection (band_starts), from the same reprojection. One host read
     of it decides the branch, and the starts stay on the device."""
     w, h = res
-    fx, fy, _, _, _ = _reproj_base(res, curr_gb["position"], prev_viewmat)
+    reach, total, cnt = motion_parts(res, curr_gb, prev_viewmat, band_rows)
+    return bounds_from_parts(reach, total, cnt, h, band_rows, margin)
+
+
+def motion_parts(res, curr_gb, prev_viewmat, band_rows: int = BAND_ROWS,
+                 row0: int = 0, full_h=None):
+    """What motion_bounds reduces over the image, for some of its rows
+    (a shard's, from image row row0 of a `full_h`-row image): the
+    largest |fy - y| or |fx - x| of a pixel with geometry (int64 0-dim)
+    and band_sums' sums and counts. The image's are the maximum of the
+    shards' reaches and the sums of their sums."""
+    w, h = res
+    fx, fy, _, _, _ = _reproj_base(res, curr_gb["position"], prev_viewmat,
+                                   full_h)
     dev = fx.device
-    iy = torch.arange(h, device=dev)[:, None]
+    iy = torch.arange(h, device=dev)[:, None] + row0
     ix = torch.arange(w, device=dev)[None, :]
     valid = curr_gb["geom_id"] >= 0
     dyv = torch.where(valid, (fy - iy).abs(), 0)
     dxv = torch.where(valid, (fx - ix).abs(), 0)
-    near = (dyv.max() <= 1) & (dxv.max() <= 1)
-    starts = band_starts(res, fy, curr_gb["geom_id"], band_rows, margin)
-    return torch.cat([near.to(torch.int64)[None], starts]).to(torch.int32)
+    reach = torch.maximum(dyv.max(), dxv.max())
+    return (reach,) + band_sums(res, fy, curr_gb["geom_id"], band_rows,
+                                row0, full_h)
+
+
+def bounds_from_parts(reach, total, cnt, full_h: int,
+                      band_rows: int = BAND_ROWS,
+                      margin: int = BAND_MARGIN) -> torch.Tensor:
+    """motion_bounds' int32 (1 + n_bands,) from motion_parts' parts of
+    the whole image."""
+    starts = starts_from_sums(total, cnt, full_h, band_rows, margin)
+    return torch.cat([(reach <= 1).to(torch.int64)[None], starts]).to(
+        torch.int32)
 
 
 def back_projection_banded(res, current_color, curr_gb, prev_gb,
                            prev_viewmat, color_history, moment_history,
                            history_length, color_alpha_min,
                            moment_alpha_min, band_rows: int = BAND_ROWS,
-                           margin: int = BAND_MARGIN, starts=None):
+                           margin: int = BAND_MARGIN, starts=None,
+                           rows=None):
     """Back-projection for any motion with the JAX package's band rule
     (ptdn_tpu/denoise/reproject.py:406 back_projection_banded): per band
     of `band_rows` rows, a slab of band_rows + 2 * margin + 1 padded rows
@@ -423,7 +509,8 @@ def back_projection_banded(res, current_color, curr_gb, prev_gb,
     clamped indices in the plain version), which gives the same values
     wherever a tap is valid. `starts` are band_starts (the tail of
     motion_bounds), computed here when not given. CPU tensors take the
-    plain version; CUDA tensors launch kernel C's band mode."""
+    plain version; CUDA tensors launch kernel C's band mode. `rows`
+    places a shard (Rows); its starts are then the image's, given."""
     from ptdn_tpu_torch.ops.cuda import reproject as kernel_c
 
     if starts is None:
@@ -434,17 +521,18 @@ def back_projection_banded(res, current_color, curr_gb, prev_gb,
     return kernel_c.back_projection_banded(
         res, current_color, curr_gb, prev_gb, prev_viewmat, color_history,
         moment_history, history_length, color_alpha_min, moment_alpha_min,
-        starts, band_rows, margin)
+        starts, band_rows, margin, rows=rows)
 
 
 def back_projection_auto(res, current_color, curr_gb, prev_gb, prev_viewmat,
                          color_history, moment_history, history_length,
                          color_alpha_min, moment_alpha_min, near=None,
-                         starts=None):
+                         starts=None, rows=None):
     """Kernel C (or its plain version on CPU) where the motion allows it,
     else the banded path (back_projection_banded). `near` and `starts`
     are motion_bounds' flag and band starts, computed here (one host
-    read) when not given."""
+    read) when not given. `rows` places a shard (Rows), whose previous
+    frame is the stencil's window when near, else the whole image."""
     from ptdn_tpu_torch.ops.cuda.reproject import back_projection_stencil
 
     if near is None:
@@ -454,5 +542,5 @@ def back_projection_auto(res, current_color, curr_gb, prev_gb, prev_viewmat,
             color_history, moment_history, history_length, color_alpha_min,
             moment_alpha_min)
     if near:
-        return back_projection_stencil(*args)
-    return back_projection_banded(*args, starts=starts)
+        return back_projection_stencil(*args, rows=rows)
+    return back_projection_banded(*args, starts=starts, rows=rows)

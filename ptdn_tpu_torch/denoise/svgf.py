@@ -30,21 +30,39 @@ as a module whose registered buffers hold the temporal history.
   packed;
 * end of frame: the G-buffer, moments, history length and view matrix
   become the previous frame's.
+
+A shard of a taller image (`rows` = (row0, full_h), parallel/sharded.py)
+denoises its own rows, each pixel as the whole image's frame does bit
+for bit. The frame is then a generator (SVGFDenoiser.frame_gen) that
+yields the exchanges its group fulfils (parallel/mesh.py): the branch
+choice's maximum and band sums over the shards (motion_parts), the previous
+frame's rows that the back-projection reads (the stencil's two rows past
+the shard when still, the whole image when moved), native mode's three
+rows of kernel R's inputs, and the à-trous levels' halos through the
+`pyramid` hook (the JAX package's pyramid_override; parallel/sharded.py:
+ShardPyramid). fuse_reproject_l1 is off on a shard, as in the JAX
+package, whose sharded step runs its denoiser on the xla backend that
+the fused kernel's gate excludes (ptdn_tpu/denoise/svgf.py:62-70).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import inspect
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
-from ptdn_tpu_torch.denoise.reproject import (back_projection_auto,
+from ptdn_tpu_torch.denoise.reproject import (BAND_ROWS, back_projection_auto,
                                               back_projection_banded,
-                                              motion_bounds)
+                                              bounds_from_parts,
+                                              motion_bounds, motion_parts,
+                                              prev_pack)
+from ptdn_tpu_torch.denoise.variance import RADIUS
 from ptdn_tpu_torch.ops.cuda.atrous import atrous_level, pack_static_planes
 from ptdn_tpu_torch.ops.cuda.reproject_atrous import back_projection_atrous1
 from ptdn_tpu_torch.ops.cuda.spatial_variance import spatial_variance_fallback
+from ptdn_tpu_torch.parallel.mesh import Gather, Halo, Reduce
 
 STATE_KEYS = ("color_history", "moment_history", "history_length",
               "prev_position", "prev_normal", "prev_geom_id", "prev_view")
@@ -67,16 +85,68 @@ def init_denoise_state(resolution, device) -> Dict[str, torch.Tensor]:
     }
 
 
+def run_alone(gen):
+    """The value of a frame generator that asks for no exchange (the
+    whole image's frame)."""
+    try:
+        req = next(gen)
+    except StopIteration as stop:
+        return stop.value
+    raise RuntimeError(f"the whole image's frame asked for {req!r}")
+
+
+def hook_value(x):
+    """A hook's result (a generator's value, its exchanges passed on to
+    the group, or the value itself); use with ``yield from``."""
+    if inspect.isgenerator(x):
+        x = yield from x
+    return x
+
+
+class Pyramid:
+    """The à-trous levels of a frame (kernel D) and the G-buffer planes
+    they read: the whole image's. A shard's takes its place through
+    SVGFDenoiser's `pyramid` (parallel/sharded.py:ShardPyramid, whose
+    methods are generators that yield their halos)."""
+
+    def pack(self, position, normal):
+        """The planes every level reads, packed once per camera move."""
+        return pack_static_planes(position, normal)
+
+    def __call__(self, src, var, static, albedo, sig, cfg, first: int):
+        """Levels first..nlevel from color `src` and variance `var`, the
+        last one remodulated by `albedo` (or None). Returns (output,
+        the output of level history_level, or None if it did not run)."""
+        history = None
+        for level in range(first, cfg.atrous_nlevel + 1):
+            last = level == cfg.atrous_nlevel
+            keep = level == cfg.history_level
+            # the color history and the output keep the JAX layout
+            src, var = atrous_level(
+                src, var, static, albedo if last else None, level, *sig,
+                cfg.blur_variance, pack_out=not (last or keep))
+            if keep:
+                history = src
+        return src, history
+
+
 class SVGFDenoiser(nn.Module):
     """forward(raw (H, W, 3), gbuffer of (H, W, ...), view_mat (4, 4),
     params, cam_changed) -> filtered (H, W, 3); the history buffers
     advance. cam_changed says whether the camera (so the G-buffer and the
-    view) changed since the last frame."""
+    view) changed since the last frame. A shard (`rows` = (row0, full_h):
+    its H rows are image rows row0.. of a full_h-row image) runs
+    frame_gen(), the same frame as a generator of exchanges; `pyramid`
+    replaces the à-trous levels (Pyramid)."""
 
-    def __init__(self, cfg, resolution: Tuple[int, int], device):
+    def __init__(self, cfg, resolution: Tuple[int, int], device,
+                 rows: Optional[Tuple[int, int]] = None,
+                 pyramid: Optional[Pyramid] = None):
         super().__init__()
         self.cfg = cfg
         self.resolution = tuple(resolution)
+        self.rows = rows
+        self.pyramid = pyramid or Pyramid()
         # the JAX package's gate of the fused reprojection + level 1
         # (ptdn_tpu/denoise/svgf.py:62-79), term for term: level 1 is not
         # the last level (no albedo inside), its output is the new color
@@ -85,7 +155,8 @@ class SVGFDenoiser(nn.Module):
         # a TPU limit there (wider compiles took the TPU worker down); it
         # stays here so that the port takes the same path as the JAX
         # package on the same config.
-        self.fuse_l1 = (cfg.fuse_reproject_l1 and cfg.temporal_enable
+        self.fuse_l1 = (cfg.fuse_reproject_l1 and rows is None
+                        and cfg.temporal_enable
                         and cfg.spatial_enable and cfg.atrous_nlevel >= 2
                         and cfg.history_level == 1
                         and cfg.right_view_option == 0
@@ -102,15 +173,83 @@ class SVGFDenoiser(nn.Module):
 
     def _motion(self, gbuffer, cam_changed):
         """The near/far choice and band starts (motion_bounds), read on
-        the host only when the camera moved this frame or the last."""
+        the host only when the camera moved this frame or the last; a
+        shard's are reduced over the image first."""
         if cam_changed or self.moved or self.near is None:
-            bounds = motion_bounds(self.resolution, gbuffer, self.prev_view)
+            if self.rows is None:
+                bounds = motion_bounds(self.resolution, gbuffer,
+                                       self.prev_view)
+            else:
+                row0, full_h = self.rows
+                reach, total, cnt = motion_parts(
+                    self.resolution, gbuffer, self.prev_view, BAND_ROWS,
+                    row0, full_h)
+                reach = yield Reduce(reach, "max")
+                sums = yield Reduce(torch.stack([total, cnt]), "sum")
+                bounds = bounds_from_parts(reach, sums[0], sums[1], full_h)
             self.near, self.starts = bool(bounds[0]), bounds[1:]
         self.moved = cam_changed
+
+    def _back_projection(self, bp_args):
+        """back_projection_auto; a shard's reads the previous frame's
+        rows that its taps reach: two past its own when still (C's
+        stencil), the whole image when moved (C's band mode)."""
+        if self.rows is None:
+            return back_projection_auto(*bp_args, near=self.near,
+                                        starts=self.starts)
+        row0, full_h = self.rows
+        prev = prev_pack(self.color_history, self.moment_history,
+                         self.history_length, self.prev_normal,
+                         self.prev_geom_id)
+        if self.near:
+            win = yield Halo(prev, 2)
+            prev_row0 = row0 - 2
+        else:
+            win = yield Gather(prev)
+            prev_row0 = 0
+        res, raw, gbuffer, _, view, _, _, _, ca, ma = bp_args
+        prev_gb = {"normal": win[..., 6:9].contiguous(),
+                   "geom_id": win[..., 9].to(torch.int32)}
+        return back_projection_auto(
+            res, raw, gbuffer, prev_gb, view, win[..., 0:3].contiguous(),
+            win[..., 3:5].contiguous(), win[..., 5].to(torch.int32), ca, ma,
+            near=self.near, starts=self.starts,
+            rows=(row0, full_h, prev_row0))
+
+    def _spatial(self, color, gbuffer, params, history=None, variance=None):
+        """Native mode's variance (kernel R, spatial_variance_fallback).
+        A shard's runs on its rows extended by the image's RADIUS rows
+        around them, none past the image, where R's masks are the
+        image's, and keeps its own."""
+        sig = (params["sigma_n"], params["sigma_x"])
+        temporal = () if history is None else (history, variance)
+        if self.rows is None:
+            return spatial_variance_fallback(color, gbuffer, *sig, *temporal)
+        row0, full_h = self.rows
+        h = color.shape[0]
+        planes = [color, gbuffer["position"], gbuffer["normal"]]
+        if temporal:
+            planes += [history.to(torch.float32)[..., None],
+                       variance[..., None]]
+        ext = yield Halo(torch.cat(planes, dim=-1), RADIUS)
+        top, bottom = min(RADIUS, row0), min(RADIUS, full_h - row0 - h)
+        ext = ext[RADIUS - top:RADIUS + h + bottom]
+        gb = {"position": ext[..., 3:6], "normal": ext[..., 6:9]}
+        if temporal:
+            temporal = (ext[..., 9].to(torch.int32),
+                        ext[..., 10].contiguous())
+        out = spatial_variance_fallback(ext[..., 0:3], gb, *sig, *temporal)
+        return out[top:top + h]
 
     def forward(self, raw: torch.Tensor, gbuffer: Dict[str, torch.Tensor],
                 view_mat: torch.Tensor, params,
                 cam_changed: bool = True) -> torch.Tensor:
+        return run_alone(self.frame_gen(raw, gbuffer, view_mat, params,
+                                    cam_changed))
+
+    def frame_gen(self, raw, gbuffer, view_mat, params, cam_changed=True):
+        """forward as a generator of exchanges (a shard's), returning the
+        filtered rows."""
         cfg = self.cfg
         w, h = self.resolution
         prev_gb = {"position": self.prev_position,
@@ -127,15 +266,15 @@ class SVGFDenoiser(nn.Module):
         if filtering and (cam_changed or self.static is None):
             # like the branch choice's inputs, the G-buffer changes with
             # the camera alone: packed again only when it moved
-            self.static = pack_static_planes(gbuffer["position"],
-                                             gbuffer["normal"])
+            self.static = yield from hook_value(self.pyramid.pack(
+                gbuffer["position"], gbuffer["normal"]))
         static = self.static
         if self.fuse_l1:
             # the fuse_reproject_l1 frame (ptdn_tpu/denoise/svgf.py:80-135):
             # kernel L where the motion is near, else C's band mode then D
             # at level 1; level 1's output is the color history. No
             # spatial fallback in native mode: the JAX branch has none
-            self._motion(gbuffer, cam_changed)
+            yield from self._motion(gbuffer, cam_changed)
             if self.near:
                 color_history, variance, moment_acc, hist_up = (
                     back_projection_atrous1(*bp_args, *sig,
@@ -147,16 +286,15 @@ class SVGFDenoiser(nn.Module):
                     acc, var0, static, None, 1, *sig, cfg.blur_variance)
             first = 2
         elif cfg.temporal_enable:
-            self._motion(gbuffer, cam_changed)
-            variance, color_acc, moment_acc, hist_up = back_projection_auto(
-                *bp_args, near=self.near, starts=self.starts)
+            yield from self._motion(gbuffer, cam_changed)
+            variance, color_acc, moment_acc, hist_up = (
+                yield from self._back_projection(bp_args))
             color_history = color_acc
             if not cfg.compat:
                 # native mode: a history under 4 frames takes the spatial
                 # estimate (kernel R; svgf.py:156-168)
-                variance = spatial_variance_fallback(
-                    color_acc, gbuffer, params["sigma_n"],
-                    params["sigma_x"], hist_up, variance)
+                variance = yield from self._spatial(
+                    color_acc, gbuffer, params, hist_up, variance)
         else:
             color_history = raw
             moment_acc = self.moment_history
@@ -167,8 +305,7 @@ class SVGFDenoiser(nn.Module):
             else:
                 # native mode: the stub replaced by the spatial estimate
                 # on every pixel (kernel R; svgf.py:176-182)
-                variance = spatial_variance_fallback(
-                    raw, gbuffer, params["sigma_n"], params["sigma_x"])
+                variance = yield from self._spatial(raw, gbuffer, params)
 
         if cfg.right_view_option == 1:
             output = (hist_up.to(torch.float32) / 100.0)[..., None].expand(
@@ -181,17 +318,10 @@ class SVGFDenoiser(nn.Module):
             albedo = None
             if cfg.sep_color and cfg.add_color:
                 albedo = (gbuffer["albedo"] * gbuffer["ialbedo"]).contiguous()
-            src, var = color_history, variance
-            for level in range(first, cfg.atrous_nlevel + 1):
-                last = level == cfg.atrous_nlevel
-                keep = level == cfg.history_level
-                # the color history and the output keep the JAX layout
-                src, var = atrous_level(
-                    src, var, static, albedo if last else None, level, *sig,
-                    cfg.blur_variance, pack_out=not (last or keep))
-                if keep:
-                    color_history = src
-            output = src
+            output, history = yield from hook_value(self.pyramid(
+                color_history, variance, static, albedo, sig, cfg, first))
+            if history is not None:
+                color_history = history
 
         self.color_history = color_history
         self.moment_history = moment_acc

@@ -78,10 +78,15 @@ class Renderer:
                          torch.from_numpy(view_matrix(fc)).to(self.device))
         cam, vm = self._cam
         with torch.no_grad():
-            left, right = self.step(cam, vm, self._params, self.frame,
-                                    changed)
+            left, right = self._images(self.step(cam, vm, self._params,
+                                                 self.frame, changed))
         self.frame += 1
         return left, right
+
+    def _images(self, out):
+        """(left, right) from the step's output (parallel/sharded.py:
+        ShardedRenderer stitches its shards')."""
+        return out
 
     def render(self, n_frames: int):
         """Render n frames; returns the final (left, right) as numpy."""

@@ -8,17 +8,24 @@ denoise, main.cpp:154-209 / pathtrace.cu:404-452): `left` is the raw
 (sendTwoImagesToPBO, pathtrace.cu:46-78). `frame_state()` returns the
 state under the JAX package's keys and layouts (engine/step.py:30-46),
 `load_frame_state()` takes such a dict back.
+
+A shard of a taller image (parallel/sharded.py) gives its own tracer
+(PathTracer with row0 and full_height, the JAX package's trace_override)
+and pyramid (the à-trous levels with their halos, pyramid_override);
+its frame_gen() is then a generator of the exchanges its denoiser asks
+of the group.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
-from ptdn_tpu_torch.denoise.svgf import SVGFDenoiser, init_denoise_state
+from ptdn_tpu_torch.denoise.svgf import (Pyramid, SVGFDenoiser,
+                                         init_denoise_state, run_alone)
 from ptdn_tpu_torch.engine.wavefront import PathTracer, init_primary_cache
 
 
@@ -31,12 +38,18 @@ def init_frame_state(resolution, device) -> Dict[str, torch.Tensor]:
 
 
 class FrameStep(nn.Module):
-    def __init__(self, scene, cfg, resolution, device):
+    def __init__(self, scene, cfg, resolution, device,
+                 tracer: Optional[PathTracer] = None,
+                 pyramid: Optional[Pyramid] = None):
         super().__init__()
         self.cfg = cfg
         self.resolution = tuple(resolution)
-        self.tracer = PathTracer(scene, cfg, self.resolution, device)
-        self.denoiser = SVGFDenoiser(cfg, self.resolution, device)
+        self.tracer = tracer or PathTracer(scene, cfg, self.resolution,
+                                           device)
+        rows = (None if self.tracer.full_height is None
+                else (self.tracer.row0, self.tracer.full_height))
+        self.denoiser = SVGFDenoiser(cfg, self.resolution, device, rows,
+                                     pyramid)
         w, h = self.resolution
         self.register_buffer("accum_image", torch.zeros((h, w, 3),
                                                         device=device))
@@ -59,6 +72,13 @@ class FrameStep(nn.Module):
                                                self.accum_image.device))
 
     def forward(self, cam, view_mat, params, frame: int, cam_changed: bool):
+        return run_alone(self.frame_gen(cam, view_mat, params, frame,
+                                    cam_changed))
+
+    def frame_gen(self, cam, view_mat, params, frame: int,
+                  cam_changed: bool):
+        """forward as a generator of exchanges (a shard's), returning
+        (left, right)."""
         w, h = self.resolution
         radiance, gb = self.tracer(cam, params, frame, cam_changed)
         radiance = radiance.reshape(h, w, 3)
@@ -66,8 +86,8 @@ class FrameStep(nn.Module):
                    for k, v in gb.items()}
         if self.cfg.denoise_enable:
             left = radiance
-            right = self.denoiser(radiance, gbuffer, view_mat, params,
-                                  cam_changed)
+            right = yield from self.denoiser.frame_gen(
+                radiance, gbuffer, view_mat, params, cam_changed)
             self.accum_image = radiance
         else:
             # running mean over frames (pathtrace.cu:398), float32 scalars

@@ -60,7 +60,7 @@ sorted engine's `sort_group` and `sort_every`, which raise.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -151,9 +151,19 @@ def static_light_radius(ds, light_geom: int) -> float:
 class PathTracer(nn.Module):
     """Scene tensors as buffers, the primary-hit cache as buffers, and
     forward(cam, params, frame, cam_changed) -> (radiance (N, 3),
-    gbuffer of (N, ...) tensors)."""
+    gbuffer of (N, ...) tensors).
 
-    def __init__(self, scene, cfg, resolution: Tuple[int, int], device):
+    A shard of a taller image (parallel/sharded.py) traces rows [row0,
+    row0 + h) of a `full_height`-row image: its camera rays are those
+    rows' and its lanes seed their random streams from lane0 = row0 * W
+    (the JAX tracer's row0, wavefront.py:994-1013), so that each pixel
+    draws the single-device stream. Shards of one process pass the first
+    shard's tracer as `shared`: its scene tensors, per-scene tables and
+    builds serve them all."""
+
+    def __init__(self, scene, cfg, resolution: Tuple[int, int], device,
+                 row0: int = 0, full_height: Optional[int] = None,
+                 shared: Optional["PathTracer"] = None):
         super().__init__()
         n_chunks = -(-scene.n_tris // TCHUNK)
         light_analytic = scene.geom_types[0] != MESH
@@ -190,6 +200,10 @@ class PathTracer(nn.Module):
         self.n_pad = -(-(self.w * self.h) // 128) * 128
         assert self.n_pad < 2 ** 24 and n_chunks < 2 ** 24
         self.depth = cfg.trace_depth
+        self.row0 = int(row0)
+        self.full_height = full_height
+        # the first pixel's global index x + y*W, a uint32 as in JAX
+        self.lane0 = (self.row0 * self.w) & 0xFFFFFFFF
         ds = scene.device(device)
         for f in dataclasses.fields(DeviceScene):
             self.register_buffer(f.name, getattr(ds, f.name),
@@ -197,7 +211,9 @@ class PathTracer(nn.Module):
         if self.engine == "sorted":
             # kernel Q's chunk boxes (the supergroups' past 64 chunks),
             # made once per scene
-            self.register_buffer("range_boxes", range_boxes(ds, n_chunks),
+            self.register_buffer("range_boxes",
+                                 shared.range_boxes if shared is not None
+                                 else range_boxes(ds, n_chunks),
                                  persistent=False)
         for k, v in init_primary_cache(self.w * self.h, device).items():
             self.register_buffer(k, v)
@@ -210,7 +226,8 @@ class PathTracer(nn.Module):
                                                 device=device),
                                  persistent=False)
         self.rays_stale = True
-        self.gi = geom_info(scene, device, cfg.compat)
+        self.gi = (shared.gi if shared is not None
+                   else geom_info(scene, device, cfg.compat))
         # the reference samples geoms[0] for NEE (pathtrace.cu:360-361)
         light_mat = scene.materials[scene.geom_material_ids[0]]
         emit = (np.asarray(light_mat.color, np.float32)
@@ -227,7 +244,8 @@ class PathTracer(nn.Module):
         if self.multi_light:
             # kernel E's light table and each light's geom, the target of
             # its lanes' shadow test
-            table = light_table(scene, device)
+            table = (shared.light_rows if shared is not None
+                     else light_table(scene, device))
             self.register_buffer("light_rows", table, persistent=False)
             self.register_buffer("light_geoms", table[:, 6].to(torch.int32),
                                  persistent=False)
@@ -251,8 +269,8 @@ class PathTracer(nn.Module):
         # camera reuses last frame's rays, hit, albedo and G-buffer
         # position; a restored state brings the hit without the rays
         if cam_changed or self.rays_stale:
-            self.ray_o, self.ray_d = generate_camera_rays(cam,
-                                                          (self.w, self.h))
+            self.ray_o, self.ray_d = generate_camera_rays(
+                cam, (self.w, self.h), self.row0, self.full_height)
             if cam_changed:
                 isect = scene_intersect_full(ds, self.gi, self.ray_o,
                                              self.ray_d)
@@ -282,7 +300,8 @@ class PathTracer(nn.Module):
                          light: Dict, frame: int) -> torch.Tensor:
         """Every bounce of every pixel in one launch of kernel B1, the
         radiance rebuilt by kernel B2. Returns the radiance (N, 3)."""
-        contrib, texidx = path_trace(ds, self.gi, prim, frame=frame, lane0=0,
+        contrib, texidx = path_trace(ds, self.gi, prim, frame=frame,
+                                     lane0=self.lane0,
                                      depth=self.depth, light=light,
                                      flags=self.flags)
         return deferred_radiance(ds, contrib, texidx, self.depth)
@@ -341,7 +360,7 @@ class PathTracer(nn.Module):
         for depth in range(1, self.depth + 1):
             do_next = depth < self.depth
             out = bounce_fused(
-                ds, self.gi, planes, fd=frame + depth, lane0=0,
+                ds, self.gi, planes, fd=frame + depth, lane0=self.lane0,
                 light_pos=light["pos"], lrad=light["radius"],
                 sint=light["intensity"],
                 alb_skip=depth == 1 and fl["alb_skip1"],
@@ -386,7 +405,8 @@ class PathTracer(nn.Module):
         for depth in range(1, self.depth + 1):
             sh = shade_bounce(
                 torch.cat([planes, pix]), ds.mat_attr, fd=frame + depth,
-                lane0=0, light_pos=light["pos"], lrad=light["radius"],
+                lane0=self.lane0, light_pos=light["pos"],
+                lrad=light["radius"],
                 sint=light["intensity"],
                 alb_skip=depth == 1 and fl["alb_skip1"],
                 shadow_ray=fl["shadow_ray"], reduce_var=fl["reduce_var"],
@@ -445,7 +465,7 @@ class PathTracer(nn.Module):
         for depth in range(1, self.depth + 1):
             sh = shade_bounce(
                 torch.cat([planes, pix[None]]), ds.mat_attr,
-                fd=frame + depth, lane0=0, light_pos=light["pos"],
+                fd=frame + depth, lane0=self.lane0, light_pos=light["pos"],
                 lrad=light["radius"], sint=light["intensity"],
                 alb_skip=depth == 1 and fl["alb_skip1"],
                 shadow_ray=fl["shadow_ray"], reduce_var=fl["reduce_var"])

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -103,16 +103,21 @@ class OrbitCamera:
 
 
 def generate_camera_rays(cam: Dict[str, torch.Tensor],
-                         resolution: Tuple[int, int]):
+                         resolution: Tuple[int, int], row0: int = 0,
+                         full_height: Optional[int] = None):
     """generateRayFromCamera (pathtrace.cu:187-208), flattened to (N, 3)
-    in index = x + y*W order, on the device of the camera tensors."""
+    in index = x + y*W order, on the device of the camera tensors. A
+    shard of a taller image (parallel/sharded.py) makes its rows only:
+    `row0` offsets the pixel rows and the pixel grid is centred on
+    `full_height` (ptdn_tpu/ops/camera.py:106-125)."""
     w, h = resolution
+    hc = h if full_height is None else full_height
     dev = cam["view"].device
     x = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
-    y = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
+    y = torch.arange(h, dtype=torch.float32, device=dev)[:, None] + row0
     plx, ply = cam["pixel_length"][0], cam["pixel_length"][1]
     dx = (x - (w * 0.5 - 0.5)) * plx
-    dy = (y - (h * 0.5 - 0.5)) * ply
+    dy = (y - (hc * 0.5 - 0.5)) * ply
     d = fma(-cam["up"][None, None, :], dy[..., None],
             fma(-cam["right"][None, None, :], dx[..., None],
                 cam["view"][None, None, :]))

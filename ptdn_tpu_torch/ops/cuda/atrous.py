@@ -15,6 +15,16 @@ level's color and variance travel packed from one level to the next (one
 ``cv[..., :3]`` and ``cv[..., 3]``). A level that feeds the color history
 or ends the filter writes the (H, W, 3) and (H, W) layout of the SVGF
 state instead (``pack_out=False``), and a level reads either layout.
+
+Shard mode (the TPU kernel's row0, full_h, halo_top and halo_bottom):
+the level filters the h rows of a shard whose first row is image row
+`row0` of a `full_h`-row image, from inputs that carry real neighbour
+rows, `halo` above and below the color and variance and `static_halo`
+around the G-buffer (parallel/halo.py:halo_rows, zeros past the image).
+Taps are masked by their global row, so each pixel equals the unsharded
+level's bit for bit. The halo is the taps' exact reach, 2 << level rows
+(the variance pre-blur reads one row, inside it); the albedo of the last
+level is read at the pixel only and has none.
 """
 
 from __future__ import annotations
@@ -24,7 +34,7 @@ import ctypes
 import numpy as np
 import torch
 
-from ptdn_tpu_torch.denoise.atrous import H5, gaussian3x3, shift, shift_mask
+from ptdn_tpu_torch.denoise.atrous import H5, gaussian3x3, shift
 from ptdn_tpu_torch.denoise.reproject import _norm3, luminance
 from ptdn_tpu_torch.ops.cuda import _lib
 from ptdn_tpu_torch.ops.fp import fma, sqrt
@@ -45,7 +55,14 @@ class AtrousArgs(ctypes.Structure):
         "cv", "var", "stat", "albedo", "cv_out", "var_out")]
         + [(k, ctypes.c_int) for k in ("w", "h", "level", "blur_variance",
                                        "phases", "tiles_x", "tiles_y")]
-        + [(k, ctypes.c_float) for k in ("sigma_l", "sigma_n", "sigma_x")])
+        + [(k, ctypes.c_float) for k in ("sigma_l", "sigma_n", "sigma_x")]
+        + [(k, ctypes.c_int) for k in ("row0", "full_h", "halo",
+                                       "static_halo")])
+
+
+def atrous_halo(level: int) -> int:
+    """Rows the level's taps reach above and below a pixel: 2 << level."""
+    return 2 << level
 
 
 def pack_static_planes(position: torch.Tensor,
@@ -114,12 +131,26 @@ def _views(cv: torch.Tensor):
 
 def atrous_level_plain(color, variance, static, albedo, level: int,
                        sigma_l, sigma_n, sigma_x, blur_variance: bool,
-                       pack_out: bool = False):
+                       pack_out: bool = False, row0: int = 0,
+                       full_h=None, halo: int = 0, static_halo: int = 0):
     """Plain PyTorch version of kernel D (see atrous_level), on the same
-    tensors: position and normal are views of `static`."""
+    tensors: position and normal are views of `static`. Shard mode
+    filters the extended rows with every tap masked by its global row,
+    then keeps the shard's own."""
+    hx, w = variance.shape
+    h = hx - 2 * halo
+    full_h = h if full_h is None else full_h
+    static = static[static_halo - halo:static_halo - halo + hx]
     position, normal = static[..., 0:3], static[..., 4:7]
+    gy = torch.arange(hx, device=color.device) + (row0 - halo)
+    row_ok = ((gy >= 0) & (gy < full_h))[:, None]
+    in_image = row_ok.to(torch.float32).expand(hx, w)
+    if halo:
+        # rows past the image weigh nothing and are read as zeros
+        color = torch.where(row_ok[..., None], color, 0.0)
+        variance = torch.where(row_ok, variance, 0.0)
     step = 1 << level
-    var_p = (gaussian3x3(variance) if blur_variance
+    var_p = (gaussian3x3(variance, in_image) if blur_variance
              else torch.clamp_min(variance, 0.0))
     denom_l = 1.0 / fma(sqrt(var_p), sigma_l, 1e-6)
     one, eps = np.float32(1.0), np.float32(1e-6)     # float32 arithmetic
@@ -135,7 +166,7 @@ def atrous_level_plain(color, variance, static, albedo, level: int,
             hk = H5[k]
             k += 1
             dy, dx = j * step, i * step
-            inb = shift_mask(color.shape, dy, dx, color.device)
+            inb = shift(in_image, dy, dx)
             cq = shift(color, dy, dx)
             if dy == 0 and dx == 0:
                 wgt = hk * inb
@@ -155,6 +186,8 @@ def atrous_level_plain(color, variance, static, albedo, level: int,
     out = torch.where(ok[..., None], csum * inv_w[..., None], color)
     new_var = torch.where(ok, vsum / torch.where(w2sum > 0, w2sum, 1.0),
                           variance)
+    if halo:
+        out, new_var = out[halo:halo + h], new_var[halo:halo + h]
     if albedo is not None:
         out = out * albedo
     if pack_out:
@@ -164,7 +197,8 @@ def atrous_level_plain(color, variance, static, albedo, level: int,
 
 def atrous_level(color, variance, static, albedo, level: int, sigma_l,
                  sigma_n, sigma_x, blur_variance: bool,
-                 pack_out: bool = False):
+                 pack_out: bool = False, row0: int = 0, full_h=None,
+                 halo: int = 0, static_halo: int = 0):
     """One à-trous level: color (H, W, 3) and variance (H, W), either
     separate contiguous tensors or the views of one packed (H, W, 4)
     buffer that a level with `pack_out` returned; `static` the frame's
@@ -172,10 +206,26 @@ def atrous_level(color, variance, static, albedo, level: int, sigma_l,
     last level with add_color) or is None. Returns (color_out,
     variance_out) in new tensors: the views of a packed buffer with
     `pack_out`, else contiguous. CPU tensors take the plain version;
-    CUDA tensors launch kernel D."""
+    CUDA tensors launch kernel D.
+
+    Shard mode: the output's h rows are image rows row0.. of a
+    `full_h`-row image; color and variance hold h + 2 * halo rows and
+    `static` h + 2 * static_halo, the shard's rows in the middle, with
+    halo >= atrous_halo(level) and static_halo >= halo (none where the
+    shard is the whole image); `albedo` holds h rows."""
     _lib.require(color.device, "atrous_level")
+    h = variance.shape[0] - 2 * halo
+    if (row0, full_h) not in ((0, None), (0, h)):
+        if halo < atrous_halo(level) or static_halo < halo or h <= 0:
+            raise ValueError(f"shard mode at level {level} needs halo >= "
+                             f"{atrous_halo(level)} <= static_halo, got "
+                             f"{halo}, {static_halo} ({h} rows)")
+        if static.shape[0] != h + 2 * static_halo:
+            raise ValueError(f"static holds {static.shape[0]} rows, not "
+                             f"{h} + 2 * {static_halo}")
     args = (color, variance, static, albedo, level, sigma_l, sigma_n,
-            sigma_x, blur_variance, pack_out)
+            sigma_x, blur_variance, pack_out, row0, full_h, halo,
+            static_halo)
     if color.device.type == "cpu":
         return atrous_level_plain(*args)
     return _atrous_level_kernel(*args)
@@ -194,12 +244,14 @@ def _packed_pair(color, variance) -> bool:
 
 
 def _atrous_level_kernel(color, variance, static, albedo, level, sigma_l,
-                         sigma_n, sigma_x, blur_variance, pack_out=False):
-    h, w = variance.shape
+                         sigma_n, sigma_x, blur_variance, pack_out=False,
+                         row0=0, full_h=None, halo=0, static_halo=0):
+    hx, w = variance.shape
+    h = hx - 2 * halo
     packed_in = _packed_pair(color, variance)
-    ins = [("static", static, (h, w, 8))]
+    ins = [("static", static, (h + 2 * static_halo, w, 8))]
     if not packed_in:
-        ins += [("color", color, (h, w, 3)), ("variance", variance, (h, w))]
+        ins += [("color", color, (hx, w, 3)), ("variance", variance, (hx, w))]
     if albedo is not None:
         ins.append(("albedo", albedo, (h, w, 3)))
     for name, t, shape in ins:
@@ -218,10 +270,14 @@ def _atrous_level_kernel(color, variance, static, albedo, level, sigma_l,
         p(color), None if packed_in else p(variance), p(static), p(albedo),
         p(cv_out), None if pack_out else p(var_out), w, h, level,
         int(blur_variance), phases, tiles_x, tiles_y, float(sigma_l),
-        float(sigma_n), float(sigma_x))
+        float(sigma_n), float(sigma_x), row0, h if full_h is None else full_h,
+        halo, static_halo)
     _lib.launch("ptdn_atrous_level", args, ctypes.c_int(blocks))
     atrous_level.launches += 1
+    if halo:
+        atrous_level.shard_launches += 1
     return out, var_out
 
 
 atrous_level.launches = 0
+atrous_level.shard_launches = 0     # of them, in shard mode

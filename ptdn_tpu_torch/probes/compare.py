@@ -1,7 +1,7 @@
 """Kernels P, O and N beside other builds of their sources, on the card.
 
     python3 -m ptdn_tpu_torch.probes.compare [--variant NAME=DIR]...
-        [--reps N] [--ptx DIR] [--frames] [--out FILE]
+        [--reps N] [--ptx DIR] [--dc DIR] [--frames] [--out FILE]
 
 Builds: this tree's kernel library, and for each --variant DIR's copy of
 csrc/intersect_v1.cu, csrc/dyngather.cu and csrc/texgather.cu (another
@@ -33,6 +33,11 @@ library's, and csrc/scene/*.cu with cornell's scene header) and DIR's
 copy of it to PTX, and compares them entry by entry, up to the hash of
 the file's path that nvcc puts in internal names (a source DIR lacks,
 and an entry of a shared source that DIR's lacks, are listed as new).
+--dc DIR builds DIR's copy of csrc/atrous.cu and csrc/reproject.cu
+(another tree's, whose C entries may lack the row offset) and runs D at
+every level and C's stencil and band modes of cornell 800 x 800's fourth
+frame (the band mode on a moved view) through both builds, unsharded:
+each output equal bit for bit, each timed in turns.
 --frames times still cornell (the whole path) and bunny and room
 through the fused per-bounce engine, ms/frame over 20 frames after 3,
 through this tree's renderer. Prints one line per case and build with the card's name and
@@ -54,7 +59,11 @@ import tempfile
 import numpy as np
 import torch
 
+from ptdn_tpu_torch.denoise import reproject as trep
+from ptdn_tpu_torch.engine import Renderer
 from ptdn_tpu_torch.ops.cuda import _lib
+from ptdn_tpu_torch.ops.cuda import atrous as D
+from ptdn_tpu_torch.ops.cuda import reproject as C
 from ptdn_tpu_torch.ops.cuda import dyngather as O
 from ptdn_tpu_torch.ops.cuda import intersect_v1 as P
 from ptdn_tpu_torch.ops.cuda import scene_intersect as A
@@ -66,6 +75,7 @@ from ptdn_tpu_torch.scene import Scene
 from ptdn_tpu_torch.utils.assets import scene_path
 from ptdn_tpu_torch.utils.card import (bound, card_name, cuda_ms, in_turns,
                                        nbytes, ptxas_summary)
+from ptdn_tpu_torch.utils.config import RenderConfig
 
 # float operations of one plane-form lane-triangle test (chip_smoke.py's)
 PLANE_OPS = 60
@@ -170,6 +180,78 @@ def run_n(builds, reps):
     return out
 
 
+def run_dc(other, reps):
+    """D at every level and C in both modes of cornell 800x800's fourth
+    frame through this tree's build and `other`'s (a csrc directory),
+    unsharded: equal bit for bit, timed in turns."""
+    src = pathlib.Path(other)
+    rows_entry = "ReprojRows" in (src / "reproject.cu").read_text()
+    c_args = [_lib._VP] * (3 if rows_entry else 2)
+    lib, _ = _lib.build_variant("dc", [src / "atrous.cu",
+                                       src / "reproject.cu"], {
+        "ptdn_atrous_level": _lib.ENTRIES["ptdn_atrous_level"],
+        "ptdn_back_projection_stencil": c_args,
+        "ptdn_back_projection_banded": c_args})
+    cfg = RenderConfig(trace_depth=8, denoise_enable=True,
+                       temporal_enable=True, spatial_enable=True,
+                       atrous_nlevel=5)
+    r = Renderer(Scene(scene_path("cornell")), cfg, (800, 800), "cuda")
+    for _ in range(3):
+        r.render_frame()
+    st = r.step.frame_state()
+    rad, gb = r.step.tracer(r._cam[0], r._params, 3, False)
+    w, h = r.resolution
+    gb = {k: v.reshape((h, w) + tuple(v.shape[1:])).contiguous()
+          for k, v in gb.items()}
+    moved = torch.eye(4, device="cuda")
+    moved[0, 3] = 0.3
+    out = {}
+
+    def theirs_c(name, args, band=None):
+        c_args, outs = C.reproj_args(*args, name=name, band=band,
+                                     rows=(0, h, 0) if rows_entry else None)
+        if not rows_entry:
+            c_args = (c_args,)
+        _lib.launch("ptdn_" + name, *c_args, lib=lib)
+        return outs
+
+    for name, view in (("back_projection_stencil", st["prev_view"]),
+                       ("back_projection_banded", st["prev_view"] @ moved)):
+        args = ((w, h), rad.reshape(h, w, 3), gb,
+                {"normal": st["prev_normal"], "geom_id": st["prev_geom_id"]},
+                view, st["color_history"], st["moment_history"],
+                st["history_length"], 0.2, 0.2)
+        band = None
+        if name == "back_projection_banded":
+            band = (trep.motion_bounds((w, h), gb, view)[1:], trep.BAND_ROWS,
+                    trep.BAND_MARGIN)
+        fns = {"this tree": (
+            (lambda: C._back_projection_banded_kernel(*args, *band))
+            if band else (lambda: C._back_projection_stencil_kernel(*args))),
+            other: lambda: theirs_c(name, args, band)}
+        got = [fn() for fn in fns.values()]
+        if not all(torch.equal(a, b) for a, b in zip(*got)):
+            raise RuntimeError(f"C {name}: the builds differ")
+        out[name] = in_turns(fns, reps)
+    stencil = C._back_projection_stencil_kernel(*args[:4], st["prev_view"],
+                                                *args[5:])
+    var, color = stencil[0], stencil[1]
+    static = D.pack_static_planes(gb["position"], gb["normal"])
+    albedo = (gb["albedo"] * gb["ialbedo"]).contiguous()
+    for level in range(1, 6):
+        dargs = (color, var, static, albedo if level == 5 else None, level,
+                 0.45, 0.2, 0.35, True)
+        fns = {"this tree": lambda: D._atrous_level_kernel(*dargs),
+               other: lambda: _lib.with_lib(
+                   lib, lambda: D._atrous_level_kernel(*dargs))}
+        got = [fn() for fn in fns.values()]
+        if not all(torch.equal(a, b) for a, b in zip(*got)):
+            raise RuntimeError(f"D level {level}: the builds differ")
+        out[f"atrous_level {level}"] = in_turns(fns, reps)
+        color, var = got[0]
+    return out
+
+
 def entries(ptx: str):
     """entry name -> its PTX body, nvcc's path hash taken out of names."""
     ptx = re.sub(r"_(INTERNAL|GLOBAL__N_)_[0-9a-f]+_", r"_\1_", ptx)
@@ -247,6 +329,8 @@ def main(argv=None):
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--ptx", metavar="DIR",
                     help="compare every other kernel's PTX with DIR's")
+    ap.add_argument("--dc", metavar="DIR",
+                    help="D and C beside DIR's copy, equal and timed")
     ap.add_argument("--frames", action="store_true")
     ap.add_argument("--out")
     args = ap.parse_args(argv)
@@ -294,6 +378,12 @@ def main(argv=None):
         print(f"PTX of every other kernel against {args.ptx}: {n} entries, "
               f"{len(differ)} differ" + "".join(f"; {d}" for d in differ)
               + f"; sources new here: {new}; entries new here: {added}")
+    if args.dc:
+        res["dc"] = run_dc(args.dc, args.reps)
+        for k, v in res["dc"].items():
+            print(f"{k} (cornell 800x800, unsharded), equal bit for bit: "
+                  + "; ".join(f"{b} {', '.join(f'{t:.4f}' for t in ms)}"
+                              for b, ms in v.items()) + f" ms [{card}]")
     if args.frames:
         res["frames"] = frames()
         print("frames " + ", ".join(f"{k} {v:.3f} ms/frame"

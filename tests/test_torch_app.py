@@ -409,3 +409,6 @@ def test_port_imports_no_jax():
                     if n.split(".")[0] in ("jax", "jaxlib", "ptdn_tpu")]
     assert bad == []
     assert len(list(PORT.rglob("*.py"))) > 40
+    # the multi-device package is scanned too
+    assert {"mesh.py", "halo.py", "sharded.py", "dryrun.py"} <= {
+        p.name for p in PORT.rglob("parallel/*.py")}

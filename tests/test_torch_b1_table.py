@@ -18,9 +18,6 @@ import torch
 from ptdn_tpu.engine import Renderer as JRenderer
 from ptdn_tpu.scene import Scene as JScene
 from ptdn_tpu.utils.config import RenderConfig as JConfig
-from ptdn_tpu_torch.engine import Renderer
-from ptdn_tpu_torch.engine import wavefront as W
-from ptdn_tpu_torch.ops.camera import generate_camera_rays
 from ptdn_tpu_torch.ops.cuda import path as B
 from ptdn_tpu_torch.ops.cuda import scene_intersect as A
 from ptdn_tpu_torch.ops.fp import fma
@@ -30,20 +27,10 @@ from ptdn_tpu_torch.ops.intersect import (FMA_X, FMA_Y, FMA_Z, MUL_X, MUL_Y,
 from ptdn_tpu_torch.scene import Scene
 from ptdn_tpu_torch.scene.parser import CUBE
 from ptdn_tpu_torch.utils.assets import write_cornell_plus
-from ptdn_tpu_torch.utils.config import RenderConfig
 from test_torch_mesh import torch_on_one_thread  # noqa: F401 (autouse)
+from test_torch_b1_table_card import RAW_D3, CAUSES, _bits, frames, _b1_args, _b1_plain, _assert_same  # noqa: F401
 
-# tests/test_golden.py's cornell_raw_d3 config and its budgets
-RAW_D3 = dict(denoise_enable=False, trace_depth=3)
 FRAC_BUDGET, RMSE_BUDGET = 0.01, 0.012
-# the three causes, as generated cornell variants (write_cornell_plus)
-CAUSES = {"65 geoms": dict(cubes=55),
-          "1025 materials": dict(materials=1016),
-          "non-finite constant": dict(materials=1, refrior="inf")}
-
-
-def _bits(a):
-    return np.ascontiguousarray(a, np.float32).view(np.int32)
 
 
 @pytest.mark.parametrize("name", ["cornell", "bunny"])
@@ -220,25 +207,6 @@ def test_cull_never_skips_a_hit(frames, monkeypatch):
     assert hits > 1000 and missed_total > 0.6 * tests
 
 
-@pytest.fixture(scope="module")
-def frames(tmp_path_factory, scenes_dir):
-    """The port's 3 frames of cornell_raw_d3 at 64 x 64 on the CPU, of
-    cornell and of each cause's variant, rendered once; each with its
-    renderer."""
-    out = tmp_path_factory.mktemp("scenes")
-    cache = {}
-
-    def render(cause):
-        if cause not in cache:
-            path = (str(scenes_dir / "cornell.txt") if cause is None
-                    else write_cornell_plus(out, **CAUSES[cause]))
-            r = Renderer(Scene(path), RenderConfig(**RAW_D3), (64, 64),
-                         device="cpu")
-            cache[cause] = (r, r.render(3), path)
-        return cache[cause]
-    return render
-
-
 @pytest.mark.parametrize("cause", sorted(CAUSES))
 def test_scene_past_the_per_scene_build_keeps_the_whole_path(frames, cause):
     """Each cause alone makes path_scene None (B1's table build on the
@@ -289,55 +257,3 @@ def test_table_build_launches_nothing_on_cpu(frames):
     for cause in CAUSES:
         frames(cause)
     assert B.path_trace.launches == B.path_trace.table_launches == 0
-
-
-def _b1_args(r, frame):
-    """Kernel B1's arguments on renderer r's primary state (its last
-    frame's primary-hit cache and camera rays)."""
-    tr = r.step.tracer
-    o, d = generate_camera_rays(r._cam[0], r.resolution)
-    prim = dict({k: getattr(tr, "pcache_" + k) for k in W.PCACHE_KEYS},
-                o=o, d=d)
-    light = dict(tr.light, radius=float(r.cfg.light_radius),
-                 intensity=float(r.cfg.shadow_intensity))
-    return (tr.ds, tr.gi, prim, frame, 0, r.cfg.trace_depth, light,
-            tr.flags)
-
-
-def _b1_plain(ds, gi, prim, frame, lane0, depth, light, flags):
-    return B.path_trace_plain(ds, gi, prim, frame=frame, lane0=lane0,
-                              depth=depth, light=light, flags=flags)
-
-
-def _assert_same(got, want):
-    assert np.array_equal(_bits(got[0].cpu().numpy()),
-                          _bits(want[0].cpu().numpy()))
-    assert torch.equal(got[1], want[1])
-
-
-@pytest.mark.cuda
-def test_b1_table_build_matches_per_scene_on_card(frames, scenes_dir):
-    """On a card, at 128 x 96 (chip_smoke.py does so at 800 x 800): B1's
-    table build on cornell (its path_scene dropped) equals the per-scene
-    build and the plain version bit for bit; the 65-geom scene renders
-    through it, a launch a frame, and on that scene's primary state (geom
-    indices up to 64 in its tables) it equals its plain version bit for
-    bit, contributions and texel indices."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card")
-    r = Renderer(Scene(str(scenes_dir / "cornell.txt")),
-                 RenderConfig(trace_depth=4), (128, 96), "cuda")
-    r.render(2)
-    ds, gi, *args = _b1_args(r, 2)
-    table = B._path_trace_kernel(ds, gi._replace(path_scene=None), *args)
-    _assert_same(table, B._path_trace_kernel(ds, gi, *args))
-    _assert_same(table, _b1_plain(ds, gi, *args))
-    path = frames("65 geoms")[2]
-    r65 = Renderer(Scene(path), RenderConfig(**RAW_D3), (128, 96), "cuda")
-    B.path_trace.table_launches = 0
-    left, right = r65.render(2)
-    assert B.path_trace.table_launches == 2
-    assert np.isfinite(left).all() and np.isfinite(right).all()
-    args65 = _b1_args(r65, 1)
-    assert args65[1].path_scene is None and len(args65[1].types) == 65
-    _assert_same(B._path_trace_kernel(*args65), _b1_plain(*args65))

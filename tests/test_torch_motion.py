@@ -28,12 +28,12 @@ from ptdn_tpu_torch.denoise import reproject as trep
 from ptdn_tpu_torch.engine import Renderer
 from ptdn_tpu_torch.ops.camera import OrbitCamera
 from ptdn_tpu_torch.ops.cuda import atrous as D
-from ptdn_tpu_torch.ops.cuda import reproject as C
 from ptdn_tpu_torch.ops.cuda import reproject_atrous as L
 from ptdn_tpu_torch.ops.cuda import scene_intersect as A
 from ptdn_tpu_torch.scene import Scene
 from ptdn_tpu_torch.utils.config import RenderConfig
 from test_torch_mesh import torch_on_one_thread  # noqa: F401 (autouse)
+from test_torch_motion_card import SIG, _rays  # noqa: F401
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 _SVGF = dict(denoise_enable=True, temporal_enable=True, spatial_enable=True,
@@ -48,7 +48,6 @@ ANIM = {"cornell_svgf_anim_slow": dict(_SVGF, automate_camera=True,
                                        camera_speed_phi=2.1,
                                        camera_speed_y=1.8)}
 FRAC_BUDGET, RMSE_BUDGET = 0.06, 0.012
-SIG = (0.45, 0.2, 0.35)
 
 
 def _motion_args(h, w, dy, dx, seed=13):
@@ -267,15 +266,6 @@ def scenes(scenes_dir):
     return out
 
 
-def _rays(n, seed):
-    r = np.random.default_rng(seed)
-    o = r.uniform([-4.5, 0.5, -4.5], [4.5, 9.5, 9.0],
-                  size=(n, 3)).astype(np.float32)
-    d = r.normal(size=(n, 3))
-    return o, (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(
-        np.float32)
-
-
 @pytest.mark.parametrize("cull", [True, False])
 @pytest.mark.parametrize("name", ["cornell", "diamond"])
 def test_scene_intersect_matches_pallas(scenes, name, cull):
@@ -391,49 +381,3 @@ def test_set_config_rebuilds_on_structural_change(scenes_dir):
         move()
         assert r.cam_changed
     r.render_frame()
-
-
-@pytest.mark.cuda
-def test_motion_kernels_match_plain_on_card(scenes_dir):
-    """Kernels L, M and C's band mode against their plain versions on the
-    card, at a small size (chip_smoke.py does this at the main path's)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card")
-    cfg = RenderConfig(trace_depth=4, denoise_enable=True,
-                       temporal_enable=True, spatial_enable=True,
-                       atrous_nlevel=5)
-    res = (128, 96)
-    r = Renderer(Scene(str(scenes_dir / "cornell.txt")), cfg, res, "cuda")
-    for _ in range(3):
-        r.render_frame()
-    st = r.step.frame_state()
-    rad, gb = r.step.tracer(r._cam[0], r._params, 3, False)
-    w, h = res
-    gb = {k: v.reshape((h, w) + tuple(v.shape[1:])).contiguous()
-          for k, v in gb.items()}
-    args = (res, rad.reshape(h, w, 3), gb,
-            {"position": st["prev_position"], "normal": st["prev_normal"],
-             "geom_id": st["prev_geom_id"]}, st["prev_view"],
-            st["color_history"], st["moment_history"], st["history_length"],
-            0.2, 0.2)
-    static = D.pack_static_planes(gb["position"], gb["normal"])
-    for a, b in zip(L._back_projection_atrous1_kernel(*args, *SIG, True,
-                                                      static),
-                    L.back_projection_atrous1_plain(*args, *SIG, True,
-                                                    static)):
-        assert torch.allclose(a.double(), b.double(), rtol=1e-6, atol=1e-6)
-    moved = torch.eye(4, device="cuda")
-    moved[0, 3] = 0.3
-    margs = args[:4] + (st["prev_view"] @ moved,) + args[5:]
-    starts = trep.motion_bounds(res, gb, margs[4], 32, 16)[1:]
-    for a, b in zip(C._back_projection_banded_kernel(*margs, starts, 32, 16),
-                    C.back_projection_banded_plain(*margs, starts, 32, 16)):
-        assert torch.allclose(a.double(), b.double(), rtol=1e-6, atol=1e-6)
-    o, d = (torch.from_numpy(x).cuda() for x in _rays(4096, 2))
-    tr = r.step.tracer
-    for cull in (True, False):
-        k = A._scene_intersect_kernel(tr.ds, tr.gi, o, d, cull)
-        p = A.scene_intersect_plain(tr.ds, tr.gi, o, d, cull)
-        for key in k:
-            assert torch.allclose(k[key].double(), p[key].double(),
-                                  rtol=1e-6, atol=1e-6), key
