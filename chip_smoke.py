@@ -81,7 +81,8 @@ Phases, one line or more each, with their wall time:
    kernel and, on two arrays of lines too long to stage, its global-load
    kernel; P with the cull on and off, its tests counted under the
    kernel's warp cull and the TPU's 512-ray block cull); N also on an
-   odd length, a slice at a misaligned offset and no index; Q equal bit
+   odd length, a slice at a misaligned offset and no index; Q (filling
+   in place the allp whose first 21 planes E wrote) equal bit
    for bit, range planes and key, on every lane of bounce 2 of diamond,
    bunny, room, terrain30k (supergroups) and room at 1920x1080 with its
    moving camera, and of the shared edge inputs
@@ -149,10 +150,10 @@ Phases, one line or more each, with their wall time:
    A, B1, B2, C and D counted), a checkpoint's resume (bit for bit), and
    benchmarks/gt/*.npz and bench_results.json hashed before and after;
 6. the row-sharded frame step at cornell 800x800 with the same config:
-   D's shard mode against its plain version and the unsharded kernel at
-   every level on 8 shards (100 rows) and 16 (50 rows: level 5's
-   64-row halo two hops), bit for bit, and with row0 0 and no halo the
-   unsharded D; C's row offset in both modes on 8 shards, bit for bit,
+   D's shard mode (its own rows and its halo rows read where they lie)
+   against its plain version and the unsharded kernel at every level on
+   4 shards (200 rows), 8 (100) and 16 (50 rows: level 5's 64-row halo
+   two hops), bit for bit, and with row0 0 and no halo the unsharded D; C's row offset in both modes on 8 shards, bit for bit,
    no pixel off its plain version; the in-process group of 8 and of 16
    shards through 8 still then 8 anim_slow frames, every stitched left
    and right equal to the whole image's bit for bit, with each frame's
@@ -435,6 +436,9 @@ BENCH_TIMEOUT, CLI_TIMEOUT = 600, 180
 # shards (label -> scene, flags, resolution) and their frames, and the
 # two gloo ranks' frames and time limit (seconds)
 SHARDS = (8, 16)
+# D's shard mode is checked and timed by level at these (4: the 4-card
+# shape, 200 rows)
+D_SHARDS = (4, 8, 16)
 SHARD_STILL = SHARD_MOVING = 8
 SHARD_RUNS = {"room": ("room", {}, (600, 600)),
               "diamond": ("diamond", {}, (800, 800)),
@@ -688,13 +692,16 @@ def plane_check(kernel, label, args, kw, got, ref):
 
 
 def q_check(label, args, boxes):
-    """Kernel Q against its plain version on
-    ranges_and_key's arguments `args` (ds, sh, pix, n_chunks, do_vis,
-    light_pos, light_radius) with its box table `boxes`: no lane may
-    differ in any of the 26 planes (NaN where NaN) or in its key. Returns
-    the bound of the work (bytes: the 22 planes read, the 26 planes and
-    the key written; operations: a box test per box of each live lane's
-    next ray and shadow ray)."""
+    """Kernel Q against its plain version on ranges_and_key's arguments
+    `args` (ds, allp, pix, n_chunks, do_vis, light_pos, light_radius,
+    E's planes in allp's first 21, which Q fills in place) with its box
+    table `boxes`: no lane may differ in any of the 26 planes (NaN where
+    NaN) or in its key. Returns the bound of the work (bytes: the planes
+    Q needs, the live flag and the pixel plane read and the 4 range
+    planes, the pixel plane and the key written on every lane, the NEE
+    flag, origin and next direction read on a live lane and the shadow
+    direction on a lane with a shadow ray, Q.traffic; operations: a box
+    test per box of each live lane's next ray and shadow ray)."""
     ref_p, ref_k = Q.ranges_and_key_plain(*args)
     p, k = Q._ranges_and_key_kernel(boxes, *args[1:])
     planes_eq = ((p == ref_p) | (p.isnan() & ref_p.isnan())).all(dim=0)
@@ -702,10 +709,12 @@ def q_check(label, args, boxes):
     check(off <= LANES_OFF_ALLOWED,
           f"Q on {label}: {off} lanes off its plain version")
     tests = Q.box_tests(args[1], boxes.shape[0])
-    print(f"phase 2: Q on {label}: {k.numel()} lanes, {tests} box tests, "
+    lanes, live, nee = Q.lane_counts(args[1])
+    print(f"phase 2: Q on {label}: {lanes} lanes, {live / lanes:.4f} live, "
+          f"{nee / lanes:.4f} with a shadow ray, {tests} box tests, "
           f"{boxes.shape[0]} boxes: range planes and key equal to the plain "
           f"version on every lane")
-    return bound(nbytes(args[1], args[2], p, k), tests * RANGE_OPS)
+    return bound(Q.traffic(args[1]), tests * RANGE_OPS)
 
 
 def f_agreement(kf, pf):
@@ -1029,21 +1038,27 @@ def sharded_phase(card, out, frame_ms):
         want = D._atrous_level_kernel(src, var, static, alb, level, *sig,
                                       CFG.blur_variance)
         whole = D._atrous_level_kernel(src, var, static, alb, level, *sig,
-                                       CFG.blur_variance, False, 0, h, 0, 0)
+                                       CFG.blur_variance, False, 0, h, None,
+                                       0)
         check(torch.equal(whole[0], want[0])
               and torch.equal(whole[1], want[1]),
               f"D level {level} with row0 0 and no halo is the unsharded D")
         halo = D.atrous_halo(level)
+        # the image's packed rows, `halo` zero rows above and below: a
+        # shard's own rows and its halo rows are slices of it, apart
         ext = padded(torch.cat([src, var[..., None]], -1), halo)
         calls = {}
-        for n in SHARDS:
+        for n in D_SHARDS:
             hl = h // n
             outs, calls[n] = [], []
             for r0 in range(0, h, hl):
-                e = ext[r0:r0 + hl + 2 * halo]
-                dargs = (e[..., :3], e[..., 3], sext[r0:r0 + hl + 2 * sh],
+                own = ext[halo + r0:halo + r0 + hl]
+                rows = (ext[r0:r0 + halo],
+                        ext[r0 + hl + halo:r0 + hl + 2 * halo])
+                dargs = (own[..., :3], own[..., 3],
+                         sext[r0:r0 + hl + 2 * sh],
                          None if alb is None else alb[r0:r0 + hl], level,
-                         *sig, CFG.blur_variance, False, r0, h, halo, sh)
+                         *sig, CFG.blur_variance, False, r0, h, rows, sh)
                 k = D._atrous_level_kernel(*dargs)
                 p = D.atrous_level_plain(*dargs)
                 check(torch.equal(k[0], p[0]) and torch.equal(k[1], p[1]),
@@ -1064,7 +1079,9 @@ def sharded_phase(card, out, frame_ms):
                                       reps=10, hide_host=True),
             **{f"{n} shards": cuda_ms(
                 lambda: [D._atrous_level_kernel(*a) for a in calls[n]],
-                reps=10, hide_host=True) for n in SHARDS}}
+                reps=10, hide_host=True) for n in D_SHARDS}}
+        d_ms[level].update({f"{n} shards / unsharded": d_ms[level][
+            f"{n} shards"] / d_ms[level]["unsharded"] for n in D_SHARDS})
         if level == 1:
             hl = h // SHARDS[0]
             rows = hl + 2 * halo
@@ -1079,7 +1096,7 @@ def sharded_phase(card, out, frame_ms):
     stats["atrous_level_shard"] = 0.0
     frame_ms["D shard mode by level"] = d_ms
     print("phase 6: D's shard mode equals its plain version and the "
-          f"unsharded level at every level on {SHARDS} shards, and with "
+          f"unsharded level at every level on {D_SHARDS} shards, and with "
           "row0 0 and no halo the unsharded D; ms by level: "
           + "; ".join(f"{lv}: " + ", ".join(f"{k} {v:.4f}"
                                             for k, v in m.items())
@@ -1197,8 +1214,9 @@ def main():
     regs = ptxas_summary(log)
     # O has two kernels (the staged one and the global-load one); B1's
     # table build, F, H, A and J have a native build each (compat=False),
-    # E its light-table entry, and R one kernel
-    check(len(regs) == 28, f"28 kernels in the library, got {regs}")
+    # E its light-table entry, R one kernel, and D's shard mode two (one
+    # and two row phases a block)
+    check(len(regs) == 30, f"30 kernels in the library, got {regs}")
     # kernels B1, F, H, A, J, I and M (with and without the cull) are
     # built per scene, with the scene's constants (csrc/scene/*.cu), every
     # scene's at once, and the native runs' scenes in native mode
@@ -1441,6 +1459,9 @@ def main():
                    "ranges_and_key")))
     dr, cap = mesh["diamond"]
     (e_planes, e_mats), e_kw = cap["shade_bounce"]
+    # the frame's E wrote into its bounce's allp (out=); here into its own
+    check(e_kw.pop("out").shape[0] == E.N_OUT,
+          "E writes the sorted bounce's planes into allp")
     ke = E._shade_bounce_kernel(e_planes, e_mats, **e_kw)
     pe = E.shade_bounce_plain(e_planes, e_mats, **e_kw)
     stats["shade_bounce"] = max_abs(ke, pe)

@@ -36,7 +36,9 @@ library's)
   rate, or its operations over the float32 rate, counting the analytic
   tests of every ray (both rays in F and H, and in B1 at every depth),
   the refine and, in H and B1, the shading of every lane, and the
-  lane-triangle tests that the plain version's scan made; Q's box tests
+  lane-triangle tests that the plain version's scan made; Q's bytes
+  are the planes its live and NEE lanes need (ops/cuda/ranges.py:
+  traffic, the shares printed) and its operations its box tests
   (ops/cuda/ranges.py:box_tests).
 
 The L case takes L's call on the fourth frame of cornell at 800x800
@@ -60,7 +62,7 @@ tile and each of R_TILES, and the (pixel, tap) pairs whose normal or
 position distance is 0 (r_zero_pairs).
 
 Cases (CASES): F and Q on diamond at 800x800 and room at 1920x1080, F
-also on bunny at 800x800;
+also on bunny at 800x800, Q also on bunny and terrain30k at 800x800;
 H on cornell and bunny at 800x800 and room at 600x600; J on cornell at
 800x800 and room at 600x600; A on bunny at 800x800, and on the primary
 hits of room at 1920x1080 and of cornell at 800x800; I on cornell and
@@ -92,6 +94,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import pathlib
 
@@ -112,6 +115,7 @@ from ptdn_tpu_torch.ops.cuda import ranges as Q
 from ptdn_tpu_torch.ops.cuda import reproject as C
 from ptdn_tpu_torch.ops.cuda import reproject_atrous as L
 from ptdn_tpu_torch.ops.cuda import scene_intersect as A
+from ptdn_tpu_torch.ops.cuda import shade as E
 from ptdn_tpu_torch.ops.cuda import spatial_variance as R
 from ptdn_tpu_torch.scene import Scene
 from ptdn_tpu_torch.utils.assets import scene_path, write_cornell_plus
@@ -174,6 +178,8 @@ CASES = {"F diamond": ("trace_bounce", "diamond", (800, 800), 2),
          "F bunny": ("trace_bounce", "bunny", (800, 800), 2),
          "F room 1920x1080": ("trace_bounce", "room", (1920, 1080), 2),
          "Q diamond": ("ranges_and_key", "diamond", (800, 800), 2),
+         "Q bunny": ("ranges_and_key", "bunny", (800, 800), 2),
+         "Q terrain30k": ("ranges_and_key", "terrain30k", (800, 800), 2),
          "Q room 1920x1080": ("ranges_and_key", "room", (1920, 1080), 2),
          "H cornell": ("bounce_fused", "cornell", (800, 800), 2),
          "H bunny": ("bounce_fused", "bunny", (800, 800), 2),
@@ -280,16 +286,49 @@ def capture(kernel: str, scene: str, res, call=2, device="cuda"):
         r.orbit(dphi=0.015, dtheta=0.01)
         call = 1
     name = CALLED.get(kernel, kernel)
+    if kernel == "ranges_and_key":    # with E's call of the same bounce
+        got = capture_bounce(r, call, (name, "shade_bounce"))
+        args, kw = got[name]
+        return args, dict(kw, shade=got["shade_bounce"])
     return capture_bounce(r, call, (name,), CALLER.get(kernel, W))[name]
 
 
 def _ranges_and_key_kernel(ds, *args, boxes):
-    """Kernel Q on ranges_and_key's captured call."""
+    """Kernel Q on ranges_and_key's captured call: in place on its allp
+    (a clone; E's planes in its first 21)."""
     return Q._ranges_and_key_kernel(boxes, *args)
 
 
 def _ranges_and_key_plain(*args, boxes):
     return Q.ranges_and_key_plain(*args)
+
+
+def shade_and_ranges(shade, args, kw, libs=None):
+    """E + Q as a sorted bounce runs them, on E's captured call `shade`
+    and Q's (args, kw): "library", this tree's, E writing into the first
+    21 planes of a new allp, then Q filling it in place; and for each
+    variant of `libs` (an older tree's Q), E into a buffer of its own,
+    then that Q reading it into a new allp, as the bounce did before E
+    wrote into allp. Returns name -> a function giving (allp, key)."""
+    (planes, mats), e_kw = shade
+    e_kw = {k: v for k, v in e_kw.items() if k != "out"}
+    _, allp, pix, *rest = args
+
+    def mine():
+        a = torch.empty_like(allp)
+        E._shade_bounce_kernel(planes, mats, **e_kw, out=a[:Q.N_OUT])
+        return Q._ranges_and_key_kernel(kw["boxes"], a, pix, *rest)
+
+    def theirs(lib):
+        sh = E._shade_bounce_kernel(planes, mats, **e_kw)
+        a = torch.empty_like(allp)
+        key = torch.empty(pix.numel(), dtype=torch.int32, device=a.device)
+        _lib.launch("ptdn_ranges_and_key", Q.range_args(
+            kw["boxes"], sh, pix, a, key, *rest), lib=lib)
+        return a, key
+    return {"library": mine,
+            **{name: functools.partial(theirs, lib)
+               for name, lib in (libs or {}).items()}}
 
 
 def kernel_fn(kernel: str):
@@ -441,7 +480,7 @@ def work(kernel: str, args, kw, out, tri_tests: int, culls=(0, 0)):
     if kernel == "path_trace_table":
         return b1_work(args, kw, *out, tri_tests, culls)
     if kernel == "ranges_and_key":
-        return bound(nbytes(*args[1:3], *out),
+        return bound(Q.traffic(args[1]),
                      Q.box_tests(args[1], kw["boxes"].shape[0]) * RANGE_OPS)
     gi = args[1]
     n_an = sum(1 for t in gi.types if t != 2)
@@ -487,6 +526,7 @@ def measure(kernel: str, args, kw, libs=None, reps: int = 20):
     library, built by build_variant), which the wrappers take as they
     take the kernel library's."""
     ds, gi, *rest = args
+    shade = kw.pop("shade", None)     # Q's case: E's call of its bounce
     # Q takes no geom info and has the library's build alone
     lib_args = (args if kernel == "ranges_and_key"
                 else (ds, gi._replace(path_scene=None), *rest))
@@ -522,6 +562,14 @@ def measure(kernel: str, args, kw, libs=None, reps: int = 20):
     out = {"lanes": n_lanes(kernel, args), "tri_tests": tests,
            "plain_ms": plain_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "turns": order, "builds": per}
+    if shade is not None:     # E + Q, each build's way, equal and timed
+        pairs = shade_and_ranges(shade, args, kw, libs)
+        got = {name: out_planes(kernel, fn()) for name, fn in pairs.items()}
+        out["parts_off"] = {f"E + Q {name}": sum(plane_diffs(
+            g, got["library"]).values()) for name, g in got.items()}
+        ms = in_turns({f"E + Q {k}": v for k, v in pairs.items()}, reps)
+        out["parts"] = ms
+        _, out["live"], out["nee"] = Q.lane_counts(args[1])
     if kernel == "path_trace_table":   # the work without the cull
         out["bound_full_ms"] = work(kernel, args, kw, ref, tests)[0]
         out["box_tests"], out["skipped_tests"] = culls
@@ -851,6 +899,10 @@ def main(argv=None):
                   f"{m['tri_tests']} lane-triangle tests; lanes differing "
                   f"from the plain version by plane: {bad or 'none'}, from "
                   f"the {first} build: {off or 'none'}{cd} [{card}]")
+        if "live" in m:
+            print(f"{label}: {m['live'] / m['lanes']:.4f} of the lanes "
+                  f"live, {m['nee'] / m['lanes']:.4f} with a shadow ray "
+                  f"(Q's bound counts their planes alone)")
         for name, ms in m.get("parts", {}).items():
             off = m.get("parts_off", {}).get(name)
             print(f"{label} [{name}]: " + ", ".join(f"{t:.4f}" for t in ms)

@@ -75,14 +75,14 @@ from ptdn_tpu_torch.ops.cuda.path import deferred_radiance, path_trace
 # the sorted wavefront's range and key glue, kernel Q: profile_frame.py
 # times it, and the tests call it, under these names
 from ptdn_tpu_torch.ops.cuda.ranges import (  # noqa: F401
-    SENTINEL, chunk_range_planes, range_boxes, ranges_and_key)
+    N_ALLP, SENTINEL, chunk_range_planes, range_boxes, ranges_and_key)
 from ptdn_tpu_torch.ops.cuda.scene_intersect import (
     TCHUNK, geom_info, light_visibility, scene_intersect_full,
     scene_intersect_full_tex, tex_index, texel_rgb)
 from ptdn_tpu_torch.ops.cuda.shade import (I_AB, I_AR, I_RB, I_RR, O_ACT,
                                            O_CB, O_CR, O_DIF, O_DX, O_DZ,
                                            O_LI, O_NEE, O_RB, O_RR, O_SDX,
-                                           O_SPX, O_SPZ, O_TB, O_TR,
+                                           O_SPX, O_SPZ, O_TB, O_TR, N_OUT,
                                            light_table, shade_bounce)
 from ptdn_tpu_torch.ops.fp import fma
 from ptdn_tpu_torch.scene.parser import MESH
@@ -463,13 +463,16 @@ class PathTracer(nn.Module):
                            device=dev).reshape(nb, 128)
         fl = self.flags
         for depth in range(1, self.depth + 1):
-            sh = shade_bounce(
+            # E writes its planes into the bounce's allp, Q the rest
+            allp = torch.empty((N_ALLP, nb, 128), device=dev)
+            shade_bounce(
                 torch.cat([planes, pix[None]]), ds.mat_attr,
                 fd=frame + depth, lane0=self.lane0, light_pos=light["pos"],
                 lrad=light["radius"], sint=light["intensity"],
                 alb_skip=depth == 1 and fl["alb_skip1"],
-                shadow_ray=fl["shadow_ray"], reduce_var=fl["reduce_var"])
-            allp, key = ranges_and_key(ds, sh, pix, self.n_chunks,
+                shadow_ray=fl["shadow_ray"], reduce_var=fl["reduce_var"],
+                out=allp[:N_OUT])
+            allp, key = ranges_and_key(ds, allp, pix, self.n_chunks,
                                        fl["do_vis"], light["pos"],
                                        light["half_diag"],
                                        boxes=self.range_boxes)

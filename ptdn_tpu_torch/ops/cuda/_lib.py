@@ -97,6 +97,7 @@ ENTRIES = {
     "ptdn_back_projection_banded": [_VP, _VP, _VP],
     "ptdn_back_projection_atrous1": [_VP, _VP],
     "ptdn_atrous_level": [_VP, _I32, _VP],
+    "ptdn_atrous_shard": [_VP, _VP],
     "ptdn_shade_bounce": [_VP, _VP],
     "ptdn_trace_bounce": [_VP, _VP, _VP],
     "ptdn_inrow_permute": [_VP, _VP, _I32, _I32, _VP, _VP],

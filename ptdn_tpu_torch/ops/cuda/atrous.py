@@ -18,13 +18,18 @@ state instead (``pack_out=False``), and a level reads either layout.
 
 Shard mode (the TPU kernel's row0, full_h, halo_top and halo_bottom):
 the level filters the h rows of a shard whose first row is image row
-`row0` of a `full_h`-row image, from inputs that carry real neighbour
-rows, `halo` above and below the color and variance and `static_halo`
-around the G-buffer (parallel/halo.py:halo_rows, zeros past the image).
+`row0` of a `full_h`-row image. As the TPU kernel's operands, the
+shard's own level input and its halo rows are separate: `halo` = (top,
+bottom), the packed (k, W, 4) color and variance of the k image rows
+above and below the shard (parallel/halo.py:halo_rows, zeros past the
+image), which the kernel reads in place, so a level makes no extended
+copy of its input; the G-buffer carries `static_halo` rows on each side.
 Taps are masked by their global row, so each pixel equals the unsharded
 level's bit for bit. The halo is the taps' exact reach, 2 << level rows
 (the variance pre-blur reads one row, inside it); the albedo of the last
-level is read at the pixel only and has none.
+level is read at the pixel only and has none. The shard kernel
+(csrc/atrous.cu:atrous_shard_kernel) takes several row phases a block on
+short lattices (atrous_shard_tiling).
 """
 
 from __future__ import annotations
@@ -47,6 +52,9 @@ from ptdn_tpu_torch.ops.fp import fma, sqrt
 ROWS = 8
 PHASES = 4
 HALO = 2
+# shard mode: at most MAX_ROW_PHASES row phases a block
+# (csrc/atrous.cu:kMaxRowPhases)
+MAX_ROW_PHASES = 2
 
 
 class AtrousArgs(ctypes.Structure):
@@ -55,9 +63,15 @@ class AtrousArgs(ctypes.Structure):
         "cv", "var", "stat", "albedo", "cv_out", "var_out")]
         + [(k, ctypes.c_int) for k in ("w", "h", "level", "blur_variance",
                                        "phases", "tiles_x", "tiles_y")]
-        + [(k, ctypes.c_float) for k in ("sigma_l", "sigma_n", "sigma_x")]
-        + [(k, ctypes.c_int) for k in ("row0", "full_h", "halo",
-                                       "static_halo")])
+        + [(k, ctypes.c_float) for k in ("sigma_l", "sigma_n", "sigma_x")])
+
+
+class AtrousShardArgs(ctypes.Structure):
+    """Mirror of csrc/atrous.cu:AtrousShardArgs."""
+    _fields_ = ([("a", AtrousArgs), ("top", ctypes.c_void_p),
+                 ("bottom", ctypes.c_void_p)]
+                + [(k, ctypes.c_int) for k in ("row0", "full_h", "halo",
+                                               "static_halo")])
 
 
 def atrous_halo(level: int) -> int:
@@ -125,6 +139,74 @@ def atrous_tile_pixels(h: int, w: int, level: int):
     return inside(y, x), inside(sy, sx)
 
 
+def atrous_shard_tiling(h: int, w: int, level: int):
+    """Kernel D's shard-mode launch geometry, as csrc/atrous.cu:
+    ptdn_atrous_shard computes it: (blocks, phases, row_phases, tiles_y,
+    tiles_x). A block takes `phases` adjacent column phases as
+    atrous_tiling's (a warp a lattice row of 32 // phases columns) and
+    MAX_ROW_PHASES adjacent row phases of ROWS // MAX_ROW_PHASES lattice
+    rows each where a lattice holds that few of the shard's ceil(h /
+    step) rows (and the step has them), else one of ROWS rows, so that a
+    short shard's warps hold real rows."""
+    step = 1 << level
+    phases = min(PHASES, step)
+    rows = -(-h // step)
+    row_phases = (MAX_ROW_PHASES
+                  if rows <= ROWS // MAX_ROW_PHASES and step >= MAX_ROW_PHASES
+                  else 1)
+    tr, cols = ROWS // row_phases, 32 // phases
+    tiles_y, tiles_x = -(-rows // tr), -(-(-(-w // step)) // cols)
+    return ((step // row_phases) * (step // phases) * tiles_y * tiles_x,
+            phases, row_phases, tiles_y, tiles_x)
+
+
+def atrous_shard_pixels(h: int, w: int, level: int):
+    """The pixels kernel D's shard mode filters and stages, as
+    csrc/atrous.cu:atrous_shard_kernel maps them: (y, x) of every thread
+    whose pixel lies in the shard's h rows, and (y, x) of every
+    staged pixel within the shard's rows and the taps' reach around
+    them, 2 << level rows (y negative above the shard), each an int64
+    array over all blocks."""
+    step = 1 << level
+    blocks, phases, rp, tiles_y, tiles_x = atrous_shard_tiling(h, w, level)
+    tr, cols = ROWS // rp, 32 // phases
+    b = np.arange(blocks)[:, None]
+    tiles = tiles_y * tiles_x
+    g, t = b // tiles, b % tiles
+    gy = g // (step // phases)
+    py, px = gy * rp, (g % (step // phases)) * phases
+    ty, tx = t // tiles_x, t % tiles_x
+    oy = py + (ty * tr - HALO) * step
+    ox = px + (tx * cols - HALO) * step
+    th = np.arange(ROWS * 32)[None, :]
+    r, q = th // 32, th % 32
+    j, lr = r // tr, r % tr
+    y = oy + j + (lr + HALO) * step
+    x = ox + (q // phases + HALO) * step + q % phases
+    sc = cols + 2 * HALO
+    sphase = (tr + 2 * HALO) * sc * phases
+    k = np.arange(rp * sphase)[None, :]
+    kk = k % sphase
+    sy = oy + k // sphase + (kk // (sc * phases)) * step
+    sx = ox + ((kk // phases) % sc) * step + kk % phases
+
+    def inside(yy, xx, reach):
+        m = (yy >= -reach) & (yy < h + reach) & (xx >= 0) & (xx < w)
+        return yy[m], xx[m]
+    return inside(y, x, 0), inside(sy, sx, atrous_halo(level))
+
+
+def packed_level_input(color: torch.Tensor,
+                       variance: torch.Tensor) -> torch.Tensor:
+    """A level's color and variance as one (H, W, 4) buffer: the buffer
+    whose views they are (a level with pack_out returned them), else a
+    packed copy."""
+    if _packed_pair(color, variance):
+        h, w = variance.shape
+        return color.as_strided((h, w, 4), (4 * w, 4, 1))
+    return torch.cat((color, variance[..., None]), dim=-1)
+
+
 def _views(cv: torch.Tensor):
     return cv[..., :3], cv[..., 3]
 
@@ -132,11 +214,28 @@ def _views(cv: torch.Tensor):
 def atrous_level_plain(color, variance, static, albedo, level: int,
                        sigma_l, sigma_n, sigma_x, blur_variance: bool,
                        pack_out: bool = False, row0: int = 0,
-                       full_h=None, halo: int = 0, static_halo: int = 0):
+                       full_h=None, halo=None, static_halo: int = 0):
     """Plain PyTorch version of kernel D (see atrous_level), on the same
     tensors: position and normal are views of `static`. Shard mode
-    filters the extended rows with every tap masked by its global row,
-    then keeps the shard's own."""
+    extends the shard's rows by its halo rows (atrous_extended_plain)."""
+    k = 0
+    if halo is not None:
+        top, bottom = halo
+        k = top.shape[0]
+        color = torch.cat((top[..., :3], color, bottom[..., :3]))
+        variance = torch.cat((top[..., 3], variance, bottom[..., 3]))
+    return atrous_extended_plain(color, variance, static, albedo, level,
+                                 sigma_l, sigma_n, sigma_x, blur_variance,
+                                 pack_out, row0, full_h, k, static_halo)
+
+
+def atrous_extended_plain(color, variance, static, albedo, level: int,
+                          sigma_l, sigma_n, sigma_x, blur_variance: bool,
+                          pack_out: bool = False, row0: int = 0,
+                          full_h=None, halo: int = 0, static_halo: int = 0):
+    """Kernel D's level on a shard's input extended by `halo` rows above
+    and below (h + 2 halo rows of color and variance), every tap masked
+    by its global row; keeps the shard's own rows."""
     hx, w = variance.shape
     h = hx - 2 * halo
     full_h = h if full_h is None else full_h
@@ -198,7 +297,7 @@ def atrous_level_plain(color, variance, static, albedo, level: int,
 def atrous_level(color, variance, static, albedo, level: int, sigma_l,
                  sigma_n, sigma_x, blur_variance: bool,
                  pack_out: bool = False, row0: int = 0, full_h=None,
-                 halo: int = 0, static_halo: int = 0):
+                 halo=None, static_halo: int = 0):
     """One à-trous level: color (H, W, 3) and variance (H, W), either
     separate contiguous tensors or the views of one packed (H, W, 4)
     buffer that a level with `pack_out` returned; `static` the frame's
@@ -206,23 +305,33 @@ def atrous_level(color, variance, static, albedo, level: int, sigma_l,
     last level with add_color) or is None. Returns (color_out,
     variance_out) in new tensors: the views of a packed buffer with
     `pack_out`, else contiguous. CPU tensors take the plain version;
-    CUDA tensors launch kernel D.
+    CUDA tensors launch kernel D (in shard mode its shard kernel).
 
-    Shard mode: the output's h rows are image rows row0.. of a
-    `full_h`-row image; color and variance hold h + 2 * halo rows and
-    `static` h + 2 * static_halo, the shard's rows in the middle, with
-    halo >= atrous_halo(level) and static_halo >= halo (none where the
-    shard is the whole image); `albedo` holds h rows."""
+    Shard mode: the h rows of color, variance, albedo and the output are
+    image rows row0.. of a `full_h`-row image; `halo` = (top, bottom),
+    the packed (k, W, 4) color and variance of the k image rows above and
+    below them (zeros past the image), k >= atrous_halo(level); `static`
+    holds h + 2 * static_halo rows, the shard's in the middle, with
+    static_halo >= k."""
     _lib.require(color.device, "atrous_level")
-    h = variance.shape[0] - 2 * halo
-    if (row0, full_h) not in ((0, None), (0, h)):
-        if halo < atrous_halo(level) or static_halo < halo or h <= 0:
-            raise ValueError(f"shard mode at level {level} needs halo >= "
-                             f"{atrous_halo(level)} <= static_halo, got "
-                             f"{halo}, {static_halo} ({h} rows)")
+    h, w = variance.shape
+    if halo is not None:
+        top, bottom = halo
+        k = top.shape[0]
+        if (k < atrous_halo(level) or static_halo < k or h <= 0
+                or tuple(top.shape) != (k, w, 4)
+                or tuple(bottom.shape) != (k, w, 4)):
+            raise ValueError(f"shard mode at level {level} needs (k, {w}, 4) "
+                             f"halo rows, {atrous_halo(level)} <= k <= "
+                             f"static_halo, got {tuple(top.shape)}, "
+                             f"{tuple(bottom.shape)}, {static_halo} ({h} "
+                             f"rows)")
         if static.shape[0] != h + 2 * static_halo:
             raise ValueError(f"static holds {static.shape[0]} rows, not "
                              f"{h} + 2 * {static_halo}")
+    elif (row0, full_h) not in ((0, None), (0, h)):
+        raise ValueError(f"rows {row0}.. of {full_h}: a shard needs its "
+                         f"halo rows")
     args = (color, variance, static, albedo, level, sigma_l, sigma_n,
             sigma_x, blur_variance, pack_out, row0, full_h, halo,
             static_halo)
@@ -245,15 +354,21 @@ def _packed_pair(color, variance) -> bool:
 
 def _atrous_level_kernel(color, variance, static, albedo, level, sigma_l,
                          sigma_n, sigma_x, blur_variance, pack_out=False,
-                         row0=0, full_h=None, halo=0, static_halo=0):
-    hx, w = variance.shape
-    h = hx - 2 * halo
+                         row0=0, full_h=None, halo=None, static_halo=0):
+    h, w = variance.shape
     packed_in = _packed_pair(color, variance)
     ins = [("static", static, (h + 2 * static_halo, w, 8))]
     if not packed_in:
-        ins += [("color", color, (hx, w, 3)), ("variance", variance, (hx, w))]
+        ins += [("color", color, (h, w, 3)), ("variance", variance, (h, w))]
     if albedo is not None:
         ins.append(("albedo", albedo, (h, w, 3)))
+    if halo is not None:
+        k = halo[0].shape[0]
+        ins += [("halo top", halo[0], (k, w, 4)),
+                ("halo bottom", halo[1], (k, w, 4))]
+        if not packed_in:    # the shard kernel reads its rows packed
+            color = packed_level_input(color, variance)
+            packed_in = True
     for name, t, shape in ins:
         _lib.check_tensor(t, torch.float32, shape, name)
     dev = color.device
@@ -270,12 +385,16 @@ def _atrous_level_kernel(color, variance, static, albedo, level, sigma_l,
         p(color), None if packed_in else p(variance), p(static), p(albedo),
         p(cv_out), None if pack_out else p(var_out), w, h, level,
         int(blur_variance), phases, tiles_x, tiles_y, float(sigma_l),
-        float(sigma_n), float(sigma_x), row0, h if full_h is None else full_h,
-        halo, static_halo)
-    _lib.launch("ptdn_atrous_level", args, ctypes.c_int(blocks))
-    atrous_level.launches += 1
-    if halo:
+        float(sigma_n), float(sigma_x))
+    if halo is None:
+        _lib.launch("ptdn_atrous_level", args, ctypes.c_int(blocks))
+    else:
+        # the entry sets the phases and tiles (atrous_shard_tiling)
+        _lib.launch("ptdn_atrous_shard", AtrousShardArgs(
+            args, p(halo[0]), p(halo[1]), row0,
+            h if full_h is None else full_h, halo[0].shape[0], static_halo))
         atrous_level.shard_launches += 1
+    atrous_level.launches += 1
     return out, var_out
 
 

@@ -9,7 +9,11 @@ that code in PyTorch, one (..., C) batch over every chunk box; it costs
 hundreds of launches a call (the (…, 7) bit tensors of the morton key,
 the correctly rounded multiply-adds of the shadow-range limit), so the
 sorted frame was host-bound in it. The kernel runs one thread per lane
-(see csrc/ranges.cu).
+(see csrc/ranges.cu). The JAX code concatenates E's planes with the
+ranges and the pixel plane into F's input, which XLA fuses into E's
+output on the TPU; on the card that copy was 90% of Q's bytes, so E
+writes its planes into the first 21 planes of the bounce's buffer
+(shade_bounce(out=...)) and Q fills the rest in place.
 
 edge_inputs(seed) makes the edge cases that the CPU tests hold the plain
 version to against the JAX package and chip_smoke.py holds the kernel
@@ -32,6 +36,11 @@ from ptdn_tpu_torch.ops.fp import dot3, sqrt
 
 SENTINEL = 1 << 30      # the sort key of a dead lane, past every live one
 MAX_RANGE_SLABS = 64    # chunk AABB tests per ray before supergroups
+# the planes of allp (F's input and the pixel plane): E's, then the ranges
+# and the pixel plane, which Q writes
+N_ALLP = N_OUT + 5
+# boxes under one union box in the kernel's pre-test (csrc/ranges.cu)
+BOX_GROUP = 8
 
 
 class RangeArgs(ctypes.Structure):
@@ -78,13 +87,50 @@ def range_boxes(ds, n_chunks: int) -> torch.Tensor:
     return torch.cat([bmin, bmax], dim=1).to(torch.float32).contiguous()
 
 
+def range_group_boxes(boxes: torch.Tensor) -> torch.Tensor:
+    """The union boxes of kernel Q's pre-test, (ceil(S / 8), 6), as the
+    kernel computes them in shared memory: for every BOX_GROUP
+    consecutive boxes of `boxes` (range_boxes' table) per axis the least
+    of their lo and hi and the greatest (torch.fmin / fmax drop a NaN
+    coordinate, as fminf / fmaxf do)."""
+    s = boxes.shape[0]
+    ng = -(-s // BOX_GROUP)
+    pad = torch.full((ng * BOX_GROUP - s, 6), float("nan"),
+                     device=boxes.device)
+    b = torch.cat([boxes, pad]).reshape(ng, BOX_GROUP, 2, 3)
+    lo = torch.fmin(b[:, :, 0], b[:, :, 1])
+    hi = torch.fmax(b[:, :, 0], b[:, :, 1])
+    inf = torch.tensor(float("inf"), device=boxes.device)
+    lo = torch.where(lo.isnan(), inf, lo).amin(dim=1)
+    hi = torch.where(hi.isnan(), -inf, hi).amax(dim=1)
+    return torch.cat([lo, hi], dim=1)
+
+
+def lane_counts(sh: torch.Tensor):
+    """(lanes, live, nee) of E's planes `sh` (or an allp whose first 21
+    they are): every lane, the live lanes, and the live lanes that carry
+    a shadow ray."""
+    alive = sh[O_ACT] > 0.5
+    return (sh[O_ACT].numel(), int(alive.sum()),
+            int((alive & (sh[O_NEE] > 0.5)).sum()))
+
+
+def traffic(sh: torch.Tensor) -> int:
+    """The bytes kernel Q must move on E's planes `sh`, 4 B a plane: on
+    every lane the live flag and the pixel plane read, the four range
+    planes, the pixel plane and the key written; on a live lane also the
+    NEE flag, the origin and the next direction read; on a lane with a
+    shadow ray also its direction (csrc/ranges.cu reads no more)."""
+    lanes, live, nee = lane_counts(sh)
+    return 4 * (8 * lanes + 7 * live + 3 * nee)
+
+
 def box_tests(sh: torch.Tensor, n_boxes: int) -> int:
     """The box tests kernel Q makes on E's planes `sh`: every box for each
     live lane's next ray and, where the lane carries one, its shadow
     ray."""
-    alive = sh[O_ACT] > 0.5
-    rays = int(alive.sum()) + int((alive & (sh[O_NEE] > 0.5)).sum())
-    return rays * n_boxes
+    _, live, nee = lane_counts(sh)
+    return (live + nee) * n_boxes
 
 
 def chunk_range_planes(ds, o, d, n_chunks: int, t_limit=None):
@@ -151,7 +197,10 @@ def _interleave7(a, b, n_chunks: int):
 def ranges_and_key_plain(ds, sh: torch.Tensor, pix: torch.Tensor,
                          n_chunks: int, do_vis: bool, light_pos=None,
                          light_radius=None):
-    """Plain PyTorch version of kernel Q (see ranges_and_key)."""
+    """Plain PyTorch version of kernel Q (see ranges_and_key): returns a
+    new allp and the key; `sh` is E's planes or an allp whose first
+    N_OUT planes they are."""
+    sh = sh[:N_OUT]
     sp = (sh[O_SPX], sh[O_SPY], sh[O_SPZ])
     no_limit = torch.full_like(sp[0], float("inf"))
     s_limit = no_limit
@@ -179,13 +228,15 @@ def ranges_and_key_plain(ds, sh: torch.Tensor, pix: torch.Tensor,
     return torch.cat([sh, ranges, pix[None]]), key.reshape(-1)
 
 
-def ranges_and_key(ds, sh: torch.Tensor, pix: torch.Tensor, n_chunks: int,
-                   do_vis: bool, light_pos=None, light_radius=None,
-                   boxes=None):
+def ranges_and_key(ds, allp: torch.Tensor, pix: torch.Tensor,
+                   n_chunks: int, do_vis: bool, light_pos=None,
+                   light_radius=None, boxes=None):
     """Crossed-chunk ranges and the coherence sort key of the shaded
-    wavefront (wavefront.py:617-704). sh: E's (21, NB, 128) planes; pix:
-    the (NB, 128) pixel plane. Returns (allp, key): allp (26, NB, 128) =
-    sh, nlo, nhi, slo, shi (as float32), pix — F's input plus the pixel
+    wavefront (wavefront.py:617-704), in place: `allp` is the bounce's
+    (26, NB, 128) buffer, whose first 21 planes E wrote
+    (shade_bounce(out=allp[:21])); its planes 21..25 are filled. pix:
+    the (NB, 128) pixel plane. Returns (allp, key): allp = E's planes,
+    nlo, nhi, slo, shi (as float32), pix — F's input plus the pixel
     plane — and key (N,) int32. The shadow range is bounded by the
     distance to the light center `light_pos` (float32 values) plus
     `light_radius` (the light AABB's half diagonal); lanes without a
@@ -196,38 +247,49 @@ def ranges_and_key(ds, sh: torch.Tensor, pix: torch.Tensor, n_chunks: int,
     one pass finds both ranges (no limit is an infinite one). CPU tensors
     take the plain version; CUDA tensors launch kernel Q, on `boxes`
     (range_boxes(ds, n_chunks), which a CUDA call must give)."""
-    _lib.require(sh.device, "ranges_and_key")
-    if sh.device.type == "cpu":
-        return ranges_and_key_plain(ds, sh, pix, n_chunks, do_vis,
-                                    light_pos, light_radius)
+    _lib.require(allp.device, "ranges_and_key")
+    if allp.shape[0] != N_ALLP:
+        raise ValueError(f"ranges_and_key fills a {N_ALLP}-plane allp, got "
+                         f"{tuple(allp.shape)}")
+    if allp.device.type == "cpu":
+        planes, key = ranges_and_key_plain(ds, allp, pix, n_chunks, do_vis,
+                                           light_pos, light_radius)
+        allp[N_OUT:] = planes[N_OUT:]
+        return allp, key
     if boxes is None:
         raise ValueError("ranges_and_key on the card needs boxes: "
                          "range_boxes(ds, n_chunks)")
-    return _ranges_and_key_kernel(boxes, sh, pix, n_chunks, do_vis,
+    return _ranges_and_key_kernel(boxes, allp, pix, n_chunks, do_vis,
                                   light_pos, light_radius)
 
 
-def _ranges_and_key_kernel(boxes, sh, pix, n_chunks, do_vis, light_pos=None,
-                           light_radius=None):
-    nb = sh.shape[1]
-    n = nb * 128
-    g = range_group(n_chunks)
-    n_boxes = -(-n_chunks // g)
-    _lib.check_tensor(sh, torch.float32, (N_OUT, nb, 128), "sh")
-    _lib.check_tensor(pix, torch.float32, (nb, 128), "pix")
-    _lib.check_tensor(boxes, torch.float32, (n_boxes, 6), "boxes")
-    allp = torch.empty((N_OUT + 5, nb, 128), dtype=torch.float32,
-                       device=sh.device)
-    key = torch.empty(n, dtype=torch.int32, device=sh.device)
+def range_args(boxes, sh, pix, allp, key, n_chunks, do_vis, light_pos=None,
+               light_radius=None) -> RangeArgs:
+    """Kernel Q's arguments: E's planes `sh` (allp's first 21; an older
+    tree's kernel copied a buffer of their own into allp), the pixel
+    plane, the box table and the outputs."""
     lp = [0.0] * 3 if light_pos is None else [float(x) for x in light_pos]
+    g = range_group(n_chunks)
     p = _lib.ptr
-    args = RangeArgs(sh=p(sh), pix=p(pix), boxes=p(boxes), allp=p(allp),
-                     key=p(key), n=n, n_boxes=n_boxes, group=g,
-                     n_chunks=n_chunks, do_vis=int(bool(do_vis)),
+    return RangeArgs(sh=p(sh), pix=p(pix), boxes=p(boxes), allp=p(allp),
+                     key=p(key), n=key.numel(), n_boxes=-(-n_chunks // g),
+                     group=g, n_chunks=n_chunks, do_vis=int(bool(do_vis)),
                      has_limit=int(light_pos is not None), lx=lp[0],
                      ly=lp[1], lz=lp[2],
                      lrad=0.0 if light_pos is None else float(light_radius))
-    _lib.launch("ptdn_ranges_and_key", args)
+
+
+def _ranges_and_key_kernel(boxes, allp, pix, n_chunks, do_vis,
+                           light_pos=None, light_radius=None):
+    nb = allp.shape[1]
+    g = range_group(n_chunks)
+    _lib.check_tensor(pix, torch.float32, (nb, 128), "pix")
+    _lib.check_tensor(boxes, torch.float32, (-(-n_chunks // g), 6), "boxes")
+    _lib.check_tensor(allp, torch.float32, (N_ALLP, nb, 128), "allp")
+    key = torch.empty(nb * 128, dtype=torch.int32, device=allp.device)
+    _lib.launch("ptdn_ranges_and_key",
+                range_args(boxes, allp, pix, allp, key, n_chunks, do_vis,
+                           light_pos, light_radius))
     ranges_and_key.launches += 1
     return allp, key
 
@@ -352,13 +414,23 @@ def chunk_scene(cmin, cmax, device="cpu"):
         tri_chunk_max=torch.as_tensor(cmax, device=device))
 
 
+def new_allp(sh: torch.Tensor) -> torch.Tensor:
+    """A bounce's (26, NB, 128) allp on sh's device with E's (21, NB, 128)
+    planes `sh` in its first 21, as E writes them there, and NaN in the
+    planes Q fills."""
+    allp = torch.full((N_ALLP,) + tuple(sh.shape[1:]), float("nan"),
+                      device=sh.device)
+    allp[:N_OUT] = sh
+    return allp
+
+
 def edge_call(case, device="cpu"):
-    """(ds, sh, pix, n_chunks, do_vis, light_pos, light_radius) of an
-    edge_inputs case, as torch tensors on `device`, light_pos as Python
-    floats."""
+    """(ds, allp, pix, n_chunks, do_vis, light_pos, light_radius) of an
+    edge_inputs case, as torch tensors on `device` (allp: new_allp of the
+    case's planes), light_pos as Python floats."""
     lp = case["light_pos"]
     return (chunk_scene(case["cmin"], case["cmax"], device),
-            torch.as_tensor(case["sh"], device=device),
+            new_allp(torch.as_tensor(case["sh"], device=device)),
             torch.as_tensor(case["pix"], device=device), case["n_chunks"],
             case["do_vis"], None if lp is None else [float(x) for x in lp],
             None if lp is None else float(case["light_radius"]))

@@ -129,7 +129,8 @@ def shade_bounce(planes: torch.Tensor, mat_attr: torch.Tensor, *, fd: int,
                  lane0: int, light_pos: Sequence[float], lrad: float,
                  sint: float, alb_skip: bool, shadow_ray: bool,
                  reduce_var: bool,
-                 lights: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 lights: Optional[torch.Tensor] = None,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Shade every lane: planes (23, NB, 128) float32 — the I_* planes
     then the pixel plane; mat_attr the (M, 16) material table. fd is
     frame + depth, lane0 the first pixel's global index; light_pos, lrad
@@ -138,8 +139,11 @@ def shade_bounce(planes: torch.Tensor, mat_attr: torch.Tensor, *, fd: int,
     (21, NB, 128) O_* planes. With `lights` (light_table; shadow_ray on)
     each NEE lane draws its light from the table in place of light_pos,
     O_C* is its lit contribution (color x emittance and the light count
-    in), and a 22nd plane, O_LI, holds the index drawn. CPU tensors take
-    the plain version; CUDA tensors launch kernel E."""
+    in), and a 22nd plane, O_LI, holds the index drawn. `out`, where
+    given, receives the planes and is returned: the sorted wavefront
+    passes the first 21 planes of the bounce's allp, which kernel Q then
+    fills in place (ops/cuda/ranges.py). CPU tensors take the plain
+    version; CUDA tensors launch kernel E."""
     _lib.require(planes.device, "shade_bounce")
     if lights is not None and not shadow_ray:
         raise ValueError("a light table needs shadow_ray")
@@ -147,13 +151,16 @@ def shade_bounce(planes: torch.Tensor, mat_attr: torch.Tensor, *, fd: int,
               sint=sint, alb_skip=alb_skip, shadow_ray=shadow_ray,
               reduce_var=reduce_var, lights=lights)
     if planes.device.type == "cpu":
-        return shade_bounce_plain(planes, mat_attr, **kw)
-    return _shade_bounce_kernel(planes, mat_attr, **kw)
+        res = shade_bounce_plain(planes, mat_attr, **kw)
+        if out is None:
+            return res
+        return out.copy_(res)
+    return _shade_bounce_kernel(planes, mat_attr, **kw, out=out)
 
 
 def _shade_bounce_kernel(planes, mat_attr, *, fd, lane0, light_pos, lrad,
                          sint, alb_skip, shadow_ray, reduce_var,
-                         lights=None):
+                         lights=None, out=None):
     shape = tuple(planes.shape[1:])
     _lib.check_tensor(planes, torch.float32, (N_IN + 1,) + shape, "planes")
     _lib.check_tensor(mat_attr, torch.float32, (mat_attr.shape[0], 16),
@@ -161,8 +168,11 @@ def _shade_bounce_kernel(planes, mat_attr, *, fd, lane0, light_pos, lrad,
     if lights is not None:
         _lib.check_tensor(lights, torch.float32,
                           (lights.shape[0], LIGHT_ROW), "lights")
-    out = torch.empty((N_OUT + (lights is not None),) + shape,
-                      dtype=torch.float32, device=planes.device)
+    out_shape = (N_OUT + (lights is not None),) + shape
+    if out is None:
+        out = torch.empty(out_shape, dtype=torch.float32,
+                          device=planes.device)
+    _lib.check_tensor(out, torch.float32, out_shape, "out")
     args = ShadeArgs(
         inp=_lib.ptr(planes), out=_lib.ptr(out), n=out[0].numel(),
         fd=fd & 0xFFFFFFFF, lane0=lane0 & 0xFFFFFFFF,

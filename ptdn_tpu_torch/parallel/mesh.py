@@ -31,9 +31,12 @@ import torch
 class Halo:
     """Exchange: the shard's rows `x` (h, ...) extended by `halo` rows of
     the image above and below them, (h + 2 halo, ...), zeros past the
-    image (halo.halo_rows)."""
+    image (halo.halo_rows); with `split`, those rows alone, (top,
+    bottom), (halo, ...) each (kernel D's shard mode reads them where
+    they lie)."""
     x: torch.Tensor
     halo: int
+    split: bool = False
 
 
 @dataclasses.dataclass
@@ -86,6 +89,8 @@ class ShardGroup:
         if kind is Halo:
             halo = reqs[0].halo
             tops, bottoms = halo_rows(self, xs, halo)
+            if reqs[0].split:
+                return list(zip(tops, bottoms))
             return [torch.cat((t, x, b)) for t, x, b in zip(tops, xs,
                                                              bottoms)]
         if kind is Gather:

@@ -29,7 +29,8 @@ from ptdn_tpu_torch.engine.renderer import Renderer
 from ptdn_tpu_torch.engine.step import FrameStep
 from ptdn_tpu_torch.engine.wavefront import PathTracer
 from ptdn_tpu_torch.ops.cuda.atrous import (atrous_halo, atrous_level,
-                                            pack_static_planes)
+                                            pack_static_planes,
+                                            packed_level_input)
 from ptdn_tpu_torch.parallel.mesh import Halo, ShardGroup
 
 # frame-state keys that are image rows (H, W, ...) or flat rays (H * W,
@@ -56,8 +57,11 @@ class ShardPyramid(Pyramid):
     """The à-trous levels of the shard whose rows start at image row
     `row0` of a `full_h`-row image (the JAX package's
     _make_sharded_pyramid): the G-buffer planes extended once per camera
-    move by the last level's reach, the color and variance by each
-    level's, then kernel D's shard mode."""
+    move by the last level's reach; per level the halo rows of the color
+    and variance, each level's reach (top and bottom, apart from the
+    shard's rows), then kernel D's shard mode on the level's input as it
+    lies, packed (the previous level's packed output as it is, the
+    others packed once)."""
 
     def __init__(self, row0: int, full_h: int, nlevel: int):
         self.row0, self.full_h = row0, full_h
@@ -72,12 +76,12 @@ class ShardPyramid(Pyramid):
         for level in range(first, cfg.atrous_nlevel + 1):
             last = level == cfg.atrous_nlevel
             keep = level == cfg.history_level
-            halo = atrous_halo(level)
-            ext = yield Halo(torch.cat((src, var[..., None]), dim=-1), halo)
+            cv = packed_level_input(src, var)
+            rows = yield Halo(cv, atrous_halo(level), split=True)
             src, var = atrous_level(
-                ext[..., :3], ext[..., 3], static, albedo if last else None,
+                cv[..., :3], cv[..., 3], static, albedo if last else None,
                 level, *sig, cfg.blur_variance, pack_out=not (last or keep),
-                row0=self.row0, full_h=self.full_h, halo=halo,
+                row0=self.row0, full_h=self.full_h, halo=rows,
                 static_halo=self.static_halo)
             if keep:
                 history = src

@@ -1,7 +1,8 @@
 """Kernels P, O and N beside other builds of their sources, on the card.
 
     python3 -m ptdn_tpu_torch.probes.compare [--variant NAME=DIR]...
-        [--reps N] [--ptx DIR] [--dc DIR] [--frames] [--out FILE]
+        [--reps N] [--ptx DIR] [--dc DIR] [--shard NAME=DIR]...
+        [--frames] [--out FILE]
 
 Builds: this tree's kernel library, and for each --variant DIR's copy of
 csrc/intersect_v1.cu, csrc/dyngather.cu and csrc/texgather.cu (another
@@ -38,6 +39,15 @@ and an entry of a shared source that DIR's lacks, are listed as new).
 every level and C's stencil and band modes of cornell 800 x 800's fourth
 frame (the band mode on a moved view) through both builds, unsharded:
 each output equal bit for bit, each timed in turns.
+--shard NAME=DIR (repeatable) builds DIR's copy of csrc/atrous.cu and
+runs D's shard mode at every level on cornell 800 x 800's fourth frame
+split into 4, 8 and 16 row shards through this tree's build and DIR's:
+DIR's own shard entry where its source has one (a variant of this
+tree's shard kernel), else the level as an older tree's D took a shard
+(its input extended by its halo rows into one buffer, the unsharded
+entry with a halo); every shard's output equal bit for bit to this
+tree's and the shards' rows to the unsharded level's, one shard of 8
+and each count's sum timed in turns.
 --frames times still cornell (the whole path) and bunny and room
 through the fused per-bounce engine, ms/frame over 20 frames after 3,
 through this tree's renderer. Prints one line per case and build with the card's name and
@@ -50,6 +60,8 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import ctypes
+import functools
 import json
 import pathlib
 import re
@@ -180,6 +192,37 @@ def run_n(builds, reps):
     return out
 
 
+class OlderAtrousArgs(ctypes.Structure):
+    """csrc/atrous.cu:AtrousArgs of an older tree: this tree's, then the
+    row offset and halo rows of PR 16's extended-input shard mode (a tree
+    before it reads the first part alone)."""
+    _fields_ = [("a", D.AtrousArgs)] + [(k, ctypes.c_int) for k in (
+        "row0", "full_h", "halo", "static_halo")]
+
+
+def older_level(lib, color, var, static, albedo, level, sl, sn, sx, blur,
+                row0=0, full_h=None, halo=0, static_halo=0, ext=None):
+    """An older tree's D (`lib`) on a level, split layout out: the whole
+    image, or with `ext` a shard's input extended by `halo` rows (one
+    packed buffer) through the same entry (atrous_tiling of the shard's
+    own rows)."""
+    h, w = var.shape
+    out = torch.empty((h, w, 3), device=color.device)
+    var_out = torch.empty((h, w), device=color.device)
+    blocks, phases, ty, tx = D.atrous_tiling(h, w, level)
+    p = _lib.ptr
+    if ext is not None:
+        cv, v = p(ext), None
+    else:
+        cv, v = p(color), None if D._packed_pair(color, var) else p(var)
+    args = OlderAtrousArgs(
+        D.AtrousArgs(cv, v, p(static), p(albedo), p(out), p(var_out), w, h,
+                     level, int(blur), phases, tx, ty, sl, sn, sx),
+        row0, h if full_h is None else full_h, halo, static_halo)
+    _lib.launch("ptdn_atrous_level", args, ctypes.c_int(blocks), lib=lib)
+    return out, var_out
+
+
 def run_dc(other, reps):
     """D at every level and C in both modes of cornell 800x800's fourth
     frame through this tree's build and `other`'s (a csrc directory),
@@ -242,13 +285,114 @@ def run_dc(other, reps):
         dargs = (color, var, static, albedo if level == 5 else None, level,
                  0.45, 0.2, 0.35, True)
         fns = {"this tree": lambda: D._atrous_level_kernel(*dargs),
-               other: lambda: _lib.with_lib(
-                   lib, lambda: D._atrous_level_kernel(*dargs))}
+               other: lambda: older_level(lib, *dargs)}
         got = [fn() for fn in fns.values()]
         if not all(torch.equal(a, b) for a, b in zip(*got)):
             raise RuntimeError(f"D level {level}: the builds differ")
         out[f"atrous_level {level}"] = in_turns(fns, reps)
         color, var = got[0]
+    return out
+
+
+SHARD_COUNTS = (4, 8, 16)
+
+
+def shard_calls(color, var, static, albedo, level, n, h):
+    """D's shard-mode calls (_atrous_level_kernel's arguments) of the n
+    row shards of a level's input, and each shard's input extended by
+    its halo rows as one buffer, with its G-buffer (an older tree's
+    form)."""
+    halo, sh = D.atrous_halo(level), D.atrous_halo(5)
+    pad = lambda x, k: torch.cat([x.new_zeros((k,) + x.shape[1:]), x,  # noqa: E731
+                                  x.new_zeros((k,) + x.shape[1:])])
+    ext = pad(torch.cat([color, var[..., None]], -1), halo)
+    sext = pad(static, sh)
+    hl, calls = h // n, []
+    for r0 in range(0, h, hl):
+        own = ext[halo + r0:halo + r0 + hl]
+        rows = (ext[r0:r0 + halo], ext[r0 + hl + halo:r0 + hl + 2 * halo])
+        st = sext[r0:r0 + hl + 2 * sh]
+        alb = None if albedo is None else albedo[r0:r0 + hl]
+        calls.append(((own[..., :3], own[..., 3], st, alb, level, 0.45,
+                       0.2, 0.35, True, False, r0, h, rows, sh),
+                      ext[r0:r0 + hl + 2 * halo].contiguous()))
+    return calls
+
+
+def extended_shard(lib, call, ext):
+    """An older tree's D on a shard: its input extended by its halo rows
+    (`ext`), through the unsharded entry with a halo (atrous_tiling of
+    the shard's rows)."""
+    color, var, static, albedo, level, sl, sn, sx, blur, _, r0, h, rows, \
+        sh = call
+    return older_level(lib, color, var, static, albedo, level, sl, sn, sx,
+                       blur, r0, h, rows[0].shape[0], sh, ext)
+
+
+def run_shard(specs, reps):
+    """D's shard mode at every level of cornell 800x800's fourth frame
+    on SHARD_COUNTS shards through this tree's build and each of `specs`
+    (NAME=DIR, DIR a csrc copy): equal bit for bit to this tree's and to
+    the unsharded level, one shard of 8 and each count's sum timed in
+    turns."""
+    builds = {}
+    for spec in specs:
+        name, src = spec.split("=", 1)
+        own = "ptdn_atrous_shard" in (pathlib.Path(src) / "atrous.cu"
+                                      ).read_text()
+        entry = "ptdn_atrous_shard" if own else "ptdn_atrous_level"
+        lib, _ = _lib.build_variant(f"shard-{name}", [
+            pathlib.Path(src) / "atrous.cu"], {entry: _lib.ENTRIES[entry]})
+        builds[name] = (lib, own)
+    cfg = RenderConfig(trace_depth=8, denoise_enable=True,
+                       temporal_enable=True, spatial_enable=True,
+                       atrous_nlevel=5)
+    r = Renderer(Scene(scene_path("cornell")), cfg, (800, 800), "cuda")
+    for _ in range(3):
+        r.render_frame()
+    st = r.step.frame_state()
+    rad, gb = r.step.tracer(r._cam[0], r._params, 3, False)
+    w, h = r.resolution
+    gb = {k: v.reshape((h, w) + tuple(v.shape[1:])).contiguous()
+          for k, v in gb.items()}
+    var, color = C._back_projection_stencil_kernel(
+        (w, h), rad.reshape(h, w, 3), gb,
+        {"normal": st["prev_normal"], "geom_id": st["prev_geom_id"]},
+        st["prev_view"], st["color_history"], st["moment_history"],
+        st["history_length"], 0.2, 0.2)[:2]
+    static = D.pack_static_planes(gb["position"], gb["normal"])
+    albedo = (gb["albedo"] * gb["ialbedo"]).contiguous()
+    out = {}
+    for level in range(1, 6):
+        alb = albedo if level == 5 else None
+        whole = D._atrous_level_kernel(color, var, static, alb, level, 0.45,
+                                       0.2, 0.35, True)
+        fns = {"unsharded": lambda: D._atrous_level_kernel(
+            color, var, static, alb, level, 0.45, 0.2, 0.35, True)}
+        for n in SHARD_COUNTS:
+            calls = shard_calls(color, var, static, alb, level, n, h)
+
+            def each(lib, own, calls=calls):
+                if lib is None or own:
+                    return [_lib.with_lib(lib, lambda c=c: (
+                        D._atrous_level_kernel(*c))) for c, _ in calls]
+                return [extended_shard(lib, c, e) for c, e in calls]
+            runs = {"this tree": (None, True), **builds}
+            for name, (lib, own) in runs.items():
+                got = each(lib, own)
+                for i in (0, 1):
+                    if not torch.equal(torch.cat([g[i] for g in got]),
+                                       whole[i]):
+                        raise RuntimeError(f"D's shard mode, {name}, level "
+                                           f"{level}, {n} shards: not the "
+                                           f"unsharded level's rows")
+                fns[f"{name} {n} shards"] = functools.partial(each, lib,
+                                                              own)
+                if n == 8:
+                    fns[f"{name} one shard of 8"] = functools.partial(
+                        each, lib, own, calls[1:2])
+        out[f"atrous_level {level}"] = in_turns(fns, reps)
+        color, var = whole
     return out
 
 
@@ -331,6 +475,9 @@ def main(argv=None):
                     help="compare every other kernel's PTX with DIR's")
     ap.add_argument("--dc", metavar="DIR",
                     help="D and C beside DIR's copy, equal and timed")
+    ap.add_argument("--shard", action="append", default=[],
+                    metavar="NAME=DIR",
+                    help="D's shard mode beside DIR's, equal and timed")
     ap.add_argument("--frames", action="store_true")
     ap.add_argument("--out")
     args = ap.parse_args(argv)
@@ -382,6 +529,12 @@ def main(argv=None):
         res["dc"] = run_dc(args.dc, args.reps)
         for k, v in res["dc"].items():
             print(f"{k} (cornell 800x800, unsharded), equal bit for bit: "
+                  + "; ".join(f"{b} {', '.join(f'{t:.4f}' for t in ms)}"
+                              for b, ms in v.items()) + f" ms [{card}]")
+    if args.shard:
+        res["shard"] = run_shard(args.shard, args.reps)
+        for k, v in res["shard"].items():
+            print(f"{k} shard mode (cornell 800x800), equal bit for bit: "
                   + "; ".join(f"{b} {', '.join(f'{t:.4f}' for t in ms)}"
                               for b, ms in v.items()) + f" ms [{card}]")
     if args.frames:

@@ -5,7 +5,7 @@ the per-frame glue's correctly rounded multiply-adds.
     python3 -m ptdn_tpu_torch.profile_frame [scene[,scene...]]
         [--frames N] [--engine sorted|whole_path|bounce_fused|bounce_split
         [,...]|all] [--res WxH] [--moving anim_slow|room_1080p]
-        [--fma-sites]
+        [--fma-sites] [--shards N]
 
 Renders `scene` (default diamond; several joined by commas, each in
 turn, through each engine named) at its own resolution (or WxH) with
@@ -14,7 +14,10 @@ temporal SVGF with 5 à-trous levels) through the engine the scene takes
 by default or the one named, with `--moving` a camera that
 CameraAutomation moves every frame at the speeds of
 tests/test_golden.py's cornell_svgf_anim_slow or of bench.py's
-room_1080p_animated, warms up, then over N frames (default 10):
+room_1080p_animated, and with `--shards N` split into N row shards in
+one process (parallel/sharded.py:ShardedRenderer over an
+InProcessGroup, the shards one after another), warms up, then over N
+frames (default 10):
 
 * CUDA events around each stage of the bounce (the sorted wavefront's
   E, ranges_and_key, permute_planes with G inside it and F; the fused
@@ -196,7 +199,15 @@ def profile_one(scene: str, engine, a, card: str):
                        atrous_nlevel=5, automate_camera=bool(a.moving),
                        **MOVING.get(a.moving, {}),
                        **ENGINES.get(engine, {}))
-    r = Renderer(sc, cfg, resolution=res, device="cuda")
+    if a.shards:
+        from ptdn_tpu_torch.parallel.mesh import InProcessGroup
+        from ptdn_tpu_torch.parallel.sharded import ShardedRenderer
+        r = ShardedRenderer(sc, cfg, res, InProcessGroup(a.shards),
+                            device="cuda")
+        tracer = r.step.steps[0].tracer
+    else:
+        r = Renderer(sc, cfg, resolution=res, device="cuda")
+        tracer = r.step.tracer
     if a.moving:
         auto, still_frame = CameraAutomation(cfg), r.render_frame
 
@@ -207,8 +218,9 @@ def profile_one(scene: str, engine, a, card: str):
         r.render_frame = moving_frame
     for _ in range(5):
         r.render_frame()
-    tag = (f"{scene} {res[0]}x{res[1]}, {r.step.tracer.engine}"
-           f"{', moving ' + a.moving if a.moving else ''}, [{card}]")
+    tag = (f"{scene} {res[0]}x{res[1]}, {tracer.engine}"
+           f"{', moving ' + a.moving if a.moving else ''}"
+           f"{f', {a.shards} shards' if a.shards else ''}, [{card}]")
     stages = timed_stages(r, a.frames)
     for k, ms in stages.items():
         print(f"stage {k}: {ms:.3f} ms/frame ({ms / 8:.3f} per bounce) "
@@ -245,6 +257,8 @@ def main():
                     help="move the camera every frame at these speeds")
     ap.add_argument("--fma-sites", action="store_true",
                     help="split the glue's fp.fma calls by call site")
+    ap.add_argument("--shards", type=int, default=0,
+                    help="split the image into this many row shards")
     a = ap.parse_args()
     engines = ([None] if not a.engine else sorted(ENGINES)
                if a.engine == "all" else a.engine.split(","))

@@ -24,6 +24,7 @@ from ptdn_tpu_torch.engine import wavefront as W
 from ptdn_tpu_torch.ops.cuda import bounce as F
 from ptdn_tpu_torch.ops.cuda import inrow as G
 from ptdn_tpu_torch.ops.cuda import shade as E
+from ptdn_tpu_torch.ops.cuda.ranges import new_allp
 from ptdn_tpu_torch.scene import Scene
 from ptdn_tpu_torch.utils.config import RenderConfig
 from test_torch_mesh_card import _bits_equal
@@ -194,7 +195,7 @@ def test_ranges_and_key_match_jax(scenes_dir, name):
     ref_p, ref_k = jax.jit(lambda s, q: JW.ranges_and_key(
         jds, s, q, n, nb, nc, True, light_pos=lp, light_radius=lhd))(
             jnp.asarray(sh), jnp.asarray(pix))
-    got_p, got_k = W.ranges_and_key(ds, torch.from_numpy(sh),
+    got_p, got_k = W.ranges_and_key(ds, new_allp(torch.from_numpy(sh)),
                                     torch.from_numpy(pix), nc, True,
                                     [float(x) for x in np.asarray(lp)],
                                     float(lhd))

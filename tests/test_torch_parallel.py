@@ -6,6 +6,9 @@ image's in every branch, and two gloo ranks against the in-process
 group; all bit for bit (torch.equal). The comparisons with the JAX
 package are tests/test_torch_parallel_jax.py."""
 
+import ctypes
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -13,6 +16,7 @@ import torch
 from ptdn_tpu_torch.app.automate import CameraAutomation
 from ptdn_tpu_torch.denoise import reproject as trep
 from ptdn_tpu_torch.engine import Renderer
+from ptdn_tpu_torch.ops.cuda import _lib
 from ptdn_tpu_torch.ops.cuda import atrous as D
 from ptdn_tpu_torch.ops.cuda import reproject as C
 from ptdn_tpu_torch.parallel import sharded as S
@@ -91,10 +95,19 @@ def atrous_inputs():
     return {k: torch.from_numpy(v.astype(np.float32)) for k, v in x.items()}
 
 
+def shard_halo(cv, r0, hl, halo):
+    """(own, (top, bottom)): the rows r0.. of a shard of hl rows of `cv`
+    (an image's packed rows with `halo` zero rows above and below), and
+    the image's `halo` rows above and below them."""
+    return (cv[halo + r0:halo + r0 + hl],
+            (cv[r0:r0 + halo], cv[r0 + hl + halo:r0 + hl + 2 * halo]))
+
+
 def atrous_shards(x, hl, level, blur, albedo):
-    """Kernel D's shard mode (plain) on each hl-row shard of the image,
-    its inputs extended by the image's rows (zeros past it): the halo
-    the level's taps reach, the G-buffer's level 5's."""
+    """Kernel D's shard mode (plain) on each hl-row shard of the image:
+    its rows, and as its halo the image's rows above and below them that
+    the level's taps reach (zeros past the image), the G-buffer extended
+    by level 5's reach."""
     h = x["variance"].shape[0]
     halo, sh = D.atrous_halo(level), D.atrous_halo(5)
     cv = _padded(torch.cat([x["color"], x["variance"][..., None]], -1),
@@ -102,11 +115,11 @@ def atrous_shards(x, hl, level, blur, albedo):
     static = _padded(D.pack_static_planes(x["position"], x["normal"]), sh)
     out = []
     for r0 in range(0, h, hl):
-        ext = cv[r0:r0 + hl + 2 * halo]
+        own, rows = shard_halo(cv, r0, hl, halo)
         out.append(D.atrous_level(
-            ext[..., :3], ext[..., 3], static[r0:r0 + hl + 2 * sh],
+            own[..., :3], own[..., 3], static[r0:r0 + hl + 2 * sh],
             x["albedo"][r0:r0 + hl] if albedo else None, level, 0.45, 0.2,
-            0.35, blur, row0=r0, full_h=h, halo=halo, static_halo=sh))
+            0.35, blur, row0=r0, full_h=h, halo=rows, static_halo=sh))
     return out
 
 
@@ -131,18 +144,143 @@ def test_atrous_shard_mode_equals_unsharded(atrous_inputs, hl, level, blur,
 
 
 def test_atrous_shard_mode_checks_its_halos():
-    """A halo short of the level's reach, or a G-buffer halo short of the
-    color's, is refused."""
-    ext = torch.zeros((8 + 2 * 4, 48, 4))
+    """Halo rows short of the level's reach, a G-buffer halo short of
+    the halo rows', halo rows of another width, or a shard without halo
+    rows are refused."""
+    own = torch.zeros((8, 48, 4))
     static = torch.zeros((8 + 2 * 8, 48, 8))
+    four = (torch.zeros((4, 48, 4)), torch.zeros((4, 48, 4)))
     with pytest.raises(ValueError):
-        D.atrous_level(ext[..., :3], ext[..., 3], static, None, 2, 0.45,
-                       0.2, 0.35, True, row0=8, full_h=64, halo=4,
+        D.atrous_level(own[..., :3], own[..., 3], static, None, 2, 0.45,
+                       0.2, 0.35, True, row0=8, full_h=64, halo=four,
                        static_halo=8)
     with pytest.raises(ValueError):
-        D.atrous_level(ext[..., :3], ext[..., 3], static[4:-4], None, 1,
-                       0.45, 0.2, 0.35, True, row0=8, full_h=64, halo=4,
+        D.atrous_level(own[..., :3], own[..., 3], static[4:-4], None, 1,
+                       0.45, 0.2, 0.35, True, row0=8, full_h=64, halo=four,
                        static_halo=2)
+    with pytest.raises(ValueError):
+        D.atrous_level(own[..., :3], own[..., 3], static, None, 1, 0.45,
+                       0.2, 0.35, True, row0=8, full_h=64,
+                       halo=(four[0][:, :40], four[1][:, :40]),
+                       static_halo=8)
+    with pytest.raises(ValueError):
+        D.atrous_level(own[..., :3], own[..., 3], static, None, 1, 0.45,
+                       0.2, 0.35, True, row0=8, full_h=64, static_halo=8)
+
+
+@pytest.mark.parametrize("hl", [32, 16, 8])
+@pytest.mark.parametrize("level", [1, 2, 3, 4, 5])
+def test_atrous_shard_halo_rows_equal_extended_input(atrous_inputs, hl,
+                                                     level):
+    """D's shard mode (plain) fed its halo rows apart from its own rows
+    (top, bottom) against the same level on the input extended by them
+    (atrous_extended_plain, the shard mode's earlier form), on 2, 4 and
+    8 shards at every level: bit for bit, and the packed and the split
+    layouts of the shard's own rows alike."""
+    x = atrous_inputs
+    h = x["variance"].shape[0]
+    halo, sh = D.atrous_halo(level), D.atrous_halo(5)
+    cv = _padded(torch.cat([x["color"], x["variance"][..., None]], -1),
+                 halo)
+    static = _padded(D.pack_static_planes(x["position"], x["normal"]), sh)
+    for r0 in range(0, h, hl):
+        own, rows = shard_halo(cv, r0, hl, halo)
+        st = static[r0:r0 + hl + 2 * sh]
+        ext = cv[r0:r0 + hl + 2 * halo]
+        want = D.atrous_extended_plain(ext[..., :3], ext[..., 3], st, None,
+                                       level, 0.45, 0.2, 0.35, True, True,
+                                       r0, h, halo, sh)
+        for c, v in ((own[..., :3], own[..., 3]),
+                     (own[..., :3].contiguous(), own[..., 3].contiguous())):
+            got = D.atrous_level_plain(c, v, st, None, level, 0.45, 0.2,
+                                       0.35, True, True, r0, h, rows, sh)
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("h,w", [(100, 800), (50, 800), (200, 800),
+                                 (12, 96), (37, 29)])
+def test_atrous_shard_tiling_covers_every_pixel_once(h, w):
+    """D's shard-mode launch geometry (atrous_shard_tiling, the mapping
+    of csrc/atrous.cu:atrous_shard_kernel spelt out by
+    atrous_shard_pixels) on shards of 100, 50 and 200 rows of an 800-wide
+    image and odd sizes, at levels 1-5: each pixel is filtered by exactly
+    one thread, a block's warps hold the lattice's rows (row phases where
+    a lattice has fewer rows than ROWS, at most MAX_ROW_PHASES), and a
+    block stages at most the kernel's ROWS + 4 MAX_ROW_PHASES rows of 48
+    pixels."""
+    for level in range(1, 6):
+        step = 1 << level
+        (y, x), (sy, sx) = D.atrous_shard_pixels(h, w, level)
+        hits = np.zeros((h, w), np.int64)
+        np.add.at(hits, (y, x), 1)
+        assert (hits == 1).all(), (level, hits.min(), hits.max())
+        blocks, phases, rp, ty, tx = D.atrous_shard_tiling(h, w, level)
+        assert phases == min(4, step)
+        assert rp <= min(D.MAX_ROW_PHASES, step) and D.ROWS % rp == 0
+        assert blocks == step // rp * (step // phases) * ty * tx
+        tr = D.ROWS // rp
+        assert (tr >= min(-(-h // step), D.ROWS)
+                or rp == D.MAX_ROW_PHASES)
+        cols = 32 // phases
+        assert rp * (tr + 4) * (cols + 4) * phases <= (
+            D.ROWS + 4 * D.MAX_ROW_PHASES) * 48
+        # the staged pixels reach every tap row of the shard's pixels
+        assert sy.min() >= -D.atrous_halo(level)
+        assert sy.max() < h + D.atrous_halo(level)
+
+
+def test_atrous_mirrors_match_csrc():
+    """ops/cuda/atrous.py's mirrors of csrc/atrous.cu: the tile geometry
+    (ROWS, HALO, MAX_ROW_PHASES as kRows, kHalo, kMaxRowPhases) and the
+    fields of AtrousArgs and AtrousShardArgs, by name, order and type."""
+    src = (_lib.CSRC / "atrous.cu").read_text()
+    for name, value in (("kRows", D.ROWS), ("kHalo", D.HALO),
+                        ("kMaxRowPhases", D.MAX_ROW_PHASES)):
+        assert re.search(rf"constexpr int {name} = {value};", src), name
+    ctype = {"int": ctypes.c_int, "float": ctypes.c_float,
+             "AtrousArgs": D.AtrousArgs}
+    for struct in (D.AtrousArgs, D.AtrousShardArgs):
+        body = re.search(rf"struct {struct.__name__} {{(.*?)\n}};", src,
+                         re.S).group(1)
+        fields = re.findall(r"^\s*(?:const )?(\w+)(\*?) (\w+);", body, re.M)
+        assert [f[0] for f in struct._fields_] == [f[2] for f in fields]
+        for (_, t), (base, star, _) in zip(struct._fields_, fields):
+            assert t is (ctypes.c_void_p if star else ctype[base])
+
+
+@pytest.mark.parametrize("n,halo", [(8, 4), (8, 8), (8, 20), (4, 64)])
+def test_halo_rows_send_only_the_reached_rows(n, halo):
+    """halo_rows sends whole slabs over the nearer hops and, over the
+    farthest, only the rows its halo reaches (all of a one-hop halo);
+    the in-process group's one-hop halo rows are views of the
+    neighbours' slabs."""
+    h, w = 64, 6
+    x = torch.arange(h * w, dtype=torch.float32).reshape(h, w)
+    slabs = list(x.reshape(n, h // n, w))
+    group, sent = InProcessGroup(n), []
+    real = group.shift
+
+    def shift(xs, k):
+        sent.append((k, xs[0].shape[0]))
+        return real(xs, k)
+    group.shift = shift
+    tops, bottoms = halo_rows(group, slabs, halo)
+    hl = h // n
+    hops = -(-halo // hl)
+    far = halo - (hops - 1) * hl
+    assert sorted(sent) == sorted(
+        [(k, hl) for k in range(1, hops)] + [(-k, hl)
+                                             for k in range(1, hops)]
+        + [(hops, far), (-hops, far)])
+    padded = _padded(x, halo)
+    for i, (t, b) in enumerate(zip(tops, bottoms)):
+        assert torch.equal(t, padded[i * hl:i * hl + halo])
+        assert torch.equal(b, padded[i * hl + hl + halo:
+                                     i * hl + hl + 2 * halo])
+        if hops == 1 and 0 < i < n - 1:
+            assert t.data_ptr() == slabs[i - 1][hl - halo:].data_ptr()
+            assert b.data_ptr() == slabs[i + 1].data_ptr()
 
 
 # ---------------------------------------------------------------------------

@@ -46,8 +46,9 @@ def _padded(x, halo):
 
 @pytest.mark.cuda
 def test_shard_kernels_match_plain_on_card(card, scenes_dir):
-    """On cornell's fourth frame at 96x96: D's shard mode on 8 shards of
-    12 rows at every level (the G-buffer's halo 64 rows) and C's row
+    """On cornell's fourth frame at 96x96: D's shard mode on 4, 8 and 16
+    shards (24, 12 and 6 rows) at every level, its halo rows apart from
+    its own (the G-buffer's halo 64 rows), and C's row
     offset in both modes (the stencil on the still frame, the band mode
     on a moved view) equal their plain versions and the unsharded
     kernels' rows bit for bit."""
@@ -106,17 +107,21 @@ def test_shard_kernels_match_plain_on_card(card, scenes_dir):
                                       0.2, 0.35, True)
         halo = D.atrous_halo(level)
         ext, sext = _padded(cv, halo), _padded(static, sh)
-        outs = []
-        for r0 in range(0, h, 12):
-            e = ext[r0:r0 + 12 + 2 * halo]
-            dargs = (e[..., :3], e[..., 3], sext[r0:r0 + 12 + 2 * sh], None,
-                     level, 0.45, 0.2, 0.35, True, False, r0, h, halo, sh)
-            k = D._atrous_level_kernel(*dargs)
-            p = D.atrous_level_plain(*dargs)
-            assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
-            outs.append(k)
-        assert torch.equal(torch.cat([o[0] for o in outs]), want[0])
-        assert torch.equal(torch.cat([o[1] for o in outs]), want[1])
+        for n in (4, 8, 16):
+            hl, outs = h // n, []
+            for r0 in range(0, h, hl):
+                own = ext[halo + r0:halo + r0 + hl]
+                rows = (ext[r0:r0 + halo],
+                        ext[r0 + hl + halo:r0 + hl + 2 * halo])
+                dargs = (own[..., :3], own[..., 3],
+                         sext[r0:r0 + hl + 2 * sh], None, level, 0.45, 0.2,
+                         0.35, True, False, r0, h, rows, sh)
+                k = D._atrous_level_kernel(*dargs)
+                p = D.atrous_level_plain(*dargs)
+                assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+                outs.append(k)
+            assert torch.equal(torch.cat([o[0] for o in outs]), want[0])
+            assert torch.equal(torch.cat([o[1] for o in outs]), want[1])
 
 
 @pytest.mark.cuda

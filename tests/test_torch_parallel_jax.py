@@ -98,18 +98,23 @@ def _pallas_shards(x, n, level, blur, albedo):
 
 @pytest.mark.parametrize("hl,level,blur,albedo", [
     (8, 1, True, False), (8, 3, True, False), (8, 5, True, False),
-    (16, 2, False, False), (16, 5, False, True)])
+    (16, 2, False, False), (16, 5, False, True),
+    (8, 2, True, False), (8, 4, False, False), (16, 1, True, False),
+    (16, 3, True, False), (16, 4, True, False), (32, 1, True, False),
+    (32, 2, False, False), (32, 3, True, False), (32, 4, True, False),
+    (32, 5, True, True)])
 def test_atrous_shard_mode_matches_pallas(atrous_inputs, hl, level, blur,
                                           albedo):
-    """D's shard mode (plain) on shards of 8 and 16 rows of a 64x48 image
+    """D's shard mode (plain, its halo rows apart from its own) on 8, 4
+    and 2 shards (8, 16 and 32 rows) of a 64x48 image at every level
     against the JAX package's sharded atrous_level_pallas in interpret
-    mode, fed from its halo_rows (levels 1-5, the blur on and off, level
-    5 with the albedo; 8-row shards take up to eight hops at level 5),
-    to the 1e-5 of tests/test_torch_kernels.py's unsharded comparison.
-    Every combination of level, blur and albedo is held against the
-    unsharded level bit for bit in test_torch_parallel.py; a sharded
-    Pallas level costs ~5 s of interpret-mode compile on the CPU, so
-    these five stand for them here."""
+    mode, fed from its halo_rows (the blur on and off, level 5 with the
+    albedo; 8-row shards take up to eight hops at level 5), to the 1e-5
+    of tests/test_torch_kernels.py's unsharded comparison. Every
+    combination of level, blur and albedo is held against the unsharded
+    level bit for bit in test_torch_parallel.py; a sharded Pallas level
+    costs ~5 s of interpret-mode compile on the CPU, so these fifteen
+    stand for them here."""
     x = atrous_inputs
     rc, rv = _pallas_shards(x, 64 // hl, level, blur, albedo)
     got = atrous_shards(x, hl, level, blur, albedo)
