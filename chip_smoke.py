@@ -43,7 +43,7 @@ scene at its own resolution):
   beside the PyTorch window, packed and packed2 variants);
 * the row-sharded frame step (ptdn_tpu_torch/parallel/): cornell split
   into 8 and 16 row shards in one process (kernel D's shard mode at
-  every level of every shard, C's row offset), room (sorted), diamond
+  every level of every shard, C's shard mode), room (sorted), diamond
   (G) and native cornell (R) in 8, and cornell in two torch.distributed
   ranks over gloo on the one card.
 
@@ -153,12 +153,21 @@ Phases, one line or more each, with their wall time:
    D's shard mode (its own rows and its halo rows read where they lie)
    against its plain version and the unsharded kernel at every level on
    4 shards (200 rows), 8 (100) and 16 (50 rows: level 5's 64-row halo
-   two hops), bit for bit, and with row0 0 and no halo the unsharded D; C's row offset in both modes on 8 shards, bit for bit,
-   no pixel off its plain version; the in-process group of 8 and of 16
-   shards through 8 still then 8 anim_slow frames, every stitched left
-   and right equal to the whole image's bit for bit, with each frame's
-   launches (D in shard mode shards x 5 times) and halo exchanges
-   counted; 4 frames each of room 600x600 (sorted, 75-row shards),
+   two hops), bit for bit, and with row0 0 and no halo the unsharded D;
+   C's shard mode (its own rows in place, its halo rows as the sharded
+   denoiser packs and exchanges them) in both modes, still and moved, on
+   4, 8 and 16 shards, against its plain version (no pixel off) and the
+   unsharded kernel's rows, bit for bit, each count's sum and one shard
+   timed beside the unsharded launch; the in-process group of 8 and of
+   16 shards through 8 still then 8 anim_slow frames, every stitched
+   left and right equal to the whole image's bit for bit, with each
+   frame's launches (D in shard mode shards x 5 times) and exchanges
+   counted (a Halo for the back-projection on every frame, never a
+   whole-image exchange; its halo rows printed, 2 when still, under the
+   image's when moved) and, at 8 shards, the back-projection's device
+   kernels and torch.cat calls on a still and a moved frame
+   (torch.profiler: a shard's halo_pack and kernel C, no window copy);
+   4 frames each of room 600x600 (sorted, 75-row shards),
    diamond (G) and native cornell (R) in 8 shards, equal bit for bit; 2
    gloo ranks on the one card (a subprocess each, with a time limit),
    4 frames, the stitched frame equal; D's shard mode by level beside
@@ -219,7 +228,8 @@ from ptdn_tpu_torch.ops.cuda import spatial_variance as R  # noqa: E402
 from ptdn_tpu_torch.ops.cuda import texgather as N  # noqa: E402
 from ptdn_tpu_torch.parallel.dryrun import run_ranks  # noqa: E402
 from ptdn_tpu_torch.parallel.mesh import InProcessGroup  # noqa: E402
-from ptdn_tpu_torch.parallel.sharded import ShardedRenderer  # noqa: E402
+from ptdn_tpu_torch.parallel.sharded import (  # noqa: E402
+    ShardedRenderer, back_projection_shards)
 from ptdn_tpu_torch.probes import dyngather as probe_o  # noqa: E402
 from ptdn_tpu_torch.probes import intersect_v1 as probe_p  # noqa: E402
 from ptdn_tpu_torch.probes import regroup as probe_g  # noqa: E402
@@ -436,9 +446,9 @@ BENCH_TIMEOUT, CLI_TIMEOUT = 600, 180
 # shards (label -> scene, flags, resolution) and their frames, and the
 # two gloo ranks' frames and time limit (seconds)
 SHARDS = (8, 16)
-# D's shard mode is checked and timed by level at these (4: the 4-card
+# D's and C's shard modes are checked and timed at these (4: the 4-card
 # shape, 200 rows)
-D_SHARDS = (4, 8, 16)
+D_SHARDS = C_SHARDS = (4, 8, 16)
 SHARD_STILL = SHARD_MOVING = 8
 SHARD_RUNS = {"room": ("room", {}, (600, 600)),
               "diamond": ("diamond", {}, (800, 800)),
@@ -900,11 +910,12 @@ def sharded_frames(label, one, many, frames, moving_from=None):
     launch and exchange counts set to 0 just before it and read just
     after: the stitched left and right equal the whole image's bit for
     bit on every frame. Returns the summed counts, the exchanges, and per
-    frame whether the back-projection took the near branch."""
+    frame whether the back-projection took the near branch and the halo
+    rows it exchanged (the same on every shard)."""
     n = many.group.n
     autos = [CameraAutomation(dataclasses.replace(one.cfg, **ANIM_SLOW))
              for _ in range(2)]
-    total, exchanges, near = {}, {}, []
+    total, exchanges, near, halo = {}, {}, [], []
     for f in range(frames):
         if moving_from is not None and f >= moving_from:
             for r, auto in zip((one, many), autos):
@@ -929,22 +940,57 @@ def sharded_frames(label, one, many, frames, moving_from=None):
             check(len({d.near for d in dn}) == 1,
                   f"{label}: the shards chose one branch")
             near.append(dn[0].near)
+            k = {2 if d.near else d.moved_halo for d in dn}
+            check(len(k) == 1, f"{label}: the shards' halos differ: {k}")
+            halo.append(k.pop())
         if one.cfg.denoise_enable and one.cfg.spatial_enable:
             check(c["atrous_level_shard"] == c["atrous_level"]
                   == n * one.cfg.atrous_nlevel,
                   f"{label}: frame {f}: D in shard mode {n} x "
                   f"{one.cfg.atrous_nlevel} times, got {c['atrous_level']}, "
                   f"{c['atrous_level_shard']}")
-    return total, exchanges, near
+    return total, exchanges, near, halo
+
+
+def bp_launches(many):
+    """(device kernels, aten::cat calls, halo rows) of the back-projection
+    of every shard of `many`, as its denoisers run it
+    (SVGFDenoiser.back_projection: svgf.shard_back_projection's halo_pack
+    and Halo exchange, kernel C's shard mode) on the state its last frame
+    left (its color history the frame's color, its previous G-buffer the
+    frame's), its branch kept: counted by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gens = []
+    for step in many.step.steps:
+        d = step.denoiser
+        gb = {"position": d.prev_position, "normal": d.prev_normal,
+              "geom_id": d.prev_geom_id}
+        gens.append(d.back_projection(d.bp_args(d.color_history, gb,
+                                                many._params)))
+    d = many.step.steps[0].denoiser
+    k = 2 if d.near else d.moved_halo
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        many.group.run(gens)
+        torch.cuda.synchronize()
+    kernels = cats = 0
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA \
+                and getattr(e, "self_device_time_total", 0) > 0:
+            kernels += e.count
+        cats += e.count if e.key == "aten::cat" else 0
+    return kernels, cats, k
 
 
 def sharded_phase(card, out, frame_ms):
     """Phase 6: the row-sharded frame step (ptdn_tpu_torch/parallel/) at
-    the headline's width, cornell 800x800 with CFG: D's shard mode and
-    C's row offset against their plain versions and the unsharded
-    kernels; the in-process group at 8 and 16 shards through still and
-    moving frames, room, diamond and native cornell at 8, and two gloo
-    ranks, each frame equal to the whole image's bit for bit; times.
+    the headline's width, cornell 800x800 with CFG: D's and C's shard
+    modes against their plain versions and the unsharded kernels; the
+    in-process group at 8 and 16 shards through still and moving frames,
+    room, diamond and native cornell at 8, and two gloo ranks, each
+    frame equal to the whole image's bit for bit; times.
     Appends the shard modes' entries to `out`."""
     t0 = time.perf_counter()
     stats, work, times = {}, {}, {}
@@ -964,9 +1010,12 @@ def sharded_phase(card, out, frame_ms):
     moved = torch.eye(4, device=DEVICE)
     moved[0, 3] = 0.3
 
-    # C's row offset: both modes on 8 shards of 100 rows against their
-    # plain versions and the unsharded kernels' rows, bit for bit
-    hl = h // SHARDS[0]
+    # C's shard mode: both modes on 4, 8 and 16 shards, its own rows in
+    # place and its halo rows packed and exchanged as the sharded
+    # denoiser does (back_projection_shards), against its plain version
+    # and the unsharded kernel's rows, bit for bit; each count's sum and
+    # one shard of 8 timed beside the unsharded launch
+    c_ms = {}
     for name, view in (("back_projection_stencil_rows", st["prev_view"]),
                        ("back_projection_banded_rows",
                         st["prev_view"] @ moved)):
@@ -975,53 +1024,77 @@ def sharded_phase(card, out, frame_ms):
         check(bool(bounds[0]) != banded, f"{name}: the branch")
         args = ((w, h), raw, gb, {"normal": prev[0], "geom_id": prev[1]},
                 view, *prev[2:], *alphas)
-        band = (bounds[1:], reproject.BAND_ROWS, reproject.BAND_MARGIN)
-        want = (C._back_projection_banded_kernel(*args, *band) if banded
-                else C._back_projection_stencil_kernel(*args))
-        got, off, err = [], 0, 0.0
-        for r0 in range(0, h, hl):
-            cur = slice(r0, r0 + hl)
-            win, p0 = ((prev, 0) if banded else
-                       ([padded(t, 2)[r0:r0 + hl + 4] for t in prev],
-                        r0 - 2))
-            sargs = ((w, hl), raw[cur], {k: v[cur].contiguous()
-                                         for k, v in gb.items()},
-                     {"normal": win[0], "geom_id": win[1]}, view, *win[2:],
-                     *alphas) + (band if banded else ())
-            kfn = (C._back_projection_banded_kernel if banded
-                   else C._back_projection_stencil_kernel)
-            pfn = (C.back_projection_banded_plain if banded
-                   else C.back_projection_stencil_plain)
-            k = kfn(*sargs, rows=(r0, h, p0))
-            p = pfn(*sargs, rows=(r0, h, p0))
-            off += sum(int((~((a == b) | (torch.isnan(a) & torch.isnan(b))))
-                           .reshape(hl * w, -1).any(-1).sum())
-                       for a, b in zip(k, p))
-            err = max([err] + [max_abs(a, b) for a, b in zip(k, p)])
-            got.append(k)
-            if r0 == hl:       # the second shard: timed below
-                times[name] = (
-                    functools.partial(kfn, *sargs, rows=(r0, h, p0)),
-                    functools.partial(pfn, *sargs, rows=(r0, h, p0)))
-                # its rows of the current frame in, the previous frame's
-                # rows its taps reach (two past the shard's) in, its rows
-                # out; ~200 operations a pixel
-                reach = [t[r0 - 2 - p0:r0 + hl + 2 - p0] for t in win]
-                work[name] = bound(
-                    nbytes(raw[cur], *(gb[k_][cur] for k_ in (
-                        "position", "normal", "geom_id")), *reach, *k),
-                    hl * w * 200)
+        starts = bounds[1:].tolist() if banded else None
+        whole = ((lambda a=args, b=bounds: C._back_projection_banded_kernel(
+            *a, b[1:], reproject.BAND_ROWS, reproject.BAND_MARGIN))
+            if banded else functools.partial(
+                C._back_projection_stencil_kernel, *args))
+        want = whole()
+        kfn, pfn = ((C._back_projection_banded_kernel,
+                     C.back_projection_banded_plain) if banded else
+                    (C._back_projection_stencil_kernel,
+                     C.back_projection_stencil_plain))
+        off, err, calls, halos = 0, 0.0, {}, {}
+        for n in C_SHARDS:
+            calls[n], halos[n] = back_projection_shards(args, n, starts)
+            got = []
+            for sargs, kw in calls[n]:
+                k = kfn(*sargs, **kw)
+                p = pfn(*sargs, **kw)
+                hl = sargs[0][1]
+                off += sum(int((~((a == b) | (torch.isnan(a)
+                                              & torch.isnan(b))))
+                               .reshape(hl * w, -1).any(-1).sum())
+                           for a, b in zip(k, p))
+                err = max([err] + [max_abs(a, b) for a, b in zip(k, p)])
+                got.append(k)
+            check(all(torch.equal(torch.cat([g[i] for g in got]), want[i])
+                      for i in range(4)),
+                  f"{name}, {n} shards: the shards' rows equal the "
+                  f"unsharded kernel's")
         check(off <= LANES_OFF_ALLOWED,
               f"{name}: {off} pixels off the plain version")
-        check(all(torch.equal(torch.cat([g[i] for g in got]), want[i])
-                  for i in range(4)),
-              f"{name}: the shards' rows equal the unsharded kernel's")
+        # the second shard of 8: timed, and its bound: its rows of the
+        # current frame in (color, position, normal, geom), the previous
+        # frame's rows that its taps read in this run (C.tap_rows, 40 B
+        # a pixel) and its own rows' history lengths, its rows out; ~200
+        # operations a pixel. Beside it, the bound on every row its taps
+        # may read (its own and those of Rows.reach), which the halo
+        # holds
+        sargs, kw = calls[SHARDS[0]][1]
+        hl, r0 = sargs[0][1], kw["rows"][0]
+        times[name] = (functools.partial(kfn, *sargs, **kw),
+                       functools.partial(pfn, *sargs, **kw))
+        read = C.tap_rows(sargs[0], sargs[2], sargs[4], sargs[7],
+                          kw["rows"], sargs[10:] or None)
+        n_read, n_own = int(read.sum()), int(read[r0:r0 + hl].sum())
+        io = nbytes(sargs[1], *(sargs[2][k_] for k_ in (
+            "position", "normal", "geom_id")), *kfn(*sargs, **kw))
+        work[name] = bound(io + (n_read * 40 + (hl - n_own) * 4) * w,
+                           hl * w * 200)
+        above, below = reproject.Rows.reach(r0, hl, h, starts)
+        reach_ms = bound(io + (hl + above + below) * w * 40,
+                         hl * w * 200)[0]
+        c_ms[name] = {
+            "unsharded": cuda_ms(whole, reps=10, hide_host=True),
+            "one shard of 8": cuda_ms(times[name][0], reps=10,
+                                      hide_host=True),
+            **{f"{n} shards": cuda_ms(
+                lambda c=calls[n]: [kfn(*a, **kw_) for a, kw_ in c],
+                reps=10, hide_host=True) for n in C_SHARDS}}
         stats[name] = err
-        print(f"phase 6: {name.replace('_rows', '')} with a row offset on "
-              f"{SHARDS[0]} shards of {hl} rows: equal to its plain version "
-              f"({off} pixels off) and to the unsharded kernel, bit for bit")
+        print(f"phase 6: {name.replace('_rows', '')} in shard mode on "
+              f"{C_SHARDS} shards (halo rows "
+              f"{json.dumps({n: halos[n] for n in C_SHARDS})}): equal to "
+              f"its plain version ({off} pixels off) and to the unsharded "
+              f"kernel, bit for bit; ms "
+              + ", ".join(f"{k_} {v:.4f}" for k_, v in c_ms[name].items())
+              + f"; one shard of {SHARDS[0]}: its taps read {n_read} "
+              f"previous rows (bound {work[name][0]:.4f} ms), may read "
+              f"{hl + above + below} (bound {reach_ms:.4f} ms) [{card}]")
         if not banded:
             src, var = want[1], want[0]
+    frame_ms["C shard mode"] = c_ms
 
     # D's shard mode at every level, 8 and 16 shards, against its plain
     # version and the unsharded kernel (the level before's output in);
@@ -1109,19 +1182,30 @@ def sharded_phase(card, out, frame_ms):
         many = ShardedRenderer(scene("cornell"), CFG, (w, h),
                                InProcessGroup(n), device=DEVICE)
         frames = SHARD_STILL + SHARD_MOVING
-        total, exch, near = sharded_frames(f"cornell {n} shards", one, many,
-                                           frames, moving_from=SHARD_STILL)
+        total, exch, near, halo = sharded_frames(
+            f"cornell {n} shards", one, many, frames,
+            moving_from=SHARD_STILL)
         far = near.count(False)
         check(near[:SHARD_STILL] == [False] + [True] * (SHARD_STILL - 1),
               f"{n} shards: far on frame 0 only while still: {near}")
-        # a frame's halos: one a level, the previous frame's rows when
-        # near (else a gather), the G-buffer's when the camera moved
-        halos = sum(NLEVEL + nr + (f == 0 or f >= SHARD_STILL)
-                    for f, nr in enumerate(near))
-        check(exch.get("Halo", 0) == halos
-              and exch.get("Gather", 0) == far
+        # a frame's halos: one a level, the previous frame's rows its
+        # back-projection reads (2 when near, its bands' reach when far:
+        # never the whole image), the G-buffer's when the camera moved
+        halos = sum(NLEVEL + 1 + (f == 0 or f >= SHARD_STILL)
+                    for f in range(frames))
+        check(exch.get("Halo", 0) == halos and set(exch) <= {"Halo",
+                                                              "Reduce"}
               and exch.get("Reduce", 0) == 2 * (2 + SHARD_MOVING),
               f"{n} shards: exchanges {exch}")
+        # 2 rows when near; the moving frames' halos reach the bands'
+        # slabs, not the whole image (frame 0's view is the identity)
+        moving = [k_ for k_, nr in zip(halo[SHARD_STILL:],
+                                       near[SHARD_STILL:]) if not nr]
+        check(all(k_ == 2 for k_, nr in zip(halo, near) if nr)
+              and all(0 < k_ < h - h // n for k_ in moving),
+              f"{n} shards: back-projection halo rows {halo}")
+        if n == SHARDS[0]:
+            bp_moved = bp_launches(many)
         check(total["back_projection_banded_rows"] == n * far
               and total["back_projection_stencil_rows"]
               == n * (frames - far)
@@ -1129,6 +1213,9 @@ def sharded_phase(card, out, frame_ms):
               == n * frames
               and total["scene_intersect_full"] == n * (1 + SHARD_MOVING),
               f"{n} shards: launches {nonzero(total)}")
+        print(f"phase 6: cornell {w}x{h} in {n} shards, the back-projection's "
+              f"halo rows a frame (each shard sends its first and last "
+              f"that many rows, at most its own): {halo}")
         if n == SHARDS[0]:
             launches = total
         print(f"phase 6: cornell {w}x{h} in {n} shards of {h // n} rows, "
@@ -1146,6 +1233,21 @@ def sharded_phase(card, out, frame_ms):
             ms = in_turns({"unsharded": one.render_frame,
                            f"{n} shards": many.render_frame}, reps=10)
             frame_ms["cornell sharded turns"] = ms
+            for label, (kernels, cats, k) in (("still", bp_launches(many)),
+                                              ("moved", bp_moved)):
+                hl = h // n
+                # a shard: halo_pack's two casts and one cat, kernel C;
+                # the image's first and last rows' zero halo rows
+                one_hop = k <= hl
+                if label == "still" or one_hop:
+                    check(kernels <= 4 * n + 2 and cats == n,
+                          f"{n} shards, {label}: the back-projection "
+                          f"launched {kernels} kernels, {cats} cats")
+                print(f"phase 6: cornell {n} shards, a {label} frame's "
+                      f"back-projection ({k} halo rows, "
+                      f"{'one hop' if one_hop else 'several hops'}): "
+                      f"{kernels} kernels, {cats} torch.cat (profiler), "
+                      f"no window and no plane copy")
             print(f"phase 6: cornell {w}x{h} still, ms/frame in turns: "
                   + ", ".join(f"{k} {v}" for k, v in ms.items())
                   + f" (the shards one after another on one card) [{card}]")
@@ -1153,7 +1255,7 @@ def sharded_phase(card, out, frame_ms):
         one = renderer(name, res, **flags)
         many = ShardedRenderer(scene(name), one.cfg, res,
                                InProcessGroup(SHARDS[0]), device=DEVICE)
-        total, exch, near = sharded_frames(f"{label} {SHARDS[0]} shards",
+        total, exch, _, _ = sharded_frames(f"{label} {SHARDS[0]} shards",
                                            one, many, SHARD_RUN_FRAMES)
         print(f"phase 6: {label} {res[0]}x{res[1]} "
               f"({many.step.steps[0].tracer.engine}) in {SHARDS[0]} shards "
@@ -1214,9 +1316,11 @@ def main():
     regs = ptxas_summary(log)
     # O has two kernels (the staged one and the global-load one); B1's
     # table build, F, H, A and J have a native build each (compat=False),
-    # E its light-table entry, R one kernel, and D's shard mode two (one
-    # and two row phases a block)
-    check(len(regs) == 30, f"30 kernels in the library, got {regs}")
+    # E its light-table entry, R one kernel, D's shard mode two (one and
+    # two row phases a block) and C's shard mode two (stencil, band; the
+    # stencil one also takes the whole image), beside the whole image's
+    # band mode
+    check(len(regs) == 31, f"31 kernels in the library, got {regs}")
     # kernels B1, F, H, A, J, I and M (with and without the cull) are
     # built per scene, with the scene's constants (csrc/scene/*.cu), every
     # scene's at once, and the native runs' scenes in native mode
@@ -1382,9 +1486,9 @@ def main():
     mov = Motion(renderer("cornell", **ANIM_SLOW))
     real_banded, got = reproject.back_projection_banded, []
     reproject.back_projection_banded = (
-        lambda *a, starts, rows=None: got.append(
+        lambda *a, starts, rows=None, halo=None: got.append(
             a + (starts, reproject.BAND_ROWS, reproject.BAND_MARGIN))
-        or real_banded(*a, starts=starts, rows=rows))
+        or real_banded(*a, starts=starts, rows=rows, halo=halo))
     try:
         for _ in range(4):
             mov.frame()

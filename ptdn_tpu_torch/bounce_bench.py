@@ -856,7 +856,8 @@ def main(argv=None):
     if "path_trace_table" in kernels:    # timed beside the per-scene B1
         mine += ("path_trace_kernel",)
     if "back_projection_atrous1" in kernels:    # timed beside C and D
-        mine += ("back_projection_stencil_kernel", "atrous_level_kernel")
+        mine += ("back_projection_shard_stencil_kernel",
+                 "atrous_level_kernel")
     regs = {"library": [r for r in ptxas_summary(_lib.build(force=True))
                         if r.split()[0] in mine]}
     libs = {}

@@ -1,17 +1,18 @@
 // One pixel of SVGF's back-projection (denoise.cu:185-317), shared by
-// kernel C (reproject.cu: the stencil and band modes) and kernel L
-// (reproject_atrous.cu, which feeds it to the a-trous level 1 in the
-// same block).
+// kernel C (reproject.cu: the stencil and band modes, on the whole image
+// or a shard's rows) and kernel L (reproject_atrous.cu, which feeds it to
+// the a-trous level 1 in the same block).
 //
 // The thread reprojects its world position through the previous view
 // matrix (denoise.cu:195-217, without tan(fov/2) as the reference),
-// reads its 3x3 previous-frame taps straight from device memory with
-// bounds checks (outside the image a tap is invalid, as the TPU kernels'
-// geom -1 padding makes it), tests each tap (same geom, normal distance
-// <= 0.1), and runs _accumulate_from_taps: the all-valid 2x2 bilinear,
-// else the 3x3 uniform fallback, the color and moment EWMA with the
-// reference's inverted moment alpha, the history length and variance =
-// m2 - m1^2.
+// reads its 3x3 previous-frame taps with bounds checks (outside the
+// image a tap is invalid, as the TPU kernels' geom -1 padding makes it)
+// through an accessor of the previous frame's planes (ImagePrev: the
+// whole image's in device memory; a shard's: reproject.cu), tests each
+// tap (same geom, normal distance <= 0.1), and runs
+// _accumulate_from_taps: the all-valid 2x2 bilinear, else the 3x3
+// uniform fallback, the color and moment EWMA with the reference's
+// inverted moment alpha, the history length and variance = m2 - m1^2.
 #pragma once
 
 #include "ptdn.cuh"
@@ -42,17 +43,6 @@ struct ReprojArgs {
   int slab_h;           // band mode: rows per slab of the padded grid
 };
 
-// A shard's rows (parallel/sharded.py): the launch's h pixel rows are
-// image rows row0.. of a full_h-row image, and the previous frame's
-// planes (ch, mh, hl, pn, pg) hold image rows from prev_row0, every row
-// a tap reaches (the caller's window). The projection, the image-edge
-// tests, the band and the slab take global rows. Unsharded: {0, h, 0}.
-struct ReprojRows {
-  int row0;
-  int full_h;
-  int prev_row0;
-};
-
 struct Accum {
   float var;
   float acc[3];
@@ -67,30 +57,75 @@ __device__ __forceinline__ int base_index(float f) {
   return __float2int_rz(fminf(fmaxf(f, -1073741824.f), 1073741824.f));
 }
 
-// The back-projection of pixel (iy, ix). Stencil mode (Banded false):
-// the caller gates on motion of at most one pixel, and the taps are read
-// around the pixel itself at the clipped base offset, as the TPU
-// stencil's shifted views do. Band mode: the taps are read at the true
-// base, and a pixel whose clipped padded base row gi = clip(fy + 1, 0,
-// h + 1) lies outside its band's slab [start, start + slab_h) is
-// rejected (ptdn_tpu/denoise/reproject.py:back_projection_banded).
-// Rows (kernel C) places the launch's rows by `rows`; without it (kernel
-// L) they are the image, and the code is the unplaced one, each value
-// read where that code read it.
-template <bool Banded, bool Rows>
+// A tap's normal distance test, sqrt(d2) <= 0.1f, without the square
+// root: the correctly rounded square root is monotonic, so it holds
+// exactly where d2 <= the largest float whose square root is <= 0.1f,
+// this one (tests/test_torch_parallel.py holds sqrt of it and of the
+// next float against 0.1f), NaN and infinity failing both
+constexpr float kNormalDist2 = 0x1.47ae16p-7f;
+
+// The previous frame's planes of the whole image, as ReprojArgs holds
+// them (kernel L, kernel C unsharded). rows(by) gives the taps' rows by
+// - 1, by, by + 1 (by an image row); a tap (dy, dx) of them is read at
+// column qx, inside the image.
+struct ImagePrev {
+  const ReprojArgs& a;
+  struct Rows {
+    const ReprojArgs& a;
+    int by;
+    __device__ __forceinline__ int q(int dy, int qx) const {
+      return (by + dy) * a.w + qx;
+    }
+    __device__ __forceinline__ int geom(int dy, int qx) const {
+      return a.pg[q(dy, qx)];
+    }
+    __device__ __forceinline__ void normal(int dy, int qx, float n[3]) const {
+      const int k = q(dy, qx);
+      n[0] = a.pn[3 * k];
+      n[1] = a.pn[3 * k + 1];
+      n[2] = a.pn[3 * k + 2];
+    }
+    // color, moments and history length
+    __device__ __forceinline__ void values(int dy, int qx,
+                                           float out6[6]) const {
+      const int k = q(dy, qx);
+      out6[0] = a.ch[3 * k];
+      out6[1] = a.ch[3 * k + 1];
+      out6[2] = a.ch[3 * k + 2];
+      out6[3] = a.mh[2 * k];
+      out6[4] = a.mh[2 * k + 1];
+      out6[5] = (float)a.hl[k];
+    }
+  };
+  __device__ __forceinline__ Rows rows(int by) const { return Rows{a, by}; }
+  // band mode: the slab start of image row gy's band
+  __device__ __forceinline__ int start(int gy) const {
+    return a.starts[gy / a.band_rows];
+  }
+};
+
+// The back-projection of pixel (iy, ix) of the launch's rows, image row
+// gy of a full_h-row image (a shard's rows lie in a taller image; the
+// whole image's are gy = iy, full_h = a.h). Its current-frame values and
+// its own history length are read at iy * w + ix, the previous frame's
+// taps through `prev` (ImagePrev, or a shard's staged tile or buffers,
+// reproject.cu) at image rows. Stencil mode (Banded false): the caller
+// gates on motion of at most one pixel, and the taps are read around the
+// pixel itself at the clipped base offset, as the TPU stencil's shifted
+// views do. Band mode: the taps are read at the true base, and a pixel
+// whose clipped padded base row gi = clip(fy + 1, 0, full_h + 1) lies
+// outside its band's slab [start, start + slab_h) is rejected
+// (ptdn_tpu/denoise/reproject.py:back_projection_banded).
+template <bool Banded, class Prev>
 __device__ inline Accum reproject_pixel(const ReprojArgs& a, int iy, int ix,
-                                        const ReprojRows& rows) {
+                                        int gy, int full_h,
+                                        const Prev& prev) {
   const int i = iy * a.w + ix;
-  // the image's rows, and the pixel's image row
-  const auto full_h = [&] { return Rows ? rows.full_h : a.h; };
-  const auto gy = [&] { return Rows ? rows.row0 + iy : iy; };
   const float cr = a.color[3 * i], cg = a.color[3 * i + 1],
               cb = a.color[3 * i + 2];
   const float lum = dot3(0.2126f, 0.7152f, 0.0722f, cr, cg, cb);
   const int geo = a.geom[i];
-  // the pixel's own history, in the previous frame's window
-  const float n_hist =
-      (float)a.hl[Rows ? (gy() - rows.prev_row0) * a.w + ix : i];
+  const float n_hist = (float)a.hl[i];
 
   bool valid = false;
   float pc[3] = {0.f, 0.f, 0.f}, pm[2] = {0.f, 0.f}, ph = 0.f;
@@ -101,33 +136,33 @@ __device__ inline Accum reproject_pixel(const ReprojArgs& a, int iy, int ix,
     const float vsy = row4(v, 1, px, py, pz);
     const float vsz = row4(v, 2, px, py, pz);
     const float prevx = fmaf(-(vsx / vsz) * 0.5f + 0.5f, (float)a.w, -0.5f);
-    const float prevy =
-        fmaf(-(vsy / vsz) * 0.5f + 0.5f, (float)full_h(), -0.5f);
+    const float prevy = fmaf(-(vsy / vsz) * 0.5f + 0.5f, (float)full_h, -0.5f);
     const float floorx = floorf(prevx), floory = floorf(prevy);
     const float fracx = prevx - floorx, fracy = prevy - floory;
     bool base_valid =
         (floorx >= 0.f) && (floory >= 0.f) && (floorx < a.w) &&
-        (floory < full_h());
+        (floory < full_h);
     int fx, fy, by, bx;
     bool slab_ok = true;
-    if (Banded) {
+    if constexpr (Banded) {
       fx = base_index(floorx);
       fy = base_index(floory);
       by = fy;
       bx = fx;
-      const int gi = min(max(fy + 1, 0), full_h() + 1);
-      const int li = gi - a.starts[gy() / a.band_rows];
+      const int gi = min(max(fy + 1, 0), full_h + 1);
+      const int li = gi - prev.start(gy);
       slab_ok = (li >= 0) && (li < a.slab_h);
       base_valid = base_valid && slab_ok;
     } else {
       fx = __float2int_rz(floorx);
       fy = __float2int_rz(floory);
       // under the caller's gate (|f - pixel| <= 1) this is f
-      by = gy() + min(max(fy - gy(), -1), 1);
+      by = gy + min(max(fy - gy, -1), 1);
       bx = ix + min(max(fx - ix, -1), 1);
     }
     const float cnx = a.nrm[3 * i], cny = a.nrm[3 * i + 1],
                 cnz = a.nrm[3 * i + 2];
+    const auto rows = prev.rows(by);
 
     // 3x3 taps (dy, dx) in row-major order; validity and values
     bool tv[9];
@@ -136,27 +171,19 @@ __device__ inline Accum reproject_pixel(const ReprojArgs& a, int iy, int ix,
       const int qy = by + dy, qx = bx + dx;
       tv[k] = false;
       if (!slab_ok) continue;
-      if (fx + dx < 0 || fx + dx >= a.w || fy + dy < 0 ||
-          fy + dy >= full_h())
+      if (fx + dx < 0 || fx + dx >= a.w || fy + dy < 0 || fy + dy >= full_h)
         continue;
-      if (qx < 0 || qx >= a.w || qy < 0 || qy >= full_h()) continue;
-      // the caller's window holds every row a tap reaches
-      const int q = (Rows ? qy - rows.prev_row0 : qy) * a.w + qx;
-      const int pg = a.pg[q];
+      if (qx < 0 || qx >= a.w || qy < 0 || qy >= full_h) continue;
+      const int pg = rows.geom(dy, qx);
       if (pg == -1 || pg != geo) continue;
-      const float dnx = a.pn[3 * q] - cnx, dny = a.pn[3 * q + 1] - cny,
-                  dnz = a.pn[3 * q + 2] - cnz;
-      tv[k] = sqrtf(dot3(dnx, dny, dnz, dnx, dny, dnz)) <= 0.1f;
+      float pn[3];
+      rows.normal(dy, qx, pn);
+      const float dnx = pn[0] - cnx, dny = pn[1] - cny, dnz = pn[2] - cnz;
+      const float d2 = dot3(dnx, dny, dnz, dnx, dny, dnz);
+      tv[k] = d2 <= kNormalDist2;
     }
     auto tap = [&](int k, float* out6) {
-      const int qy = by + k / 3 - 1, qx = bx + k % 3 - 1;
-      const int q = (Rows ? qy - rows.prev_row0 : qy) * a.w + qx;
-      out6[0] = a.ch[3 * q];
-      out6[1] = a.ch[3 * q + 1];
-      out6[2] = a.ch[3 * q + 2];
-      out6[3] = a.mh[2 * q];
-      out6[4] = a.mh[2 * q + 1];
-      out6[5] = (float)a.hl[q];
+      rows.values(k / 3 - 1, bx + k % 3 - 1, out6);
     };
 
     // 2x2 bilinear: taps (dy,dx) = (0,0), (0,1), (1,0), (1,1)
@@ -236,10 +263,10 @@ __device__ inline Accum reproject_pixel(const ReprojArgs& a, int iy, int ix,
   return r;
 }
 
-// The whole image's rows (kernel L)
+// The whole image's pixel (iy, ix) (kernel L, kernel C unsharded)
 template <bool Banded>
 __device__ inline Accum reproject_pixel(const ReprojArgs& a, int iy, int ix) {
-  return reproject_pixel<Banded, false>(a, iy, ix, ReprojRows{});
+  return reproject_pixel<Banded>(a, iy, ix, iy, a.h, ImagePrev{a});
 }
 
 }  // namespace ptdn

@@ -350,32 +350,98 @@ BAND_MARGIN = 16
 
 
 class Rows:
-    """A shard's place in the image for the back-projection: its pixels
-    are image rows row0 .. row0 + h - 1 of a full_h-row image, and the
-    previous frame's planes it is given hold image rows from prev_row0
-    (csrc/reproject.cuh:ReprojRows). None is the whole image."""
+    """A shard's place in the image for the back-projection (csrc/
+    reproject.cu:ReprojShardArgs). Its shard form, which the wrappers of
+    ops/cuda/reproject.py take: `rows` = (row0, full_h), the shard's
+    pixels image rows row0 .. row0 + h - 1 of a full_h-row image, its
+    previous-frame planes its own rows, and `halo` = (top, bottom), the
+    k image rows above and below them packed (prev_pack). Its window form,
+    which their plain versions run: (row0, full_h, prev_row0), the
+    previous frame's planes holding image rows from prev_row0. None is
+    the whole image in both."""
 
     @staticmethod
     def of(rows, h: int):
+        """The window form of `rows` (None: the whole image's h rows)."""
         return (0, h, 0) if rows is None else tuple(int(r) for r in rows)
-
-    @staticmethod
-    def check(rows, h: int, prev_h: int, banded: bool):
-        """Refuse a window of the previous frame that misses a row the
-        taps may read: the whole image for the band mode, else the rows
-        within 2 of the shard's (the stencil's reach) inside the image."""
-        row0, full_h, prev_row0 = Rows.of(rows, h)
-        lo, hi = ((0, full_h) if banded
-                  else (max(row0 - 2, 0), min(row0 + h + 2, full_h)))
-        if prev_row0 > lo or prev_row0 + prev_h < hi:
-            raise ValueError(f"previous rows [{prev_row0}, "
-                             f"{prev_row0 + prev_h}) miss [{lo}, {hi})")
 
     @staticmethod
     def own(prev, rows, h: int):
         """The shard's own rows of a previous-frame window `prev`."""
         row0, _, prev_row0 = Rows.of(rows, h)
         return prev[row0 - prev_row0:row0 - prev_row0 + h]
+
+    @staticmethod
+    def reach(row0: int, h: int, full_h: int, starts=None,
+              band_rows: int = BAND_ROWS, margin: int = BAND_MARGIN):
+        """(above, below): the image rows above and below the shard's rows
+        [row0, row0 + h) that its taps may read, none past the image. In
+        stencil mode (starts None) the stencil's 2. In band mode the rows
+        its bands' slabs reach: a pixel reads taps only where its clipped
+        padded base row lies in its band's slab [start, start + slab_h),
+        image rows start - 1 .. start + slab_h - 2, and one tap row on
+        each side of them; `starts` the image's slab starts (host
+        values)."""
+        if starts is None:
+            return min(2, row0), min(2, full_h - row0 - h)
+        slab = slab_rows(full_h, band_rows, margin)
+        own = [int(s) for s in starts][row0 // band_rows:
+                                       (row0 + h - 1) // band_rows + 1]
+        lo = max(min(own) - 2, 0)
+        hi = min(max(own) + slab - 1, full_h - 1)
+        return max(row0 - lo, 0), max(hi - (row0 + h - 1), 0)
+
+    @staticmethod
+    def check(rows, h: int, halo, starts=None, band_rows: int = BAND_ROWS,
+              margin: int = BAND_MARGIN):
+        """Refuse a shard's halo rows that miss a row its taps may read
+        (Rows.reach; band mode where `starts` is given): rows and halo
+        come together, and k halo rows reach both ways."""
+        if (rows is None) != (halo is None):
+            raise ValueError("a shard passes its rows and its halo rows "
+                             "together")
+        if rows is None:
+            return
+        row0, full_h = (int(r) for r in rows)
+        k = halo[0].shape[0]
+        if halo[1].shape[0] != k:
+            raise ValueError(f"halo rows {halo[0].shape[0]} above, "
+                             f"{halo[1].shape[0]} below")
+        need = max(Rows.reach(row0, h, full_h, starts, band_rows, margin))
+        if k < need:
+            raise ValueError(f"{k} halo rows miss rows the taps of image "
+                             f"rows [{row0}, {row0 + h}) may read: they "
+                             f"reach {need}")
+
+
+def band_halo(starts, h: int, full_h: int, band_rows: int = BAND_ROWS,
+              margin: int = BAND_MARGIN) -> int:
+    """The halo rows of a band-mode back-projection of full_h // h
+    shards of h rows: the largest of Rows.reach over every shard, so that
+    every shard (every rank) exchanges the same rows. `starts` the
+    image's slab starts (host values)."""
+    return max(max(Rows.reach(r0, h, full_h, starts, band_rows, margin))
+               for r0 in range(0, full_h, h))
+
+
+def halo_pack(color_history, moment_history, history_length, prev_normal,
+              prev_geom, k: int) -> torch.Tensor:
+    """The rows of a shard's previous-frame planes (h rows) that a k-row
+    halo of its neighbours reaches, packed as prev_pack: its first k and
+    last k rows, (2k, W, 10), or all of them where 2k >= h. A slab of
+    them gives parallel/halo.py:halo_rows the rows it sends: the last k
+    to the shard below, the first k to the shard above."""
+    def ends(t):
+        h = t.shape[0]
+        if 2 * k >= h:
+            return t
+        return t.as_strided((2, k) + tuple(t.shape[1:]),
+                            ((h - k) * t.stride(0),) + t.stride(),
+                            t.storage_offset())
+    packed = prev_pack(ends(color_history), ends(moment_history),
+                       ends(history_length), ends(prev_normal),
+                       ends(prev_geom))
+    return packed.reshape((-1,) + tuple(packed.shape[-2:]))
 
 
 def slab_rows(h: int, band_rows: int, margin: int) -> int:
@@ -498,7 +564,7 @@ def back_projection_banded(res, current_color, curr_gb, prev_gb,
                            history_length, color_alpha_min,
                            moment_alpha_min, band_rows: int = BAND_ROWS,
                            margin: int = BAND_MARGIN, starts=None,
-                           rows=None):
+                           rows=None, halo=None):
     """Back-projection for any motion with the JAX package's band rule
     (ptdn_tpu/denoise/reproject.py:406 back_projection_banded): per band
     of `band_rows` rows, a slab of band_rows + 2 * margin + 1 padded rows
@@ -509,8 +575,9 @@ def back_projection_banded(res, current_color, curr_gb, prev_gb,
     clamped indices in the plain version), which gives the same values
     wherever a tap is valid. `starts` are band_starts (the tail of
     motion_bounds), computed here when not given. CPU tensors take the
-    plain version; CUDA tensors launch kernel C's band mode. `rows`
-    places a shard (Rows); its starts are then the image's, given."""
+    plain version; CUDA tensors launch kernel C's band mode. `rows` and
+    `halo` place a shard (Rows); its starts are then the image's, given
+    on the host."""
     from ptdn_tpu_torch.ops.cuda import reproject as kernel_c
 
     if starts is None:
@@ -521,18 +588,18 @@ def back_projection_banded(res, current_color, curr_gb, prev_gb,
     return kernel_c.back_projection_banded(
         res, current_color, curr_gb, prev_gb, prev_viewmat, color_history,
         moment_history, history_length, color_alpha_min, moment_alpha_min,
-        starts, band_rows, margin, rows=rows)
+        starts, band_rows, margin, rows=rows, halo=halo)
 
 
 def back_projection_auto(res, current_color, curr_gb, prev_gb, prev_viewmat,
                          color_history, moment_history, history_length,
                          color_alpha_min, moment_alpha_min, near=None,
-                         starts=None, rows=None):
+                         starts=None, rows=None, halo=None):
     """Kernel C (or its plain version on CPU) where the motion allows it,
     else the banded path (back_projection_banded). `near` and `starts`
     are motion_bounds' flag and band starts, computed here (one host
-    read) when not given. `rows` places a shard (Rows), whose previous
-    frame is the stencil's window when near, else the whole image."""
+    read) when not given. `rows` and `halo` place a shard (Rows): its
+    own previous rows and the halo rows its taps reach."""
     from ptdn_tpu_torch.ops.cuda.reproject import back_projection_stencil
 
     if near is None:
@@ -542,5 +609,5 @@ def back_projection_auto(res, current_color, curr_gb, prev_gb, prev_viewmat,
             color_history, moment_history, history_length, color_alpha_min,
             moment_alpha_min)
     if near:
-        return back_projection_stencil(*args, rows=rows)
-    return back_projection_banded(*args, starts=starts, rows=rows)
+        return back_projection_stencil(*args, rows=rows, halo=halo)
+    return back_projection_banded(*args, starts=starts, rows=rows, halo=halo)

@@ -35,14 +35,16 @@ A shard of a taller image (`rows` = (row0, full_h), parallel/sharded.py)
 denoises its own rows, each pixel as the whole image's frame does bit
 for bit. The frame is then a generator (SVGFDenoiser.frame_gen) that
 yields the exchanges its group fulfils (parallel/mesh.py): the branch
-choice's maximum and band sums over the shards (motion_parts), the previous
-frame's rows that the back-projection reads (the stencil's two rows past
-the shard when still, the whole image when moved), native mode's three
-rows of kernel R's inputs, and the à-trous levels' halos through the
-`pyramid` hook (the JAX package's pyramid_override; parallel/sharded.py:
-ShardPyramid). fuse_reproject_l1 is off on a shard, as in the JAX
-package, whose sharded step runs its denoiser on the xla backend that
-the fused kernel's gate excludes (ptdn_tpu/denoise/svgf.py:62-70).
+choice's maximum and band sums over the shards (motion_parts), the
+previous frame's rows that the back-projection reads past the shard's
+own, which it reads in place (the stencil's two when still, the rows
+the bands' slabs reach when moved: band_halo, the same on every shard),
+native mode's three rows of kernel R's inputs, and the à-trous levels'
+halos through the `pyramid` hook (the JAX package's pyramid_override;
+parallel/sharded.py: ShardPyramid). fuse_reproject_l1 is off on a
+shard, as in the JAX package, whose sharded step runs its denoiser on
+the xla backend that the fused kernel's gate excludes
+(ptdn_tpu/denoise/svgf.py:62-70).
 """
 
 from __future__ import annotations
@@ -53,16 +55,18 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from ptdn_tpu_torch.denoise.reproject import (BAND_ROWS, back_projection_auto,
+from ptdn_tpu_torch.denoise.reproject import (BAND_MARGIN, BAND_ROWS,
+                                              back_projection_auto,
                                               back_projection_banded,
-                                              bounds_from_parts,
-                                              motion_bounds, motion_parts,
-                                              prev_pack)
+                                              band_halo, bounds_from_parts,
+                                              halo_pack, motion_bounds,
+                                              motion_parts)
 from ptdn_tpu_torch.denoise.variance import RADIUS
+from ptdn_tpu_torch.ops.cuda import reproject as kernel_c
 from ptdn_tpu_torch.ops.cuda.atrous import atrous_level, pack_static_planes
 from ptdn_tpu_torch.ops.cuda.reproject_atrous import back_projection_atrous1
 from ptdn_tpu_torch.ops.cuda.spatial_variance import spatial_variance_fallback
-from ptdn_tpu_torch.parallel.mesh import Gather, Halo, Reduce
+from ptdn_tpu_torch.parallel.mesh import Halo, Reduce
 
 STATE_KEYS = ("color_history", "moment_history", "history_length",
               "prev_position", "prev_normal", "prev_geom_id", "prev_view")
@@ -83,6 +87,26 @@ def init_denoise_state(resolution, device) -> Dict[str, torch.Tensor]:
                                    device=device),
         "prev_view": torch.eye(4, **f),
     }
+
+
+def shard_back_projection(bp_args, rows, near: bool, starts, k: int):
+    """A shard's back-projection call, as its denoiser makes it (a
+    generator: yields the Halo exchange). `bp_args` are kernel C's
+    arguments (res, ..., moment_alpha_min) over the shard's rows, its
+    previous frame's its own rows as they lie; the k rows of the
+    neighbours' that its taps reach (two when near, band_halo's when
+    moved) come packed (halo_pack) through a Halo. Returns (kernel C's
+    wrapper of the branch (ops/cuda/reproject.py), positional arguments
+    (band mode's ending in the image's `starts` on the host, the band
+    rows and margin), keywords)."""
+    _, _, _, prev_gb, _, ch, mh, hl = bp_args[:8]
+    halo = yield Halo(halo_pack(ch, mh, hl, prev_gb["normal"],
+                                prev_gb["geom_id"], k), k, split=True)
+    kw = {"rows": rows, "halo": halo}
+    if near:
+        return kernel_c.back_projection_stencil, bp_args, kw
+    return (kernel_c.back_projection_banded,
+            bp_args + (starts, BAND_ROWS, BAND_MARGIN), kw)
 
 
 def run_alone(gen):
@@ -170,11 +194,15 @@ class SVGFDenoiser(nn.Module):
         was replaced)."""
         self.near, self.starts, self.moved = None, None, True
         self.static = None
+        # a shard's: the band starts on the host and the halo rows of its
+        # back-projection on a moved frame (band_halo)
+        self.band_starts, self.moved_halo = None, None
 
     def _motion(self, gbuffer, cam_changed):
         """The near/far choice and band starts (motion_bounds), read on
-        the host only when the camera moved this frame or the last; a
-        shard's are reduced over the image first."""
+        the host in one read only when the camera moved this frame or the
+        last; a shard's are reduced over the image first, and its
+        band-mode halo computed from the starts read."""
         if cam_changed or self.moved or self.near is None:
             if self.rows is None:
                 bounds = motion_bounds(self.resolution, gbuffer,
@@ -187,34 +215,38 @@ class SVGFDenoiser(nn.Module):
                 reach = yield Reduce(reach, "max")
                 sums = yield Reduce(torch.stack([total, cnt]), "sum")
                 bounds = bounds_from_parts(reach, sums[0], sums[1], full_h)
-            self.near, self.starts = bool(bounds[0]), bounds[1:]
+            near, *starts = bounds.tolist()
+            self.near, self.starts = bool(near), bounds[1:]
+            if self.rows is not None:
+                self.band_starts = starts
+                self.moved_halo = band_halo(starts, self.resolution[1],
+                                            self.rows[1])
         self.moved = cam_changed
 
-    def _back_projection(self, bp_args):
-        """back_projection_auto; a shard's reads the previous frame's
-        rows that its taps reach: two past its own when still (C's
-        stencil), the whole image when moved (C's band mode)."""
+    def bp_args(self, raw, gbuffer, params):
+        """Kernel C's arguments for the frame of `raw` and `gbuffer`
+        against the history and the previous frame held."""
+        prev_gb = {"position": self.prev_position,
+                   "normal": self.prev_normal,
+                   "geom_id": self.prev_geom_id}
+        return (self.resolution, raw, gbuffer, prev_gb, self.prev_view,
+                self.color_history, self.moment_history,
+                self.history_length, params["color_alpha"],
+                params["moment_alpha"])
+
+    def back_projection(self, bp_args):
+        """back_projection_auto, as a generator; a shard's reads its own
+        previous rows in place and the rows its taps reach past them from
+        its neighbours (shard_back_projection): two when still (C's
+        stencil), the rows its bands' slabs reach when moved (C's band
+        mode, band_halo)."""
         if self.rows is None:
             return back_projection_auto(*bp_args, near=self.near,
                                         starts=self.starts)
-        row0, full_h = self.rows
-        prev = prev_pack(self.color_history, self.moment_history,
-                         self.history_length, self.prev_normal,
-                         self.prev_geom_id)
-        if self.near:
-            win = yield Halo(prev, 2)
-            prev_row0 = row0 - 2
-        else:
-            win = yield Gather(prev)
-            prev_row0 = 0
-        res, raw, gbuffer, _, view, _, _, _, ca, ma = bp_args
-        prev_gb = {"normal": win[..., 6:9].contiguous(),
-                   "geom_id": win[..., 9].to(torch.int32)}
-        return back_projection_auto(
-            res, raw, gbuffer, prev_gb, view, win[..., 0:3].contiguous(),
-            win[..., 3:5].contiguous(), win[..., 5].to(torch.int32), ca, ma,
-            near=self.near, starts=self.starts,
-            rows=(row0, full_h, prev_row0))
+        fn, args, kw = yield from shard_back_projection(
+            bp_args, self.rows, self.near, self.band_starts,
+            2 if self.near else self.moved_halo)
+        return fn(*args, **kw)
 
     def _spatial(self, color, gbuffer, params, history=None, variance=None):
         """Native mode's variance (kernel R, spatial_variance_fallback).
@@ -252,14 +284,8 @@ class SVGFDenoiser(nn.Module):
         filtered rows."""
         cfg = self.cfg
         w, h = self.resolution
-        prev_gb = {"position": self.prev_position,
-                   "normal": self.prev_normal,
-                   "geom_id": self.prev_geom_id}
         sig = (params["sigma_l"], params["sigma_n"], params["sigma_x"])
-        bp_args = ((w, h), raw, gbuffer, prev_gb, self.prev_view,
-                   self.color_history, self.moment_history,
-                   self.history_length, params["color_alpha"],
-                   params["moment_alpha"])
+        bp_args = self.bp_args(raw, gbuffer, params)
         first = 1       # the first à-trous level left to run
         filtering = (cfg.right_view_option not in (1, 2)
                      and cfg.spatial_enable and cfg.atrous_nlevel > 0)
@@ -288,7 +314,7 @@ class SVGFDenoiser(nn.Module):
         elif cfg.temporal_enable:
             yield from self._motion(gbuffer, cam_changed)
             variance, color_acc, moment_acc, hist_up = (
-                yield from self._back_projection(bp_args))
+                yield from self.back_projection(bp_args))
             color_history = color_acc
             if not cfg.compat:
                 # native mode: a history under 4 frames takes the spatial

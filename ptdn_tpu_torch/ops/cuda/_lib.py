@@ -93,8 +93,8 @@ ENTRIES = {
     "ptdn_bounce_fused": [_VP, _VP, _VP],
     "ptdn_deferred_radiance": [_VP, _VP, _VP, _I32, _I32, _VP, _VP],
     "ptdn_scene_intersect": [_VP, _VP, _VP, _I32, _VP],
-    "ptdn_back_projection_stencil": [_VP, _VP, _VP],
-    "ptdn_back_projection_banded": [_VP, _VP, _VP],
+    "ptdn_back_projection_banded": [_VP, _VP],
+    "ptdn_back_projection_shard": [_VP, _I32, _VP],
     "ptdn_back_projection_atrous1": [_VP, _VP],
     "ptdn_atrous_level": [_VP, _I32, _VP],
     "ptdn_atrous_shard": [_VP, _VP],

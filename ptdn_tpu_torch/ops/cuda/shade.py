@@ -103,9 +103,10 @@ def shade_bounce_plain(planes: torch.Tensor, mat_attr: torch.Tensor, *,
                        fd: int, lane0: int, light_pos: Sequence[float],
                        lrad: float, sint: float, alb_skip: bool,
                        shadow_ray: bool, reduce_var: bool,
-                       lights: Optional[torch.Tensor] = None
-                       ) -> torch.Tensor:
-    """Plain PyTorch version of kernel E (see shade_bounce)."""
+                       lights: Optional[torch.Tensor] = None,
+                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of kernel E (see shade_bounce), `out` as
+    there."""
     p = planes.reshape(N_IN + 1, -1)
     s = {"o": (p[I_OX], p[I_OY], p[I_OZ]), "d": (p[I_DX], p[I_DY], p[I_DZ]),
          "t": p[I_T], "n": (p[I_NX], p[I_NY], p[I_NZ]),
@@ -118,11 +119,12 @@ def shade_bounce_plain(planes: torch.Tensor, mat_attr: torch.Tensor, *,
     r = shade(s, seed, mat_attr, light_pos, lrad, sint, alb_skip,
               shadow_ray, reduce_var, lights)
     rad = tuple(p[k] + e for k, e in zip((I_RR, I_RG, I_RB), r["er"]))
-    out = (*r["d"], *r["sp"], *r["tr"], *rad, _mask(r["dif"]),
-           _mask(r["act"]), *r["sd"], *r["c"], _mask(r["nee"]))
+    o = (*r["d"], *r["sp"], *r["tr"], *rad, _mask(r["dif"]),
+         _mask(r["act"]), *r["sd"], *r["c"], _mask(r["nee"]))
     if lights is not None:
-        out += (r["li"].to(torch.float32),)
-    return torch.stack(out).reshape((len(out),) + tuple(planes.shape[1:]))
+        o += (r["li"].to(torch.float32),)
+    res = torch.stack(o).reshape((len(o),) + tuple(planes.shape[1:]))
+    return res if out is None else out.copy_(res)
 
 
 def shade_bounce(planes: torch.Tensor, mat_attr: torch.Tensor, *, fd: int,
@@ -151,10 +153,7 @@ def shade_bounce(planes: torch.Tensor, mat_attr: torch.Tensor, *, fd: int,
               sint=sint, alb_skip=alb_skip, shadow_ray=shadow_ray,
               reduce_var=reduce_var, lights=lights)
     if planes.device.type == "cpu":
-        res = shade_bounce_plain(planes, mat_attr, **kw)
-        if out is None:
-            return res
-        return out.copy_(res)
+        return shade_bounce_plain(planes, mat_attr, **kw, out=out)
     return _shade_bounce_kernel(planes, mat_attr, **kw, out=out)
 
 

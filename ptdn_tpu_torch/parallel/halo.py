@@ -29,7 +29,11 @@ def halo_rows(group, slabs: List[torch.Tensor],
     `halo` image rows above and below it, (halo, ...) each, zeros past
     the image, as two lists over the held shards. A one-hop halo is the
     neighbour's rows as its group gives them (the in-process group's:
-    views of the neighbours' slabs, no copy)."""
+    views of the neighbours' slabs, no copy); a halo of 0 rows moves
+    nothing."""
+    if halo == 0:
+        none = [s[:0] for s in slabs]
+        return none, none
     h = slabs[0].shape[0]
     hops = -(-halo // h)
     far = halo - (hops - 1) * h       # the rows of the farthest shard

@@ -5,8 +5,8 @@ As there, the image's rows split evenly into shards, the scene is
 replicated, and the flat ray axis x + y*W is the same contiguous
 partition, so the tracer needs no exchange. A shard's frame step
 (parallel/sharded.py) is a generator that yields the few exchanges its
-denoiser needs (Halo, Gather, Reduce, below) and returns the shard's
-images; its group drives the generators of the shards it holds in lock
+denoiser needs (Halo and Reduce, below) and returns the shard's images;
+its group drives the generators of the shards it holds in lock
 step and fulfils each exchange for all of them at once (ShardGroup.run).
 The same step code thus runs on both groups:
 
@@ -40,12 +40,6 @@ class Halo:
 
 
 @dataclasses.dataclass
-class Gather:
-    """Exchange: the image's rows of which `x` is the shard's."""
-    x: torch.Tensor
-
-
-@dataclasses.dataclass
 class Reduce:
     """Exchange: `x` reduced over the shards by `op`, "sum" or "max"."""
     x: torch.Tensor
@@ -60,7 +54,7 @@ class ShardGroup:
 
     n: int
     held: List[int]
-    # exchanges fulfilled, by kind ("Halo", "Gather", "Reduce")
+    # exchanges fulfilled, by kind ("Halo", "Reduce")
     exchanges: collections.Counter
 
     def shift(self, xs: List[torch.Tensor], k: int) -> List[torch.Tensor]:
@@ -93,8 +87,6 @@ class ShardGroup:
                 return list(zip(tops, bottoms))
             return [torch.cat((t, x, b)) for t, x, b in zip(tops, xs,
                                                              bottoms)]
-        if kind is Gather:
-            return [self.gather(xs)] * len(xs)
         if kind is Reduce:
             return [self.reduce(xs, reqs[0].op)] * len(xs)
         raise TypeError(f"not an exchange: {reqs[0]!r}")

@@ -24,14 +24,15 @@ from typing import Dict, List, Tuple
 
 import torch
 
-from ptdn_tpu_torch.denoise.svgf import Pyramid
+from ptdn_tpu_torch.denoise.reproject import band_halo
+from ptdn_tpu_torch.denoise.svgf import Pyramid, shard_back_projection
 from ptdn_tpu_torch.engine.renderer import Renderer
 from ptdn_tpu_torch.engine.step import FrameStep
 from ptdn_tpu_torch.engine.wavefront import PathTracer
 from ptdn_tpu_torch.ops.cuda.atrous import (atrous_halo, atrous_level,
                                             pack_static_planes,
                                             packed_level_input)
-from ptdn_tpu_torch.parallel.mesh import Halo, ShardGroup
+from ptdn_tpu_torch.parallel.mesh import Halo, InProcessGroup, ShardGroup
 
 # frame-state keys that are image rows (H, W, ...) or flat rays (H * W,
 # ...), the same contiguous partition (ptdn_tpu/parallel/sharded.py:
@@ -51,6 +52,31 @@ def shard_rows(group: ShardGroup, height: int) -> List[Tuple[int, int]]:
                          f"{group.n} shards")
     h = height // group.n
     return [(i * h, h) for i in group.held]
+
+
+def back_projection_shards(args, n: int, starts=None, k=None):
+    """Kernel C's shard-form calls (ops/cuda/reproject.py) of n row
+    shards of the whole image's call `args` (res, ..., moment_alpha_min),
+    each made by svgf.shard_back_projection, as the sharded denoiser
+    makes it, its Halo fulfilled by an in-process group: k halo rows, 2
+    in stencil mode, band_halo's in band mode (`starts`: the image's band
+    starts on the host), or `k`. Returns ([(positional arguments,
+    keywords)], k), the band mode's positional arguments ending in
+    (starts, band_rows, margin)."""
+    (w, h), color, gb, prev_gb, view, ch, mh, hl, ca, ma = args
+    rows = h // n
+    if k is None:
+        k = 2 if starts is None else band_halo(starts, rows, h)
+    gens = []
+    for r0 in range(0, h, rows):
+        r = slice(r0, r0 + rows)
+        sargs = ((w, rows), color[r], {key: v[r] for key, v in gb.items()},
+                 {"normal": prev_gb["normal"][r],
+                  "geom_id": prev_gb["geom_id"][r]}, view, ch[r], mh[r],
+                 hl[r], ca, ma)
+        gens.append(shard_back_projection(sargs, (r0, h), starts is None,
+                                          starts, k))
+    return [(a, kw) for _, a, kw in InProcessGroup(n).run(gens)], k
 
 
 class ShardPyramid(Pyramid):

@@ -34,20 +34,29 @@ library's, and csrc/scene/*.cu with cornell's scene header) and DIR's
 copy of it to PTX, and compares them entry by entry, up to the hash of
 the file's path that nvcc puts in internal names (a source DIR lacks,
 and an entry of a shared source that DIR's lacks, are listed as new).
---dc DIR builds DIR's copy of csrc/atrous.cu and csrc/reproject.cu
-(another tree's, whose C entries may lack the row offset) and runs D at
-every level and C's stencil and band modes of cornell 800 x 800's fourth
-frame (the band mode on a moved view) through both builds, unsharded:
-each output equal bit for bit, each timed in turns.
+--dc DIR builds DIR's copy of csrc/atrous.cu, csrc/reproject.cu and
+csrc/reproject_atrous.cu (another tree's, whose C entries may take a
+row offset, ReprojRows, as older trees' did) and runs D at every
+level, C's stencil and band modes and L on cornell 800 x 800's fourth
+frame (the band mode on a moved view) through both builds, unsharded,
+C also on room 1920 x 1080's, and its band mode through this tree's
+shard kernel with no halo rows (its stencil mode launches that kernel
+unsharded): each output equal bit for bit, each timed in turns.
 --shard NAME=DIR (repeatable) builds DIR's copy of csrc/atrous.cu and
-runs D's shard mode at every level on cornell 800 x 800's fourth frame
-split into 4, 8 and 16 row shards through this tree's build and DIR's:
-DIR's own shard entry where its source has one (a variant of this
-tree's shard kernel), else the level as an older tree's D took a shard
-(its input extended by its halo rows into one buffer, the unsharded
-entry with a halo); every shard's output equal bit for bit to this
-tree's and the shards' rows to the unsharded level's, one shard of 8
-and each count's sum timed in turns.
+csrc/reproject.cu and runs, on cornell 800 x 800's fourth frame split
+into 4, 8 and 16 row shards, through this tree's build and DIR's:
+D's shard mode at every level (DIR's own shard entry where its source
+has one (a variant of this tree's shard kernel), else the level as an
+older tree's D took a shard: its input extended by its halo rows into
+one buffer, the unsharded entry with a halo), and C's shard mode in
+both modes (the band mode on a moved view; DIR's own shard entry where
+its source has one, else the row offset as an older tree's C took a
+shard: the window of its halo rows, its own rows and its halo rows
+built into planes outside the timing, as such a tree's denoiser built
+it per frame); every shard's output equal bit for bit to this tree's and the
+shards' rows to the unsharded kernel's, one shard of 8 and each count's
+sum timed in turns beside the unsharded launch, and C's band shard kernel
+on the whole image (no halo rows) beside it.
 --frames times still cornell (the whole path) and bunny and room
 through the fused per-bounce engine, ms/frame over 20 frames after 3,
 through this tree's renderer. Prints one line per case and build with the card's name and
@@ -76,6 +85,7 @@ from ptdn_tpu_torch.engine import Renderer
 from ptdn_tpu_torch.ops.cuda import _lib
 from ptdn_tpu_torch.ops.cuda import atrous as D
 from ptdn_tpu_torch.ops.cuda import reproject as C
+from ptdn_tpu_torch.ops.cuda import reproject_atrous as RA
 from ptdn_tpu_torch.ops.cuda import dyngather as O
 from ptdn_tpu_torch.ops.cuda import intersect_v1 as P
 from ptdn_tpu_torch.ops.cuda import scene_intersect as A
@@ -83,6 +93,7 @@ from ptdn_tpu_torch.ops.cuda import texgather as N
 from ptdn_tpu_torch.probes import dyngather as probe_o
 from ptdn_tpu_torch.probes import intersect_v1 as probe_p
 from ptdn_tpu_torch.probes import texgather as probe_n
+from ptdn_tpu_torch.parallel.sharded import back_projection_shards
 from ptdn_tpu_torch.scene import Scene
 from ptdn_tpu_torch.utils.assets import scene_path
 from ptdn_tpu_torch.utils.card import (bound, card_name, cuda_ms, in_turns,
@@ -223,22 +234,59 @@ def older_level(lib, color, var, static, albedo, level, sl, sn, sx, blur,
     return out, var_out
 
 
-def run_dc(other, reps):
-    """D at every level and C in both modes of cornell 800x800's fourth
-    frame through this tree's build and `other`'s (a csrc directory),
-    unsharded: equal bit for bit, timed in turns."""
-    src = pathlib.Path(other)
-    rows_entry = "ReprojRows" in (src / "reproject.cu").read_text()
-    c_args = [_lib._VP] * (3 if rows_entry else 2)
-    lib, _ = _lib.build_variant("dc", [src / "atrous.cu",
-                                       src / "reproject.cu"], {
-        "ptdn_atrous_level": _lib.ENTRIES["ptdn_atrous_level"],
-        "ptdn_back_projection_stencil": c_args,
-        "ptdn_back_projection_banded": c_args})
+class OlderReprojRows(ctypes.Structure):
+    """csrc/reproject.cuh:ReprojRows of an older tree, which every C
+    entry there took: the launch's rows in the image and the first row
+    of the previous frame's window."""
+    _fields_ = [(k, ctypes.c_int) for k in ("row0", "full_h", "prev_row0")]
+
+
+def older_c(lib, name, args, band=None, rows=None):
+    """An older tree's C (`lib`, entry ptdn_<name>) on the whole image
+    (rows None) or on a shard's window form (rows = (row0, full_h,
+    prev_row0), the previous frame's planes its window), with a
+    ReprojRows argument where its source takes one (`lib.rows_entry`)."""
+    h = args[0][1]
+    c_args, outs = C.reproj_args(*args, name=name, band=band,
+                                 full_h=None if rows is None else rows[1])
+    extra = ()
+    if lib.rows_entry:
+        extra = (OlderReprojRows(*(rows or (0, h, 0))),)
+    _lib.launch("ptdn_" + name, c_args, *extra, lib=lib)
+    return outs
+
+
+def c_variant(name: str, sources):
+    """DIR's C (csrc/reproject.cu among `sources`, built with them) with
+    its entries declared: its shard entry where it has one (lib.own),
+    else the row-offset entries of an older tree (lib.rows_entry) or the
+    plain ones."""
+    text = next(pathlib.Path(s) for s in sources
+                if pathlib.Path(s).name == "reproject.cu").read_text()
+    own = "ptdn_back_projection_shard" in text
+    rows_entry = "ReprojRows" in text and not own
+    c_entry = [_lib._VP] * (3 if rows_entry else 2)
+    entries = {"ptdn_back_projection_stencil": c_entry,
+               "ptdn_back_projection_banded": c_entry}
+    if own:
+        entries["ptdn_back_projection_shard"] = _lib.ENTRIES[
+            "ptdn_back_projection_shard"]
+    return entries, own, rows_entry
+
+
+# the images C is compared on unsharded (--dc): the headline's and
+# room's at bench.py's 1080p
+C_IMAGES = (("cornell", (800, 800)), ("room", (1920, 1080)))
+
+
+def fourth_frame(scene="cornell", res=(800, 800)):
+    """`scene`'s fourth frame at `res` (cornell 800x800's by default):
+    (renderer, frame state, radiance (H, W, 3), G-buffer planes (H, W,
+    ...))."""
     cfg = RenderConfig(trace_depth=8, denoise_enable=True,
                        temporal_enable=True, spatial_enable=True,
                        atrous_nlevel=5)
-    r = Renderer(Scene(scene_path("cornell")), cfg, (800, 800), "cuda")
+    r = Renderer(Scene(scene_path(scene)), cfg, res, "cuda")
     for _ in range(3):
         r.render_frame()
     st = r.step.frame_state()
@@ -246,21 +294,21 @@ def run_dc(other, reps):
     w, h = r.resolution
     gb = {k: v.reshape((h, w) + tuple(v.shape[1:])).contiguous()
           for k, v in gb.items()}
-    moved = torch.eye(4, device="cuda")
+    return r, st, rad.reshape(h, w, 3), gb
+
+
+def c_modes(st, rad, gb):
+    """C's two modes on the fourth frame: name -> (the whole image's
+    arguments, the band mode's (starts, band_rows, margin) on the device
+    or None): the stencil on the still view, the band mode on a view
+    moved by 0.3 across."""
+    h, w = rad.shape[:2]
+    moved = torch.eye(4, device=rad.device)
     moved[0, 3] = 0.3
     out = {}
-
-    def theirs_c(name, args, band=None):
-        c_args, outs = C.reproj_args(*args, name=name, band=band,
-                                     rows=(0, h, 0) if rows_entry else None)
-        if not rows_entry:
-            c_args = (c_args,)
-        _lib.launch("ptdn_" + name, *c_args, lib=lib)
-        return outs
-
     for name, view in (("back_projection_stencil", st["prev_view"]),
                        ("back_projection_banded", st["prev_view"] @ moved)):
-        args = ((w, h), rad.reshape(h, w, 3), gb,
+        args = ((w, h), rad, gb,
                 {"normal": st["prev_normal"], "geom_id": st["prev_geom_id"]},
                 view, st["color_history"], st["moment_history"],
                 st["history_length"], 0.2, 0.2)
@@ -268,18 +316,65 @@ def run_dc(other, reps):
         if name == "back_projection_banded":
             band = (trep.motion_bounds((w, h), gb, view)[1:], trep.BAND_ROWS,
                     trep.BAND_MARGIN)
-        fns = {"this tree": (
-            (lambda: C._back_projection_banded_kernel(*args, *band))
-            if band else (lambda: C._back_projection_stencil_kernel(*args))),
-            other: lambda: theirs_c(name, args, band)}
-        got = [fn() for fn in fns.values()]
-        if not all(torch.equal(a, b) for a, b in zip(*got)):
-            raise RuntimeError(f"C {name}: the builds differ")
-        out[name] = in_turns(fns, reps)
-    stencil = C._back_projection_stencil_kernel(*args[:4], st["prev_view"],
-                                                *args[5:])
-    var, color = stencil[0], stencil[1]
+        out[name] = (args, band)
+    return out
+
+
+def whole_shard(args, band):
+    """C's shard kernel in band mode on the whole image's call (rows (0,
+    h), no halo rows, the starts read to the host); the whole image's
+    stencil mode launches it as it is."""
+    none = args[1].new_empty((0, args[0][0], C.PACKED))
+    return functools.partial(C._back_projection_banded_kernel, *args,
+                             band[0].tolist(), *band[1:],
+                             rows=(0, args[0][1]), halo=(none, none))
+
+
+def run_dc(other, reps):
+    """D at every level, C in both modes and L of cornell 800x800's
+    fourth frame through this tree's build and `other`'s (a csrc
+    directory), unsharded, C also on room 1920x1080's and its band mode
+    through this tree's shard kernel (whole_shard): equal bit for bit,
+    timed in turns."""
+    src = pathlib.Path(other)
+    sources = [src / "atrous.cu", src / "reproject.cu",
+               src / "reproject_atrous.cu"]
+    entries, _, rows_entry = c_variant("dc", sources)
+    lib, _ = _lib.build_variant("dc", sources, {
+        "ptdn_atrous_level": _lib.ENTRIES["ptdn_atrous_level"],
+        "ptdn_back_projection_atrous1": _lib.ENTRIES[
+            "ptdn_back_projection_atrous1"], **entries})
+    lib.rows_entry = rows_entry
+    out = {}
+    for scene, res in reversed(C_IMAGES):
+        r, st, rad, gb = fourth_frame(scene, res)
+        for name, (args, band) in c_modes(st, rad, gb).items():
+            kernel = (C._back_projection_banded_kernel if band
+                      else C._back_projection_stencil_kernel)
+            fns = {"this tree": functools.partial(kernel, *args,
+                                                  *(band or ())),
+                   other: functools.partial(older_c, lib, name, args, band)}
+            if band:
+                fns["the shard kernel"] = whole_shard(args, band)
+            got = [fn() for fn in fns.values()]
+            if not all(torch.equal(a, b) for g in got[1:]
+                       for a, b in zip(got[0], g)):
+                raise RuntimeError(f"C {name}, {scene}: the builds differ")
+            key = name if scene == "cornell" else (
+                f"{name} {scene} {res[0]}x{res[1]}")
+            out[key] = in_turns(fns, reps)
+    args = c_modes(st, rad, gb)["back_projection_stencil"][0]
     static = D.pack_static_planes(gb["position"], gb["normal"])
+    l_args = args + (0.45, 0.2, 0.35, True, static)
+    fns = {"this tree": lambda: RA._back_projection_atrous1_kernel(*l_args),
+           other: lambda: _lib.with_lib(
+               lib, lambda: RA._back_projection_atrous1_kernel(*l_args))}
+    got = [fn() for fn in fns.values()]
+    if not all(torch.equal(a, b) for a, b in zip(*got)):
+        raise RuntimeError("L: the builds differ")
+    out["back_projection_atrous1"] = in_turns(fns, reps)
+    stencil = C._back_projection_stencil_kernel(*args)
+    var, color = stencil[0], stencil[1]
     albedo = (gb["albedo"] * gb["ialbedo"]).contiguous()
     for level in range(1, 6):
         dargs = (color, var, static, albedo if level == 5 else None, level,
@@ -330,39 +425,81 @@ def extended_shard(lib, call, ext):
 
 
 def run_shard(specs, reps):
-    """D's shard mode at every level of cornell 800x800's fourth frame
-    on SHARD_COUNTS shards through this tree's build and each of `specs`
-    (NAME=DIR, DIR a csrc copy): equal bit for bit to this tree's and to
-    the unsharded level, one shard of 8 and each count's sum timed in
-    turns."""
+    """D's shard mode at every level and C's shard mode in both modes of
+    cornell 800x800's fourth frame on SHARD_COUNTS shards through this
+    tree's build and each of `specs` (NAME=DIR, DIR a csrc copy): equal
+    bit for bit to this tree's and to the unsharded kernel, one shard of
+    8 and each count's sum timed in turns."""
     builds = {}
     for spec in specs:
         name, src = spec.split("=", 1)
-        own = "ptdn_atrous_shard" in (pathlib.Path(src) / "atrous.cu"
-                                      ).read_text()
+        sources = [pathlib.Path(src) / "atrous.cu",
+                   pathlib.Path(src) / "reproject.cu"]
+        own = "ptdn_atrous_shard" in sources[0].read_text()
         entry = "ptdn_atrous_shard" if own else "ptdn_atrous_level"
-        lib, _ = _lib.build_variant(f"shard-{name}", [
-            pathlib.Path(src) / "atrous.cu"], {entry: _lib.ENTRIES[entry]})
-        builds[name] = (lib, own)
-    cfg = RenderConfig(trace_depth=8, denoise_enable=True,
-                       temporal_enable=True, spatial_enable=True,
-                       atrous_nlevel=5)
-    r = Renderer(Scene(scene_path("cornell")), cfg, (800, 800), "cuda")
-    for _ in range(3):
-        r.render_frame()
-    st = r.step.frame_state()
-    rad, gb = r.step.tracer(r._cam[0], r._params, 3, False)
-    w, h = r.resolution
-    gb = {k: v.reshape((h, w) + tuple(v.shape[1:])).contiguous()
-          for k, v in gb.items()}
+        c_entries, c_own, rows_entry = c_variant(name, sources)
+        lib, _ = _lib.build_variant(f"shard-{name}", sources, {
+            entry: _lib.ENTRIES[entry], **c_entries})
+        lib.rows_entry = rows_entry
+        builds[name] = (lib, own, c_own)
+    r, st, rad, gb = fourth_frame()
+    h, w = rad.shape[:2]
+    out = {}
+    modes = c_modes(st, rad, gb)
+    for mode, (args, band) in modes.items():
+        kernel = (C._back_projection_banded_kernel if band
+                  else C._back_projection_stencil_kernel)
+        whole = kernel(*args, *(band or ()))
+        fns = {"unsharded": functools.partial(kernel, *args, *(band or ()))}
+        starts = None if band is None else band[0].tolist()
+        if band:
+            # the whole image through the shard kernel: rows (0, h), no
+            # halo (the unsharded stencil mode's launch)
+            one = whole_shard(args, band)
+            if not all(torch.equal(a, b) for a, b in zip(one(), whole)):
+                raise RuntimeError("C's band shard kernel on the whole "
+                                   "image: not the unsharded kernel's")
+            fns["the shard kernel on the whole image"] = one
+        for n in SHARD_COUNTS:
+            calls = back_projection_shards(args, n, starts)[0]
+            # an older tree's form: the window's planes, made outside
+            # the timing
+            windows = []
+            for sargs, kw in calls:
+                wargs, wrows = C.shard_window(sargs[:10], kw["rows"],
+                                              kw["halo"])
+                wargs = tuple({k: v.contiguous() for k, v in a.items()}
+                              if isinstance(a, dict) else
+                              a.contiguous() if torch.is_tensor(a) else a
+                              for a in wargs)
+                windows.append((wargs, wrows))
+
+            def each(lib, c_own, calls=calls, windows=windows):
+                if lib is None or c_own:
+                    return [_lib.with_lib(lib, lambda a=a, kw=kw: kernel(
+                        *a, **kw)) for a, kw in calls]
+                return [older_c(lib, mode, wa, band, wr)
+                        for wa, wr in windows]
+            runs = {"this tree": (None, True), **{
+                k: (lib, c_own) for k, (lib, _, c_own) in builds.items()}}
+            for name, (lib, c_own) in runs.items():
+                got = each(lib, c_own)
+                for i in range(4):
+                    if not torch.equal(torch.cat([g[i] for g in got]),
+                                       whole[i]):
+                        raise RuntimeError(f"C's shard mode, {name}, {mode}, "
+                                           f"{n} shards: not the unsharded "
+                                           f"kernel's rows")
+                fns[f"{name} {n} shards"] = functools.partial(each, lib,
+                                                              c_own)
+                if n == 8:
+                    fns[f"{name} one shard of 8"] = functools.partial(
+                        each, lib, c_own, calls[1:2], windows[1:2])
+        out[mode] = in_turns(fns, reps)
     var, color = C._back_projection_stencil_kernel(
-        (w, h), rad.reshape(h, w, 3), gb,
-        {"normal": st["prev_normal"], "geom_id": st["prev_geom_id"]},
-        st["prev_view"], st["color_history"], st["moment_history"],
-        st["history_length"], 0.2, 0.2)[:2]
+        *modes["back_projection_stencil"][0])[:2]
     static = D.pack_static_planes(gb["position"], gb["normal"])
     albedo = (gb["albedo"] * gb["ialbedo"]).contiguous()
-    out = {}
     for level in range(1, 6):
         alb = albedo if level == 5 else None
         whole = D._atrous_level_kernel(color, var, static, alb, level, 0.45,
@@ -377,7 +514,8 @@ def run_shard(specs, reps):
                     return [_lib.with_lib(lib, lambda c=c: (
                         D._atrous_level_kernel(*c))) for c, _ in calls]
                 return [extended_shard(lib, c, e) for c, e in calls]
-            runs = {"this tree": (None, True), **builds}
+            runs = {"this tree": (None, True), **{
+                k: (lib, own) for k, (lib, own, _) in builds.items()}}
             for name, (lib, own) in runs.items():
                 got = each(lib, own)
                 for i in (0, 1):
@@ -474,10 +612,11 @@ def main(argv=None):
     ap.add_argument("--ptx", metavar="DIR",
                     help="compare every other kernel's PTX with DIR's")
     ap.add_argument("--dc", metavar="DIR",
-                    help="D and C beside DIR's copy, equal and timed")
+                    help="D, C and L beside DIR's copy, equal and timed")
     ap.add_argument("--shard", action="append", default=[],
                     metavar="NAME=DIR",
-                    help="D's shard mode beside DIR's, equal and timed")
+                    help="D's and C's shard modes beside DIR's, equal and "
+                         "timed")
     ap.add_argument("--frames", action="store_true")
     ap.add_argument("--out")
     args = ap.parse_args(argv)

@@ -283,40 +283,24 @@ def test_halo_rows_send_only_the_reached_rows(n, halo):
             assert b.data_ptr() == slabs[i + 1].data_ptr()
 
 
+def test_halo_rows_of_no_rows_send_nothing():
+    """A halo of 0 rows (a band-mode back-projection whose bands' slabs
+    stay within every shard, as in a group of one shard) is empty rows,
+    with no exchange."""
+    group, sent = InProcessGroup(2), []
+    group.shift = lambda xs, k: sent.append(k)
+    slabs = list(torch.arange(48.0).reshape(2, 4, 6))
+    tops, bottoms = halo_rows(group, slabs, 0)
+    assert not sent
+    assert all(t.shape == b.shape == (0, 6) for t, b in zip(tops, bottoms))
+
+
 # ---------------------------------------------------------------------------
 # kernel C's row offset
 
-def _shard_reproj(args, hl, banded, starts=None):
-    """Kernel C (plain) on each hl-row shard of `args` (the unsharded
-    call's arguments): the shard's current rows, the previous frame's
-    stencil window (two rows past the shard, zeros past the image) or
-    the whole previous frame for the band mode."""
-    (w, h), color, gb, prev_gb, view, ch, mh, hl_prev, ca, ma = args
-    prev = [prev_gb["normal"], prev_gb["geom_id"], ch, mh, hl_prev]
-    outs = []
-    for r0 in range(0, h, hl):
-        cur = slice(r0, r0 + hl)
-        if banded:
-            win, p0 = prev, 0
-        else:
-            win, p0 = [_padded(t, 2)[r0:r0 + hl + 4] for t in prev], r0 - 2
-        sargs = ((w, hl), color[cur], {k: v[cur] for k, v in gb.items()},
-                 {"normal": win[0], "geom_id": win[1]}, view, win[2], win[3],
-                 win[4], ca, ma)
-        if banded:
-            outs.append(C.back_projection_banded(
-                *sargs, starts, trep.BAND_ROWS, trep.BAND_MARGIN,
-                rows=(r0, h, p0)))
-        else:
-            outs.append(C.back_projection_stencil(*sargs, rows=(r0, h, p0)))
-    return [torch.cat([o[k] for o in outs]) for k in range(4)]
-
-
-@pytest.mark.parametrize("hl", [8, 20])
-def test_stencil_row_offset_equals_unsharded(hl):
-    """C's stencil mode with a row offset on shards of test_torch_kernels'
-    40x48 still-camera inputs against the unsharded pass's rows: bit for
-    bit, every output."""
+def _stencil_args():
+    """test_torch_kernels' 40x48 still-camera inputs as the unsharded
+    call's arguments (every base within a pixel: C's stencil domain)."""
     res, cur, st = _reproj_inputs(7)
     t = {k: torch.from_numpy(np.array(v)) for k, v in st.items()}
     gb = {k: torch.from_numpy(cur[k]) for k in ("position", "normal",
@@ -326,23 +310,41 @@ def test_stencil_row_offset_equals_unsharded(hl):
             t["prev_view"], t["color_history"], t["moment_history"],
             t["history_length"], 0.2, 0.2)
     assert bool(trep.motion_bounds(res, gb, t["prev_view"])[0])
-    want = C.back_projection_stencil(*args)
-    for g, w_ in zip(_shard_reproj(args, hl, False), want):
-        assert torch.equal(g, w_)
+    return args
 
 
-def test_band_row_offset_equals_unsharded():
-    """C's band mode with a row offset on 4 shards of 48 rows of a
-    192x48 pan with one pixel flowing 40 rows down (out of its band's
-    slab: rejected); bands of 64 rows straddle the shards. Each shard's
-    motion parts reduced over the group give motion_bounds' flag and
-    band starts; the shards' rows equal the unsharded pass's: bit for
-    bit."""
+def _pan_args(edges=False):
+    """A 192x48 pan (3 px a frame across) with one pixel (row 60, col 7)
+    flowing 40 rows down, out of its band's slab (rejected), and the
+    image's band starts from its shards' motion parts reduced over 4
+    shards (motion_bounds' bit for bit): (args, starts on the host). With
+    `edges`, 4 pixels of every row flow to the last row of their band's
+    slab and 4 to its first (the starts stay [0, 48, 97]), each with a
+    history and its geom and normal those of the previous frame at its
+    base (a valid tap), so that taps read every row the band rule lets
+    them."""
     h, w = 192, 48
     dy = np.zeros((h, w), np.float32)
+    if edges:
+        slab = trep.slab_rows(h, trep.BAND_ROWS, trep.BAND_MARGIN)
+        start = np.array([0, 48, 97])[np.arange(h) // trep.BAND_ROWS]
+        # padded slab rows [start, start + slab): image rows start - 1 ..
+        # start + slab - 2
+        dy[:, 20:24] = (start + slab - 2 - np.arange(h))[:, None]
+        dy[:, 24:28] = (start - 1 - np.arange(h))[:, None]
     dy[60, 7] = 40.0
     dx = np.full((h, w), 3.0, np.float32)
-    args = _torch(_motion_args(h, w, dy, dx))
+    args = _motion_args(h, w, dy, dx)
+    if edges:
+        cur, prev = args[2], args[3]
+        for y in range(h):
+            for x in range(20, 28):
+                by, bx = y + int(dy[y, x]), x + 3
+                if 0 <= by < h:
+                    prev["geom_id"][by, bx] = cur["geom_id"][y, x] = 1
+                    cur["normal"][y, x] = prev["normal"][by, bx]
+                    args[7][y, x] = 3
+    args = tuple(_torch(args))
     res, _, gb, _, view = args[:5]
     want_bounds = trep.motion_bounds(res, gb, view)
     group = InProcessGroup(4)
@@ -354,26 +356,328 @@ def test_band_row_offset_equals_unsharded():
     sums = group.reduce([torch.stack(p[1:]) for p in parts], "sum")
     bounds = trep.bounds_from_parts(reach, sums[0], sums[1], h)
     assert torch.equal(bounds, want_bounds) and not bool(bounds[0])
-    want = C.back_projection_banded(*args, bounds[1:], trep.BAND_ROWS,
-                                    trep.BAND_MARGIN)
+    if edges:
+        assert bounds[1:].tolist() == [0, 48, 97]
+    return args, bounds[1:].tolist()
+
+
+def _shard_calls(args, hl, starts=None, k=None):
+    """parallel/sharded.py:back_projection_shards on hl-row shards:
+    [(shard args without the band's, rows, halo)], k."""
+    calls, k = S.back_projection_shards(args, args[0][1] // hl, starts, k)
+    return [(a[:10], kw["rows"], kw["halo"]) for a, kw in calls], k
+
+
+def _window_call(args, sargs, rows, k):
+    """The window form of a shard-form call, built from the image
+    directly: the previous frame's rows from k above the shard's to k
+    below (zeros past the image)."""
+    prev_gb, ch, mh, hl_prev = args[3], *args[5:8]
+    r0, h = rows
+    hl = sargs[0][1]
+    win = [_padded(t, k)[r0:r0 + hl + 2 * k] for t in (
+        prev_gb["normal"], prev_gb["geom_id"], ch, mh, hl_prev)]
+    wargs = (sargs[:3] + ({"normal": win[0], "geom_id": win[1]}, sargs[4])
+             + tuple(win[2:]) + sargs[8:])
+    return wargs, (r0, h, r0 - k)
+
+
+def _check_shards(args, hl, starts=None, k=None):
+    """Every hl-row shard's shard-form call (plain) equals the window
+    form's plain version and the unsharded pass's rows, bit for bit, every
+    output."""
+    h = args[0][1]
+    band = () if starts is None else (starts, trep.BAND_ROWS,
+                                      trep.BAND_MARGIN)
+    if starts is None:
+        want = C.back_projection_stencil(*args)
+        fn, window_fn = (C.back_projection_stencil,
+                         C.back_projection_stencil_window_plain)
+    else:
+        want = C.back_projection_banded(*args, torch.tensor(
+            starts, dtype=torch.int32), *band[1:])
+        fn, window_fn = (C.back_projection_banded,
+                         C.back_projection_banded_window_plain)
+    calls, k = _shard_calls(args, hl, starts, k)
+    got = []
+    for sargs, rows, halo in calls:
+        out = fn(*sargs, *band, rows=rows, halo=halo)
+        wargs, wrows = _window_call(args, sargs, rows, k)
+        for g, w_ in zip(out, window_fn(*wargs, *band, rows=wrows)):
+            assert torch.equal(g, w_)
+        got.append(out)
+    for i, w_ in enumerate(want):
+        assert torch.equal(torch.cat([g[i] for g in got]), w_)
+    return want, k
+
+
+@pytest.mark.parametrize("hl", [1, 2, 8, 20])
+def test_stencil_row_offset_equals_unsharded(hl):
+    """C's stencil mode in shard form (its own rows in place, 2 halo rows
+    from halo_pack through halo_rows: two hops on 1-row shards) on shards
+    of test_torch_kernels' 40x48 still-camera inputs, against the window
+    form's plain version and the unsharded pass's rows: bit for bit,
+    every output."""
+    _check_shards(_stencil_args(), hl)
+
+
+def test_band_row_offset_equals_unsharded():
+    """C's band mode in shard form on 4 shards of 48 rows of a 192x48 pan
+    with one pixel flowing 40 rows down (out of its band's slab:
+    rejected); bands of 64 rows straddle the shards. Each shard's motion
+    parts reduced over the group give motion_bounds' flag and band starts;
+    the halo is band_halo's, the rows the shards' bands' slabs reach (50:
+    two hops); the shards' rows equal the window form's plain version and
+    the unsharded pass's: bit for bit."""
+    args, starts = _pan_args()
+    want, k = _check_shards(args, 48, starts)
     assert int(want[3][60, 7]) == 1
-    for g, w_ in zip(_shard_reproj(args, 48, True, bounds[1:]), want):
-        assert torch.equal(g, w_)
+    assert k == 50
+
+
+@pytest.mark.parametrize("hl", [1, 2])
+def test_band_row_offset_multi_hop(hl):
+    """C's band mode in shard form on shards of 1 and 2 rows of the pan:
+    halos of band_halo's rows in as many hops, bit for bit to the window
+    form and the unsharded rows."""
+    args, starts = _pan_args()
+    _, k = _check_shards(args, hl, starts)
+    assert k > 25 * hl
+
+
+def test_band_halo_is_the_bands_reach():
+    """Rows.reach in band mode against the rows the pixels' taps can
+    read, counted from the band rule: for every shard of the pan at 48,
+    8 and 2 rows, the rows above and below the shard that some tap of a
+    pixel whose base lies in its band's slab reads, and band_halo the
+    largest over the shards, the same on every shard."""
+    args, starts = _pan_args()
+    h = args[0][1]
+    slab = trep.slab_rows(h, trep.BAND_ROWS, trep.BAND_MARGIN)
+    for hl in (48, 8, 2):
+        reaches = []
+        for r0 in range(0, h, hl):
+            rows = set()
+            for y in range(r0, r0 + hl):
+                s = starts[y // trep.BAND_ROWS]
+                # bases fy with clip(fy + 1, 0, h + 1) in the slab, and
+                # their tap rows inside the image
+                for fy in range(-2, h + 1):
+                    if s <= min(max(fy + 1, 0), h + 1) < s + slab:
+                        rows |= {q for q in (fy - 1, fy, fy + 1)
+                                 if 0 <= q < h}
+            want = (r0 - min(rows), max(rows) - (r0 + hl - 1))
+            assert trep.Rows.reach(r0, hl, h, starts) == tuple(
+                max(x, 0) for x in want)
+            reaches.append(max(want))
+        assert trep.band_halo(starts, hl, h) == max(reaches)
+
+
+@pytest.mark.parametrize("mode", ["stencil", "band"])
+def test_row_offset_reads_only_its_halo(mode):
+    """Every previous-frame row outside a shard's computed reach
+    (Rows.reach: 2 rows in stencil mode, its bands' slabs in band mode)
+    filled with NaN and geom -1 before its halo rows are packed and sent
+    (a halo of 4 rows in stencil mode, band_halo's in band mode, so the
+    halo holds poisoned rows): all four outputs of every shard unchanged,
+    bit for bit. In band mode some of the pan's pixels flow to their
+    slabs' first and last rows (_pan_args' edges). The plain version
+    gathers every tap it may read, valid or not, so a poisoned row it
+    read would turn its output NaN."""
+    if mode == "stencil":
+        args, starts, hl, k = _stencil_args(), None, 8, 4
+    else:
+        (args, starts), hl, k = _pan_args(edges=True), 48, None
+    (w, h) = args[0]
+    want = _shard_calls(args, hl, starts, k)[0]
+    band = () if starts is None else (starts, trep.BAND_ROWS,
+                                      trep.BAND_MARGIN)
+    fn = C.back_projection_stencil if starts is None else (
+        C.back_projection_banded)
+    for r0 in range(0, h, hl):
+        above, below = trep.Rows.reach(r0, hl, h, starts)
+        keep = torch.zeros(h, dtype=torch.bool)
+        keep[r0 - above:r0 + hl + below] = True
+        poisoned = list(args)
+        prev_gb = dict(args[3])
+        prev_gb["geom_id"] = torch.where(keep[:, None], prev_gb["geom_id"],
+                                         -1)
+        prev_gb["normal"] = torch.where(keep[:, None, None],
+                                        prev_gb["normal"], float("nan"))
+        poisoned[3] = prev_gb
+        for i in (5, 6):
+            poisoned[i] = torch.where(keep[:, None, None], args[i],
+                                      float("nan"))
+        calls, kk = _shard_calls(tuple(poisoned), hl, starts, k)
+        sargs, rows, halo = calls[r0 // hl]
+        assert (not keep.all()) and kk >= max(above, below)
+        got = fn(*sargs, *band, rows=rows, halo=halo)
+        ref = fn(*want[r0 // hl][0], *band, rows=rows,
+                 halo=want[r0 // hl][2])
+        for g, r_ in zip(got, ref):
+            assert torch.equal(g, r_)
 
 
 def test_row_offset_refuses_a_short_window():
-    """The previous rows must hold every row the taps may read."""
-    res, cur, st = _reproj_inputs(7)
-    t = {k: torch.from_numpy(np.array(v)) for k, v in st.items()}
-    gb = {k: torch.from_numpy(cur[k][8:16]) for k in ("position", "normal",
-                                                       "geom_id")}
-    args = ((48, 8), torch.from_numpy(cur["color"][8:16]), gb,
-            {"normal": t["prev_normal"][8:16],
-             "geom_id": t["prev_geom_id"][8:16]}, t["prev_view"],
-            t["color_history"][8:16], t["moment_history"][8:16],
-            t["history_length"][8:16], 0.2, 0.2)
+    """The halo rows must reach every row the taps may read: 2 in stencil
+    mode where the image has them, the bands' slabs' reach in band mode;
+    rows and halo come together."""
+    args = _stencil_args()
+    calls, _ = _shard_calls(args, 8, k=1)
+    sargs, rows, halo = calls[1]
     with pytest.raises(ValueError):
-        C.back_projection_stencil(*args, rows=(8, 40, 8))
+        C.back_projection_stencil(*sargs, rows=rows, halo=halo)
+    with pytest.raises(ValueError):
+        C.back_projection_stencil(*sargs, rows=rows)
+    pan, starts = _pan_args()
+    k = trep.band_halo(starts, 48, 192)
+    calls, _ = _shard_calls(pan, 48, starts, k - 1)
+    band = (starts, trep.BAND_ROWS, trep.BAND_MARGIN)
+    refused = 0
+    for sargs, rows, halo in calls:
+        if max(trep.Rows.reach(rows[0], 48, 192, starts)) == k:
+            with pytest.raises(ValueError):
+                C.back_projection_banded(*sargs, *band, rows=rows,
+                                         halo=halo)
+            refused += 1
+    assert refused >= 1
+
+
+def test_reproject_mirrors_match_csrc():
+    """ops/cuda/reproject.py's mirrors of csrc/reproject.cu and
+    reproject.cuh: the tile geometry (TILE_W, TILE_H, REACH,
+    MAX_SHARD_BANDS as kTileW, kTileH, kReach, kMaxShardBands) and the
+    fields of ReprojArgs and ReprojShardArgs, by name, order and type
+    (arrays by length)."""
+    src = ((_lib.CSRC / "reproject.cuh").read_text()
+           + (_lib.CSRC / "reproject.cu").read_text())
+    for name, value in (("kTileW", C.TILE_W), ("kTileH", C.TILE_H),
+                        ("kReach", C.REACH), ("kPacked", C.PACKED),
+                        ("kMaxShardBands", C.MAX_SHARD_BANDS)):
+        assert re.search(rf"constexpr int {name} = {value};", src), name
+    ctype = {"int": ctypes.c_int, "float": ctypes.c_float,
+             "ReprojArgs": C.ReprojArgs}
+    for struct in (C.ReprojArgs, C.ReprojShardArgs):
+        body = re.search(rf"struct {struct.__name__} {{(.*?)\n}};", src,
+                         re.S).group(1)
+        fields = re.findall(r"^\s*(?:const )?(\w+)(\*?) (\w+)(?:\[(\w+)\])?;",
+                            body, re.M)
+        assert [f[0] for f in struct._fields_] == [f[2] for f in fields]
+        for (_, t), (base, star, _, n) in zip(struct._fields_, fields):
+            if n:
+                assert t._length_ == C.MAX_SHARD_BANDS and n == (
+                    "kMaxShardBands") and t._type_ is ctype[base]
+            else:
+                assert t is (ctypes.c_void_p if star else ctype[base])
+
+
+def test_normal_distance_bound_is_the_square_roots():
+    """reproject.cuh:kNormalDist2 is the largest float32 whose square
+    root is at most 0.1f: the kernels' tap test d2 <= kNormalDist2 then
+    equals the plain versions' sqrt(d2) <= 0.1 on every float32 d2, a
+    correctly rounded square root being monotonic."""
+    src = (_lib.CSRC / "reproject.cuh").read_text()
+    lit = re.search(r"constexpr float kNormalDist2 = (\S+)f;", src).group(1)
+    c = torch.tensor(float.fromhex(lit), dtype=torch.float32)
+    assert float(c) == float.fromhex(lit)
+    nxt = torch.nextafter(c, torch.tensor(float("inf")))
+    tenth = torch.tensor(0.1, dtype=torch.float32)
+    assert torch.sqrt(c) <= tenth and torch.sqrt(nxt) > tenth
+    d2 = torch.cat([torch.linspace(0.0, 0.02, 4001),
+                    c + torch.arange(-64, 65) * (nxt - c)])
+    assert torch.equal(d2 <= c, torch.sqrt(d2) <= tenth)
+
+
+@pytest.mark.parametrize("mode", ["stencil", "band"])
+def test_tap_rows_hold_every_row_read(mode):
+    """ops/cuda/reproject.py:tap_rows, the previous-frame rows a shard's
+    taps read (the rows its bound counts): every other row of the image
+    filled with NaN and geom -1 before the halo rows are packed and sent
+    leaves all four outputs of every shard unchanged, bit for bit. They
+    lie within Rows.reach, and in band mode the pan's 48-row shards read
+    fewer rows than their bands' slabs reach."""
+    if mode == "stencil":
+        args, starts, hl, k = _stencil_args(), None, 8, 4
+    else:
+        (args, starts), hl, k = _pan_args(edges=True), 48, None
+    (w, h) = args[0]
+    want = _shard_calls(args, hl, starts, k)[0]
+    band = () if starts is None else (starts, trep.BAND_ROWS,
+                                      trep.BAND_MARGIN)
+    fn = C.back_projection_stencil if starts is None else (
+        C.back_projection_banded)
+    fewer = 0
+    for r0 in range(0, h, hl):
+        sargs = want[r0 // hl][0]
+        keep = C.tap_rows(sargs[0], sargs[2], sargs[4], sargs[7],
+                          (r0, h), band or None)
+        above, below = trep.Rows.reach(r0, hl, h, starts)
+        rows = torch.nonzero(keep)[:, 0]
+        assert int(rows.min()) >= r0 - above
+        assert int(rows.max()) < r0 + hl + below
+        fewer += int(keep.sum()) < hl + above + below
+        poisoned = list(args)
+        prev_gb = dict(args[3])
+        prev_gb["geom_id"] = torch.where(keep[:, None], prev_gb["geom_id"],
+                                         -1)
+        prev_gb["normal"] = torch.where(keep[:, None, None],
+                                        prev_gb["normal"], float("nan"))
+        poisoned[3] = prev_gb
+        for i in (5, 6):
+            poisoned[i] = torch.where(keep[:, None, None], args[i],
+                                      float("nan"))
+        calls, _ = _shard_calls(tuple(poisoned), hl, starts, k)
+        sargs, rows_, halo = calls[r0 // hl]
+        got = fn(*sargs, *band, rows=rows_, halo=halo)
+        ref = fn(*want[r0 // hl][0], *band, rows=rows_,
+                 halo=want[r0 // hl][2])
+        for g, r_ in zip(got, ref):
+            assert torch.equal(g, r_)
+    assert mode == "stencil" or fewer == h // hl
+
+
+def test_moved_frame_exchanges_a_bounded_halo():
+    """The sharded denoiser's moved frame (temporal only, the pan's
+    inputs as its state and G-buffer) on 4 shards of 48 rows: each shard
+    reads the host bounds once, computes the same band-mode halo
+    (band_halo, 50 rows, under the 144 rows a whole-image window would
+    add), and its group fulfils two Reduce and one Halo, no whole-image
+    exchange; the stitched output, moments and history equal the whole
+    image's denoiser's bit for bit."""
+    from ptdn_tpu_torch.denoise.svgf import SVGFDenoiser
+
+    args, starts = _pan_args()
+    (w, h), color, gb, prev_gb, view, ch, mh, hl_prev, _, _ = args
+    cfg = RenderConfig(denoise_enable=True, temporal_enable=True,
+                       spatial_enable=False)
+    params = {"sigma_l": 0.45, "sigma_n": 0.2, "sigma_x": 0.35,
+              "color_alpha": 0.2, "moment_alpha": 0.2}
+    state = {"color_history": ch, "moment_history": mh,
+             "history_length": hl_prev, "prev_normal": prev_gb["normal"],
+             "prev_geom_id": prev_gb["geom_id"], "prev_view": view}
+
+    def denoiser(rows, cut):
+        d = SVGFDenoiser(cfg, (w, cut.stop - cut.start), "cpu", rows=rows)
+        for k, v in state.items():
+            setattr(d, k, v if k == "prev_view" else v[cut].clone())
+        return d
+
+    whole = denoiser(None, slice(0, h))
+    want = whole(color, gb, torch.eye(4), params, True)
+    group = InProcessGroup(4)
+    shards = [denoiser((r0, h), slice(r0, r0 + 48))
+              for r0 in range(0, h, 48)]
+    outs = group.run(d.frame_gen(color[r0:r0 + 48],
+                                 {k: v[r0:r0 + 48] for k, v in gb.items()},
+                                 torch.eye(4), params, True)
+                     for d, r0 in zip(shards, range(0, h, 48)))
+    assert dict(group.exchanges) == {"Reduce": 2, "Halo": 1}
+    assert {d.moved_halo for d in shards} == {50}
+    assert all(d.band_starts == starts and not d.near for d in shards)
+    assert torch.equal(torch.cat(outs), want)
+    for k in ("moment_history", "history_length"):
+        assert torch.equal(torch.cat([getattr(d, k) for d in shards]),
+                           getattr(whole, k))
 
 
 # ---------------------------------------------------------------------------

@@ -19,7 +19,8 @@ from ptdn_tpu_torch.engine import Renderer
 from ptdn_tpu_torch.ops.cuda import atrous as D
 from ptdn_tpu_torch.ops.cuda import reproject as C
 from ptdn_tpu_torch.parallel.mesh import InProcessGroup
-from ptdn_tpu_torch.parallel.sharded import ShardedRenderer
+from ptdn_tpu_torch.parallel.sharded import (ShardedRenderer,
+                                             back_projection_shards)
 from ptdn_tpu_torch.scene import Scene
 from ptdn_tpu_torch.utils.config import RenderConfig
 from torch_card import scenes_dir  # noqa: F401 (fixture)
@@ -48,10 +49,11 @@ def _padded(x, halo):
 def test_shard_kernels_match_plain_on_card(card, scenes_dir):
     """On cornell's fourth frame at 96x96: D's shard mode on 4, 8 and 16
     shards (24, 12 and 6 rows) at every level, its halo rows apart from
-    its own (the G-buffer's halo 64 rows), and C's row
-    offset in both modes (the stencil on the still frame, the band mode
-    on a moved view) equal their plain versions and the unsharded
-    kernels' rows bit for bit."""
+    its own (the G-buffer's halo 64 rows), and C's shard mode on 4, 8
+    and 16 shards in both modes (the stencil on the still frame, the band
+    mode on a moved view), its own rows in place and its halo rows from
+    halo_pack through halo_rows, equal their plain versions and the
+    unsharded kernels' rows bit for bit."""
     r = Renderer(Scene(str(scenes_dir / "cornell.txt")), RenderConfig(**SVGF),
                  RES, "cuda")
     for _ in range(3):
@@ -72,32 +74,23 @@ def test_shard_kernels_match_plain_on_card(card, scenes_dir):
                 0.2, 0.2)
         bounds = trep.motion_bounds(RES, gb, view)
         assert bool(bounds[0]) != banded
+        starts = bounds[1:].tolist() if banded else None
         want = (C._back_projection_banded_kernel(
             *args, bounds[1:], trep.BAND_ROWS, trep.BAND_MARGIN) if banded
             else C._back_projection_stencil_kernel(*args))
-        got = []
-        for r0 in range(0, h, 12):
-            cur = slice(r0, r0 + 12)
-            win, p0 = ((prev, 0) if banded else
-                       ([_padded(t, 2)[r0:r0 + 16] for t in prev], r0 - 2))
-            sargs = ((w, 12), args[1][cur], {k: v[cur].contiguous()
-                                             for k, v in gb.items()},
-                     {"normal": win[0], "geom_id": win[1]}, view, *win[2:],
-                     0.2, 0.2)
-            if banded:
-                band = (bounds[1:], trep.BAND_ROWS, trep.BAND_MARGIN)
-                k = C._back_projection_banded_kernel(*sargs, *band,
-                                                     rows=(r0, h, p0))
-                p = C.back_projection_banded_plain(*sargs, *band,
-                                                   rows=(r0, h, p0))
-            else:
-                k = C._back_projection_stencil_kernel(*sargs,
-                                                      rows=(r0, h, p0))
-                p = C.back_projection_stencil_plain(*sargs, rows=(r0, h, p0))
-            assert all(torch.equal(a, b) for a, b in zip(k, p))
-            got.append(k)
-        for i, w_ in enumerate(want):
-            assert torch.equal(torch.cat([g[i] for g in got]), w_)
+        kfn, pfn = ((C._back_projection_banded_kernel,
+                     C.back_projection_banded_plain) if banded else
+                    (C._back_projection_stencil_kernel,
+                     C.back_projection_stencil_plain))
+        for n in (4, 8, 16):
+            got = []
+            for sargs, kw in back_projection_shards(args, n, starts)[0]:
+                k = kfn(*sargs, **kw)
+                p = pfn(*sargs, **kw)
+                assert all(torch.equal(a, b) for a, b in zip(k, p))
+                got.append(k)
+            for i, w_ in enumerate(want):
+                assert torch.equal(torch.cat([g[i] for g in got]), w_)
     var, color = want[0], want[1]
     static = D.pack_static_planes(gb["position"], gb["normal"])
     cv = torch.cat([color, var[..., None]], -1)

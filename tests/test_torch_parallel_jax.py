@@ -2,8 +2,10 @@
 package on the CPU: halo_rows against the JAX halo_rows under
 jax.shard_map on tests/conftest.py's 8 virtual CPU devices, kernel D's
 shard mode (plain) against atrous_level_pallas' in interpret mode fed
-from the JAX halos, and the stitched sharded frame against a live JAX
-render. The port's own bit-for-bit tests are test_torch_parallel.py."""
+from the JAX halos, kernel C's shard mode (plain) against the JAX
+package's whole-image back-projection, and the stitched sharded frame
+against a live JAX render. The port's own bit-for-bit tests are
+test_torch_parallel.py."""
 
 import jax
 import jax.numpy as jnp
@@ -13,20 +15,27 @@ import torch
 from jax.sharding import Mesh
 from jax.sharding import PartitionSpec as P
 
+from ptdn_tpu.denoise import reproject as jrep
 from ptdn_tpu.engine import Renderer as JRenderer
 from ptdn_tpu.ops.pallas.atrous import atrous_halo as jatrous_halo
 from ptdn_tpu.ops.pallas.atrous import atrous_level_pallas
 from ptdn_tpu.ops.pallas.atrous import pack_static_planes as jpack
+from ptdn_tpu.ops.pallas.reproject import back_projection_stencil_pallas
 from ptdn_tpu.parallel.halo import halo_rows as jhalo_rows
 from ptdn_tpu.scene import Scene as JScene
 from ptdn_tpu.utils.config import RenderConfig as JConfig
+from ptdn_tpu_torch.denoise import reproject as trep
+from ptdn_tpu_torch.ops.cuda import reproject as C
 from ptdn_tpu_torch.parallel.halo import halo_rows
 from ptdn_tpu_torch.parallel.mesh import InProcessGroup
-from ptdn_tpu_torch.parallel.sharded import ShardedRenderer
+from ptdn_tpu_torch.parallel.sharded import (ShardedRenderer,
+                                             back_projection_shards)
 from ptdn_tpu_torch.scene import Scene
 from ptdn_tpu_torch.utils.config import RenderConfig
 from test_torch_mesh import torch_on_one_thread  # noqa: F401 (autouse)
 from test_torch_parallel import atrous_inputs, atrous_shards  # noqa: F401
+from test_torch_kernels import _reproj_inputs
+from test_torch_motion import _jax, _motion_args, _torch
 from test_torch_slice import CONFIGS, _within_budget
 
 AX = "rows"
@@ -122,6 +131,53 @@ def test_atrous_shard_mode_matches_pallas(atrous_inputs, hl, level, blur,
                                np.asarray(rc), atol=1e-5)
     np.testing.assert_allclose(torch.cat([g[1] for g in got]).numpy(),
                                np.asarray(rv), atol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["stencil", "band"])
+def test_back_projection_shards_match_jax(mode):
+    """Kernel C's shard mode (plain; its own rows in place, its halo rows
+    from halo_pack through halo_rows) on each shard against the rows of
+    the JAX package's whole-image back-projection: stencil mode on 5
+    shards of 8 rows of test_torch_kernels' 40x48 still inputs against
+    back_projection_stencil_pallas in interpret mode, band mode on 4
+    shards of 48 rows of a 192x48 pan (one pixel flowing 40 rows down,
+    out of its band's slab) against ptdn_tpu/denoise/reproject.py:
+    back_projection_banded (band_rows 64, margin 16). Tolerance: 1e-5
+    absolute and relative, history lengths equal, as the unsharded C's
+    JAX tests (test_torch_kernels.py:test_back_projection_matches_jax,
+    test_torch_motion.py:test_back_projection_banded_matches_jax): the
+    same reprojection math, where only XLA's fused multiply-add choices
+    can move the last bit."""
+    if mode == "stencil":
+        res, cur, st = _reproj_inputs(7)
+        args = [res, cur["color"], {k: cur[k] for k in (
+            "position", "normal", "geom_id")},
+            {"normal": st["prev_normal"], "geom_id": st["prev_geom_id"]},
+            st["prev_view"], st["color_history"], st["moment_history"],
+            st["history_length"], 0.2, 0.2]
+        ref = back_projection_stencil_pallas(*_jax(args), interpret=True)
+        hl, starts = 8, None
+    else:
+        h, w = 192, 48
+        dy = np.zeros((h, w), np.float32)
+        dy[60, 7] = 40.0
+        args = _motion_args(h, w, dy, np.full((h, w), 3.0, np.float32))
+        ref = jrep.back_projection_banded(*_jax(args), band_rows=64,
+                                          margin=16)
+        targs = _torch(args)
+        bounds = trep.motion_bounds(tuple(args[0]), targs[2], targs[4])
+        assert not bool(bounds[0])
+        hl, starts = 48, bounds[1:].tolist()
+    targs = tuple(_torch(args))
+    fn = C.back_projection_stencil if starts is None else (
+        C.back_projection_banded)
+    calls, _ = back_projection_shards(targs, targs[0][1] // hl, starts)
+    outs = [fn(*a, **kw) for a, kw in calls]
+    got = [torch.cat([o[i] for o in outs]).numpy() for i in range(4)]
+    for name, g, r in zip(("variance", "color", "moments"), got, ref):
+        np.testing.assert_allclose(g, np.asarray(r), rtol=1e-5, atol=1e-5,
+                                   err_msg=name)
+    assert np.array_equal(got[3], np.asarray(ref[3]))
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
