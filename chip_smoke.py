@@ -139,9 +139,12 @@ Phases, one line or more each, with their wall time:
    and plain version), and the ms/frame of each
    native and mesh-light run;
 5. the entry points a user runs: `python3 -m ptdn_tpu_torch.bench --all
-   --quality --stages` (one JSON line naming the card; each still
+   --quality` (one JSON line naming the card; each still
    scene's denoised RMSE equal to phase 3's within 2e-5; cornell's
-   ms_pipelined within 5% of phase 4's cornell ms/frame), `app.cli` (8
+   ms_pipelined within 5% of phase 4's cornell ms/frame), each of its
+   configurations with the denoiser, temporal accumulation, the à-trous
+   levels or the shadow ray off (two frames, the camera still, every
+   launch counted, untimed), `app.cli` (8
    frames of cornell with SVGF: 8 stats lines, every output file, a
    denoised PNG that is not uniform), `app.eval` (500 accumulated frames
    against 32 SVGF ones: denoised below raw), the viewer's watch loop in
@@ -236,6 +239,7 @@ from ptdn_tpu_torch.probes import regroup as probe_g  # noqa: E402
 from ptdn_tpu_torch.probes import texgather as probe_n  # noqa: E402
 from ptdn_tpu_torch.scene import Scene  # noqa: E402
 from ptdn_tpu_torch.utils.assets import (scene_path,  # noqa: E402
+                                         scenes_dir,
                                          write_cornell_plus,
                                          write_mesh_light, write_two_light)
 from ptdn_tpu_torch.utils.card import (ANALYTIC_OPS,  # noqa: E402
@@ -291,6 +295,9 @@ MOTION_RUNS = {
 # native mode (compat=False) and NEE toward a mesh light, 32 frames each
 # at 800x800: label -> (scene: a scene of SCENES, "mesh_light" or
 # "twolight", native_scene's; flags; the engine the JAX choice gives)
+# phase 5: a stage of the bench's configurations turned off
+ABLATIONS = (dict(denoise_enable=False), dict(temporal_enable=False),
+             dict(atrous_nlevel=0), dict(shadow_ray=False))
 NATIVE = dict(compat=False)
 NATIVE_RUNS = {
     "cornell native": ("cornell", NATIVE, "whole_path"),
@@ -622,19 +629,23 @@ def expected_launches(r, motion):
     near frames and C's band mode on the others (none with temporal
     accumulation off), R on every frame in native mode but with L's
     gate (the JAX branch has no fallback), and D at every level but the
-    first that L takes."""
+    first that L takes; none of C, L, R and D with the denoiser off, and
+    no shadow test with shadow_ray off."""
     tr, frames = r.step.tracer, len(motion.moved)
-    temporal = r.cfg.temporal_enable
+    denoise = r.cfg.denoise_enable
+    temporal = denoise and r.cfg.temporal_enable
     near = sum(motion.near_frames()) if temporal else 0
     fused = r.step.denoiser.fuse_l1
+    levels = r.cfg.atrous_nlevel if denoise and r.cfg.spatial_enable else 0
     want = dict.fromkeys(KERNELS, 0)
     want["scene_intersect_full"] = sum(motion.moved)
     if temporal:
         want["back_projection_banded"] = frames - near
         want["back_projection_atrous1" if fused
              else "back_projection_stencil"] = near
-    want["spatial_variance"] = 0 if r.cfg.compat or fused else frames
-    want["atrous_level"] = frames * NLEVEL - (near if fused else 0)
+    want["spatial_variance"] = (0 if r.cfg.compat or fused or not denoise
+                                else frames)
+    want["atrous_level"] = frames * levels - (near if fused else 0)
     bounces, below_last = frames * DEPTH, frames * (DEPTH - 1)
     tex = tr.flags["show_tex"]
     if tr.engine == "whole_path":
@@ -655,7 +666,7 @@ def expected_launches(r, motion):
              else "shade_bounce"] = bounces
         if tr.shadow_closest:
             want["scene_intersect_full"] += bounces
-        else:
+        elif r.cfg.shadow_ray:
             want["light_visibility"] = bounces
         if tex:
             want["scene_intersect_full_tex"] = below_last
@@ -763,10 +774,10 @@ def entry_points(card, rmse, frame_ms):
     guarded = sorted(pathlib.Path(ROOT, "benchmarks", "gt").glob("*.npz"))
     guarded.append(pathlib.Path(ROOT, "bench_results.json"))
     before = file_hashes(guarded)
-    # the bench, every configuration with its quality and stages
+    # the bench, every configuration with its quality
     bench.EXTRAS.unlink(missing_ok=True)
     lines = run_module("ptdn_tpu_torch.bench", "--all", "--quality",
-                          "--stages", timeout=BENCH_TIMEOUT)
+                       timeout=BENCH_TIMEOUT)
     check(len(lines) == 1, f"the bench prints one line: {lines}")
     head = json.loads(lines[0])
     # vs_baseline is rounded from the unrounded ms: within 1e-4 of value's
@@ -780,8 +791,8 @@ def entry_points(card, rmse, frame_ms):
     for name, ms_pipe in res["ms_pipelined"].items():
         ms = head["value"] if name == "cornell" else res["extra_ms"][name]
         print(f"phase 5: bench {name}: {ms} ms/frame synced, {ms_pipe} "
-              f"ms/frame pipelined, {res['rays_per_sec_M'][name]} M rays/s; "
-              f"stages {json.dumps(res['stages_ms'][name])} [{card}]")
+              f"ms/frame pipelined, {res['rays_per_sec_M'][name]} M rays/s "
+              f"[{card}]")
     # each still scene's quality: phase 3's 32 frames of the same
     # configuration (its first run of the scene, the default engine)
     for name in SCENES:
@@ -798,6 +809,28 @@ def entry_points(card, rmse, frame_ms):
     print(f"phase 5: bench cornell ms_pipelined "
           f"{res['ms_pipelined']['cornell']} / phase 4's "
           f"{frame_ms['cornell']:.3f} = {ratio:.4f}")
+    # the bench's configurations with a stage turned off (the denoiser,
+    # temporal accumulation, the à-trous levels, the NEE shadow ray),
+    # the camera held still: two frames each, the launches counted
+    for path, name, res, _ in bench.configs(str(scenes_dir()), True):
+        for flags in ABLATIONS:
+            r = Renderer(bench.load_scene(path),
+                         dataclasses.replace(CFG, **flags), resolution=res,
+                         device=DEVICE)
+            mov = Motion(r)
+            reset_counts()
+            frames = [mov.frame() for _ in range(2)]
+            torch.cuda.synchronize()
+            c = counts()
+            want = expected_launches(r, mov)
+            check({k: c[k] for k in want} == want
+                  and all(bool(torch.isfinite(x).all())
+                          for f in frames for x in f),
+                  f"{name} {flags}: launches {nonzero(c)}, expected "
+                  f"{nonzero(want)}, frames finite")
+            print(f"phase 5: {name} {r.resolution[0]}x{r.resolution[1]} "
+                  f"{r.step.tracer.engine} {json.dumps(flags)}: 2 frames, "
+                  f"launches {json.dumps(nonzero(c))}")
     with tempfile.TemporaryDirectory() as tmp:
         # the CLI: 8 frames of cornell with SVGF, every output written
         out = {k: os.path.join(tmp, k) for k in (

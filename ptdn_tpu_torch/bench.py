@@ -1,7 +1,7 @@
 """Benchmark harness of the port — prints ONE JSON line with the headline
 metric, the JAX package's bench.py on the card.
 
-    python3 -m ptdn_tpu_torch.bench [--all] [--quality] [--stages]
+    python3 -m ptdn_tpu_torch.bench [--all] [--quality]
 
 Headline: cornell.txt 800x800, 1 spp, 8 bounces, static camera,
 5-iteration à-trous SVGF, on one NVIDIA card. `value` is the mean
@@ -19,16 +19,12 @@ the TPU's), with the card's name: extra_ms (the synced ms/frame of each
 configuration but the headline), ms_pipelined (utils/card.py:cuda_ms of
 --frames frames, host not hidden: the frames queued back to back, the
 figure chip_smoke.py's phase 4 prints for still cornell), rays_per_sec_M,
-and with the flags quality_rmse and stages_ms.
+and with --quality quality_rmse.
 
 --quality reports the denoised RMSE against the committed converged
 ground truths (benchmarks/gt/*.npz, read-only; app/eval.py renders new
-ones) after 32 1-spp SVGF frames, per still configuration. --stages times
-each configuration's ablations with the bench's own frame timing, the
-camera held still (room_1080p_animated included, as bench.py's slope
-timing holds it), under bench.py's keys: full / trace / temporal /
-atrous / nee_visibility / denoise_glue ('trace' still includes texture
-resolve and NEE visibility).
+ones) after 32 1-spp SVGF frames, per still configuration. A frame's
+stages are profile_frame.py's.
 """
 
 from __future__ import annotations
@@ -161,44 +157,6 @@ def quality_rmse(scene_path, name, resolution, depth, cfg, svgf_frames=32,
             "gt_frames": gt_frames, "svgf_frames": svgf_frames}
 
 
-def stage_breakdown(scene_path, resolution, base_cfg, frames=30, warmup=5):
-    """Ablation decomposition, each configuration timed as `value` is
-    (time_frames) with the camera held still. Keys (what they really
-    are):
-
-    * full           — the full config, steady state
-    * trace          — denoise disabled entirely (this bucket still
-                       includes texture resolve and NEE visibility)
-    * temporal       — full minus temporal-off
-    * atrous         — full minus atrous_nlevel=0
-    * nee_visibility — full minus shadow_ray=False (the NEE shadow
-                       rays AND their shading contribution)
-    * denoise_glue   — full - trace - temporal - atrous (debug views,
-                       buffer plumbing)
-    """
-    from ptdn_tpu_torch.engine import Renderer
-
-    def ms(cfg):
-        r = Renderer(load_scene(scene_path), cfg, resolution=resolution)
-        return time_frames(r.render_frame, frames, max(warmup, 2))
-
-    full = ms(base_cfg)
-    trace_only = ms(base_cfg.replace(denoise_enable=False))
-    no_temporal = ms(base_cfg.replace(temporal_enable=False))
-    no_atrous = ms(base_cfg.replace(atrous_nlevel=0))
-    no_nee = ms(base_cfg.replace(shadow_ray=False))
-    d = {
-        "full": round(full, 3),
-        "trace": round(trace_only, 3),
-        "temporal": round(max(full - no_temporal, 0.0), 3),
-        "atrous": round(max(full - no_atrous, 0.0), 3),
-        "nee_visibility": round(max(full - no_nee, 0.0), 3),
-    }
-    d["denoise_glue"] = round(
-        max(full - trace_only - d["temporal"] - d["atrous"], 0.0), 3)
-    return d
-
-
 def bench_configs(scenes_dir):
     """(scene file, name, resolution override) of --all's still
     configurations (bench.py's); resolution None = the scene file's
@@ -235,8 +193,6 @@ def main(argv=None):
                     help="also run the non-headline BASELINE.json configs")
     ap.add_argument("--quality", action="store_true",
                     help="also report denoised RMSE vs the committed GT")
-    ap.add_argument("--stages", action="store_true",
-                    help="also emit per-stage ms decomposition per config")
     ap.add_argument("--scenes-dir", default=None,
                     help="scene dir (default: PTDN_SCENES_DIR or the "
                          "vendored <repo>/scenes)")
@@ -250,7 +206,7 @@ def main(argv=None):
         from ptdn_tpu_torch.utils.assets import scenes_dir
         args.scenes_dir = str(scenes_dir())
 
-    result, extras, pipelined, rays, quality, stages = None, {}, {}, {}, {}, {}
+    result, extras, pipelined, rays, quality = None, {}, {}, {}, {}
     for path, name, res, moving in configs(args.scenes_dir, args.all):
         cfg = RenderConfig(trace_depth=DEPTH, **SVGF,
                            **(MOVING if moving else {}))
@@ -272,9 +228,6 @@ def main(argv=None):
         # no ground truth for the moving camera: it never converges
         if args.quality and not moving:
             quality[name] = quality_rmse(path, name, res, DEPTH, cfg)
-        if args.stages:
-            stages[name] = stage_breakdown(path, res, cfg, args.frames,
-                                           args.warmup)
         print(f"[bench] {name} {res[0]}x{res[1]}: {ms:.3f} ms/frame synced, "
               f"{ms_pipe:.3f} pipelined [{card}]", file=sys.stderr,
               flush=True)
@@ -285,8 +238,6 @@ def main(argv=None):
     out["rays_per_sec_M"] = rays
     if quality:
         out["quality_rmse"] = quality
-    if stages:
-        out["stages_ms"] = stages
     EXTRAS.parent.mkdir(exist_ok=True)
     EXTRAS.write_text(json.dumps(out, indent=2))
     print(json.dumps(out), file=sys.stderr)

@@ -67,6 +67,7 @@ from ptdn_tpu_torch.ops.cuda.atrous import atrous_level, pack_static_planes
 from ptdn_tpu_torch.ops.cuda.reproject_atrous import back_projection_atrous1
 from ptdn_tpu_torch.ops.cuda.spatial_variance import spatial_variance_fallback
 from ptdn_tpu_torch.parallel.mesh import Halo, Reduce
+from ptdn_tpu_torch.utils.stats import span
 
 STATE_KEYS = ("color_history", "moment_history", "history_length",
               "prev_position", "prev_normal", "prev_geom_id", "prev_view")
@@ -204,23 +205,26 @@ class SVGFDenoiser(nn.Module):
         last; a shard's are reduced over the image first, and its
         band-mode halo computed from the starts read."""
         if cam_changed or self.moved or self.near is None:
-            if self.rows is None:
-                bounds = motion_bounds(self.resolution, gbuffer,
-                                       self.prev_view)
-            else:
-                row0, full_h = self.rows
-                reach, total, cnt = motion_parts(
-                    self.resolution, gbuffer, self.prev_view, BAND_ROWS,
-                    row0, full_h)
-                reach = yield Reduce(reach, "max")
-                sums = yield Reduce(torch.stack([total, cnt]), "sum")
-                bounds = bounds_from_parts(reach, sums[0], sums[1], full_h)
-            near, *starts = bounds.tolist()
-            self.near, self.starts = bool(near), bounds[1:]
-            if self.rows is not None:
-                self.band_starts = starts
-                self.moved_halo = band_halo(starts, self.resolution[1],
-                                            self.rows[1])
+            with span("ptdn.denoiser.motion"):
+                if self.rows is None:
+                    bounds = motion_bounds(self.resolution, gbuffer,
+                                           self.prev_view)
+                else:
+                    row0, full_h = self.rows
+                    reach, total, cnt = motion_parts(
+                        self.resolution, gbuffer, self.prev_view,
+                        BAND_ROWS, row0, full_h)
+                    reach = yield Reduce(reach, "max")
+                    sums = yield Reduce(torch.stack([total, cnt]), "sum")
+                    bounds = bounds_from_parts(reach, sums[0], sums[1],
+                                               full_h)
+                with span("ptdn.sync.motion"):
+                    near, *starts = bounds.tolist()
+                self.near, self.starts = bool(near), bounds[1:]
+                if self.rows is not None:
+                    self.band_starts = starts
+                    self.moved_halo = band_halo(starts, self.resolution[1],
+                                                self.rows[1])
         self.moved = cam_changed
 
     def bp_args(self, raw, gbuffer, params):
@@ -292,8 +296,9 @@ class SVGFDenoiser(nn.Module):
         if filtering and (cam_changed or self.static is None):
             # like the branch choice's inputs, the G-buffer changes with
             # the camera alone: packed again only when it moved
-            self.static = yield from hook_value(self.pyramid.pack(
-                gbuffer["position"], gbuffer["normal"]))
+            with span("ptdn.denoiser.pack"):
+                self.static = yield from hook_value(self.pyramid.pack(
+                    gbuffer["position"], gbuffer["normal"]))
         static = self.static
         if self.fuse_l1:
             # the fuse_reproject_l1 frame (ptdn_tpu/denoise/svgf.py:80-135):
@@ -301,20 +306,22 @@ class SVGFDenoiser(nn.Module):
             # at level 1; level 1's output is the color history. No
             # spatial fallback in native mode: the JAX branch has none
             yield from self._motion(gbuffer, cam_changed)
-            if self.near:
-                color_history, variance, moment_acc, hist_up = (
-                    back_projection_atrous1(*bp_args, *sig,
-                                            cfg.blur_variance, static))
-            else:
-                var0, acc, moment_acc, hist_up = back_projection_banded(
-                    *bp_args, starts=self.starts)
-                color_history, variance = atrous_level(
-                    acc, var0, static, None, 1, *sig, cfg.blur_variance)
+            with span("ptdn.denoiser.reproject"):
+                if self.near:
+                    color_history, variance, moment_acc, hist_up = (
+                        back_projection_atrous1(*bp_args, *sig,
+                                                cfg.blur_variance, static))
+                else:
+                    var0, acc, moment_acc, hist_up = back_projection_banded(
+                        *bp_args, starts=self.starts)
+                    color_history, variance = atrous_level(
+                        acc, var0, static, None, 1, *sig, cfg.blur_variance)
             first = 2
         elif cfg.temporal_enable:
             yield from self._motion(gbuffer, cam_changed)
-            variance, color_acc, moment_acc, hist_up = (
-                yield from self.back_projection(bp_args))
+            with span("ptdn.denoiser.reproject"):
+                variance, color_acc, moment_acc, hist_up = (
+                    yield from self.back_projection(bp_args))
             color_history = color_acc
             if not cfg.compat:
                 # native mode: a history under 4 frames takes the spatial
@@ -344,8 +351,10 @@ class SVGFDenoiser(nn.Module):
             albedo = None
             if cfg.sep_color and cfg.add_color:
                 albedo = (gbuffer["albedo"] * gbuffer["ialbedo"]).contiguous()
-            output, history = yield from hook_value(self.pyramid(
-                color_history, variance, static, albedo, sig, cfg, first))
+            with span("ptdn.denoiser.atrous"):
+                output, history = yield from hook_value(self.pyramid(
+                    color_history, variance, static, albedo, sig, cfg,
+                    first))
             if history is not None:
                 color_history = history
 

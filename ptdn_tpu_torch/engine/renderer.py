@@ -21,6 +21,7 @@ import torch
 from ptdn_tpu_torch.engine.step import make_frame_step
 from ptdn_tpu_torch.ops.camera import OrbitCamera, view_matrix
 from ptdn_tpu_torch.utils.config import RenderConfig
+from ptdn_tpu_torch.utils.stats import span
 
 
 class Renderer:
@@ -63,25 +64,27 @@ class Renderer:
     def render_frame(self):
         """Render one frame; returns (left, right) (H, W, 3) tensors on
         the device: left = raw/accumulated, right = denoised."""
-        changed = self.cam_changed
-        if changed:
-            if not self.cfg.denoise_enable:
-                self.frame = 0
-            self.cam_changed = False
-            self._cam = None
-        if self.frame == 0:
-            self.reset_state()
-            changed = True      # fresh state: the primary cache is invalid
-        if self._cam is None:
-            fc = self.camera.frame()
-            self._cam = (fc.as_tensors(self.device),
-                         torch.from_numpy(view_matrix(fc)).to(self.device))
-        cam, vm = self._cam
-        with torch.no_grad():
-            left, right = self._images(self.step(cam, vm, self._params,
-                                                 self.frame, changed))
-        self.frame += 1
-        return left, right
+        with span("ptdn.frame", self.frame):
+            changed = self.cam_changed
+            if changed:
+                if not self.cfg.denoise_enable:
+                    self.frame = 0
+                self.cam_changed = False
+                self._cam = None
+            if self.frame == 0:
+                self.reset_state()
+                changed = True  # fresh state: the primary cache is invalid
+            if self._cam is None:
+                fc = self.camera.frame()
+                self._cam = (fc.as_tensors(self.device),
+                             torch.from_numpy(view_matrix(fc)).to(
+                                 self.device))
+            cam, vm = self._cam
+            with torch.no_grad():
+                left, right = self._images(self.step(cam, vm, self._params,
+                                                     self.frame, changed))
+            self.frame += 1
+            return left, right
 
     def _images(self, out):
         """(left, right) from the step's output (parallel/sharded.py:

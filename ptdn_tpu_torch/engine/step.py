@@ -27,6 +27,7 @@ from torch import nn
 from ptdn_tpu_torch.denoise.svgf import (Pyramid, SVGFDenoiser,
                                          init_denoise_state, run_alone)
 from ptdn_tpu_torch.engine.wavefront import PathTracer, init_primary_cache
+from ptdn_tpu_torch.utils.stats import span
 
 
 def init_frame_state(resolution, device) -> Dict[str, torch.Tensor]:
@@ -79,25 +80,29 @@ class FrameStep(nn.Module):
                   cam_changed: bool):
         """forward as a generator of exchanges (a shard's), returning
         (left, right)."""
-        w, h = self.resolution
-        radiance, gb = self.tracer(cam, params, frame, cam_changed)
-        radiance = radiance.reshape(h, w, 3)
-        gbuffer = {k: v.reshape((h, w) + tuple(v.shape[1:]))
-                   for k, v in gb.items()}
-        if self.cfg.denoise_enable:
-            left = radiance
-            right = yield from self.denoiser.frame_gen(
-                radiance, gbuffer, view_mat, params, cam_changed)
-            self.accum_image = radiance
-        else:
-            # running mean over frames (pathtrace.cu:398), float32 scalars
-            f = np.float32(frame)
-            one = np.float32(1.0)
-            accum = (self.accum_image * float(f / (f + one))
-                     + radiance / float(f + one))
-            left = right = accum
-            self.accum_image = accum
-        return left, right
+        with span("ptdn.step"):
+            w, h = self.resolution
+            with span("ptdn.tracer"):
+                radiance, gb = self.tracer(cam, params, frame, cam_changed)
+            radiance = radiance.reshape(h, w, 3)
+            gbuffer = {k: v.reshape((h, w) + tuple(v.shape[1:]))
+                       for k, v in gb.items()}
+            if self.cfg.denoise_enable:
+                left = radiance
+                with span("ptdn.denoiser"):
+                    right = yield from self.denoiser.frame_gen(
+                        radiance, gbuffer, view_mat, params, cam_changed)
+                self.accum_image = radiance
+            else:
+                # running mean over frames (pathtrace.cu:398), float32
+                # scalars
+                f = np.float32(frame)
+                one = np.float32(1.0)
+                accum = (self.accum_image * float(f / (f + one))
+                         + radiance / float(f + one))
+                left = right = accum
+                self.accum_image = accum
+            return left, right
 
 
 def make_frame_step(scene, cfg, resolution, device) -> FrameStep:

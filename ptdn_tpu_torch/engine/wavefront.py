@@ -72,8 +72,8 @@ from ptdn_tpu_torch.ops.cuda.bounce import (B_MAT, B_UU, B_VV, bounce_fused,
 from ptdn_tpu_torch.ops.cuda.compact import sparse_gather
 from ptdn_tpu_torch.ops.cuda.inrow import inrow_permute
 from ptdn_tpu_torch.ops.cuda.path import deferred_radiance, path_trace
-# the sorted wavefront's range and key glue, kernel Q: profile_frame.py
-# times it, and the tests call it, under these names
+# the sorted wavefront's range and key glue, kernel Q: the tests call it
+# under these names
 from ptdn_tpu_torch.ops.cuda.ranges import (  # noqa: F401
     N_ALLP, SENTINEL, chunk_range_planes, range_boxes, ranges_and_key)
 from ptdn_tpu_torch.ops.cuda.scene_intersect import (
@@ -87,6 +87,7 @@ from ptdn_tpu_torch.ops.cuda.shade import (I_AB, I_AR, I_RB, I_RR, O_ACT,
 from ptdn_tpu_torch.ops.fp import fma
 from ptdn_tpu_torch.scene.parser import MESH
 from ptdn_tpu_torch.scene.scene import DeviceScene
+from ptdn_tpu_torch.utils.stats import span
 
 PCACHE_KEYS = ("t", "normal", "uv", "mat_id", "geom_id", "hit", "albedo")
 
@@ -269,18 +270,20 @@ class PathTracer(nn.Module):
         # camera reuses last frame's rays, hit, albedo and G-buffer
         # position; a restored state brings the hit without the rays
         if cam_changed or self.rays_stale:
-            self.ray_o, self.ray_d = generate_camera_rays(
-                cam, (self.w, self.h), self.row0, self.full_height)
-            if cam_changed:
-                isect = scene_intersect_full(ds, self.gi, self.ray_o,
-                                             self.ray_d)
-                isect["albedo"] = albedo_from(ds, isect["mat_id"],
-                                              isect["uv"], self.show_texture)
-                for k in PCACHE_KEYS:
-                    setattr(self, "pcache_" + k, isect[k])
-            self.position = fma(self.pcache_t[:, None], self.ray_d,
-                                self.ray_o)
-            self.rays_stale = False
+            with span("ptdn.tracer.camera"):
+                self.ray_o, self.ray_d = generate_camera_rays(
+                    cam, (self.w, self.h), self.row0, self.full_height)
+                if cam_changed:
+                    isect = scene_intersect_full(ds, self.gi, self.ray_o,
+                                                 self.ray_d)
+                    isect["albedo"] = albedo_from(ds, isect["mat_id"],
+                                                  isect["uv"],
+                                                  self.show_texture)
+                    for k in PCACHE_KEYS:
+                        setattr(self, "pcache_" + k, isect[k])
+                self.position = fma(self.pcache_t[:, None], self.ray_d,
+                                    self.ray_o)
+                self.rays_stale = False
         prim = {k: getattr(self, "pcache_" + k) for k in PCACHE_KEYS}
         light = dict(self.light, radius=float(params["light_radius"]),
                      intensity=float(params["shadow_intensity"]))
@@ -359,22 +362,25 @@ class PathTracer(nn.Module):
         fl = self.flags
         for depth in range(1, self.depth + 1):
             do_next = depth < self.depth
-            out = bounce_fused(
-                ds, self.gi, planes, fd=frame + depth, lane0=self.lane0,
-                light_pos=light["pos"], lrad=light["radius"],
-                sint=light["intensity"],
-                alb_skip=depth == 1 and fl["alb_skip1"],
-                shadow_ray=fl["shadow_ray"], reduce_var=fl["reduce_var"],
-                light_geom=light["geom"], do_vis=fl["do_vis"],
-                do_next=do_next, emit=light["emit"])
-            if do_next:
-                mat = out[B_MAT].to(torch.int64)
-                idx = (tex_index(ds, mat, out[B_UU], out[B_VV]).to(
-                    torch.int32) if fl["show_tex"] else None)
-                alb = self._albedo(ds, mat, idx)
-            else:
-                alb = planes[I_AR:I_AB + 1]
-            planes = torch.cat([out[0:10], alb, out[10:19]])
+            with span("ptdn.tracer.shade"):
+                out = bounce_fused(
+                    ds, self.gi, planes, fd=frame + depth,
+                    lane0=self.lane0, light_pos=light["pos"],
+                    lrad=light["radius"], sint=light["intensity"],
+                    alb_skip=depth == 1 and fl["alb_skip1"],
+                    shadow_ray=fl["shadow_ray"],
+                    reduce_var=fl["reduce_var"], light_geom=light["geom"],
+                    do_vis=fl["do_vis"], do_next=do_next,
+                    emit=light["emit"])
+            with span("ptdn.tracer.next_hit"):
+                if do_next:
+                    mat = out[B_MAT].to(torch.int64)
+                    idx = (tex_index(ds, mat, out[B_UU], out[B_VV]).to(
+                        torch.int32) if fl["show_tex"] else None)
+                    alb = self._albedo(ds, mat, idx)
+                else:
+                    alb = planes[I_AR:I_AB + 1]
+                planes = torch.cat([out[0:10], alb, out[10:19]])
         return self._radiance(planes[I_RR:I_RB + 1])
 
     def trace_bounce_split(self, ds, prim: Dict[str, torch.Tensor],
@@ -403,51 +409,53 @@ class PathTracer(nn.Module):
             return sh[k:k + 3].reshape(3, -1).T
         lights = self.light_rows if self.multi_light else None
         for depth in range(1, self.depth + 1):
-            sh = shade_bounce(
-                torch.cat([planes, pix]), ds.mat_attr, fd=frame + depth,
-                lane0=self.lane0, light_pos=light["pos"],
-                lrad=light["radius"],
-                sint=light["intensity"],
-                alb_skip=depth == 1 and fl["alb_skip1"],
-                shadow_ray=fl["shadow_ray"], reduce_var=fl["reduce_var"],
-                lights=lights)
+            with span("ptdn.tracer.shade"):
+                sh = shade_bounce(
+                    torch.cat([planes, pix]), ds.mat_attr, fd=frame + depth,
+                    lane0=self.lane0, light_pos=light["pos"],
+                    lrad=light["radius"], sint=light["intensity"],
+                    alb_skip=depth == 1 and fl["alb_skip1"],
+                    shadow_ray=fl["shadow_ray"],
+                    reduce_var=fl["reduce_var"], lights=lights)
             rad = sh[O_RR:O_RB + 1]
             if fl["shadow_ray"]:
-                c = sh[O_CR:O_CB + 1]
-                if self.shadow_closest:
-                    hit = scene_intersect_full(ds, self.gi, rays(sh, O_SPX),
-                                               rays(sh, O_SDX))["geom_id"]
-                    target = (self.light_geoms[sh[O_LI].to(torch.int64)]
-                              if self.multi_light else light["geom"])
-                    vis = hit.reshape(nb, 128) == target
-                else:
-                    vis = light_visibility(ds, self.gi, rays(sh, O_SPX),
-                                           rays(sh, O_SDX),
-                                           light["geom"]).reshape(nb, 128)
-                if not self.multi_light:
-                    c = c * self.emit_planes
-                if self.multi_light or self.light_emissive:
-                    lit = (sh[O_NEE] > 0.5) & vis
-                    rad = rad + torch.where(lit, c, 0.0)
+                with span("ptdn.tracer.visibility"):
+                    c = sh[O_CR:O_CB + 1]
+                    if self.shadow_closest:
+                        hit = scene_intersect_full(
+                            ds, self.gi, rays(sh, O_SPX),
+                            rays(sh, O_SDX))["geom_id"]
+                        target = (self.light_geoms[sh[O_LI].to(torch.int64)]
+                                  if self.multi_light else light["geom"])
+                        vis = hit.reshape(nb, 128) == target
+                    else:
+                        vis = light_visibility(
+                            ds, self.gi, rays(sh, O_SPX), rays(sh, O_SDX),
+                            light["geom"]).reshape(nb, 128)
+                    if not self.multi_light:
+                        c = c * self.emit_planes
+                    if self.multi_light or self.light_emissive:
+                        lit = (sh[O_NEE] > 0.5) & vis
+                        rad = rad + torch.where(lit, c, 0.0)
             if depth == self.depth:
                 break
-            if fl["show_tex"]:
-                nxt, idx = scene_intersect_full_tex(ds, self.gi,
-                                                    rays(sh, O_SPX),
-                                                    rays(sh, O_DX))
-            else:
-                nxt = scene_intersect_full(ds, self.gi, rays(sh, O_SPX),
-                                           rays(sh, O_DX))
-                idx = None
-            alb = self._albedo(ds, nxt["mat_id"].to(torch.int64), idx)
-            act = sh[O_ACT] * nxt["hit"].reshape(nb, 128)
-            planes = torch.cat([
-                sh[O_SPX:O_SPZ + 1], sh[O_DX:O_DZ + 1],
-                nxt["t"].reshape(1, nb, 128),
-                nxt["normal"].T.reshape(3, nb, 128),
-                alb.reshape(3, nb, 128), sh[O_TR:O_TB + 1], rad,
-                nxt["mat_id"].to(torch.float32).reshape(1, nb, 128),
-                act[None], sh[O_DIF:O_DIF + 1]])
+            with span("ptdn.tracer.next_hit"):
+                if fl["show_tex"]:
+                    nxt, idx = scene_intersect_full_tex(
+                        ds, self.gi, rays(sh, O_SPX), rays(sh, O_DX))
+                else:
+                    nxt = scene_intersect_full(ds, self.gi, rays(sh, O_SPX),
+                                               rays(sh, O_DX))
+                    idx = None
+                alb = self._albedo(ds, nxt["mat_id"].to(torch.int64), idx)
+                act = sh[O_ACT] * nxt["hit"].reshape(nb, 128)
+                planes = torch.cat([
+                    sh[O_SPX:O_SPZ + 1], sh[O_DX:O_DZ + 1],
+                    nxt["t"].reshape(1, nb, 128),
+                    nxt["normal"].T.reshape(3, nb, 128),
+                    alb.reshape(3, nb, 128), sh[O_TR:O_TB + 1], rad,
+                    nxt["mat_id"].to(torch.float32).reshape(1, nb, 128),
+                    act[None], sh[O_DIF:O_DIF + 1]])
         return self._radiance(rad)
 
     def trace_sorted(self, ds, prim: Dict[str, torch.Tensor], light: Dict,
@@ -463,29 +471,35 @@ class PathTracer(nn.Module):
                            device=dev).reshape(nb, 128)
         fl = self.flags
         for depth in range(1, self.depth + 1):
-            # E writes its planes into the bounce's allp, Q the rest
-            allp = torch.empty((N_ALLP, nb, 128), device=dev)
-            shade_bounce(
-                torch.cat([planes, pix[None]]), ds.mat_attr,
-                fd=frame + depth, lane0=self.lane0, light_pos=light["pos"],
-                lrad=light["radius"], sint=light["intensity"],
-                alb_skip=depth == 1 and fl["alb_skip1"],
-                shadow_ray=fl["shadow_ray"], reduce_var=fl["reduce_var"],
-                out=allp[:N_OUT])
-            allp, key = ranges_and_key(ds, allp, pix, self.n_chunks,
-                                       fl["do_vis"], light["pos"],
-                                       light["half_diag"],
-                                       boxes=self.range_boxes)
-            allp = permute_planes(allp, key, self.regroup)
+            with span("ptdn.tracer.shade"):
+                # E writes its planes into the bounce's allp, Q the rest
+                allp = torch.empty((N_ALLP, nb, 128), device=dev)
+                shade_bounce(
+                    torch.cat([planes, pix[None]]), ds.mat_attr,
+                    fd=frame + depth, lane0=self.lane0,
+                    light_pos=light["pos"], lrad=light["radius"],
+                    sint=light["intensity"],
+                    alb_skip=depth == 1 and fl["alb_skip1"],
+                    shadow_ray=fl["shadow_ray"],
+                    reduce_var=fl["reduce_var"], out=allp[:N_OUT])
+            with span("ptdn.tracer.ranges"):
+                allp, key = ranges_and_key(ds, allp, pix, self.n_chunks,
+                                           fl["do_vis"], light["pos"],
+                                           light["half_diag"],
+                                           boxes=self.range_boxes)
+            with span("ptdn.tracer.permute"):
+                allp = permute_planes(allp, key, self.regroup)
             pix = allp[-1]
             do_next = depth < self.depth
-            out, alb = trace_bounce(
-                ds, self.gi, allp[:-1], light_geom=light["geom"],
-                do_vis=fl["do_vis"], do_next=do_next, emit=light["emit"],
-                show_tex=fl["show_tex"])
-            # the last depth's albedo is never read (fetch_alb's else)
-            planes = torch.cat([out[0:10], out[0:3] if alb is None else alb,
-                                out[10:19]])
+            with span("ptdn.tracer.bounce"):
+                out, alb = trace_bounce(
+                    ds, self.gi, allp[:-1], light_geom=light["geom"],
+                    do_vis=fl["do_vis"], do_next=do_next,
+                    emit=light["emit"], show_tex=fl["show_tex"])
+                # the last depth's albedo is never read (fetch_alb's else)
+                planes = torch.cat([out[0:10],
+                                    out[0:3] if alb is None else alb,
+                                    out[10:19]])
         # pixel ids are a permutation of 0..n_pad-1: scatter them back
         radiance = torch.empty((n_pad, 3), device=dev)
         radiance[pix.reshape(-1).to(torch.int64)] = (

@@ -1,7 +1,36 @@
 """Structured per-frame observability: a FrameStats record per frame (ms,
 rays/s, SVGF history-rejection rate, mean variance, accumulated frame
-index), as the JAX package's ptdn_tpu/utils/stats.py, and a
-torch.profiler trace context for deep dives.
+index), as the JAX package's ptdn_tpu/utils/stats.py, a
+torch.profiler trace context for deep dives, and the spans the frame
+path records inside such a trace (span).
+
+The spans, each a torch.profiler.record_function range named `ptdn.*`,
+nest as the frame's stages do:
+
+    ptdn.frame (engine/renderer.py: Renderer.render_frame; args: the
+      frame index)
+      ptdn.step (engine/step.py: FrameStep.frame_gen)
+        ptdn.tracer (the step's call of engine/wavefront.py: PathTracer)
+          ptdn.tracer.camera     camera rays, kernel A, the albedo and the
+                                 G-buffer position of a moved camera
+          ptdn.tracer.shade      kernel E (or H) and the cat of its input
+          ptdn.tracer.ranges     kernel Q
+          ptdn.tracer.permute    the sorts, kernel G, the planes' gather
+          ptdn.tracer.bounce     kernel F and the cat of its output
+          ptdn.tracer.visibility the split engine's shadow test (I or A)
+          ptdn.tracer.next_hit   the next hit (J or A) and its albedo (K)
+        ptdn.denoiser (the step's call of denoise/svgf.py: SVGFDenoiser)
+          ptdn.denoiser.pack     the G-buffer packed for kernel D
+          ptdn.denoiser.motion   the branch choice's reprojection
+            ptdn.sync.motion     the host's read of it
+          ptdn.denoiser.reproject kernel C, its band mode or L
+          ptdn.denoiser.atrous   the à-trous levels (kernel D)
+
+They are on only while a profiler records (perfbench's traced window,
+profiler_trace, profile_frame.py); off, a span costs one check. Row
+shards of one process (parallel/mesh.py: InProcessGroup) record each
+its own, in lock step: a shard's spans stay open while the next shard
+runs, so they no longer nest.
 """
 
 from __future__ import annotations
@@ -29,6 +58,19 @@ class FrameStats:
     def json(self) -> str:
         return json.dumps({k: v for k, v in dataclasses.asdict(self).items()
                            if v is not None})
+
+
+# the context every span is while no profiler records
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str, args=None):
+    """A record_function range `name` (its args the string of `args`)
+    while a profiler records, else a shared context that does nothing."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(
+            name, None if args is None else str(args))
+    return _OFF
 
 
 def sync(device: torch.device):
