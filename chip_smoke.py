@@ -64,8 +64,12 @@ Phases, one line or more each, with their wall time:
    path's shapes and a mid-sequence state: A, B1 + B2, C, D, L (and L
    against C then D) on cornell, B1 and D (every level, on the frame's
    packed and unpacked layouts) equal bit for bit; C's band mode on a
-   moving cornell camera; E and G on diamond (equal); F on diamond,
-   bunny and room; H on cornell, bunny and room; F and H there plane by
+   moving cornell camera; E and G on diamond (equal); F (reading the
+   bounce's planes through the sort's order) on diamond, bunny and room,
+   and on the last bounce of diamond and room (the radiance by pixel);
+   a still frame of room at 1920x1080 and of diamond under
+   torch.profiler, F once a bounce and no torch op copying lane planes
+   in the depth loop; H on cornell, bunny and room; F and H there plane by
    plane, through the scene's build and the kernel library's, no plane
    with more lanes off their plain versions than the per-lane scan they
    replaced had (LANES_OFF_ALLOWED); I, J (and J against A) and K on
@@ -739,14 +743,19 @@ def q_check(label, args, boxes):
 
 
 def f_agreement(kf, pf):
-    """Lanes where F and its plain version hit the same material with the
-    same liveness; the max |d| of t, normal and uv there; and the share
-    of lanes whose lit radiance agrees."""
-    agree = (kf[F.B_MAT] == pf[F.B_MAT]) & (kf[F.B_ACT] == pf[F.B_ACT])
-    err = max(max_abs(kf[k][agree], pf[k][agree])
-              for k in (F.B_T, F.B_NX, F.B_NY, F.B_NZ, F.B_UU, F.B_VV))
-    lit = ((kf[F.B_RR:F.B_RB + 1] == pf[F.B_RR:F.B_RB + 1])
-           | torch.isnan(pf[F.B_RR:F.B_RB + 1])).all(dim=0)
+    """Lanes where H (B_* planes) or F (the next bounce's I_* planes) and
+    its plain version hit the same material with the same liveness; the
+    max |d| of t, normal (and H's uv) there; and the share of lanes whose
+    lit radiance agrees."""
+    mat, act, t, rad = ((F.B_MAT, F.B_ACT, F.B_T, F.B_RR)
+                        if kf.shape[0] == F.N_BOUT
+                        else (E.I_MAT, E.I_ACT, E.I_T, E.I_RR))
+    agree = (kf[mat] == pf[mat]) & (kf[act] == pf[act])
+    near = (t, t + 1, t + 2, t + 3) + ((F.B_UU, F.B_VV)
+                                       if kf.shape[0] == F.N_BOUT else ())
+    err = max(max_abs(kf[k][agree], pf[k][agree]) for k in near)
+    lit = ((kf[rad:rad + 3] == pf[rad:rad + 3])
+           | torch.isnan(pf[rad:rad + 3])).all(dim=0)
     return float(agree.float().mean()), err, float(lit.float().mean())
 
 
@@ -1015,6 +1024,70 @@ def bp_launches(many):
             kernels += e.count
         cats += e.count if e.key == "aten::cat" else 0
     return kernels, cats, k
+
+
+# the stages of the sorted wavefront's depth loop, and the torch ops that
+# copy lane planes, of which it makes none: the carry moves through E's,
+# Q's, G's and F's own loads and stores
+LOOP_SPANS = ("ptdn.tracer.shade", "ptdn.tracer.ranges",
+              "ptdn.tracer.permute", "ptdn.tracer.bounce")
+PLANE_COPIES = ("aten::cat", "aten::stack", "aten::index_select",
+                "aten::index_put_", "aten::index", "aten::gather")
+
+
+def short_kernel(name: str) -> str:
+    """A device kernel's name as the profiler gives it, without its
+    namespace, template and parameters."""
+    bare = name.replace("(anonymous namespace)", "").split("(")[0]
+    return bare.split("<")[0].split("::")[-1].strip() or name
+
+
+def sorted_copies():
+    """One still frame of room at 1920x1080 (the room cells' sorted
+    tracer) and of diamond (G's in-row permute) under torch.profiler: F
+    launched once a bounce, and no torch op that copies lane planes
+    (PLANE_COPIES) inside the depth loop's spans (LOOP_SPANS); prints the
+    frame's device kernels by name and count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for name, res in (("room", (1920, 1080)), ("diamond", None)):
+        r = renderer(name, res)
+        for _ in range(2):
+            r.render_frame()
+        torch.cuda.synchronize()
+        F.trace_bounce.launches = 0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            r.render_frame()
+            torch.cuda.synchronize()
+        # the host's events (a span also shows on the device's timeline)
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CPU]
+        spans = [(e.thread, e.time_range.start, e.time_range.end)
+                 for e in events if e.name in LOOP_SPANS]
+        found = {}
+        for e in events:
+            if e.name in PLANE_COPIES and any(
+                    t == e.thread and a <= e.time_range.start
+                    and e.time_range.end <= b for t, a, b in spans):
+                found[e.name] = found.get(e.name, 0) + 1
+        kernels = {}
+        for e in prof.key_averages():
+            if getattr(e, "device_type", None) == \
+                    torch.autograd.DeviceType.CUDA \
+                    and getattr(e, "self_device_time_total", 0) > 0:
+                k = short_kernel(e.key)
+                kernels[k] = kernels.get(k, 0) + e.count
+        check(len(spans) == 4 * DEPTH and not found
+              and F.trace_bounce.launches == DEPTH,
+              f"{name}: {len(spans)} loop spans, plane copies in the depth "
+              f"loop {found}, F launched {F.trace_bounce.launches} times "
+              f"(expected {DEPTH})")
+        print(f"phase 2: {name} {res or SCENES[name][0]} still frame: F "
+              f"{F.trace_bounce.launches} launches, no plane copy in the "
+              f"depth loop; {sum(kernels.values())} kernels: "
+              + ", ".join(f"{k} {v}" for k, v in sorted(
+                  kernels.items(), key=lambda kv: -kv[1])))
 
 
 def sharded_phase(card, out, frame_ms):
@@ -1614,33 +1687,59 @@ def main():
     print(f"phase 2: diamond bounce 2: E equal on "
           f"{tuple(e_planes.shape)} planes; G equal on "
           f"{tuple(g_planes.shape)} planes")
+    # F reads the bounce's unsorted planes through the sort's order and
+    # writes the next bounce's planes (a new buffer here: the frame's
+    # call wrote into its carry, f_kw's "out")
+    f_kernel, f_plain = BB.kernel_fn("trace_bounce"), BB.plain_fn(
+        "trace_bounce")
     for name, (r, cap) in mesh.items():
-        (fds, fgi, f_planes), f_kw = cap["trace_bounce"]
+        (fds, fgi, allp, order), f_kw = cap["trace_bounce"]
         check(f_kw["show_tex"] == (name == "room"),
               f"F takes textures on room only, not on {name}")
-        kf, kalb = F._trace_bounce_kernel(fds, fgi, f_planes, **f_kw)
+        check(f_kw["out"].shape[0] == F.N_NEXT,
+              f"F on {name} writes the next bounce's planes in place")
+        check(order.dtype == torch.int64 and not torch.equal(
+            order, torch.arange(order.numel(), device=order.device)),
+            f"F on {name} reads through the sort's order")
+        kf = f_kernel(fds, fgi, allp, order, **f_kw)
         A.mesh_best.tri_tests = A.light_visible.tri_tests = 0
-        pf, palb = F.trace_bounce_plain(fds, fgi, f_planes, **f_kw)
+        pf = f_plain(fds, fgi, allp, order, **f_kw)
         f_tests = A.mesh_best.tri_tests + A.light_visible.tri_tests
         agree, err, lit = f_agreement(kf, pf)
-        alb_eq = float((kalb == palb).all(dim=0).float().mean())
+        alb = slice(E.I_AR, E.I_AB + 1)
+        alb_eq = float((kf[alb] == pf[alb]).all(dim=0).float().mean())
+        pix_eq = same(kf[E.I_PIX], pf[E.I_PIX])
         check(agree >= 0.999 and err <= 1e-5 and lit >= 0.999
-              and alb_eq >= 0.999, f"F on {name}: agree {agree} err {err} "
-              f"lit {lit} albedo {alb_eq}")
+              and alb_eq >= 0.999 and pix_eq, f"F on {name}: agree {agree} "
+              f"err {err} lit {lit} albedo {alb_eq} pixel plane {pix_eq}")
         if name == "diamond":
             stats["trace_bounce"] = max(err, max_abs(
-                kf[F.B_RR:F.B_RB + 1], pf[F.B_RR:F.B_RB + 1]))
+                kf[E.I_RR:E.I_RB + 1], pf[E.I_RR:E.I_RB + 1]))
             lanes = kf[0].numel()
             work["trace_bounce"] = bound(
-                nbytes(f_planes, kf, kalb),
+                nbytes(allp, order, kf),
                 lanes * (2 * n_analytic(fgi) * ANALYTIC_OPS + REFINE_OPS)
                 + f_tests * MOLLER_OPS)
         print(f"phase 2: F on {name} bounce 2: hits agree {agree:.6f}, "
               f"max |d| there {err:.3g}, lit agree {lit:.6f}, next albedo "
-              f"equal on {alb_eq:.6f} of lanes, {f_tests} lane-triangle "
-              f"tests in the plain scan")
+              f"equal on {alb_eq:.6f} of lanes, pixel plane equal, "
+              f"{f_tests} lane-triangle tests in the plain scan")
         plane_check("trace_bounce", f"F on {name} bounce 2",
-                    (fds, fgi, f_planes), f_kw, (kf, kalb), (pf, palb))
+                    (fds, fgi, allp, order), f_kw, kf, pf)
+    # F on the last depth: each lane's radiance to its pixel's row
+    for name in ("diamond", "room"):
+        r = renderer(name)
+        (fds, fgi, allp, order), f_kw = BB.capture_bounce(
+            r, DEPTH, ("trace_bounce",))["trace_bounce"]
+        check(not f_kw["do_next"] and f_kw["out"] is None,
+              f"F on {name}'s last depth writes the radiance")
+        kf = f_kernel(fds, fgi, allp, order, **f_kw)
+        pf = f_plain(fds, fgi, allp, order, **f_kw)
+        check(kf.shape == (allp[0].numel(), 3),
+              f"F on {name}'s last depth: radiance {tuple(kf.shape)}")
+        plane_check("trace_bounce", f"F on {name} bounce {DEPTH} (last)",
+                    (fds, fgi, allp, order), f_kw, kf, pf)
+    sorted_copies()
 
     # Q on the same bounce-2 states, on terrain30k's (233 chunks: the
     # supergroups) and on room's at 1920x1080 with bench.py's moving
@@ -2219,10 +2318,9 @@ def main():
     print("phase 4: trace bench (cornell, 800x800 random rays) "
           + ", ".join(f"{k} {v:.4f} ms" for k, v in bench_ms.items())
           + f" [{card}]")
-    (f_planes_d, f_kw_d) = mesh["diamond"][1]["trace_bounce"]
+    (f_args_d, f_kw_d) = mesh["diamond"][1]["trace_bounce"]
     q_args, q_boxes = q_cases["diamond"][0], q_cases["diamond"][1]["boxes"]
     i_args, j_args, k_args = ijk_args      # cornell's
-    fds, fgi, f_planes = f_planes_d
     times = {
         "scene_intersect_full": (
             lambda: A._scene_intersect_full_kernel(ds, gi, o, d),
@@ -2249,8 +2347,8 @@ def main():
             lambda: E._shade_bounce_kernel(e_planes, e_mats, **e_kw),
             lambda: E.shade_bounce_plain(e_planes, e_mats, **e_kw), None),
         "trace_bounce": (
-            lambda: F._trace_bounce_kernel(fds, fgi, f_planes, **f_kw_d),
-            lambda: F.trace_bounce_plain(fds, fgi, f_planes, **f_kw_d),
+            lambda: BB.kernel_fn("trace_bounce")(*f_args_d, **f_kw_d),
+            lambda: BB.plain_fn("trace_bounce")(*f_args_d, **f_kw_d),
             None),
         "ranges_and_key": (
             lambda: Q._ranges_and_key_kernel(q_boxes, *q_args[1:]),

@@ -23,8 +23,9 @@ csrc/scene/path_trace.cu, where the scene has one, and the kernel
 library's)
 
 * counts, per output, the lanes where the kernel's value differs from
-  its plain version's in any bit (two NaNs count as equal): the 21 B_*
-  planes, and F's three next-albedo planes; A's t, normal, uv, material
+  its plain version's in any bit (two NaNs count as equal): H's 21 B_*
+  planes, F's 23 next planes (its radiance by pixel on the last depth);
+  A's t, normal, uv, material
   and geom, and J's texel index besides; I's lit flag; M's five
   outputs; Q's 26 planes and its key; B1's 6 x depth contribution
   planes and depth - 1 texel-index planes; and the same against the
@@ -33,13 +34,24 @@ library's)
   host hidden behind a device spin (utils/card.py:cuda_ms), the builds
   in turns there and back, and the plain version once;
 * computes the kernel's bound: its inputs and outputs once over the HBM
-  rate, or its operations over the float32 rate, counting the analytic
+  rate (F's 26 planes read through the sort's order and the int64 order
+  itself among them), or its operations over the float32 rate, counting
+  the analytic
   tests of every ray (both rays in F and H, and in B1 at every depth),
   the refine and, in H and B1, the shading of every lane, and the
   lane-triangle tests that the plain version's scan made; Q's bytes
   are the planes its live and NEE lanes need (ops/cuda/ranges.py:
   traffic, the shares printed) and its operations its box tests
   (ops/cuda/ranges.py:box_tests).
+
+The F cases also time, in turns with the builds, the gather F's
+ordered reads replaced (index_select of the bounce's 26 planes by the
+order), this tree's F on those gathered planes through the identity
+order, and for each variant whose F predates the order (its
+csrc/bounce.cuh has no `order` in TraceArgs: an older tree's) that F on
+the gathered planes as it ran (PlanesTraceArgs), alone and with the
+gather and the cat of the next planes around it, each output counted
+against this tree's.
 
 The L case takes L's call on the fourth frame of cornell at 800x800
 with fuse_reproject_l1 (a still camera: L on every frame after the
@@ -93,6 +105,7 @@ FILE where given. Needs one card.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import dataclasses
 import functools
 import json
@@ -218,9 +231,92 @@ ALB_PLANES = ("alb_r", "alb_g", "alb_b")
 CALLER = {"back_projection_atrous1": svgf, "spatial_variance": svgf}
 CALLED = {"path_trace_table": "path_trace",
           "spatial_variance": "spatial_variance_fallback"}
+NEXT_PLANES = B_PLANES[:10] + ALB_PLANES + B_PLANES[10:19] + ("pix",)
 # the generated scene past B1's per-scene build: cornell plus this many
 # cubes (65 geoms)
 CUBES = 55
+
+
+class PlanesTraceArgs(ctypes.Structure):
+    """csrc/bounce.cuh:TraceArgs before kernel F read through the sort's
+    order: the 25 planes gathered into sorted order in, the 21 B_* planes
+    and the (3, N) next albedo out."""
+    _fields_ = ([(k, ctypes.c_void_p) for k in ("inp", "out", "alb")]
+                + [(k, ctypes.c_int) for k in ("n", "light_geom", "do_vis",
+                                               "do_next", "show_tex")]
+                + [(k, ctypes.c_float) for k in ("emit_r", "emit_g",
+                                                 "emit_b")])
+
+
+def reads_through_order(src_dir) -> bool:
+    """Whether src_dir's kernel F reads through the sort's order (this
+    tree's contract) or takes planes gathered beforehand (an older
+    tree's)."""
+    text = (pathlib.Path(src_dir) / "bounce.cuh").read_text()
+    return "order" in text[text.index("struct TraceArgs"):
+                           text.index("struct BounceArgs")]
+
+
+def _fresh(fn):
+    """F's wrapper `fn` on a captured call, into a new output (the
+    frame's call wrote into its carry)."""
+    def call(*args, out=None, **kw):
+        return fn(*args, **kw)
+    return call
+
+
+def f_parts(args, kw, libs=None):
+    """The parts of an F case (args, kw its captured call): "gather", the
+    index_select of the bounce's planes by the order that F's ordered
+    reads replaced; "F on gathered planes", this tree's kernel library
+    F on them through the identity order; and for each library of
+    `libs` (an older tree's F) "F [name] on gathered planes", that F as
+    it ran, and "gather + F [name] + cat", with the next planes' cat or
+    the radiance's scatter it took. Returns name -> (fn, whether its
+    output is F's, in this tree's layout)."""
+    ds, gi, allp, order = args
+    kw = {k: v for k, v in kw.items() if k != "out"}
+    lib_gi = gi._replace(path_scene=None)
+    n, shape, dev = allp[0].numel(), tuple(allp.shape[1:]), allp.device
+
+    def gather():
+        return allp.reshape(F.N_TIN, n).index_select(1, order).reshape(
+            allp.shape)
+    gathered = gather()
+    ident = torch.arange(n, device=dev)
+
+    def theirs(lib, planes):
+        out = torch.empty((F.N_BOUT,) + shape, device=dev)
+        alb = (torch.empty((3,) + shape, device=dev) if kw["do_next"]
+               else None)
+        p, emit = _lib.ptr, kw["emit"]
+        targs = PlanesTraceArgs(
+            inp=p(planes), out=p(out), alb=p(alb), n=n,
+            light_geom=kw["light_geom"], do_vis=int(kw["do_vis"]),
+            do_next=int(kw["do_next"]), show_tex=int(kw["show_tex"]),
+            emit_r=emit[0], emit_g=emit[1], emit_b=emit[2])
+        _lib.launch(A.entry(lib_gi, "ptdn_trace_bounce"),
+                    A.scene_dev(ds, lib_gi, dev), targs, lib=lib)
+        return out, alb
+
+    def bounce(lib):
+        planes = gather()
+        out, alb = theirs(lib, planes)
+        if kw["do_next"]:
+            return torch.cat([out[0:10], alb, out[10:19], planes[-1:]])
+        rad = torch.empty((n, 3), device=dev)
+        rad[planes[-1].reshape(-1).to(torch.int64)] = (
+            out[F.B_RR:F.B_RB + 1].reshape(3, n).T)
+        return rad
+    parts = {"gather": (gather, False),
+             "F on gathered planes": (lambda: F._trace_bounce_kernel(
+                 ds, lib_gi, gathered, ident, **kw), True)}
+    for name, lib in (libs or {}).items():
+        parts[f"F [{name}] on gathered planes"] = (
+            functools.partial(theirs, lib, gathered), False)
+        parts[f"gather + F [{name}] + cat"] = (
+            functools.partial(bounce, lib), True)
+    return parts
 
 
 def capture_bounce(r, depth: int, names, module=W):
@@ -332,7 +428,7 @@ def shade_and_ranges(shade, args, kw, libs=None):
 
 
 def kernel_fn(kernel: str):
-    return {"trace_bounce": F._trace_bounce_kernel,
+    return {"trace_bounce": _fresh(F._trace_bounce_kernel),
             "ranges_and_key": _ranges_and_key_kernel,
             "bounce_fused": F._bounce_fused_kernel,
             "scene_intersect_full": A._scene_intersect_full_kernel,
@@ -346,7 +442,7 @@ def kernel_fn(kernel: str):
 
 
 def plain_fn(kernel: str):
-    return {"trace_bounce": F.trace_bounce_plain,
+    return {"trace_bounce": _fresh(F.trace_bounce_plain),
             "ranges_and_key": _ranges_and_key_plain,
             "bounce_fused": F.bounce_fused_plain,
             "scene_intersect_full": A.scene_intersect_full_plain,
@@ -371,10 +467,11 @@ def hit_planes(isect, tidx=None):
 
 
 def out_planes(kernel: str, out):
-    """The output planes by name: F's B_* planes and next albedo, H's
-    B_* planes, A's outputs, J's and its texel index, I's lit flag, L's
-    color, variance, moments and history, M's outputs, B1's
-    contribution and texel-index planes, Q's 26 planes and its key."""
+    """The output planes by name: F's next planes (or its radiance by
+    pixel, on the last depth), H's B_* planes, A's outputs, J's and its
+    texel index, I's lit flag, L's color, variance, moments and history,
+    M's outputs, B1's contribution and texel-index planes, Q's 26 planes
+    and its key."""
     if kernel == "ranges_and_key":
         allp, key = out
         return {**{f"plane{k}": p for k, p in enumerate(allp)}, "key": key}
@@ -400,10 +497,9 @@ def out_planes(kernel: str, out):
         return hit_planes(*out)
     if kernel == "bounce_fused":
         return dict(zip(B_PLANES, out))
-    b, alb = out
-    names = B_PLANES + (ALB_PLANES if alb is not None else ())
-    return dict(zip(names, list(b) + (list(alb) if alb is not None
-                                      else [])))
+    if out.shape[0] == F.N_NEXT:
+        return dict(zip(NEXT_PLANES, out))
+    return dict(zip(("r", "g", "b"), out.T))
 
 
 def plane_diffs(got, ref):
@@ -498,8 +594,9 @@ def work(kernel: str, args, kw, out, tri_tests: int, culls=(0, 0)):
         per_lane = 2 * n_an * ANALYTIC_OPS + REFINE_OPS
         if kernel == "bounce_fused":
             per_lane += SHADE_OPS
-        ins = args[2:3]
-        outs = out if isinstance(out, tuple) else (out,)
+        # F: the planes it reads through the order, and the order
+        ins = args[2:4] if kernel == "trace_bounce" else args[2:3]
+        outs = (out,)
     return bound(nbytes(*ins, *outs), n_lanes(kernel, args) * per_lane
                  + tri_tests * MOLLER_OPS)
 
@@ -516,7 +613,8 @@ def build_variant(name: str, src_dir, kernels=tuple(SOURCE)) -> tuple:
         {e: _lib.ENTRIES[e] for e in entries})
 
 
-def measure(kernel: str, args, kw, libs=None, reps: int = 20):
+def measure(kernel: str, args, kw, libs=None, reps: int = 20,
+            old_f=()):
     """The numbers of one case: lanes, the plain scan's lane-triangle
     tests, the plain version's ms, the bound, and per build the per-plane
     differing lanes (against the plain version, and against the first
@@ -524,7 +622,8 @@ def measure(kernel: str, args, kw, libs=None, reps: int = 20):
     scene's own build ("scene", where the kernel and the scene have one),
     the kernel library's ("library"), and each library of `libs` (name ->
     library, built by build_variant), which the wrappers take as they
-    take the kernel library's."""
+    take the kernel library's; F's parts (f_parts), the variants named in
+    `old_f` (an older tree's F) among them and not among the builds."""
     ds, gi, *rest = args
     shade = kw.pop("shade", None)     # Q's case: E's call of its bounce
     # Q takes no geom info and has the library's build alone
@@ -534,7 +633,8 @@ def measure(kernel: str, args, kw, libs=None, reps: int = 20):
     if kernel in PER_SCENE and gi.path_scene is not None:
         builds = {"scene": (None, args), **builds}
     builds.update({name: (lib, lib_args)
-                   for name, lib in (libs or {}).items()})
+                   for name, lib in (libs or {}).items()
+                   if kernel != "trace_bounce" or name not in old_f})
     kfn, pfn = kernel_fn(kernel), plain_fn(kernel)
     culls = (0, 0)
     if kernel == "path_trace_table":
@@ -570,6 +670,15 @@ def measure(kernel: str, args, kw, libs=None, reps: int = 20):
         ms = in_turns({f"E + Q {k}": v for k, v in pairs.items()}, reps)
         out["parts"] = ms
         _, out["live"], out["nee"] = Q.lane_counts(args[1])
+    if kernel == "trace_bounce":   # the gather F replaced, older Fs
+        parts = f_parts(args, kw, {k: v for k, v in (libs or {}).items()
+                                   if k in old_f})
+        ref_lib = out_planes(kernel, kfn(*lib_args, **kw))
+        out["parts_off"] = {
+            name: sum(plane_diffs(out_planes(kernel, fn()), ref_lib).values())
+            for name, (fn, same_output) in parts.items() if same_output}
+        out["parts"] = in_turns({name: fn for name, (fn, _) in
+                                 parts.items()}, reps)
     if kernel == "path_trace_table":   # the work without the cull
         out["bound_full_ms"] = work(kernel, args, kw, ref, tests)[0]
         out["box_tests"], out["skipped_tests"] = culls
@@ -824,9 +933,9 @@ def r_patterns(libs=None) -> dict:
     return out
 
 
-def run(cases=None, libs=None, reps: int = 20):
+def run(cases=None, libs=None, reps: int = 20, old_f=()):
     """label -> measure()'s numbers for each case of `cases` (all by
-    default)."""
+    default); `old_f` as measure()'s."""
     out = {}
     for label in cases or CASES:
         kernel, scene, res, call = CASES[label]
@@ -834,7 +943,7 @@ def run(cases=None, libs=None, reps: int = 20):
         fn = {"back_projection_atrous1": measure_l,
               "spatial_variance": measure_r}.get(kernel)
         out[label] = (fn(args, kw, libs, reps) if fn
-                      else measure(kernel, args, kw, libs, reps))
+                      else measure(kernel, args, kw, libs, reps, old_f))
     return out
 
 
@@ -860,12 +969,14 @@ def main(argv=None):
                  "atrous_level_kernel")
     regs = {"library": [r for r in ptxas_summary(_lib.build(force=True))
                         if r.split()[0] in mine]}
-    libs = {}
+    libs, old_f = {}, set()
     for spec in args.variant:
         name, src = spec.split("=", 1)
         libs[name], log = build_variant(name, src, kernels)
         regs[name] = [r for r in ptxas_summary(log) if r.split()[0] in mine]
-    res = run(cases, libs, args.reps)
+        if "trace_bounce" in kernels and not reads_through_order(src):
+            old_f.add(name)
+    res = run(cases, libs, args.reps, old_f)
     pats = r_patterns(libs) if "spatial_variance" in kernels else {}
     for case, v in pats.items():
         print(f"R {case}: pixels off the first build, largest |d| from "

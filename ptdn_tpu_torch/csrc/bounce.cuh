@@ -13,10 +13,15 @@
 // (engine/wavefront.py:fetch_alb: albedo_from_tilepack, its texel gather
 // packed_texel_gather and the TPU kernel ptdn_tpu/ops/pallas/path.py:
 // uncompact_tiles_pallas, which routes the gathered texels back to their
-// lanes). A lane reads E's 21 output planes plus the crossed-chunk ranges
-// [nlo, nhi] of the next ray and [slo, shi] of the shadow ray
-// (kernel Q, csrc/ranges.cu), and writes the 21 planes of the
-// B_* layout:
+// lanes). Sorted lane i reads, at lane order[i] of the bounce's unsorted
+// planes (the stable sort of kernel Q's key; engine/wavefront.py:
+// permute_planes), E's 21 output planes plus the crossed-chunk ranges
+// [nlo, nhi] of the next ray and [slo, shi] of the shadow ray (kernel
+// Q, csrc/ranges.cu) and the pixel plane, so that no copy of the planes
+// in sorted order is made; and writes, below the last depth, the next
+// bounce's 22 I_* planes and its pixel id at its own index i (kernel E
+// reads them there next), on the last depth its radiance to its pixel's
+// row:
 //   1. on an NEE lane, the shadow ray's visibility: its closest analytic
 //      hit is the light and no triangle of the chunks [slo, shi] occludes
 //      it;
@@ -26,7 +31,12 @@
 //      lane takes no mesh hit), act2 = act * (geom >= 0), and the three
 //      planes of the next albedo: the hit material's color, or on a live
 //      lane of a textured material (show_tex) the nearest texel, read and
-//      unpacked here; on the last depth the constant planes.
+//      unpacked here. The hit's uv serves the texel and is not carried.
+// A block's 128 lanes are consecutive sorted lanes, so its chunk scan
+// and every output bit are those of F on planes gathered into sorted
+// order beforehand; the gathered loads take the gather's scattered reads
+// (a 32-byte sector a 4-byte value where neighbours did not sort
+// together) and save its writes and F's second read.
 // Why a lane's own range is exact: the range test (kernel Q) and
 // the cull (ptdn.cuh:chunk_crossed) are the same subtract-then-multiply
 // slab with no multiply-add to contract, so they agree bit for bit: a
@@ -57,9 +67,10 @@
 // What bounds them: on the mesh scenes, the lane-triangle tests (~52
 // float operations each, with a reciprocal; tens to hundreds per lane and
 // bounce) and the SIMT issue slots they take; on cornell (one chunk of
-// 38 triangles) H's shading and analytic tests. A lane moves 25 planes in
-// and 24 out (F, 196 B) or 22 in and 21 out (H, 172 B). PERF.md has the
-// counts and times.
+// 38 triangles) H's shading and analytic tests. A lane moves 26 planes
+// and its 8-byte order in and 23 planes out (F, 204 B; 124 B on the last
+// depth, 12 B out) or 22 in and 21 out (H, 172 B). PERF.md has the counts
+// and times.
 #pragma once
 
 #include "chunk_scan.cuh"
@@ -68,9 +79,12 @@
 namespace ptdn {
 
 struct TraceArgs {
-  const float* in;  // (25, N): the O_* planes of E, then nlo nhi slo shi
-  float* out;       // (21, N): the B_* planes
-  float* alb;       // (3, N): the next albedo, written when do_next
+  const float* in;         // (26, N): E's O_* planes, nlo nhi slo shi and
+                           // the pixel plane, lanes unsorted
+  const long long* order;  // (N,): sorted lane i reads lane order[i]
+  float* out;              // do_next: (23, N) the next bounce's I_* planes
+                           // and pixel plane; else (N, 3) the radiance by
+                           // pixel id
   int n;
   int light_geom;
   int do_vis;
@@ -92,9 +106,9 @@ struct BounceArgs {
   float emit_r, emit_g, emit_b;
 };
 
-// F's range planes after E's output, and the B_* output planes
-// (bounce.py:69-71)
-enum { R_NLO = kShadeOut, R_NHI, R_SLO, R_SHI };
+// F's range planes after E's output, then the pixel plane; and the B_*
+// output planes of H (bounce.py:69-71)
+enum { R_NLO = kShadeOut, R_NHI, R_SLO, R_SHI, R_PIX };
 enum {
   B_SPX, B_SPY, B_SPZ, B_DX, B_DY, B_DZ, B_T, B_NX, B_NY, B_NZ,
   B_TR, B_TG, B_TB, B_RR, B_RG, B_RB, B_MAT, B_ACT, B_DIF, B_UU, B_VV
@@ -107,8 +121,9 @@ __global__ void __launch_bounds__(kScanBlock, kScanBlocksPerSM)
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool lane = i < a.n;
   const size_t n = (size_t)a.n;
-  const float* in = a.in + i;
-  float* out = a.out + i;
+  // sorted lane i: its planes at lane order[i], its next planes at i
+  const float* in = a.in + (lane ? a.order[i] : 0);
+  float* nxt = a.out + i;
 
   // the analytic part of both rays, then one joint mesh scan
   ScanQuery sq = no_query(), nq = no_query();
@@ -139,54 +154,53 @@ __global__ void __launch_bounds__(kScanBlock, kScanBlocksPerSM)
       nq = ScanQuery{scan_ray(spx, spy, spz, dx, dy, dz),
                      na.geom >= 0 ? na.t : kFltMax, -1, (int)in[R_NLO * n],
                      (int)in[R_NHI * n], s.n_tris > 0 && act > 0.5f};
+      nxt[I_OX * n] = spx;
+      nxt[I_OY * n] = spy;
+      nxt[I_OZ * n] = spz;
+      nxt[I_DX * n] = dx;
+      nxt[I_DY * n] = dy;
+      nxt[I_DZ * n] = dz;
+      nxt[I_TR * n] = in[O_TR * n];
+      nxt[I_TG * n] = in[O_TG * n];
+      nxt[I_TB * n] = in[O_TB * n];
+      nxt[I_DIF * n] = in[O_DIF * n];
+      nxt[kShadeIn * n] = in[R_PIX * n];
     }
-    out[B_SPX * n] = spx;
-    out[B_SPY * n] = spy;
-    out[B_SPZ * n] = spz;
-    out[B_DX * n] = dx;
-    out[B_DY * n] = dy;
-    out[B_DZ * n] = dz;
-    out[B_TR * n] = in[O_TR * n];
-    out[B_TG * n] = in[O_TG * n];
-    out[B_TB * n] = in[O_TB * n];
-    out[B_DIF * n] = in[O_DIF * n];
   }
   chunk_scan(s, sm, nq, sq);
   if (!lane) return;
 
   const bool lit = nee && sq.best < 0;
-  out[B_RR * n] = in[O_RR * n] + (lit ? in[O_CR * n] * a.emit_r : 0.f);
-  out[B_RG * n] = in[O_RG * n] + (lit ? in[O_CG * n] * a.emit_g : 0.f);
-  out[B_RB * n] = in[O_RB * n] + (lit ? in[O_CB * n] * a.emit_b : 0.f);
+  const float rr = in[O_RR * n] + (lit ? in[O_CR * n] * a.emit_r : 0.f);
+  const float rg = in[O_RG * n] + (lit ? in[O_CG * n] * a.emit_g : 0.f);
+  const float rb = in[O_RB * n] + (lit ? in[O_CB * n] * a.emit_b : 0.f);
   if (!a.do_next) {
-    // last depth: only the radiance survives; the rest stays finite
-    out[B_T * n] = 1.f;
-    out[B_NX * n] = 0.f;
-    out[B_NY * n] = 0.f;
-    out[B_NZ * n] = 1.f;
-    out[B_MAT * n] = 0.f;
-    out[B_ACT * n] = act;
-    out[B_UU * n] = 0.f;
-    out[B_VV * n] = 0.f;
+    // last depth: only the radiance survives, in its pixel's row (the
+    // pixel ids are a permutation of the lanes)
+    float* row = a.out + 3 * (size_t)(int)in[R_PIX * n];
+    row[0] = rr;
+    row[1] = rg;
+    row[2] = rb;
     return;
   }
+  nxt[I_RR * n] = rr;
+  nxt[I_RG * n] = rg;
+  nxt[I_RB * n] = rb;
   const Hit h =
       resolve_hit<Rows>(s, na, nq.best, spx, spy, spz, dx, dy, dz);
   const float act2 = act * (h.geom >= 0 ? 1.f : 0.f);
-  out[B_T * n] = h.t;
-  out[B_NX * n] = h.nx;
-  out[B_NY * n] = h.ny;
-  out[B_NZ * n] = h.nz;
-  out[B_MAT * n] = (float)h.mat;
-  out[B_ACT * n] = act2;
-  out[B_UU * n] = h.u;
-  out[B_VV * n] = h.v;
+  nxt[I_T * n] = h.t;
+  nxt[I_NX * n] = h.nx;
+  nxt[I_NY * n] = h.ny;
+  nxt[I_NZ * n] = h.nz;
+  nxt[I_MAT * n] = (float)h.mat;
+  nxt[I_ACT * n] = act2;
   const int ti =
       (a.show_tex && act2 > 0.5f) ? tex_index(s, h.mat, h.u, h.v) : -1;
   const uint32_t texel = ti >= 0 ? s.tex_flat[ti] : 0u;
   for (int c = 0; c < 3; ++c)
-    a.alb[c * n + i] = ti >= 0 ? texel_channel(texel, c)
-                               : s.mat_attr[16 * h.mat + c];
+    nxt[(I_AR + c) * n] = ti >= 0 ? texel_channel(texel, c)
+                                  : s.mat_attr[16 * h.mat + c];
 }
 
 template <class Rows>

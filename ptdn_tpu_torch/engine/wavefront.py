@@ -19,12 +19,14 @@ the G-buffer position.
   carry 22 state planes and a pixel-id plane. Per bounce kernel E shades
   every lane; each lane's crossed-chunk ranges of its next and shadow ray
   give it a coherence key (ranges_and_key, kernel Q); a stable sort of
-  the key reorders every plane (permute_planes, with kernel G's in-row permute
-  first on scenes of at most 8 chunks); kernel F traces NEE visibility
-  and the next closest hit over each lane's ranges and reads the next
-  bounce's albedo (the texel where textured). The RNG follows the
-  pixel plane, so the sort only reorders the whole-path engine's
-  arithmetic; the radiance returns to pixel order at the end.
+  the key gives the lanes' order (permute_planes, with kernel G's in-row
+  permute first on scenes of at most 8 chunks); kernel F reads each
+  sorted lane's planes through that order, traces NEE visibility and
+  the next closest hit over the lane's ranges, reads the next bounce's
+  albedo (the texel where textured) and writes the next bounce's planes
+  in sorted order where E read this bounce's. The RNG follows the pixel
+  plane, so the sort only reorders the whole-path engine's arithmetic;
+  on the last depth F writes each lane's radiance to its pixel's row.
 * Unsorted fused per-bounce engine (`bounce_fused`, `fuse_path=False`,
   bounce_fused :1045-1086): the same 22 planes in pixel order; per
   bounce one launch of kernel H shades, traces the NEE visibility and
@@ -79,11 +81,11 @@ from ptdn_tpu_torch.ops.cuda.ranges import (  # noqa: F401
 from ptdn_tpu_torch.ops.cuda.scene_intersect import (
     TCHUNK, geom_info, light_visibility, scene_intersect_full,
     scene_intersect_full_tex, tex_index, texel_rgb)
-from ptdn_tpu_torch.ops.cuda.shade import (I_AB, I_AR, I_RB, I_RR, O_ACT,
-                                           O_CB, O_CR, O_DIF, O_DX, O_DZ,
-                                           O_LI, O_NEE, O_RB, O_RR, O_SDX,
-                                           O_SPX, O_SPZ, O_TB, O_TR, N_OUT,
-                                           light_table, shade_bounce)
+from ptdn_tpu_torch.ops.cuda.shade import (I_AB, I_AR, I_PIX, I_RB, I_RR,
+                                           O_ACT, O_CB, O_CR, O_DIF, O_DX,
+                                           O_DZ, O_LI, O_NEE, O_RB, O_RR,
+                                           O_SDX, O_SPX, O_SPZ, O_TB, O_TR,
+                                           N_OUT, light_table, shade_bounce)
 from ptdn_tpu_torch.ops.fp import fma
 from ptdn_tpu_torch.scene.parser import MESH
 from ptdn_tpu_torch.scene.scene import DeviceScene
@@ -119,13 +121,16 @@ def init_primary_cache(n: int, device) -> Dict[str, torch.Tensor]:
 
 
 def permute_planes(allp: torch.Tensor, key: torch.Tensor,
-                   regroup: int = 0) -> torch.Tensor:
-    """Reorder the lanes of allp (K, NB, 128) by a stable sort of `key`
-    (N,) (wavefront.py:735-875), in one gather of every plane. With
+                   regroup: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The coherence order of the lanes of allp (K, NB, 128), a stable
+    sort of `key` (N,) (wavefront.py:735-875): (planes, order), sorted
+    lane i being lane order[i] (int64, (N,)) of `planes`, which kernel F
+    reads through the order in place of a gather of every plane. With
     regroup G > 1: a stable in-row argsort of the key first, applied to
-    every plane by kernel G, then the stable sort of each group of G
-    lanes by its smallest key, moving G lanes at a time."""
-    k, nb = allp.shape[0], allp.shape[1]
+    every plane by kernel G (`planes` is G's output), then the stable
+    sort of each group of G lanes by its smallest key, moving G lanes at
+    a time; else `planes` is allp."""
+    nb = allp.shape[1]
     n = nb * 128
     g = int(regroup) if regroup else 1
     if 128 % g:
@@ -138,7 +143,7 @@ def permute_planes(allp: torch.Tensor, key: torch.Tensor,
     if g > 1:
         order = (order[:, None] * g
                  + torch.arange(g, device=order.device)).reshape(n)
-    return allp.reshape(k, n).index_select(1, order).reshape(k, nb, 128)
+    return allp, order
 
 
 def static_light_radius(ds, light_geom: int) -> float:
@@ -311,8 +316,22 @@ class PathTracer(nn.Module):
 
     def _lane_planes(self, prim: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The 22 I_* planes (22, NB, 128) of the primary hit, the carry
-        of every per-bounce engine (wavefront.py:1447-1464); the padding
-        lanes of the last row are dead from the start (hit False)."""
+        of the unsorted per-bounce engines (wavefront.py:1447-1464)."""
+        return torch.stack(self._plane_list(prim))
+
+    def _sorted_planes(self, prim: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The sorted wavefront's first carry (23, NB, 128): the 22 I_*
+        planes of the primary hit and the pixel plane, the lane's index,
+        which kernel F overwrites with the next bounce's planes."""
+        pix = torch.arange(self.n_pad, dtype=torch.float32,
+                           device=prim["t"].device)
+        return torch.stack(self._plane_list(prim)
+                           + [pix.reshape(self.n_pad // 128, 128)])
+
+    def _plane_list(self, prim: Dict[str, torch.Tensor]):
+        """The 22 I_* planes of the primary hit, each (NB, 128); the
+        padding lanes of the last row are dead from the start (hit
+        False)."""
         n, n_pad = self.w * self.h, self.n_pad
         nb = n_pad // 128
         dev = prim["t"].device
@@ -326,7 +345,7 @@ class PathTracer(nn.Module):
 
         one = torch.ones(n, device=dev)
         zero = torch.zeros(n, device=dev)
-        return torch.stack(
+        return (
             [plane(prim["o"][:, k]) for k in range(3)]
             + [plane(prim["d"][:, k], 1.0 if k == 2 else 0.0)
                for k in range(3)]
@@ -462,46 +481,38 @@ class PathTracer(nn.Module):
                      frame: int) -> torch.Tensor:
         """The sorted wavefront's depth loop from the primary hit
         (bounce_sorted and its carry, wavefront.py:1088-1187, 1447-1494);
-        returns the radiance (N, 3) in pixel order."""
-        n, n_pad = self.w * self.h, self.n_pad
-        nb = n_pad // 128
+        returns the radiance (N, 3) in pixel order. The carry, 23 planes
+        (the I_* planes and the pixel plane), moves only through the
+        kernels: E reads it, F writes the next bounce's into it."""
+        nb = self.n_pad // 128
         dev = prim["t"].device
-        planes = self._lane_planes(prim)
-        pix = torch.arange(n_pad, dtype=torch.float32,
-                           device=dev).reshape(nb, 128)
+        planes = self._sorted_planes(prim)
         fl = self.flags
         for depth in range(1, self.depth + 1):
             with span("ptdn.tracer.shade"):
                 # E writes its planes into the bounce's allp, Q the rest
                 allp = torch.empty((N_ALLP, nb, 128), device=dev)
                 shade_bounce(
-                    torch.cat([planes, pix[None]]), ds.mat_attr,
-                    fd=frame + depth, lane0=self.lane0,
+                    planes, ds.mat_attr, fd=frame + depth, lane0=self.lane0,
                     light_pos=light["pos"], lrad=light["radius"],
                     sint=light["intensity"],
                     alb_skip=depth == 1 and fl["alb_skip1"],
                     shadow_ray=fl["shadow_ray"],
                     reduce_var=fl["reduce_var"], out=allp[:N_OUT])
             with span("ptdn.tracer.ranges"):
-                allp, key = ranges_and_key(ds, allp, pix, self.n_chunks,
-                                           fl["do_vis"], light["pos"],
-                                           light["half_diag"],
+                allp, key = ranges_and_key(ds, allp, planes[I_PIX],
+                                           self.n_chunks, fl["do_vis"],
+                                           light["pos"], light["half_diag"],
                                            boxes=self.range_boxes)
             with span("ptdn.tracer.permute"):
-                allp = permute_planes(allp, key, self.regroup)
-            pix = allp[-1]
+                allp, order = permute_planes(allp, key, self.regroup)
             do_next = depth < self.depth
             with span("ptdn.tracer.bounce"):
-                out, alb = trace_bounce(
-                    ds, self.gi, allp[:-1], light_geom=light["geom"],
-                    do_vis=fl["do_vis"], do_next=do_next,
-                    emit=light["emit"], show_tex=fl["show_tex"])
-                # the last depth's albedo is never read (fetch_alb's else)
-                planes = torch.cat([out[0:10],
-                                    out[0:3] if alb is None else alb,
-                                    out[10:19]])
-        # pixel ids are a permutation of 0..n_pad-1: scatter them back
-        radiance = torch.empty((n_pad, 3), device=dev)
-        radiance[pix.reshape(-1).to(torch.int64)] = (
-            planes[16:19].reshape(3, n_pad).T)
-        return radiance[:n]
+                # below the last depth the next planes replace the ones E
+                # and Q have read; on the last the radiance by pixel
+                out = trace_bounce(
+                    ds, self.gi, allp, order, out=planes if do_next else None,
+                    light_geom=light["geom"], do_vis=fl["do_vis"],
+                    do_next=do_next, emit=light["emit"],
+                    show_tex=fl["show_tex"])
+        return out[:self.w * self.h]

@@ -11,13 +11,19 @@ Replaces the TPU kernel ptdn_tpu/ops/pallas/bounce.py:trace_bounce_pallas
 (its joint next + shadow chunk scan, scene_intersect.py:joint_mesh_tiles)
 and the albedo fetch after it (engine/wavefront.py:fetch_alb), whose
 texel route back to the lanes is the TPU kernel
-ptdn_tpu/ops/pallas/path.py:uncompact_tiles_pallas. Input: kernel E's 21
-O_* planes followed by the crossed-chunk range planes nlo, nhi, slo, shi
-(kernel Q, ops/cuda/ranges.py:ranges_and_key); output: the 21 planes of
-the B_* layout and, when do_next, the (3, NB, 128) albedo of the next bounce.
-The kernel scans each block of 128 lanes' chunks once, from triangles
-staged in shared memory, each lane within its own ranges
-(csrc/chunk_scan.cuh); the plain version scans every chunk with the
+ptdn_tpu/ops/pallas/path.py:uncompact_tiles_pallas. Input: the bounce's
+planes in the lanes' unsorted order, kernel E's 21 O_* planes followed by
+the crossed-chunk range planes nlo, nhi, slo, shi and the pixel plane
+(kernel Q, ops/cuda/ranges.py:ranges_and_key), and the order of the
+coherence sort (engine/wavefront.py:permute_planes): sorted lane i reads
+lane order[i], so the planes are never copied into sorted order. Output,
+below the last depth: the next bounce's 22 I_* planes (the B_* planes
+but uv, with the next albedo as I_AR..I_AB) and its pixel plane, in
+sorted order, which kernel E reads as they lie; on the last depth the
+(N, 3) radiance, each lane's in its pixel's row. The kernel scans each
+block of 128 sorted lanes' chunks once, from triangles staged in shared
+memory, each lane within its own ranges (csrc/chunk_scan.cuh); the plain
+version gathers the planes by the order and scans every chunk with the
 per-lane cull, which visits the same chunks (csrc/bounce.cuh says why),
 so the two compute one function. The TPU kernel's tile-wide texel
 compaction is dropped: a GPU thread reads its own texel at no such
@@ -54,9 +60,13 @@ from ptdn_tpu_torch.ops.cuda.shade import (I_MAT, I_NX, I_NY, I_NZ, I_T,
                                            O_TB, O_TG, O_TR, ShadeParams,
                                            shade_bounce_plain, shade_params)
 
-# the four range planes after E's output (bounce.py:231-233)
-R_NLO, R_NHI, R_SLO, R_SHI = range(N_OUT, N_OUT + 4)
-N_TIN = N_OUT + 4
+# the four range planes after E's output (bounce.py:231-233), then the
+# pixel plane: F's input
+R_NLO, R_NHI, R_SLO, R_SHI, R_PIX = range(N_OUT, N_OUT + 5)
+N_TIN = N_OUT + 5
+# F's output below the last depth: the next bounce's I_* planes and its
+# pixel plane
+N_NEXT = N_IN + 1
 # output plane indices (bounce.py:69-71)
 (B_SPX, B_SPY, B_SPZ, B_DX, B_DY, B_DZ, B_T, B_NX, B_NY, B_NZ,
  B_TR, B_TG, B_TB, B_RR, B_RG, B_RB, B_MAT, B_ACT, B_DIF,
@@ -66,7 +76,7 @@ N_BOUT = 21
 
 class TraceArgs(ctypes.Structure):
     """Mirror of csrc/bounce.cu:TraceArgs."""
-    _fields_ = ([(k, ctypes.c_void_p) for k in ("inp", "out", "alb")]
+    _fields_ = ([(k, ctypes.c_void_p) for k in ("inp", "order", "out")]
                 + [(k, ctypes.c_int) for k in ("n", "light_geom", "do_vis",
                                                "do_next", "show_tex")]
                 + [(k, ctypes.c_float) for k in ("emit_r", "emit_g",
@@ -118,13 +128,17 @@ def _b_planes(p, rad, hit, shape):
     return out.reshape((N_BOUT,) + shape)
 
 
-def trace_bounce_plain(ds, gi: GeomInfo, planes: torch.Tensor, *,
-                       light_geom: int, do_vis: bool, do_next: bool,
-                       emit: Sequence[float], show_tex: bool
-                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Plain PyTorch version of kernel F (see trace_bounce)."""
+def trace_lanes_plain(ds, gi: GeomInfo, planes: torch.Tensor, *,
+                      light_geom: int, do_vis: bool, do_next: bool,
+                      emit: Sequence[float], show_tex: bool
+                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """F's arithmetic on planes (25 or more, NB, 128) already in the
+    lanes' sorted order (E's O_* planes, then nlo, nhi, slo, shi): the 21
+    B_* planes and, when do_next, the (3, NB, 128) next albedo, else
+    None; on the last depth the B_* planes but the radiance are
+    constants."""
     shape = tuple(planes.shape[1:])
-    p = planes.reshape(N_TIN, -1)
+    p = planes.reshape(planes.shape[0], -1)
     rad = _lit_radiance(ds, gi, p, light_geom, do_vis, emit)
     if not do_next:
         act = p[O_ACT]
@@ -145,25 +159,52 @@ def trace_bounce_plain(ds, gi: GeomInfo, planes: torch.Tensor, *,
             torch.stack(alb).reshape((3,) + shape))
 
 
-def trace_bounce(ds, gi: GeomInfo, planes: torch.Tensor, *, light_geom: int,
+def trace_bounce_plain(ds, gi: GeomInfo, allp: torch.Tensor,
+                       order: torch.Tensor, *,
+                       out: Optional[torch.Tensor] = None, light_geom: int,
+                       do_vis: bool, do_next: bool, emit: Sequence[float],
+                       show_tex: bool) -> torch.Tensor:
+    """Plain PyTorch version of kernel F (see trace_bounce): the planes
+    gathered into sorted order, trace_lanes_plain, then the next
+    bounce's planes assembled or the radiance put to its pixels' rows."""
+    shape = tuple(allp.shape[1:])
+    p = allp.reshape(N_TIN, -1).index_select(1, order)
+    b, alb = trace_lanes_plain(ds, gi, p, light_geom=light_geom,
+                               do_vis=do_vis, do_next=do_next, emit=emit,
+                               show_tex=show_tex)
+    if do_next:
+        res = torch.cat([b[0:10], alb, b[10:19],
+                         p[R_PIX:R_PIX + 1]]).reshape((N_NEXT,) + shape)
+    else:
+        res = torch.empty((p.shape[1], 3), device=p.device)
+        res[p[R_PIX].to(torch.int64)] = b[B_RR:B_RB + 1].T
+    if out is None:
+        return res
+    return out.copy_(res)
+
+
+def trace_bounce(ds, gi: GeomInfo, allp: torch.Tensor, order: torch.Tensor,
+                 *, out: Optional[torch.Tensor] = None, light_geom: int,
                  do_vis: bool, do_next: bool, emit: Sequence[float],
-                 show_tex: bool
-                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Trace one bounce of the sorted wavefront: planes (25, NB, 128)
-    float32 (E's O_* planes, then nlo, nhi, slo, shi). do_vis: add the
+                 show_tex: bool) -> torch.Tensor:
+    """Trace one bounce of the sorted wavefront: allp (26, NB, 128)
+    float32, the bounce's planes in the lanes' unsorted order (E's O_*
+    planes, nlo, nhi, slo, shi, the pixel plane); order (N,) int64, the
+    coherence sort's (sorted lane i is lane order[i]). do_vis: add the
     radiance of NEE lanes that see light geom `light_geom` (emit: its
     color times emittance); do_next: find the next closest hit and the
-    next bounce's albedo (else the last depth's constant planes);
-    show_tex: textured materials take their nearest texel as albedo.
-    Returns the (21, NB, 128) B_* planes and, when do_next, the
-    (3, NB, 128) next albedo, else None. CPU tensors take the plain
-    version; CUDA tensors launch kernel F."""
-    _lib.require(planes.device, "trace_bounce")
-    kw = dict(light_geom=light_geom, do_vis=do_vis, do_next=do_next,
-              emit=emit, show_tex=show_tex)
-    if planes.device.type == "cpu":
-        return trace_bounce_plain(ds, gi, planes, **kw)
-    return _trace_bounce_kernel(ds, gi, planes, **kw)
+    next bounce's albedo; show_tex: textured materials take their nearest
+    texel as albedo. Returns, when do_next, the next bounce's (23, NB,
+    128) I_* planes and pixel plane in sorted order, else the (N, 3)
+    radiance in pixel order, written into `out` where given (a new tensor
+    else; the sorted wavefront passes the planes its E read). CPU tensors
+    take the plain version; CUDA tensors launch kernel F."""
+    _lib.require(allp.device, "trace_bounce")
+    kw = dict(out=out, light_geom=light_geom, do_vis=do_vis,
+              do_next=do_next, emit=emit, show_tex=show_tex)
+    if allp.device.type == "cpu":
+        return trace_bounce_plain(ds, gi, allp, order, **kw)
+    return _trace_bounce_kernel(ds, gi, allp, order, **kw)
 
 
 def _scene_build(gi: GeomInfo):
@@ -174,23 +215,25 @@ def _scene_build(gi: GeomInfo):
             else _lib.scene_kernels(gi.path_scene, "bounce"))
 
 
-def _trace_bounce_kernel(ds, gi, planes, *, light_geom, do_vis, do_next,
-                         emit, show_tex):
-    shape = tuple(planes.shape[1:])
-    _lib.check_tensor(planes, torch.float32, (N_TIN,) + shape, "planes")
-    dev = planes.device
-    out = torch.empty((N_BOUT,) + shape, dtype=torch.float32, device=dev)
-    alb = (torch.empty((3,) + shape, dtype=torch.float32, device=dev)
-           if do_next else None)
+def _trace_bounce_kernel(ds, gi, allp, order, *, out=None, light_geom,
+                         do_vis, do_next, emit, show_tex):
+    shape = tuple(allp.shape[1:])
+    _lib.check_tensor(allp, torch.float32, (N_TIN,) + shape, "allp")
+    n = allp[0].numel()
+    _lib.check_tensor(order, torch.int64, (n,), "order")
+    out_shape = (N_NEXT,) + shape if do_next else (n, 3)
+    if out is None:
+        out = torch.empty(out_shape, dtype=torch.float32, device=allp.device)
+    _lib.check_tensor(out, torch.float32, out_shape, "out")
     p = _lib.ptr
-    args = TraceArgs(inp=p(planes), out=p(out), alb=p(alb), n=out[0].numel(),
+    args = TraceArgs(inp=p(allp), order=p(order), out=p(out), n=n,
                      light_geom=light_geom, do_vis=int(do_vis),
                      do_next=int(do_next), show_tex=int(show_tex),
                      emit_r=emit[0], emit_g=emit[1], emit_b=emit[2])
-    _lib.launch(entry(gi, "ptdn_trace_bounce"), scene_dev(ds, gi, dev), args,
-                lib=_scene_build(gi))
+    _lib.launch(entry(gi, "ptdn_trace_bounce"),
+                scene_dev(ds, gi, allp.device), args, lib=_scene_build(gi))
     trace_bounce.launches += 1
-    return out, alb
+    return out
 
 
 trace_bounce.launches = 0

@@ -261,14 +261,18 @@ def test_block_scan_equals_the_lane_scans(scenes_dir, monkeypatch, name,
     bounce-2 input (64x64, the first frame, coherence-sorted; dead lanes
     and empty ranges among them; `last`: bounce 2 is the last depth, no
     next ray), gives the closest (t, index) of mesh_best and the lit mask
-    of light_visible bit for bit; and trace_bounce_plain with its scans
-    replaced by the block scan's results gives every one of F's 24 planes
-    bit for bit."""
+    of light_visible bit for bit; and F's arithmetic (trace_lanes_plain)
+    with its scans replaced by the block scan's results gives every one
+    of its 24 planes bit for bit. F reads its lanes through the sort's
+    order: the blocks are 128 consecutive sorted lanes."""
     r = Renderer(_scene(scenes_dir / f"{name}.txt"),
                  RenderConfig(trace_depth=2 if last else 3), (64, 64),
                  device="cpu")
-    (ds, gi, planes), kw = capture_bounce(r, 2, ("trace_bounce",))[
+    (ds, gi, allp, order), kw = capture_bounce(r, 2, ("trace_bounce",))[
         "trace_bounce"]
+    kw = {k: v for k, v in kw.items() if k != "out"}
+    planes = allp.reshape(allp.shape[0], -1).index_select(1, order)[
+        :F.R_PIX].reshape((F.R_PIX,) + tuple(allp.shape[1:]))
     assert kw["do_next"] is not last and kw["do_vis"]
     p = planes.reshape(planes.shape[0], -1)
     assert bool((p[O_ACT] <= 0.5).any())                 # dead lanes
@@ -288,7 +292,7 @@ def test_block_scan_equals_the_lane_scans(scenes_dir, monkeypatch, name,
     assert torch.equal(to_light & (sq["best"] < 0), lit)
     assert bool(lit.any()) and bool((to_light & ~lit).any())
 
-    ref = F.trace_bounce_plain(ds, gi, planes, **kw)
+    ref = F.trace_lanes_plain(ds, gi, planes, **kw)
 
     def scanned_best(ds_, n_tris, o_, d_, bt0, cull=True):
         assert torch.equal(_bits(bt0), _bits(lim0))
@@ -297,7 +301,7 @@ def test_block_scan_equals_the_lane_scans(scenes_dir, monkeypatch, name,
     monkeypatch.setattr(A, "mesh_best", scanned_best)
     monkeypatch.setattr(F, "light_visible",
                         lambda *a, **k: to_light & (sq["best"] < 0))
-    got = F.trace_bounce_plain(ds, gi, planes, **kw)
+    got = F.trace_lanes_plain(ds, gi, planes, **kw)
     for a, b in zip(got, ref):
         if b is not None:
             assert torch.equal(_bits(a), _bits(b))

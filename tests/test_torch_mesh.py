@@ -19,6 +19,7 @@ from ptdn_tpu.ops.pallas.inrow import inrow_permute_pallas
 from ptdn_tpu.ops.pallas.shade import shade_bounce_pallas
 from ptdn_tpu.scene import Scene as JScene
 from ptdn_tpu_torch import interop
+from ptdn_tpu_torch.bounce_bench import capture_bounce
 from ptdn_tpu_torch.engine import Renderer
 from ptdn_tpu_torch.engine import wavefront as W
 from ptdn_tpu_torch.ops.cuda import bounce as F
@@ -141,7 +142,8 @@ def test_permute_planes_matches_jax(regroup):
     """The port's permute against the JAX engine's permute_planes, below
     the gather cliff (one batch): keys with many ties and dead lanes
     (the sentinel). Both sorts are stable, so the orders are the same
-    and every plane moves bit for bit alike."""
+    and every plane moves bit for bit alike, read through the port's
+    order as kernel F reads them."""
     r = np.random.default_rng(2)
     nb = 32
     n = nb * 128
@@ -151,9 +153,14 @@ def test_permute_planes_matches_jax(regroup):
     ref = np.asarray(JW.permute_planes(jnp.asarray(allp), jnp.asarray(key),
                                        n, nb, regroup=regroup,
                                        interpret=True))
-    got = W.permute_planes(torch.from_numpy(allp), torch.from_numpy(key),
-                           regroup).numpy()
-    assert np.array_equal(got, ref)
+    inp = torch.from_numpy(allp)
+    planes, order = W.permute_planes(inp, torch.from_numpy(key), regroup)
+    assert order.dtype == torch.int64
+    # no copy of the planes but kernel G's in-row permute
+    assert (planes is inp) == (regroup == 0)
+    # the planes as kernel F reads them: through the order
+    got = planes.reshape(26, n).index_select(1, order).reshape(26, nb, 128)
+    assert np.array_equal(got.numpy(), ref)
 
 
 # ---------------------------------------------------------------------------
@@ -216,7 +223,8 @@ def test_ranges_and_key_match_jax(scenes_dir, name):
 
 @pytest.mark.parametrize("name", ["diamond", "room"])
 def test_trace_bounce_matches_pallas(scenes_dir, name):
-    """F's plain version against trace_bounce_pallas at 64x64 from a real
+    """F's arithmetic (trace_lanes_plain, its plain version on the lanes
+    in sorted order) against trace_bounce_pallas at 64x64 from a real
     shade output (the port's first bounce, coherence-sorted). The hit
     (material, act) agrees on >= 99.9% of lanes, t, normal and uv to 1e-5
     there (XLA's fused multiply-adds can flip a near tie), the lit mask
@@ -234,10 +242,13 @@ def test_trace_bounce_matches_pallas(scenes_dir, name):
     captured = {}
     real_trace = W.trace_bounce
 
-    def spy(ds_, gi_, planes, **kw):
-        captured.setdefault("planes", planes.clone())
-        captured.setdefault("kw", kw)
-        return real_trace(ds_, gi_, planes, **kw)
+    def spy(ds_, gi_, allp, order, **kw):
+        # F's input planes in the sorted order it reads them in
+        captured.setdefault("planes", allp.reshape(F.N_TIN, -1).index_select(
+            1, order)[:F.R_PIX].reshape((F.R_PIX,) + allp.shape[1:]))
+        captured.setdefault("kw", {k: v for k, v in kw.items()
+                                   if k != "out"})
+        return real_trace(ds_, gi_, allp, order, **kw)
 
     W.trace_bounce = spy
     try:
@@ -245,7 +256,7 @@ def test_trace_bounce_matches_pallas(scenes_dir, name):
     finally:
         W.trace_bounce = real_trace
     planes, kw = captured["planes"], captured["kw"]
-    got, alb = F.trace_bounce(ds, tr.gi, planes, **kw)
+    got, alb = F.trace_lanes_plain(ds, tr.gi, planes, **kw)
     light = [float(x) for x in js.geoms[0].translation]
     pv = jnp.asarray(light + [1.4, 2.7, 0.0, 1.0, 0.0], jnp.float32)
     ref, comp = trace_bounce_pallas(
@@ -278,6 +289,59 @@ def test_trace_bounce_matches_pallas(scenes_dir, name):
     got_alb = alb.numpy().reshape(3, n).T
     assert np.array_equal(got_alb[agree.reshape(n)],
                           ref_alb[agree.reshape(n)])
+
+
+def _old_bounce(ds, gi, allp, order, kw):
+    """The sorted bounce's F as it ran before F read through the order:
+    every plane gathered by index_select, F's arithmetic on them, then
+    the next bounce's planes cat from F's output and albedo with the
+    gathered pixel plane, or on the last depth the radiance scattered to
+    the pixels' rows."""
+    n = allp[0].numel()
+    p = allp.reshape(F.N_TIN, n).index_select(1, order).reshape(allp.shape)
+    out, alb = F.trace_lanes_plain(ds, gi, p[:-1], **kw)
+    planes = torch.cat([out[0:10], out[0:3] if alb is None else alb,
+                        out[10:19]])
+    pix = p[-1]
+    if kw["do_next"]:
+        return torch.cat([planes, pix[None]])
+    radiance = torch.empty((n, 3))
+    radiance[pix.reshape(-1).to(torch.int64)] = planes[16:19].reshape(3, n).T
+    return radiance
+
+
+@pytest.mark.parametrize("do_next", [True, False])
+@pytest.mark.parametrize("name,show_tex", [("room", True), ("room", False),
+                                           ("diamond", False)])
+def test_trace_bounce_reads_through_the_order(scenes_dir, name, show_tex,
+                                              do_next):
+    """F's plain version in its contract (the bounce's unsorted planes,
+    the sort's order, the carry as its output buffer) on a real 64x64
+    sorted bounce 2 equals, bit for bit, the sequence it replaced
+    (_old_bounce): below the last depth the next bounce's 23 planes,
+    written into the buffer it was given; on the last the radiance in
+    pixel order. Room (22 chunks) with and without textures takes the
+    plain stable sort, diamond (5) kernel G's in-row permute first."""
+    r = Renderer(Scene(str(scenes_dir / f"{name}.txt")),
+                 RenderConfig(trace_depth=3 if do_next else 2,
+                              show_texture=show_tex, denoise_enable=False),
+                 (64, 64), device="cpu")
+    cap = capture_bounce(r, 2, ("trace_bounce", "inrow_permute"))
+    (ds, gi, allp, order), kw = cap["trace_bounce"]
+    assert ("inrow_permute" in cap) == (name == "diamond")
+    assert (kw.pop("out") is not None) == do_next
+    assert kw["do_next"] == do_next and kw["show_tex"] == show_tex
+    n = allp[0].numel()
+    assert not torch.equal(order, torch.arange(n))   # the sort moved lanes
+    want = _old_bounce(ds, gi, allp, order, kw)
+    dest = torch.full((F.N_NEXT,) + tuple(allp.shape[1:]), float("nan"))
+    got = F.trace_bounce(ds, gi, allp, order,
+                         out=dest if do_next else None, **kw)
+    if do_next:
+        assert got is dest
+    else:
+        assert got.shape == (n, 3)
+    assert _bits_equal(got.numpy(), want.numpy())
 
 
 # ---------------------------------------------------------------------------
@@ -317,12 +381,14 @@ def test_sorted_matches_unsorted(scenes_dir, monkeypatch, scene):
     """The coherence sort only reorders lanes: the RNG follows the pixel
     plane and every lane's arithmetic is placement-free, so the sorted
     wavefront equals itself with the permute taken out (the same
-    engine, lanes in pixel order) on > 95% of pixels with max |d| < 1e-4,
+    engine, lanes in pixel order: the identity order) on > 95% of pixels
+    with max |d| < 1e-4,
     as tests/test_engine.py:166-191 holds the JAX package's sorted path
     (measured: every pixel bit-equal). Cornell takes the sort by request
     and runs the texture path (F's texel albedo)."""
     sorted_ = _frames(scenes_dir, scene, sort_rays=True)
-    monkeypatch.setattr(W, "permute_planes", lambda allp, key, rg: allp)
+    monkeypatch.setattr(W, "permute_planes", lambda allp, key, rg: (
+        allp, torch.arange(allp[0].numel())))
     unsorted = _frames(scenes_dir, scene, sort_rays=True)
     for a, b in zip(sorted_, unsorted):
         assert (a == b).all(axis=-1).mean() > 0.95

@@ -30,10 +30,11 @@ def _bits_equal(a, b):
 def test_mesh_kernels_match_plain_on_card(scenes_dir):
     """E, F and G against their plain versions on the card at 128x96
     (chip_smoke.py does this at the main path's shapes): E and G
-    bit-equal, F on >= 99.9% of hits on diamond; and F on bunny's and
-    room's bounce 2, each build (the scene's own, the kernel library's),
-    with no lane differing on any of its 24 planes (the count of the
-    per-lane scan it replaced, PERF.md)."""
+    bit-equal, F (reading the bounce's planes through the sort's order)
+    on >= 99.9% of hits on diamond; and F on bunny's and room's bounce 2
+    and last bounce, each build (the scene's own, the kernel library's),
+    with no lane differing on any of its 23 next planes or its radiance
+    (the count of the per-lane scan it replaced, PERF.md)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     r = Renderer(Scene(str(scenes_dir / "diamond.txt")),
@@ -46,9 +47,11 @@ def test_mesh_kernels_match_plain_on_card(scenes_dir):
         captured.setdefault("e", (planes.clone(), mats, kw))
         return real[0](planes, mats, **kw)
 
-    def spy_trace(ds, gi, planes, **kw):
-        captured.setdefault("f", (ds, gi, planes.clone(), kw))
-        return real[1](ds, gi, planes, **kw)
+    def spy_trace(ds, gi, allp, order, **kw):
+        captured.setdefault("f", (ds, gi, allp.clone(), order.clone(),
+                                  {k: v for k, v in kw.items()
+                                   if k != "out"}))
+        return real[1](ds, gi, allp, order, **kw)
     W.shade_bounce, W.trace_bounce = spy_shade, spy_trace
     try:
         r.render_frame()
@@ -58,10 +61,10 @@ def test_mesh_kernels_match_plain_on_card(scenes_dir):
     ke = E._shade_bounce_kernel(planes, mats, **kw).cpu().numpy()
     assert _bits_equal(ke, E.shade_bounce_plain(planes, mats,
                                                 **kw).cpu().numpy())
-    ds, gi, tplanes, tkw = captured["f"]
-    kf, _ = F._trace_bounce_kernel(ds, gi, tplanes, **tkw)
-    pf, _ = F.trace_bounce_plain(ds, gi, tplanes, **tkw)
-    assert (kf[F.B_T] == pf[F.B_T]).float().mean() >= 0.999
+    ds, gi, tplanes, torder, tkw = captured["f"]
+    kf = F._trace_bounce_kernel(ds, gi, tplanes, torder, **tkw)
+    pf = F.trace_bounce_plain(ds, gi, tplanes, torder, **tkw)
+    assert (kf[E.I_T] == pf[E.I_T]).float().mean() >= 0.999
     order = torch.stack([torch.randperm(128) for _ in range(
         tplanes.shape[1])]).int().cuda()
     # bit patterns: the planes hold NaN (dead lanes' ranges), which
@@ -70,19 +73,20 @@ def test_mesh_kernels_match_plain_on_card(scenes_dir):
         G._inrow_permute_kernel(tplanes, order).view(torch.int32),
         G.inrow_permute_plain(tplanes, order).view(torch.int32))
     _no_plane_differs("trace_bounce", ("bunny", "room"))
+    _no_plane_differs("trace_bounce", ("room",), call=8)
 
 
-def _no_plane_differs(kernel, names):
-    """Kernel F or H (bounce_bench's `kernel`) at bounce 2 of each scene of
-    `names` at 128x96, through both builds: no lane differs from the plain
-    version in any bit of any output plane."""
+def _no_plane_differs(kernel, names, call=2):
+    """Kernel F or H (bounce_bench's `kernel`) at bounce `call` (of 8) of
+    each scene of `names` at 128x96, through both builds: no lane differs
+    from the plain version in any bit of any output plane."""
     for name in names:
-        (ds, gi, planes), kw = BB.capture(kernel, name, (128, 96))
-        ref = BB.out_planes(kernel, BB.plain_fn(kernel)(ds, gi, planes,
+        (ds, gi, *rest), kw = BB.capture(kernel, name, (128, 96), call)
+        ref = BB.out_planes(kernel, BB.plain_fn(kernel)(ds, gi, *rest,
                                                         **kw))
         assert gi.path_scene is not None
         for g in (gi, gi._replace(path_scene=None)):
-            got = BB.out_planes(kernel, BB.kernel_fn(kernel)(ds, g, planes,
+            got = BB.out_planes(kernel, BB.kernel_fn(kernel)(ds, g, *rest,
                                                              **kw))
             diffs = BB.plane_diffs(got, ref)
             assert not any(diffs.values()), (name, g.path_scene is None,
