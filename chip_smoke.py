@@ -96,10 +96,16 @@ Phases, one line or more each, with their wall time:
    temporal variance, bit for bit), E's light table on the two-light
    scene's bounce 2 (bit for bit), and the native builds of A, J, B1
    (per-scene and table), F and H on bunny's state, output by output
-   through the scene's build and the library's, no lane off;
+   through the scene's build and the library's, no lane off; the moved
+   frame's glue, S1, S2 (and its position alone) and T, on a moved
+   frame of room at 1920x1080 and of cornell, every lane of every
+   output equal to the plain version's;
 3. 32 frames per scene and engine (16 of room at 1920x1080) through
-   ptdn_tpu_torch's Renderer with every launch count checked, finite
-   outputs, and, where the camera is still, the RMSE against the
+   ptdn_tpu_torch's Renderer with every launch count checked (S1 and S2
+   on each frame whose camera moved, T on each read of the motion
+   bounds), every call of S1, S2 and T held to its plain version bit
+   for bit (GlueCheck; in phase 6 the shards' calls too, T's shard form
+   among them), finite outputs, and, where the camera is still, the RMSE against the
    converged ground truth (benchmarks/gt): denoised below half the raw
    1-spp RMSE on cornell and diamond, below the raw one elsewhere; the
    trace bench's three launches; 4 frames of the 65-geom scene, every
@@ -217,10 +223,12 @@ from ptdn_tpu_torch.app.viewer import Viewer  # noqa: E402
 from ptdn_tpu_torch.denoise import reproject, svgf  # noqa: E402
 from ptdn_tpu_torch.engine import Renderer  # noqa: E402
 from ptdn_tpu_torch.engine import wavefront as W  # noqa: E402
-from ptdn_tpu_torch.ops.camera import generate_camera_rays  # noqa: E402
+from ptdn_tpu_torch.ops.camera import (  # noqa: E402
+    generate_camera_rays, generate_camera_rays_plain)
 from ptdn_tpu_torch.ops.cuda import _lib  # noqa: E402
 from ptdn_tpu_torch.ops.cuda import atrous as D  # noqa: E402
 from ptdn_tpu_torch.ops.cuda import bounce as F  # noqa: E402
+from ptdn_tpu_torch.ops.cuda import camera as S  # noqa: E402
 from ptdn_tpu_torch.ops.cuda import compact as K  # noqa: E402
 from ptdn_tpu_torch.ops.cuda import dyngather as O  # noqa: E402
 from ptdn_tpu_torch.ops.cuda import inrow as G  # noqa: E402
@@ -397,6 +405,15 @@ KERNELS = {  # name: (wrapper, source, TPU kernel it replaces)
     # bounce's XLA code (the Pallas E bakes one light)
     "shade_bounce_lights": (E.shade_bounce, "csrc/shade.cu",
                             "ptdn_tpu/engine/wavefront.py:1321"),
+    # the moved frame's glue, XLA code in the JAX package: S1 the camera
+    # rays, S2 the primary hit's position and albedo (after A), T the
+    # motion bounds (its shard form counted in row_launches)
+    "camera_rays": (S.camera_rays, "csrc/motion.cu",
+                    "ptdn_tpu/ops/camera.py:106"),
+    "primary_finish": (S.primary_finish, "csrc/motion.cu",
+                       "ptdn_tpu/engine/wavefront.py:106"),
+    "motion_bounds": (C.motion_bounds, "csrc/motion.cu",
+                      "ptdn_tpu/denoise/reproject.py:511"),
 }
 # the counter of a kernel whose wrapper counts it apart from .launches
 COUNTER = {"path_trace_table": "table_launches",
@@ -424,7 +441,10 @@ LAUNCH_RUN = {"scene_intersect_full": ("cornell", "whole_path"),
               "mesh_intersect_v1": ("probe", "intersect_v1"),
               "take_chain": ("probe", "dyngather"),
               "spatial_variance": ("cornell", "native"),
-              "shade_bounce_lights": ("twolight", "native")}
+              "shade_bounce_lights": ("twolight", "native"),
+              "camera_rays": ("room", "1080p_animated"),
+              "primary_finish": ("room", "1080p_animated"),
+              "motion_bounds": ("room", "1080p_animated")}
 # the one PyTorch call timed beside a kernel, where one computes its gather
 LIBRARY = {"inrow_permute": "torch.gather", "sparse_gather": "torch.take",
            "gather_u32": "torch.take", "inrow_permute_k29": "torch.gather"}
@@ -595,6 +615,47 @@ class Motion:
         return out
 
 
+class GlueCheck:
+    """While entered, every call of the moved frame's glue (kernels S1,
+    S2 and T through the names the tracer and the denoiser call them
+    by: the whole image's and a shard's) is held to its plain version on
+    the same inputs, bit for bit on every lane of every output (NaN where
+    NaN); `calls` counts them by name."""
+    GLUE = {"generate_camera_rays": (W, generate_camera_rays_plain),
+            "primary_finish": (W, S.primary_finish_plain),
+            "motion_bounds": (svgf, reproject.motion_bounds_plain),
+            "motion_parts": (svgf, reproject.motion_parts_plain)}
+
+    def __init__(self, label):
+        self.label, self.calls, self.real = label, {}, {}
+
+    def __enter__(self):
+        for name, (mod, plain) in self.GLUE.items():
+            self.real[name] = real = getattr(mod, name)
+            setattr(mod, name, self.spy(name, real, plain))
+        return self
+
+    def __exit__(self, *exc):
+        for name, (mod, _) in self.GLUE.items():
+            setattr(mod, name, self.real[name])
+
+    def spy(self, name, real, plain):
+        def call(*args, **kw):
+            got = real(*args, **kw)
+            want = plain(*args, **kw)
+            pairs = list(zip(*(x if isinstance(x, tuple) else (x,)
+                               for x in (got, want))))
+            check(all((a is None and b is None) or (
+                a is not None and b is not None and a.dtype == b.dtype
+                and a.shape == b.shape and a.device == b.device
+                and (same(a, b) if a.is_floating_point()
+                     else torch.equal(a, b))) for a, b in pairs),
+                  f"{self.label}: {name} equals its plain version")
+            self.calls[name] = self.calls.get(name, 0) + 1
+            return got
+        return call
+
+
 def reset_counts():
     for name, (wrapper, _, _) in KERNELS.items():
         setattr(wrapper, COUNTER.get(name, "launches"), 0)
@@ -634,7 +695,8 @@ def expected_launches(r, motion):
     accumulation off), R on every frame in native mode but with L's
     gate (the JAX branch has no fallback), and D at every level but the
     first that L takes; none of C, L, R and D with the denoiser off, and
-    no shadow test with shadow_ray off."""
+    no shadow test with shadow_ray off; S1 and S2 on every frame whose
+    camera moved, and T on every read of the motion bounds."""
     tr, frames = r.step.tracer, len(motion.moved)
     denoise = r.cfg.denoise_enable
     temporal = denoise and r.cfg.temporal_enable
@@ -643,6 +705,8 @@ def expected_launches(r, motion):
     levels = r.cfg.atrous_nlevel if denoise and r.cfg.spatial_enable else 0
     want = dict.fromkeys(KERNELS, 0)
     want["scene_intersect_full"] = sum(motion.moved)
+    want["camera_rays"] = want["primary_finish"] = sum(motion.moved)
+    want["motion_bounds"] = len(motion.calls)
     if temporal:
         want["back_projection_banded"] = frames - near
         want["back_projection_atrous1" if fused
@@ -893,6 +957,7 @@ def entry_points(card, rmse, frame_ms):
               and not r.cfg.denoise_enable,
               f"viewer: 16 frames, renderer.step kept until 'D': {kept}")
         check(c["scene_intersect_full"] == 3
+              and c["camera_rays"] == c["primary_finish"] == 3
               and c["path_trace"] == c["deferred_radiance"] == 16
               and c["back_projection_banded"] >= 2
               and c["back_projection_stencil"]
@@ -913,10 +978,15 @@ def entry_points(card, rmse, frame_ms):
         want = [[t.clone() for t in r.render_frame()] for _ in range(2)]
         r2 = renderer("cornell")
         restore_renderer(r2, path)
+        reset_counts()
         got = [r2.render_frame() for _ in range(2)]
+        c = counts()
         check(all(torch.equal(a, b) for x, y in zip(want, got)
                   for a, b in zip(x, y)),
               "the restored renderer renders the same 2 frames")
+        # the restored state's rays are made again, and its position
+        check(c["camera_rays"] == c["primary_finish"] == 1,
+              f"the restored renderer remakes its rays once: {nonzero(c)}")
         print("phase 5: checkpoint of cornell at frame 3 resumed: the next "
               "2 frames equal bit for bit (raw and denoised)")
     check(file_hashes(guarded) == before,
@@ -957,7 +1027,7 @@ def sharded_frames(label, one, many, frames, moving_from=None):
     n = many.group.n
     autos = [CameraAutomation(dataclasses.replace(one.cfg, **ANIM_SLOW))
              for _ in range(2)]
-    total, exchanges, near, halo = {}, {}, [], []
+    total, exchanges, near, halo, glue_total = {}, {}, [], [], {}
     for f in range(frames):
         if moving_from is not None and f >= moving_from:
             for r, auto in zip((one, many), autos):
@@ -966,9 +1036,12 @@ def sharded_frames(label, one, many, frames, moving_from=None):
         want = one.render_frame()
         reset_shard_counts()
         many.group.exchanges.clear()
-        got = many.render_frame()
+        with GlueCheck(f"{label}, frame {f}") as glue:
+            got = many.render_frame()
         torch.cuda.synchronize()
         c = shard_counts()
+        for k, v in glue.calls.items():
+            glue_total[k] = glue_total.get(k, 0) + v
         check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
               f"{label}: frame {f} of {n} shards equals the whole image's "
               f"bit for bit")
@@ -991,6 +1064,16 @@ def sharded_frames(label, one, many, frames, moving_from=None):
                   f"{label}: frame {f}: D in shard mode {n} x "
                   f"{one.cfg.atrous_nlevel} times, got {c['atrous_level']}, "
                   f"{c['atrous_level_shard']}")
+    # every shard made its rays and position on frame 0 (and each moved
+    # frame), and its motion parts for the group's Reduce exchanges, each
+    # call equal to its plain version
+    check(glue_total.get("generate_camera_rays", 0)
+          == glue_total.get("primary_finish", 0) >= n
+          and (not one.cfg.temporal_enable
+               or glue_total.get("motion_parts", 0) >= n),
+          f"{label}: the shards' glue calls {glue_total}")
+    print(f"phase 6: {label}: S1, S2 and T's shard form equal to their "
+          f"plain versions bit for bit on {json.dumps(glue_total)} calls")
     return total, exchanges, near, halo
 
 
@@ -1425,8 +1508,8 @@ def main():
     # E its light-table entry, R one kernel, D's shard mode two (one and
     # two row phases a block) and C's shard mode two (stencil, band; the
     # stencil one also takes the whole image), beside the whole image's
-    # band mode
-    check(len(regs) == 31, f"31 kernels in the library, got {regs}")
+    # band mode; and the moved frame's glue, S1, S2 and T
+    check(len(regs) == 34, f"34 kernels in the library, got {regs}")
     # kernels B1, F, H, A, J, I and M (with and without the cull) are
     # built per scene, with the scene's constants (csrc/scene/*.cu), every
     # scene's at once, and the native runs' scenes in native mode
@@ -1618,6 +1701,26 @@ def main():
     print(f"phase 2: C band mode on a moving camera max |d| "
           f"{stats['back_projection_banded']:.3g}, histories equal; "
           f"{rejected} pixels restart their history")
+
+    # S1, S2 (and its position alone, a restored state's) and T on the
+    # calls of a moved frame of room at 1920x1080 (bench.py's animated
+    # camera) and of cornell, every lane of every output equal to the
+    # plain version's (bounce_bench's glue case)
+    glue_cases = {}
+    for name, res_g in (("room", (1920, 1080)), ("cornell", (800, 800))):
+        calls = BB.glue_calls(BB.capture_glue(BB.glue_renderer(name,
+                                                               res_g)))
+        off = BB.glue_off(calls)
+        check(not any(n for lanes in off.values() for n in lanes),
+              f"S1, S2 and T on {name}'s moved frame: lanes off their "
+              f"plain versions by output {off}")
+        glue_cases[name] = calls
+        print(f"phase 2: S1, S2 and T on a moved frame of {name} "
+              f"{res_g[0]}x{res_g[1]}: every output equal to the plain "
+              f"version on every lane ({', '.join(calls)})")
+    for name in ("camera_rays", "primary_finish", "motion_bounds"):
+        stats[name] = 0.0
+        work[name] = bound(glue_cases["room"][name][2], 0)
 
     # M on the trace bench's rays and on bunny's camera rays, with and
     # without the chunk cull, output by output through both builds
@@ -2081,7 +2184,7 @@ def main():
 
     # ---- phase 3: the main paths, every launch counted ----
     t0 = time.perf_counter()
-    rmse, runs, motion, lefts = {}, {}, {}, {}
+    rmse, runs, motion, lefts, glue_calls = {}, {}, {}, {}, {}
     plan = ([(f"{name} {{engine}}", name, flags, FRAMES, None)
              for name, flags in RUNS]
             + [(f"{name} {label}", name, flags, frames, res)
@@ -2092,14 +2195,16 @@ def main():
         label = label.format(engine=tr.engine)
         mov = Motion(r)
         reset_counts()
-        for _ in range(frames):
-            left, right = mov.frame()
+        with GlueCheck(label) as glue:
+            for _ in range(frames):
+                left, right = mov.frame()
         torch.cuda.synchronize()
         c = counts()
         runs[tuple(label.split(" ", 1))] = c
         want = expected_launches(r, mov)
         check({k: c[k] for k in want} == want,
               f"{label}: launches {c}, expected {want}")
+        glue_calls[label] = glue.calls
         near = mov.near_frames()
         # frame 0 (previous view: the identity) is far; a still camera's
         # frames after it near; a moving camera reads motion_bounds once
@@ -2116,7 +2221,8 @@ def main():
               and bool(torch.isfinite(right).all()), f"{label}: finite")
         line = (f"phase 3: {label} {r.resolution[0]}x{r.resolution[1]}: "
                 f"{frames} frames ({frames - sum(near)} far), launches "
-                f"{json.dumps(nonzero(c))}")
+                f"{json.dumps(nonzero(c))}; glue calls equal to their "
+                f"plain versions {json.dumps(glue.calls)}")
         if r.cfg.automate_camera:
             motion[label] = r
         else:
@@ -2253,11 +2359,13 @@ def main():
               f"{label}: engine {r.step.tracer.engine}, expected {engine}")
         mov = Motion(r)
         reset_counts()
-        for _ in range(FRAMES):
-            left, right = mov.frame()
+        with GlueCheck(label) as glue:
+            for _ in range(FRAMES):
+                left, right = mov.frame()
         torch.cuda.synchronize()
         c = counts()
         runs[tuple(label.split(" ", 1))] = c
+        glue_calls[label] = glue.calls
         want = expected_launches(r, mov)
         check({k: c[k] for k in want} == want,
               f"{label}: launches {c}, expected {want}")
@@ -2280,6 +2388,16 @@ def main():
         native_r[label] = r
         print(line)
     launches = {k: runs[LAUNCH_RUN[k]][k] for k in KERNELS}
+    # S1, S2 and T ran on the card, each call equal to its plain version
+    moved = glue_calls["room 1080p_animated"]
+    check(all(moved.get(k, 0) == 16 for k in ("generate_camera_rays",
+                                              "primary_finish",
+                                              "motion_bounds")),
+          f"room 1080p_animated: S1, S2 and T on each of its 16 frames, "
+          f"checked: {moved}")
+    print(f"phase 3: S1, S2 and T equal to their plain versions bit for bit "
+          f"on every call of every run above: "
+          f"{sum(sum(v.values()) for v in glue_calls.values())} calls")
     print(f"phase 3: {time.perf_counter() - t0:.1f} s")
 
     # ---- phase 4: times ----
@@ -2322,6 +2440,9 @@ def main():
     q_args, q_boxes = q_cases["diamond"][0], q_cases["diamond"][1]["boxes"]
     i_args, j_args, k_args = ijk_args      # cornell's
     times = {
+        **{name: (glue_cases["room"][name][0], glue_cases["room"][name][1],
+                  None)
+           for name in ("camera_rays", "primary_finish", "motion_bounds")},
         "scene_intersect_full": (
             lambda: A._scene_intersect_full_kernel(ds, gi, o, d),
             lambda: A.scene_intersect_full_plain(ds, gi, o, d), None),

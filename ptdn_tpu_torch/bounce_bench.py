@@ -1,8 +1,9 @@
 """Kernels F (trace_bounce), H (bounce_fused), A (scene_intersect_full),
 J (scene_intersect_full_tex), I (light_visibility), L
 (back_projection_atrous1), M (scene_intersect), Q (ranges_and_key), R
-(spatial_variance) and B1's table build (path_trace_table) on the card,
-on the calls of the scenes whose users feel them.
+(spatial_variance), B1's table build (path_trace_table) and the moved
+frame's glue (S1, S2, T) on the card, on the calls of the scenes whose
+users feel them.
 
     python3 -m ptdn_tpu_torch.bounce_bench [--reps N] [--cases LIST]
                                            [--variant NAME=DIR]...
@@ -73,6 +74,15 @@ none (ops/cuda/spatial_variance.py:sv_block_need) for the shipped
 tile and each of R_TILES, and the (pixel, tap) pairs whose normal or
 position distance is 0 (r_zero_pairs).
 
+The glue case renders four frames of room at 1920x1080 with bench.py's
+animated camera and the 5-level temporal SVGF, and captures the calls
+of the fifth (its camera moved): the camera rays (S1), the primary
+hit's finish after A (S2, and its position alone, a restored state's)
+and the motion bounds (T). Each kernel is timed in turns beside its
+plain version, the plain version also with its host (the launches it
+queues), with its lanes off the plain version by output and its bound
+(its inputs and outputs once).
+
 Cases (CASES): F and Q on diamond at 800x800 and room at 1920x1080, F
 also on bunny at 800x800, Q also on bunny and terrain30k at 800x800;
 H on cornell and bunny at 800x800 and room at 600x600; J on cornell at
@@ -82,7 +92,8 @@ bunny at 800x800 and room at 600x600; L on cornell at 800x800; M on the
 trace bench's 640,000 rays, cull on and off, and on bunny's 800x800
 camera rays; B1's table build on cornell and on cornell plus 55 cubes
 (utils/assets.py:write_cornell_plus, 65 geoms) at 800x800; R on native
-cornell at 800x800, spatial-only and temporal.
+cornell at 800x800, spatial-only and temporal; the glue on room at
+1920x1080.
 
 --variant NAME=DIR (repeatable) builds DIR's copy of each timed kernel's
 source (SOURCE: DIR/bounce.cu for F and H, DIR/scene_intersect.cu for A,
@@ -115,12 +126,16 @@ import numpy as np
 import torch
 
 from ptdn_tpu_torch import trace_bench
+from ptdn_tpu_torch.app.automate import CameraAutomation
+from ptdn_tpu_torch.denoise import reproject as trep
 from ptdn_tpu_torch.denoise import svgf
 from ptdn_tpu_torch.denoise.variance import HIST_THRESHOLD
 from ptdn_tpu_torch.engine import Renderer
 from ptdn_tpu_torch.engine import wavefront as W
-from ptdn_tpu_torch.ops.camera import generate_camera_rays
+from ptdn_tpu_torch.ops.camera import (generate_camera_rays,
+                                       generate_camera_rays_plain)
 from ptdn_tpu_torch.ops.cuda import _lib
+from ptdn_tpu_torch.ops.cuda import camera as S
 from ptdn_tpu_torch.ops.cuda import atrous as D
 from ptdn_tpu_torch.ops.cuda import bounce as F
 from ptdn_tpu_torch.ops.cuda import path as B
@@ -220,7 +235,8 @@ CASES = {"F diamond": ("trace_bounce", "diamond", (800, 800), 2),
          "R cornell spatial-only": ("spatial_variance", "cornell",
                                     (800, 800), "spatial-only"),
          "R cornell temporal": ("spatial_variance", "cornell", (800, 800),
-                                "temporal")}
+                                "temporal"),
+         "glue room 1920x1080": ("glue", "room", (1920, 1080), "moved")}
 B_PLANES = ("spx", "spy", "spz", "dx", "dy", "dz", "t", "nx", "ny", "nz",
             "tr", "tg", "tb", "rr", "rg", "rb", "mat", "act", "dif", "uu",
             "vv")
@@ -933,12 +949,125 @@ def r_patterns(libs=None) -> dict:
     return out
 
 
+# bench.py's room_1080p_animated camera speeds, the glue case's orbit
+ORBIT = dict(automate_camera=True, camera_speed_x=0.02,
+             camera_speed_theta=0.01, camera_speed_phi=0.015)
+# the glue's calls: the wrappers the frame calls (attributes of
+# engine/wavefront.py and denoise/svgf.py) and their kernels' names
+GLUE = {"generate_camera_rays": (W, "camera_rays_kernel"),
+        "primary_finish": (W, "primary_finish_kernel"),
+        "motion_bounds": (svgf, "motion_kernel"),
+        "motion_parts": (svgf, "motion_kernel")}
+
+
+def glue_renderer(scene: str, res, frames: int = 4, device: str = "cuda"):
+    """A renderer of `scene` at `res` (depth 8, the 5-level temporal SVGF)
+    after `frames` frames of the ORBIT camera, its camera moved again for
+    the next frame."""
+    cfg = dataclasses.replace(CFG, **SVGF5, **ORBIT)
+    r = Renderer(Scene(scene_file(scene)), cfg, res, device)
+    auto = CameraAutomation(cfg)
+    for _ in range(frames):
+        r.render_frame()
+        auto.step(r.camera)
+        r.cam_changed = True
+    return r
+
+
+def capture_glue(r):
+    """Render one frame of renderer r and return the arguments (args, kw)
+    of the first call of each of GLUE's wrappers that it makes (each
+    still runs, so the frame is unchanged)."""
+    got, real = {}, {k: getattr(m, k) for k, (m, _) in GLUE.items()}
+
+    def spy(key, fn):
+        def call(*args, **kw):
+            got.setdefault(key, (args, kw))
+            return fn(*args, **kw)
+        return call
+    for k, (m, _) in GLUE.items():
+        setattr(m, k, spy(k, real[k]))
+    try:
+        r.render_frame()
+    finally:
+        for k, (m, _) in GLUE.items():
+            setattr(m, k, real[k])
+    torch.cuda.synchronize()
+    return got
+
+
+def glue_calls(got):
+    """Kernels S1, S2 and T on the calls capture_glue captured: name ->
+    (kernel call, plain call, the bytes the kernel must move), S2 on a
+    moved frame's call and on its position alone (a restored state's),
+    T on the whole image's bounds or a shard's parts."""
+    out = {}
+    (cam, res, *rest), _ = got["generate_camera_rays"]
+    o, d = generate_camera_rays_plain(cam, res, *rest)
+    out["camera_rays"] = (
+        lambda: S._camera_rays_kernel(cam, res, *rest),
+        lambda: generate_camera_rays_plain(cam, res, *rest), nbytes(o, d))
+    (ds, o, d, t, isect, show), _ = got["primary_finish"]
+    ref = S.primary_finish_plain(ds, o, d, t, isect, show)
+    out["primary_finish"] = (
+        lambda: S._primary_finish_kernel(ds, o, d, t, isect, show),
+        lambda: S.primary_finish_plain(ds, o, d, t, isect, show),
+        nbytes(t, o, d, isect["mat_id"], isect["uv"], isect["geom_id"],
+               *ref))
+    out["primary_finish position"] = (
+        lambda: S._primary_finish_kernel(ds, o, d, t),
+        lambda: S.primary_finish_plain(ds, o, d, t), nbytes(t, o, d, o))
+    for name in ("motion_bounds", "motion_parts"):
+        if name in got:
+            args, kw = got[name]
+            plain = getattr(trep, name + "_plain")
+            out[name] = (lambda fn=getattr(C, name), a=args, k=kw: fn(*a, **k),
+                         lambda fn=plain, a=args, k=kw: fn(*a, **k),
+                         nbytes(args[1]["position"], args[1]["geom_id"]))
+    return out
+
+
+def as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def glue_off(calls) -> dict:
+    """name -> the lanes of each output of the kernel that differ from
+    its plain version's in any bit (two NaNs equal)."""
+    return {name: [int((~((a == b) | (torch.isnan(a) & torch.isnan(b))
+                         if a.is_floating_point() else a == b)).sum())
+                   for a, b in zip(as_tuple(kfn()), as_tuple(pfn()))
+                   if a is not None or b is not None]
+            for name, (kfn, pfn, _) in calls.items()}
+
+
+def measure_glue(r, reps: int = 20):
+    """The glue case: kernels S1, S2 and T on the calls of renderer r's
+    next frame (its camera moved), each against its plain version (the
+    lanes off), timed in turns beside it, and the plain glue also with
+    its host (the launches it queues), and each kernel's bound."""
+    calls = glue_calls(capture_glue(r))
+    off = glue_off(calls)
+    out = {}
+    for name, (kfn, pfn, n_bytes) in calls.items():
+        ms = in_turns({"kernel": kfn, "plain": pfn}, reps)
+        out[name] = {"off": off[name], "ms": ms["kernel"],
+                     "plain_ms": ms["plain"],
+                     "plain_host_ms": cuda_ms(pfn, reps=5),
+                     "bound_ms": bound(n_bytes, 0)[0]}
+    return out
+
+
 def run(cases=None, libs=None, reps: int = 20, old_f=()):
     """label -> measure()'s numbers for each case of `cases` (all by
     default); `old_f` as measure()'s."""
     out = {}
     for label in cases or CASES:
         kernel, scene, res, call = CASES[label]
+        if kernel == "glue":
+            out[label] = {"glue": measure_glue(glue_renderer(scene, res),
+                                               reps)}
+            continue
         args, kw = capture(kernel, scene, res, call)
         fn = {"back_projection_atrous1": measure_l,
               "spatial_variance": measure_r}.get(kernel)
@@ -961,7 +1090,9 @@ def main(argv=None):
     cases = args.cases.split(",")
     kernels = tuple(dict.fromkeys(CASES[c][0] for c in cases))
     mine = tuple({"trace_bounce": "trace_kernel"}.get(k, k + "_kernel")
-                 for k in kernels)
+                 for k in kernels if k != "glue")
+    if "glue" in kernels:
+        mine += tuple(dict.fromkeys(k for _, k in GLUE.values()))
     if "path_trace_table" in kernels:    # timed beside the per-scene B1
         mine += ("path_trace_kernel",)
     if "back_projection_atrous1" in kernels:    # timed beside C and D
@@ -972,7 +1103,8 @@ def main(argv=None):
     libs, old_f = {}, set()
     for spec in args.variant:
         name, src = spec.split("=", 1)
-        libs[name], log = build_variant(name, src, kernels)
+        libs[name], log = build_variant(
+            name, src, tuple(k for k in kernels if k in SOURCE))
         regs[name] = [r for r in ptxas_summary(log) if r.split()[0] in mine]
         if "trace_bounce" in kernels and not reads_through_order(src):
             old_f.add(name)
@@ -992,6 +1124,15 @@ def main(argv=None):
                 r for r in ptxas_summary(_lib.build_scene(header)[1])
                 if r.split()[0] in mine]
     for label, m in res.items():
+        for name, v in m.get("glue", {}).items():
+            print(f"{label} {name}: " + ", ".join(f"{t:.4f}" for t in v["ms"])
+                  + f" ms, bound {v['bound_ms']:.4f} ms (bytes), plain "
+                  + ", ".join(f"{t:.4f}" for t in v["plain_ms"])
+                  + f" ms on the device ({v['plain_host_ms']:.4f} ms with "
+                  f"its host); lanes differing from the plain version by "
+                  f"output: {v['off']} [{card}]")
+        if "glue" in m:
+            continue
         first = next(iter(m["builds"]))
         for name, v in m["builds"].items():
             bad = {k: n for k, n in v["diffs"].items() if n}

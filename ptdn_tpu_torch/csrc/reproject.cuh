@@ -57,6 +57,22 @@ __device__ __forceinline__ int base_index(float f) {
   return __float2int_rz(fminf(fmaxf(f, -1073741824.f), 1073741824.f));
 }
 
+// The previous frame's pixel coordinates (prevx, prevy) of the world
+// position pos[0..2], reprojected through the previous view matrix `v`
+// onto the w x full_h image (denoise.cu:195-217, without tan(fov/2) as
+// the reference; denoise/reproject.py:_reproj_base). Kernel C's pixels
+// and kernel T's (motion.cu) take their bases from it.
+__device__ __forceinline__ void prev_coords(const float* v, const float* pos,
+                                            int w, int full_h, float& prevx,
+                                            float& prevy) {
+  const float px = pos[0], py = pos[1], pz = pos[2];
+  const float vsx = row4(v, 0, px, py, pz);
+  const float vsy = row4(v, 1, px, py, pz);
+  const float vsz = row4(v, 2, px, py, pz);
+  prevx = fmaf(-(vsx / vsz) * 0.5f + 0.5f, (float)w, -0.5f);
+  prevy = fmaf(-(vsy / vsz) * 0.5f + 0.5f, (float)full_h, -0.5f);
+}
+
 // A tap's normal distance test, sqrt(d2) <= 0.1f, without the square
 // root: the correctly rounded square root is monotonic, so it holds
 // exactly where d2 <= the largest float whose square root is <= 0.1f,
@@ -130,13 +146,8 @@ __device__ inline Accum reproject_pixel(const ReprojArgs& a, int iy, int ix,
   bool valid = false;
   float pc[3] = {0.f, 0.f, 0.f}, pm[2] = {0.f, 0.f}, ph = 0.f;
   if (geo != -1 && n_hist > 0.f) {
-    const float px = a.pos[3 * i], py = a.pos[3 * i + 1], pz = a.pos[3 * i + 2];
-    const float* v = a.view;
-    const float vsx = row4(v, 0, px, py, pz);
-    const float vsy = row4(v, 1, px, py, pz);
-    const float vsz = row4(v, 2, px, py, pz);
-    const float prevx = fmaf(-(vsx / vsz) * 0.5f + 0.5f, (float)a.w, -0.5f);
-    const float prevy = fmaf(-(vsy / vsz) * 0.5f + 0.5f, (float)full_h, -0.5f);
+    float prevx, prevy;
+    prev_coords(a.view, a.pos + 3 * i, a.w, full_h, prevx, prevy);
     const float floorx = floorf(prevx), floory = floorf(prevy);
     const float fracx = prevx - floorx, fracy = prevy - floory;
     bool base_valid =

@@ -522,10 +522,13 @@ def motion_bounds(res, curr_gb, prev_viewmat, band_rows: int = BAND_ROWS,
     pixel with geometry lies within +-1 px of the pixel itself (the
     kernel-C domain), else 0; [1:] are the band starts of the banded
     reprojection (band_starts), from the same reprojection. One host read
-    of it decides the branch, and the starts stay on the device."""
-    w, h = res
-    reach, total, cnt = motion_parts(res, curr_gb, prev_viewmat, band_rows)
-    return bounds_from_parts(reach, total, cnt, h, band_rows, margin)
+    of it decides the branch, and the starts stay on the device. CPU
+    tensors take the plain version (motion_bounds_plain); CUDA tensors
+    launch kernel T (ops/cuda/reproject.py)."""
+    from ptdn_tpu_torch.ops.cuda import reproject as kernel_c
+
+    return kernel_c.motion_bounds(res, curr_gb, prev_viewmat, band_rows,
+                                  margin)
 
 
 def motion_parts(res, curr_gb, prev_viewmat, band_rows: int = BAND_ROWS,
@@ -534,7 +537,28 @@ def motion_parts(res, curr_gb, prev_viewmat, band_rows: int = BAND_ROWS,
     (a shard's, from image row row0 of a `full_h`-row image): the
     largest |fy - y| or |fx - x| of a pixel with geometry (int64 0-dim)
     and band_sums' sums and counts. The image's are the maximum of the
-    shards' reaches and the sums of their sums."""
+    shards' reaches and the sums of their sums. CPU tensors take the
+    plain version (motion_parts_plain); CUDA tensors launch kernel T."""
+    from ptdn_tpu_torch.ops.cuda import reproject as kernel_c
+
+    return kernel_c.motion_parts(res, curr_gb, prev_viewmat, band_rows,
+                                 row0, full_h)
+
+
+def motion_bounds_plain(res, curr_gb, prev_viewmat,
+                        band_rows: int = BAND_ROWS,
+                        margin: int = BAND_MARGIN) -> torch.Tensor:
+    """Plain PyTorch version of kernel T's whole image (motion_bounds)."""
+    w, h = res
+    reach, total, cnt = motion_parts_plain(res, curr_gb, prev_viewmat,
+                                           band_rows)
+    return bounds_from_parts(reach, total, cnt, h, band_rows, margin)
+
+
+def motion_parts_plain(res, curr_gb, prev_viewmat,
+                       band_rows: int = BAND_ROWS, row0: int = 0,
+                       full_h=None):
+    """Plain PyTorch version of kernel T's parts (motion_parts)."""
     w, h = res
     fx, fy, _, _, _ = _reproj_base(res, curr_gb["position"], prev_viewmat,
                                    full_h)

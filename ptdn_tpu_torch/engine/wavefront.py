@@ -7,9 +7,10 @@ wavefront for scenes of more than four triangle chunks (or
 `sort_rays=True`) while `fuse_bounce`; else the whole-path kernel while
 `fuse_path` (the default on cornell, or `sort_rays=False` at any chunk
 count); else the unsorted fused per-bounce engine while `fuse_bounce`;
-else the split per-bounce engine. Kernel A gives the primary hit when
-the camera changed; a static camera reuses it, with the camera rays and
-the G-buffer position.
+else the split per-bounce engine. When the camera changed kernel S1
+makes the camera rays, kernel A gives the primary hit and kernel S2 its
+G-buffer position and albedo (ops/cuda/camera.py); a static camera
+reuses them all.
 
 * Whole path (`whole_path`): one launch of kernel B1 walks every bounce
   of every pixel, one of kernel B2 rebuilds the radiance. Lane i is
@@ -71,6 +72,7 @@ from torch import nn
 from ptdn_tpu_torch.ops.camera import generate_camera_rays
 from ptdn_tpu_torch.ops.cuda.bounce import (B_MAT, B_UU, B_VV, bounce_fused,
                                             trace_bounce)
+from ptdn_tpu_torch.ops.cuda.camera import primary_finish
 from ptdn_tpu_torch.ops.cuda.compact import sparse_gather
 from ptdn_tpu_torch.ops.cuda.inrow import inrow_permute
 from ptdn_tpu_torch.ops.cuda.path import deferred_radiance, path_trace
@@ -80,30 +82,17 @@ from ptdn_tpu_torch.ops.cuda.ranges import (  # noqa: F401
     N_ALLP, SENTINEL, chunk_range_planes, range_boxes, ranges_and_key)
 from ptdn_tpu_torch.ops.cuda.scene_intersect import (
     TCHUNK, geom_info, light_visibility, scene_intersect_full,
-    scene_intersect_full_tex, tex_index, texel_rgb)
+    scene_intersect_full_tex, tex_index)
 from ptdn_tpu_torch.ops.cuda.shade import (I_AB, I_AR, I_PIX, I_RB, I_RR,
                                            O_ACT, O_CB, O_CR, O_DIF, O_DX,
                                            O_DZ, O_LI, O_NEE, O_RB, O_RR,
                                            O_SDX, O_SPX, O_SPZ, O_TB, O_TR,
                                            N_OUT, light_table, shade_bounce)
-from ptdn_tpu_torch.ops.fp import fma
 from ptdn_tpu_torch.scene.parser import MESH
 from ptdn_tpu_torch.scene.scene import DeviceScene
 from ptdn_tpu_torch.utils.stats import span
 
 PCACHE_KEYS = ("t", "normal", "uv", "mat_id", "geom_id", "hit", "albedo")
-
-
-def albedo_from(ds, mat_id: torch.Tensor, uv: torch.Tensor,
-                show_texture: bool) -> torch.Tensor:
-    """Material color or nearest texel (pathtrace.cu:320-322, 343-354)."""
-    mat = mat_id.to(torch.int64)
-    color = ds.mat_attr[mat, 0:3]
-    if not show_texture:
-        return color
-    idx = tex_index(ds, mat, uv[:, 0], uv[:, 1])
-    return torch.where((idx >= 0)[:, None],
-                       torch.stack(texel_rgb(ds, idx), dim=-1), color)
 
 
 def init_primary_cache(n: int, device) -> Dict[str, torch.Tensor]:
@@ -276,18 +265,21 @@ class PathTracer(nn.Module):
         # position; a restored state brings the hit without the rays
         if cam_changed or self.rays_stale:
             with span("ptdn.tracer.camera"):
+                # kernel S1, then on a moved camera kernels A and S2 (the
+                # hit's position, albedo and flag), else S2's position
                 self.ray_o, self.ray_d = generate_camera_rays(
                     cam, (self.w, self.h), self.row0, self.full_height)
                 if cam_changed:
                     isect = scene_intersect_full(ds, self.gi, self.ray_o,
-                                                 self.ray_d)
-                    isect["albedo"] = albedo_from(ds, isect["mat_id"],
-                                                  isect["uv"],
-                                                  self.show_texture)
+                                                 self.ray_d, hit=False)
+                    self.position, isect["albedo"], isect["hit"] = (
+                        primary_finish(ds, self.ray_o, self.ray_d,
+                                       isect["t"], isect, self.show_texture))
                     for k in PCACHE_KEYS:
                         setattr(self, "pcache_" + k, isect[k])
-                self.position = fma(self.pcache_t[:, None], self.ray_d,
-                                    self.ray_o)
+                else:
+                    self.position, _, _ = primary_finish(
+                        ds, self.ray_o, self.ray_d, self.pcache_t)
                 self.rays_stale = False
         prim = {k: getattr(self, "pcache_" + k) for k in PCACHE_KEYS}
         light = dict(self.light, radius=float(params["light_radius"]),

@@ -109,7 +109,17 @@ def generate_camera_rays(cam: Dict[str, torch.Tensor],
     in index = x + y*W order, on the device of the camera tensors. A
     shard of a taller image (parallel/sharded.py) makes its rows only:
     `row0` offsets the pixel rows and the pixel grid is centred on
-    `full_height` (ptdn_tpu/ops/camera.py:106-125)."""
+    `full_height` (ptdn_tpu/ops/camera.py:106-125). CPU camera tensors
+    take the plain version (generate_camera_rays_plain); CUDA ones launch
+    kernel S1 (ops/cuda/camera.py)."""
+    from ptdn_tpu_torch.ops.cuda.camera import camera_rays
+    return camera_rays(cam, resolution, row0, full_height)
+
+
+def generate_camera_rays_plain(cam: Dict[str, torch.Tensor],
+                               resolution: Tuple[int, int], row0: int = 0,
+                               full_height: Optional[int] = None):
+    """Plain PyTorch version of kernel S1 (see generate_camera_rays)."""
     w, h = resolution
     hc = h if full_height is None else full_height
     dev = cam["view"].device

@@ -110,6 +110,9 @@ ENTRIES = {
     "ptdn_mesh_intersect_v1": [_VP, _VP, _VP, _VP, _VP, _I32, _I32, _I32,
                                _I32, _VP, _VP, _VP],
     "ptdn_shade_bounce_lights": [_VP, _VP, _VP],
+    "ptdn_camera_rays": [_VP, _VP],
+    "ptdn_primary_finish": [_VP, _VP, _VP],
+    "ptdn_motion_bounds": [_VP, _VP],
 }
 # the kernels that resolve mesh normals have a native-mode build
 # (compat=False) in the kernel library too, `<name>_native` with the same

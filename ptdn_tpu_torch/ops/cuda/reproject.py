@@ -30,6 +30,14 @@ for the projection, the image edges, the band and the slab, so each
 pixel equals the unsharded pass's bit for bit. The whole image's
 stencil mode launches the shard kernel too, with rows (0, h) and no halo
 rows; its band mode has a kernel of its own.
+
+Kernel T (motion_bounds, motion_parts; csrc/motion.cu) gives the choice
+between the two modes: the reach of the reprojected bases and the band
+starts, from C's own reprojection code (reproject.cuh:prev_coords,
+base_index), reduced over integers in one launch; the whole image's
+bounds, or a shard's parts for its group's Reduce exchanges. Its plain
+versions are denoise.reproject.motion_bounds_plain and
+motion_parts_plain.
 """
 
 from __future__ import annotations
@@ -39,10 +47,13 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from ptdn_tpu_torch.denoise.reproject import (Rows, _accumulate_from_taps,
+from ptdn_tpu_torch.denoise.reproject import (BAND_MARGIN, BAND_ROWS, Rows,
+                                              _accumulate_from_taps,
                                               _reproj_base,
                                               gather_back_projection,
-                                              in_slab, luminance, prev_pack,
+                                              in_slab, luminance,
+                                              motion_bounds_plain,
+                                              motion_parts_plain, prev_pack,
                                               slab_rows, tap_valid)
 from ptdn_tpu_torch.ops.cuda import _lib
 
@@ -75,6 +86,15 @@ class ReprojShardArgs(ctypes.Structure):
                 + [(k, ctypes.c_int) for k in ("row0", "full_h", "halo",
                                                "band0", "bands")]
                 + [("starts", ctypes.c_int * MAX_SHARD_BANDS)])
+
+
+class MotionArgs(ctypes.Structure):
+    """Mirror of csrc/motion.cu:MotionArgs."""
+    _fields_ = ([(k, ctypes.c_void_p) for k in ("pos", "geom", "view", "rows",
+                                                "done", "parts", "bounds")]
+                + [(k, ctypes.c_int) for k in ("w", "h", "row0", "full_h",
+                                               "band_rows", "margin",
+                                               "slab_h", "n_bands")])
 
 
 def shard_window(args, rows, halo):
@@ -380,3 +400,71 @@ back_projection_banded.launches = 0
 # of them, a shard's (shard mode)
 back_projection_stencil.row_launches = 0
 back_projection_banded.row_launches = 0
+
+
+def motion_bounds(res, curr_gb, prev_viewmat, band_rows: int = BAND_ROWS,
+                  margin: int = BAND_MARGIN) -> torch.Tensor:
+    """denoise.reproject.motion_bounds: the near flag and the band
+    starts, int32 (1 + n_bands,), of the whole image's G-buffer
+    (`position` (H, W, 3), `geom_id` (H, W)) against the previous view
+    matrix. CPU tensors take the plain version; CUDA tensors launch
+    kernel T (csrc/motion.cu), which finishes the bounds in its last
+    block."""
+    pos = curr_gb["position"]
+    _lib.require(pos.device, "motion_bounds")
+    if pos.device.type == "cpu":
+        return motion_bounds_plain(res, curr_gb, prev_viewmat, band_rows,
+                                   margin)
+    return _motion_kernel(res, curr_gb, prev_viewmat, band_rows, margin)
+
+
+def motion_parts(res, curr_gb, prev_viewmat, band_rows: int = BAND_ROWS,
+                 row0: int = 0, full_h=None):
+    """denoise.reproject.motion_parts: a shard's (reach, sums, counts),
+    int64 (), (n_bands,) and (n_bands,), for the group's Reduce
+    exchanges. CPU tensors take the plain version; CUDA tensors launch
+    kernel T, which writes the parts in its last block."""
+    pos = curr_gb["position"]
+    _lib.require(pos.device, "motion_parts")
+    if pos.device.type == "cpu":
+        return motion_parts_plain(res, curr_gb, prev_viewmat, band_rows,
+                                  row0, full_h)
+    return _motion_kernel(res, curr_gb, prev_viewmat, band_rows,
+                          rows=(row0, res[1] if full_h is None else full_h))
+
+
+def _motion_kernel(res, curr_gb, prev_viewmat, band_rows, margin=0,
+                   rows=None):
+    """Kernel T over the launch's rows: the whole image's bounds, or
+    with `rows` = (row0, full_h) a shard's parts."""
+    w, h = res
+    row0, full_h = (0, h) if rows is None else rows
+    pos, geom = curr_gb["position"], curr_gb["geom_id"]
+    _lib.check_tensor(pos, torch.float32, (h, w, 3), "position")
+    _lib.check_tensor(geom, torch.int32, (h, w), "geom_id")
+    _lib.check_tensor(prev_viewmat, torch.float32, (4, 4), "prev_viewmat")
+    n_bands = -(-full_h // band_rows)
+    dev = pos.device
+    # the rows' partials and, last, the blocks' ticket
+    scratch = torch.empty(3 * h + 1, dtype=torch.int64, device=dev)
+    parts = bounds = None
+    if rows is None:
+        bounds = torch.empty(1 + n_bands, dtype=torch.int32, device=dev)
+    else:
+        parts = torch.empty(1 + 2 * n_bands, dtype=torch.int64, device=dev)
+    p = _lib.ptr
+    args = MotionArgs(p(pos), p(geom), p(prev_viewmat), p(scratch),
+                      p(scratch) + 8 * 3 * h, p(parts), p(bounds), w, h,
+                      int(row0), int(full_h), int(band_rows), int(margin),
+                      slab_rows(full_h, band_rows, margin), n_bands)
+    _lib.launch("ptdn_motion_bounds", args)
+    motion_bounds.launches += 1
+    if rows is None:
+        return bounds
+    motion_bounds.row_launches += 1
+    return parts[0], parts[1:1 + n_bands], parts[1 + n_bands:]
+
+
+motion_bounds.launches = 0
+# of them, a shard's parts (motion_parts)
+motion_bounds.row_launches = 0

@@ -439,16 +439,19 @@ def texel_rgb(ds, idx):
                  * COLORDIVIDOR for c in range(3))
 
 
-def scene_intersect_full_plain(ds, gi: GeomInfo, o,
-                               d) -> Dict[str, torch.Tensor]:
+def scene_intersect_full_plain(ds, gi: GeomInfo, o, d,
+                               hit: bool = True) -> Dict[str, torch.Tensor]:
     """Plain PyTorch version of kernel A; o, d: (N, 3)."""
     ot = tuple(o[:, k] for k in range(3))
     dt = tuple(d[:, k] for k in range(3))
     t, geom, nrm, uv, mat = closest_hit(ds, gi, ot, dt)
     geom = geom.to(torch.int32)
-    return {"t": t, "normal": torch.stack(nrm, dim=-1),
-            "uv": torch.stack(uv, dim=-1), "mat_id": mat.to(torch.int32),
-            "geom_id": geom, "hit": geom >= 0}
+    out = {"t": t, "normal": torch.stack(nrm, dim=-1),
+           "uv": torch.stack(uv, dim=-1), "mat_id": mat.to(torch.int32),
+           "geom_id": geom}
+    if hit:
+        out["hit"] = geom >= 0
+    return out
 
 
 def scene_intersect_full_tex_plain(ds, gi: GeomInfo, o, d):
@@ -526,14 +529,16 @@ def _ray_args(o: torch.Tensor, d: torch.Tensor) -> RayArgs:
 
 
 def scene_intersect_full(ds, gi: GeomInfo, o: torch.Tensor,
-                         d: torch.Tensor) -> Dict[str, torch.Tensor]:
+                         d: torch.Tensor,
+                         hit: bool = True) -> Dict[str, torch.Tensor]:
     """Fully resolved closest hit of rays o, d (N, 3): the engine's
-    intersect() dict (t, normal, uv, mat_id, geom_id, hit). CPU tensors
-    take the plain version; CUDA tensors launch kernel A."""
+    intersect() dict (t, normal, uv, mat_id, geom_id, hit); `hit` False
+    leaves the hit flag out (kernel S2 writes it for the primary hit).
+    CPU tensors take the plain version; CUDA tensors launch kernel A."""
     _lib.require(o.device, "scene_intersect_full")
     if o.device.type == "cpu":
-        return scene_intersect_full_plain(ds, gi, o, d)
-    return _scene_intersect_full_kernel(ds, gi, o, d)
+        return scene_intersect_full_plain(ds, gi, o, d, hit)
+    return _scene_intersect_full_kernel(ds, gi, o, d, hit)
 
 
 def scene_intersect_full_tex(ds, gi: GeomInfo, o: torch.Tensor,
@@ -583,8 +588,9 @@ def _scene_lib(gi: GeomInfo):
             else _lib.scene_kernels(gi.path_scene, "scene_intersect"))
 
 
-def _isect_kernel(name, ds, gi, o, d, tex: bool):
-    """Kernel A or J (`name`, its C entry point), from _scene_lib."""
+def _isect_kernel(name, ds, gi, o, d, tex: bool, hit: bool = True):
+    """Kernel A or J (`name`, its C entry point), from _scene_lib; the
+    hit flag where `hit`."""
     ray = _ray_args(o, d)
     n = ray.n
     f32 = dict(dtype=torch.float32, device=o.device)
@@ -599,12 +605,14 @@ def _isect_kernel(name, ds, gi, o, d, tex: bool):
                      tidx=p(tidx))
     _lib.launch(entry(gi, name), scene_dev(ds, gi, o.device), ray, args,
                 lib=_scene_lib(gi))
-    out["hit"] = out["geom_id"] >= 0
+    if hit:
+        out["hit"] = out["geom_id"] >= 0
     return out, tidx
 
 
-def _scene_intersect_full_kernel(ds, gi, o, d):
-    out, _ = _isect_kernel("ptdn_scene_intersect_full", ds, gi, o, d, False)
+def _scene_intersect_full_kernel(ds, gi, o, d, hit=True):
+    out, _ = _isect_kernel("ptdn_scene_intersect_full", ds, gi, o, d, False,
+                           hit)
     scene_intersect_full.launches += 1     # counts kernel launches only
     return out
 
